@@ -1,0 +1,238 @@
+"""Top-level FIERY model, eval forward (counterpart of fiery_tpu/models/fiery.py).
+
+encoder -> bev_pool splat (kernel K1) -> bilinear ego-motion warp (kernel K2) ->
+egopose concat -> trimmed temporal model -> present distribution (zero noise) ->
+SpatialGRU rollout -> decoder. Tensor conventions, channels-last everywhere:
+  image (b, s, n, H, W, 3) uint8 or float, intrinsics (b, s, n, 3, 3),
+  extrinsics (b, s, n, 4, 4), future_egomotion (b, s, 6), BEV states (b, t, X, Y, C);
+  outputs (f32): segmentation (b, t, X, Y, n_classes), instance_center (b, t, X, Y, 1),
+  instance_offset / instance_flow (b, t, X, Y, 2), present_mu / present_log_sigma (b, 1, L).
+"""
+
+import dataclasses
+from typing import Tuple
+
+import torch
+import torch.nn as nn
+
+from fiery_tpu_torch.models.decoder import Decoder
+from fiery_tpu_torch.models.distributions import DistributionModule
+from fiery_tpu_torch.models.encoder import Encoder
+from fiery_tpu_torch.models.future_prediction import FuturePrediction
+from fiery_tpu_torch.models.temporal_model import (TemporalModel, TemporalModelIdentity,
+                                                   temporal_out_channels)
+from fiery_tpu_torch.ops.lift_splat import create_frustum, get_geometry, lift_splat_depth
+from fiery_tpu_torch.ops.warp import cumulative_warp_features
+from fiery_tpu_torch.utils.geometry import (calculate_birds_eye_view_parameters,
+                                            pack_sequence_dim)
+
+# ImageNet statistics of the reference preprocessing, applied on device to raw uint8
+IMAGENET_MEAN = (0.485, 0.456, 0.406)
+IMAGENET_STD = (0.229, 0.224, 0.225)
+
+
+@dataclasses.dataclass(frozen=True)
+class FieryConfig:
+    """Static model configuration distilled from the CfgNode."""
+    time_receptive_field: int = 3
+    n_future_frames: int = 4
+    subsample: bool = False
+    final_dim: Tuple[int, int] = (224, 480)
+    x_bound: Tuple[float, float, float] = (-50.0, 50.0, 0.5)
+    y_bound: Tuple[float, float, float] = (-50.0, 50.0, 0.5)
+    z_bound: Tuple[float, float, float] = (-10.0, 10.0, 20.0)
+    d_bound: Tuple[float, float, float] = (2.0, 50.0, 1.0)
+    encoder_downsample: int = 8
+    encoder_name: str = 'efficientnet-b4'
+    encoder_out_channels: int = 64
+    use_depth_distribution: bool = True
+    temporal_name: str = 'temporal_block'
+    start_out_channels: int = 64
+    extra_in_channels: int = 0
+    inbetween_layers: int = 0
+    pyramid_pooling: bool = True
+    input_egopose: bool = True
+    latent_dim: int = 32
+    min_log_sigma: float = -5.0
+    max_log_sigma: float = 5.0
+    n_gru_blocks: int = 3
+    n_res_layers: int = 3
+    bn_momentum: float = 0.1
+    n_classes: int = 2
+    instance_flow_enabled: bool = True
+    probabilistic_enabled: bool = True
+    probabilistic_future_dim: int = 6
+    precision: int = 32   # 16 -> bf16 compute (BN and the geometry stay f32)
+
+    def __post_init__(self):
+        if self.subsample and (self.time_receptive_field + self.n_future_frames + 1) // 2 != 8:
+            raise ValueError('MODEL.SUBSAMPLE expects TIME_RECEPTIVE_FIELD 5 and '
+                             'N_FUTURE_FRAMES 10 (8 subsampled frames)')
+        H, W = self.final_dim
+        if H % 16 or W % 16:
+            raise ValueError(f'IMAGE.FINAL_DIM must be divisible by 16 (got '
+                             f'{self.final_dim}): the encoder FPN upsamples the '
+                             f'stride-16 endpoint by exactly 2x onto the stride-8 one.')
+
+    @classmethod
+    def from_cfg(cls, cfg):
+        """Build from a CfgNode (fiery_tpu_torch.utils.config.get_cfg())."""
+        levers = {'LIFT.TOPK': cfg.LIFT.TOPK, 'LIFT.WARP_FREE': cfg.LIFT.WARP_FREE,
+                  'LIFT.DEPTH_CULL': cfg.LIFT.DEPTH_CULL}
+        on = [k for k, v in levers.items() if v]
+        if on:
+            raise NotImplementedError(f'{", ".join(on)}: not ported yet; the port serves '
+                                      f'the dense exact splat')
+        return cls(
+            time_receptive_field=cfg.TIME_RECEPTIVE_FIELD,
+            n_future_frames=cfg.N_FUTURE_FRAMES,
+            subsample=cfg.MODEL.SUBSAMPLE,
+            final_dim=tuple(cfg.IMAGE.FINAL_DIM),
+            x_bound=tuple(cfg.LIFT.X_BOUND),
+            y_bound=tuple(cfg.LIFT.Y_BOUND),
+            z_bound=tuple(cfg.LIFT.Z_BOUND),
+            d_bound=tuple(cfg.LIFT.D_BOUND),
+            encoder_downsample=cfg.MODEL.ENCODER.DOWNSAMPLE,
+            encoder_name=cfg.MODEL.ENCODER.NAME,
+            encoder_out_channels=cfg.MODEL.ENCODER.OUT_CHANNELS,
+            use_depth_distribution=cfg.MODEL.ENCODER.USE_DEPTH_DISTRIBUTION,
+            temporal_name=cfg.MODEL.TEMPORAL_MODEL.NAME,
+            start_out_channels=cfg.MODEL.TEMPORAL_MODEL.START_OUT_CHANNELS,
+            extra_in_channels=cfg.MODEL.TEMPORAL_MODEL.EXTRA_IN_CHANNELS,
+            inbetween_layers=cfg.MODEL.TEMPORAL_MODEL.INBETWEEN_LAYERS,
+            pyramid_pooling=cfg.MODEL.TEMPORAL_MODEL.PYRAMID_POOLING,
+            input_egopose=cfg.MODEL.TEMPORAL_MODEL.INPUT_EGOPOSE,
+            latent_dim=cfg.MODEL.DISTRIBUTION.LATENT_DIM,
+            min_log_sigma=cfg.MODEL.DISTRIBUTION.MIN_LOG_SIGMA,
+            max_log_sigma=cfg.MODEL.DISTRIBUTION.MAX_LOG_SIGMA,
+            n_gru_blocks=cfg.MODEL.FUTURE_PRED.N_GRU_BLOCKS,
+            n_res_layers=cfg.MODEL.FUTURE_PRED.N_RES_LAYERS,
+            bn_momentum=cfg.MODEL.BN_MOMENTUM,
+            n_classes=len(cfg.SEMANTIC_SEG.WEIGHTS),
+            instance_flow_enabled=cfg.INSTANCE_FLOW.ENABLED,
+            probabilistic_enabled=cfg.PROBABILISTIC.ENABLED,
+            probabilistic_future_dim=cfg.PROBABILISTIC.FUTURE_DIM,
+            precision=cfg.PRECISION,
+        )
+
+    @property
+    def receptive_field(self):
+        # Lyft subsampling halves the effective sequence
+        return 3 if self.subsample else self.time_receptive_field
+
+    @property
+    def n_future(self):
+        return 5 if self.subsample else self.n_future_frames
+
+    @property
+    def spatial_extent(self):
+        return (self.x_bound[1], self.y_bound[1])
+
+    @property
+    def bev_parameters(self):
+        return calculate_birds_eye_view_parameters(self.x_bound, self.y_bound, self.z_bound)
+
+    @property
+    def bev_size(self):
+        _, _, dim = self.bev_parameters
+        return (int(dim[0]), int(dim[1]))
+
+    @property
+    def depth_channels(self):
+        return int((self.d_bound[1] - self.d_bound[0]) / self.d_bound[2])
+
+    @property
+    def compute_dtype(self):
+        return torch.bfloat16 if self.precision == 16 else torch.float32
+
+
+class Fiery(nn.Module):
+    def __init__(self, cfg: FieryConfig):
+        super().__init__()
+        c = self.cfg = cfg
+        self.register_buffer('frustum', torch.from_numpy(create_frustum(
+            c.final_dim, c.encoder_downsample, c.d_bound)), persistent=False)
+        self.register_buffer('image_mean', torch.tensor(IMAGENET_MEAN), persistent=False)
+        self.register_buffer('image_std', torch.tensor(IMAGENET_STD), persistent=False)
+        m = c.bn_momentum
+        self.encoder = Encoder(c.encoder_out_channels, c.depth_channels,
+                               c.encoder_name.split('-')[1], c.encoder_downsample,
+                               c.use_depth_distribution, m)
+        temporal_in = c.encoder_out_channels + (6 if c.input_egopose else 0)
+        if c.temporal_name == 'identity':
+            self.temporal_model = TemporalModelIdentity(c.receptive_field)
+        elif c.temporal_name == 'temporal_block':
+            self.temporal_model = TemporalModel(
+                temporal_in, c.receptive_field, c.bev_size, c.start_out_channels,
+                c.extra_in_channels, c.inbetween_layers, c.pyramid_pooling, m)
+        else:
+            raise NotImplementedError(f'Temporal module {c.temporal_name}')
+        fp_in = temporal_out_channels(c.temporal_name, temporal_in, c.receptive_field,
+                                      c.start_out_channels, c.extra_in_channels)
+        if c.n_future > 0:
+            if c.probabilistic_enabled:
+                dist = dict(latent_dim=c.latent_dim, min_log_sigma=c.min_log_sigma,
+                            max_log_sigma=c.max_log_sigma, bn_momentum=m)
+                self.present_distribution = DistributionModule(fp_in, **dist)
+                # used by training only; kept so checkpoints load whole
+                self.future_distribution = DistributionModule(
+                    fp_in + c.n_future * c.probabilistic_future_dim, **dist)
+            self.future_prediction = FuturePrediction(fp_in, c.latent_dim, c.n_gru_blocks,
+                                                      c.n_res_layers, m)
+        self.decoder = Decoder(fp_in, c.n_classes, c.instance_flow_enabled, m)
+
+    def forward(self, image, intrinsics, extrinsics, future_egomotion, noise=None):
+        c = self.cfg
+        rf, dt = c.receptive_field, c.compute_dtype
+        image = image[:, :rf]
+        if image.dtype == torch.uint8:
+            image = (image.float() / 255.0 - self.image_mean) / self.image_std
+        image = image.to(dt)
+        egomotion = future_egomotion[:, :rf].float()
+        x = self.calculate_birds_eye_view_features(
+            image, intrinsics[:, :rf].float(), extrinsics[:, :rf].float())
+        x = cumulative_warp_features(x, egomotion, mode='bilinear',
+                                     spatial_extent=c.spatial_extent)
+        if c.input_egopose:
+            b, s = egomotion.shape[:2]
+            h, w = x.shape[2:4]
+            ego = egomotion[:, :, None, None, :].expand(b, s, h, w, 6)
+            # at time 0 there is no egomotion: shift right, zero-fill
+            ego = torch.cat([torch.zeros_like(ego[:, :1]), ego[:, :rf - 1]], dim=1)
+            x = torch.cat([x, ego.to(x.dtype)], dim=-1)
+
+        states = self.temporal_model(x, trim=True)
+        output = {}
+        if c.n_future > 0:
+            present_state = states[:, :1]
+            b, _, h, w, _ = present_state.shape
+            if c.probabilistic_enabled:
+                mu, log_sigma = self.present_distribution(present_state)
+                output['present_mu'], output['present_log_sigma'] = mu, log_sigma
+                if noise is None:
+                    noise = torch.zeros_like(mu)
+                sample = mu + torch.exp(log_sigma) * noise
+                future_input = sample[:, :, None, None, :].expand(
+                    b, c.n_future, h, w, c.latent_dim).to(dt)
+            else:
+                future_input = torch.zeros((b, c.n_future, h, w, c.latent_dim), dtype=dt,
+                                           device=present_state.device)
+            future_states = self.future_prediction(future_input, present_state[:, 0])
+            bev_output = self.decoder(torch.cat([present_state, future_states], dim=1))
+        else:
+            bev_output = self.decoder(states[:, -1:])
+        output.update({k: v.float() for k, v in bev_output.items()})
+        return output
+
+    def calculate_birds_eye_view_features(self, x, intrinsics, extrinsics):
+        """(b, s, n, H, W, 3) images -> (b, s, X, Y, C) BEV features."""
+        c = self.cfg
+        b, s, n = x.shape[:3]
+        geometry = get_geometry(self.frustum, pack_sequence_dim(intrinsics),
+                                pack_sequence_dim(extrinsics))   # (b*s, n, D, h, w, 3)
+        depth, feat = self.encoder(x.reshape(b * s * n, *x.shape[3:]))
+        depth = depth.reshape(b * s, n, *depth.shape[1:])          # (b*s, n, h, w, D)
+        feat = feat.reshape(b * s, n, *feat.shape[1:])             # (b*s, n, h, w, C)
+        res, start, dim = c.bev_parameters
+        bev = lift_splat_depth(depth, feat, geometry.to(feat.dtype), res, start, dim)
+        return bev.view(b, s, *bev.shape[1:])

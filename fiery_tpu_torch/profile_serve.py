@@ -1,0 +1,126 @@
+"""Where the serve time goes on the card: python -m fiery_tpu_torch.profile_serve
+
+Full-width baseline.yml at batch 1 (PRECISION 16, seeded random weights, BatchNorm
+statistics calibrated on two seeded clips). Prints, as JSON lines:
+  * the request wall time (host clock around predict + synchronize), median of
+    --requests requests after a warm-up;
+  * each stage's device time (CUDA events around the encoder, the bev_pool splat,
+    the bev_warp warp, the temporal model, the present distribution, the future
+    rollout and the decoder), median over the same requests;
+  * from torch.profiler over three requests: the device busy time per request, its
+    share of the wall time, and the kernels that take the most device time.
+Needs a CUDA card.
+"""
+
+import argparse
+import functools
+import json
+import statistics
+import time
+
+import torch
+
+from fiery_tpu_torch.models import fiery as fiery_module
+from fiery_tpu_torch.serve import (BASELINE, build_fiery, calibrate_batchnorm, init_params,
+                                   make_request, predict)
+from fiery_tpu_torch.utils.config import get_cfg
+
+MODULE_STAGES = ('encoder', 'temporal_model', 'present_distribution', 'future_prediction',
+                 'decoder')
+FUNCTION_STAGES = {'bev_pool_splat': 'lift_splat_depth', 'bev_warp': 'cumulative_warp_features'}
+
+
+class StageTimer:
+    """CUDA events around each stage of one request; read after a synchronize."""
+
+    def __init__(self):
+        self.events = {}
+
+    def start(self, name):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        self.events.setdefault(name, []).append([ev, None])
+
+    def stop(self, name):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        self.events[name][-1][1] = ev
+
+    def read_ms(self):
+        out = {k: sum(a.elapsed_time(b) for a, b in v) for k, v in self.events.items()}
+        self.events = {}
+        return out
+
+
+def instrument(model, timer):
+    for name in MODULE_STAGES:
+        module = getattr(model, name)
+        module.register_forward_pre_hook(lambda m, a, n=name: timer.start(n))
+        module.register_forward_hook(lambda m, a, o, n=name: timer.stop(n))
+    for stage, attr in FUNCTION_STAGES.items():
+        fn = getattr(fiery_module, attr)
+
+        @functools.wraps(fn)
+        def timed(*args, _fn=fn, _stage=stage, **kw):
+            timer.start(_stage)
+            out = _fn(*args, **kw)
+            timer.stop(_stage)
+            return out
+        setattr(fiery_module, attr, timed)
+
+
+def main():
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument('--requests', type=int, default=10)
+    args = parser.parse_args()
+    if not torch.cuda.is_available():
+        raise SystemExit('profile_serve needs a CUDA device')
+
+    cfg = get_cfg(argparse.Namespace(config_file=BASELINE, opts=[]))
+    model = init_params(build_fiery(cfg), seed=0)
+    calibrate_batchnorm(model, [make_request(cfg, seed=s) for s in (6, 7)])
+    requests = [make_request(cfg, seed=10 + i) for i in range(args.requests)]
+    timer = StageTimer()
+    instrument(model, timer)
+    predict(model, make_request(cfg, seed=9))
+    torch.cuda.synchronize()
+    timer.read_ms()
+
+    walls, stages = [], []
+    for req in requests:
+        t0 = time.perf_counter()
+        predict(model, req)
+        torch.cuda.synchronize()
+        walls.append(1e3 * (time.perf_counter() - t0))
+        stages.append(timer.read_ms())
+    stage_ms = {k: statistics.median(s[k] for s in stages) for k in stages[0]}
+    print(json.dumps({'request_ms_median': statistics.median(walls),
+                      'request_ms': walls, 'stage_device_ms_median': stage_ms,
+                      'stage_device_ms_sum': sum(stage_ms.values())}), flush=True)
+
+    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=activities) as prof:
+        t0 = time.perf_counter()
+        for req in requests[:3]:
+            predict(model, req)
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0) / 3
+    timer.read_ms()
+    rows = []   # device-side events only (kernels, copies): no double count of the ops
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0:
+            rows.append((e.self_device_time_total / 3e3, e.count / 3, e.key))
+    rows.sort(reverse=True)
+    busy_ms = sum(r[0] for r in rows)
+    print(json.dumps({'profiled_wall_ms_per_request': wall_ms,
+                      'device_busy_ms_per_request': busy_ms,
+                      'device_busy_share': busy_ms / wall_ms if wall_ms else None,
+                      'kernels_per_request': sum(r[1] for r in rows)}), flush=True)
+    for ms, count, key in rows[:25]:
+        print(json.dumps({'kernel': key[:120], 'device_ms_per_request': ms,
+                          'calls_per_request': count}), flush=True)
+    print(json.dumps({'device': torch.cuda.get_device_name(0)}), flush=True)
+
+
+if __name__ == '__main__':
+    main()

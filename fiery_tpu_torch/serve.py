@@ -1,0 +1,122 @@
+"""Serving entry points: build the model, give it weights, answer a request.
+
+A request is one clip: the past and present frames of every camera with their
+calibration and ego-motion. The entry points run on the CUDA card unless the
+caller passes ``device='cpu'``; without a card they raise rather than quietly
+running on the CPU.
+
+    cfg = get_cfg(argparse.Namespace(config_file=BASELINE, opts=[]))
+    model = build_fiery(cfg)                  # on cuda
+    init_params(model, seed=0)                # or load_state_dict(state_dict_from_jax(...))
+    calibrate_batchnorm(model, [make_request(cfg, seed=s) for s in (6, 7)])
+    out = predict(model, make_request(cfg, seed=1))
+"""
+
+import math
+import os
+
+import numpy as np
+import torch
+
+from fiery_tpu_torch.models.fiery import Fiery, FieryConfig
+
+BASELINE = os.path.join(os.path.dirname(os.path.abspath(__file__)), 'configs',
+                        'baseline.yml')
+
+
+def build_fiery(cfg, device=None):
+    """Eval-mode Fiery for a CfgNode on ``device`` (default: cuda, which must then
+    exist). With PRECISION 16 the convolution weights are bf16; BatchNorm and the
+    buffers stay f32."""
+    device = torch.device('cuda' if device is None else device)
+    if device.type == 'cuda' and not torch.cuda.is_available():
+        raise RuntimeError('fiery_tpu_torch serves on a CUDA device and none is '
+                           'available; pass device="cpu" to run on the CPU')
+    model = Fiery(FieryConfig.from_cfg(cfg)).eval().to(device)
+    dtype = model.cfg.compute_dtype
+    with torch.no_grad():
+        for m in model.modules():
+            if not isinstance(m, torch.nn.modules.batchnorm._BatchNorm):
+                for p in m.parameters(recurse=False):
+                    p.data = p.data.to(dtype)
+    return model
+
+
+def init_params(model, seed):
+    """Seeded random weights, drawn on the CPU so every device gets the same ones:
+    He (fan_out) normal conv kernels, zero biases, identity BatchNorm."""
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for name, m in model.named_modules():
+            if isinstance(m, torch.nn.modules.batchnorm._BatchNorm):
+                m.reset_parameters()
+            elif isinstance(m, torch.nn.modules.conv._ConvNd):
+                fan_out = m.out_channels * math.prod(m.kernel_size) // m.groups
+                w = torch.randn(m.weight.shape, generator=g) * math.sqrt(2.0 / fan_out)
+                m.weight.copy_(w)
+                if m.bias is not None:
+                    m.bias.zero_()
+    return model
+
+
+def calibrate_batchnorm(model, requests):
+    """Set every BatchNorm's running statistics to the batch statistics of a few
+    requests batched together (the pooled BatchNorms see one value per clip), so
+    that random weights give unit-scale activations, as trained weights do (with
+    identity statistics a deep random net grows them to 1e5)."""
+    bns = [m for m in model.modules()
+           if isinstance(m, torch.nn.modules.batchnorm._BatchNorm)]
+    momenta = [m.momentum for m in bns]
+    for m in bns:
+        m.reset_running_stats()
+        m.momentum = None          # cumulative average: one batch sets the statistics
+    device = next(model.parameters()).device
+    args = [torch.as_tensor(np.concatenate([r[k] for r in requests])).to(device)
+            for k in ('image', 'intrinsics', 'extrinsics', 'future_egomotion')]
+    model.train()
+    with torch.no_grad():
+        model(*args)
+    model.eval()
+    for m, momentum in zip(bns, momenta):
+        m.momentum = momentum
+    return model
+
+
+def make_request(cfg, seed):
+    """A seeded clip for ``cfg``: uint8 images (1, rf, n, H, W, 3), a rig of cameras
+    looking outwards (intrinsics (1, rf, n, 3, 3), extrinsics (1, rf, n, 4, 4)) and
+    a small forward ego-motion with a slight yaw (1, rf, 6). Numpy arrays."""
+    rng = np.random.RandomState(seed)
+    s, n = cfg.TIME_RECEPTIVE_FIELD, len(cfg.IMAGE.NAMES)
+    H, W = cfg.IMAGE.FINAL_DIM
+    fx = 0.5 * W
+    K = np.array([[fx, 0.0, W / 2.0], [0.0, fx, H / 2.0], [0.0, 0.0, 1.0]], np.float32)
+    extrinsics = []
+    for i in range(n):
+        yaw = 2.0 * np.pi * i / n
+        c, sn = np.cos(yaw), np.sin(yaw)
+        # camera +z (view direction) along ego (c, s, 0); +x right; +y down
+        E = np.eye(4, dtype=np.float32)
+        E[:3, :3] = [[-sn, 0.0, c], [c, 0.0, sn], [0.0, -1.0, 0.0]]
+        E[:3, 3] = [0.0, 0.0, 1.6]
+        extrinsics.append(E)
+    ego = np.zeros(6, np.float32)
+    ego[0] = rng.uniform(0.2, 0.8)
+    ego[5] = rng.uniform(-0.01, 0.01)
+    return {
+        'image': rng.randint(0, 256, (1, s, n, H, W, 3), dtype=np.uint8),
+        'intrinsics': np.broadcast_to(K, (1, s, n, 3, 3)).copy(),
+        'extrinsics': np.broadcast_to(np.stack(extrinsics), (1, s, n, 4, 4)).copy(),
+        'future_egomotion': np.broadcast_to(ego, (1, s, 6)).copy(),
+    }
+
+
+def predict(model, request):
+    """Answer one request (numpy arrays or tensors) on the model's device: a dict of
+    f32 tensors (segmentation, instance_center, instance_offset, instance_flow,
+    present_mu, present_log_sigma)."""
+    device = next(model.parameters()).device
+    args = [torch.as_tensor(request[k]).to(device, non_blocking=True)
+            for k in ('image', 'intrinsics', 'extrinsics', 'future_egomotion')]
+    with torch.inference_mode():
+        return model(*args)
