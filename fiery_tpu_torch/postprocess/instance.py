@@ -1,0 +1,459 @@
+"""Instance decoding and temporal ID tracking (counterpart of
+fiery_tpu/postprocess/instance.py), channels-last, with a batch dimension in place of
+the JAX package's vmap.
+
+The decode of each frame is centre NMS and an exact top-100 (kernel K6,
+csrc/instance_centers.cu), then pixel grouping, the vehicle foreground and the
+consecutive relabel (kernel K7, csrc/group_pixels.cu). The device tracker matches each
+frame's instances to the previous frame's flow-advected ones: centroids by kernel K8
+(csrc/segment_centroids.cu), the assignment by kernel K9 (ops/lap.py, csrc/lap.cu),
+and plain tensor ops in between that never wait on the host. Each kernel wrapper
+takes its plain version for a CPU tensor and launches the kernel for a CUDA tensor.
+The host tracker (scipy's Hungarian solver on numpy ids) is kept as in the JAX
+package.
+"""
+
+import ctypes
+from typing import Dict
+
+import numpy as np
+import scipy.optimize
+import torch
+import torch.nn.functional as F
+
+from fiery_tpu_torch.ops import _build
+from fiery_tpu_torch.ops.lap import linear_sum_assignment
+
+MAX_INSTANCES = 100  # the reference caps detected centres at 100 per frame
+
+
+def _launch_checks(name, tensors, dtypes):
+    """Raise unless every tensor is a contiguous CUDA tensor of its dtype, all on
+    one device."""
+    device = tensors[0].device
+    for t, dt in zip(tensors, dtypes):
+        if t.device != device:
+            raise ValueError(f'{name}: inputs on {device} and {t.device}')
+        if t.dtype != dt:
+            raise TypeError(f'{name}: expected {dt}, got {t.dtype}')
+        if not t.is_contiguous():
+            raise ValueError(f'{name}: inputs must be contiguous')
+    if device.type != 'cuda':
+        raise ValueError(f'{name}: unsupported device {device}')
+
+
+def _check_rc(name, rc):
+    if rc != 0:
+        raise RuntimeError(f'{name} kernel launch failed: CUDA error {rc}')
+
+
+# ---------------------------------------------------------------------------
+# K6: centre NMS + exact top-k
+# ---------------------------------------------------------------------------
+
+def find_instance_centers_plain(center, conf_threshold=0.1, nms_kernel_size=3,
+                                max_instances=MAX_INSTANCES):
+    """Plain version of ``find_instance_centers``: max_pool2d (-inf padding), then a
+    stable descending sort of the flattened scores, which is lax.top_k's order."""
+    B, h, w = center.shape
+    x = torch.where(center >= conf_threshold, center, -1.0)
+    p = (nms_kernel_size - 1) // 2
+    pooled = F.max_pool2d(x[:, None], nms_kernel_size, stride=1, padding=p)[:, 0]
+    scores = torch.where((x == pooled) & (x > 0), x, -float('inf')).reshape(B, h * w)
+    top_scores, top_idx = torch.sort(scores, dim=-1, descending=True, stable=True)
+    top_scores, top_idx = top_scores[:, :max_instances], top_idx[:, :max_instances]
+    centers = torch.stack([top_idx // w, top_idx % w], dim=-1).to(torch.int32)
+    return centers, top_scores > 0
+
+
+def find_instance_centers(center, conf_threshold=0.1, nms_kernel_size=3,
+                          max_instances=MAX_INSTANCES):
+    """(B, h, w) float32 heatmaps -> centres (B, max_instances, 2) int32 (row, column)
+    and valid (B, max_instances) bool (kernel K6).
+
+    Threshold, (nms_kernel_size)^2 max-pool NMS, and the max_instances highest peaks
+    in descending score, ties by lowest pixel index; slots past the peaks are
+    invalid padding. A CPU tensor takes the plain version.
+    """
+    if center.dim() != 3:
+        raise ValueError(f'find_instance_centers: center {tuple(center.shape)} must be '
+                         '(B, h, w)')
+    if nms_kernel_size % 2 != 1:
+        raise ValueError(f'find_instance_centers: nms_kernel_size {nms_kernel_size} '
+                         'must be odd')
+    if center.device.type == 'cpu':
+        return find_instance_centers_plain(center, conf_threshold, nms_kernel_size,
+                                           max_instances)
+    _launch_checks('find_instance_centers', [center], [torch.float32])
+    B, h, w = center.shape
+    if not 1 <= max_instances <= min(1024, h * w):
+        raise ValueError(f'find_instance_centers: max_instances {max_instances} must be '
+                         f'in [1, min(1024, {h * w})]')
+    fn = _build.load('instance_centers').fiery_instance_centers
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_float] \
+        + [ctypes.c_int] * 2 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    keys = torch.empty((B, h, w), dtype=torch.int32, device=center.device)
+    centers = torch.empty((B, max_instances, 2), dtype=torch.int32, device=center.device)
+    valid = torch.empty((B, max_instances), dtype=torch.bool, device=center.device)
+    stream = torch.cuda.current_stream(center.device).cuda_stream
+    _check_rc('instance_centers', fn(
+        center.data_ptr(), keys.data_ptr(), centers.data_ptr(), valid.data_ptr(), B, h, w,
+        conf_threshold, (nms_kernel_size - 1) // 2, max_instances, stream))
+    find_instance_centers.launches += 1
+    return centers, valid
+
+
+find_instance_centers.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K7: pixel grouping + foreground + consecutive relabel
+# ---------------------------------------------------------------------------
+
+def group_pixels(centers, valid, offset):
+    """Plain nearest-valid-centre id of every pixel: centres (B, K, 2), valid (B, K),
+    offsets (B, h, w, 2) [row, column] -> (B, h, w) int32 ids in [1, K]. The main
+    path runs this fused with the foreground and the relabel in ``instance_ids``."""
+    B, h, w, _ = offset.shape
+    xg = torch.arange(h, dtype=offset.dtype, device=offset.device)[:, None]
+    yg = torch.arange(w, dtype=offset.dtype, device=offset.device)[None, :]
+    px = xg + offset[..., 0]
+    py = yg + offset[..., 1]
+    dx = centers[:, :, 0, None, None].to(px.dtype) - px[:, None]
+    dy = centers[:, :, 1, None, None].to(py.dtype) - py[:, None]
+    dist = dx * dx + dy * dy
+    dist = torch.where(valid[:, :, None, None], dist, float('inf'))
+    return dist.argmin(dim=1).to(torch.int32) + 1
+
+
+def make_instance_seg_consecutive(instance_seg, max_ids=MAX_INSTANCES + 1):
+    """Plain relabel of (B, h, w) ids in [0, max_ids) to consecutive ids per frame,
+    background 0 staying 0."""
+    B = instance_seg.shape[0]
+    flat = instance_seg.reshape(B, -1).long()
+    present = torch.zeros((B, max_ids), dtype=torch.int64, device=flat.device)
+    present.scatter_(1, flat, 1)
+    present[:, 0] = 1
+    mapping = present.cumsum(dim=1) - 1
+    return mapping.gather(1, flat).view(instance_seg.shape).to(torch.int32)
+
+
+def instance_ids_plain(centers, valid, offset, segmentation, vehicles_id=1):
+    """Plain version of ``instance_ids``."""
+    ids = group_pixels(centers, valid, offset)
+    keep = (segmentation.argmax(dim=-1) == vehicles_id) & valid.any(dim=1)[:, None, None]
+    ids = torch.where(keep, ids, 0)
+    return make_instance_seg_consecutive(ids, centers.shape[1] + 1)
+
+
+def instance_ids(centers, valid, offset, segmentation, vehicles_id=1):
+    """Consecutive instance ids (B, h, w) int32 of decoded frames (kernel K7, two
+    launches).
+
+    centres (B, K, 2) int32 and valid (B, K) bool from ``find_instance_centers``;
+    offset (B, h, w, 2) float32; segmentation (B, h, w, C) float32 logits. A pixel
+    takes the id of its nearest valid centre after the offset if argmax_c of its
+    logits is ``vehicles_id`` and the frame has a valid centre, else 0; the ids are
+    then relabelled 1.. in order. A CPU tensor takes the plain version.
+    """
+    B, K = valid.shape
+    h, w = offset.shape[1:3]
+    if (centers.shape != (B, K, 2) or offset.shape != (B, h, w, 2)
+            or segmentation.shape[:3] != (B, h, w)):
+        raise ValueError(f'instance_ids: shapes centers {tuple(centers.shape)}, valid '
+                         f'{tuple(valid.shape)}, offset {tuple(offset.shape)}, '
+                         f'segmentation {tuple(segmentation.shape)} do not agree')
+    if offset.device.type == 'cpu':
+        return instance_ids_plain(centers, valid, offset, segmentation, vehicles_id)
+    _launch_checks('instance_ids', [centers, valid, offset, segmentation],
+                   [torch.int32, torch.bool, torch.float32, torch.float32])
+    if K > 1024:
+        raise ValueError(f'instance_ids: {K} centres, the kernel takes at most 1024')
+    fn = _build.load('group_pixels').fiery_group_pixels
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    ids = torch.empty((B, h, w), dtype=torch.int32, device=offset.device)
+    present = torch.zeros((B, K + 1), dtype=torch.int32, device=offset.device)
+    stream = torch.cuda.current_stream(offset.device).cuda_stream
+    for relabel in (0, 1):
+        _check_rc('group_pixels', fn(
+            centers.data_ptr(), valid.data_ptr(), offset.data_ptr(), segmentation.data_ptr(),
+            ids.data_ptr(), present.data_ptr(), B, h, w, K, segmentation.shape[-1],
+            vehicles_id, relabel, stream))
+        instance_ids.launches += 1
+    return ids
+
+
+instance_ids.launches = 0
+
+
+def get_instance_segmentation_and_centers(center, offset, foreground, conf_threshold=0.1,
+                                          nms_kernel_size=3, max_instances=MAX_INSTANCES):
+    """Decode of frames: center (B, h, w, 1), offset (B, h, w, 2), foreground (B, h, w)
+    bool -> (instance_seg (B, h, w) int32 consecutive ids, centres (B, K, 2),
+    valid (B, K)). The mask enters K7 as two-class logits whose class 1 is the
+    foreground."""
+    centers, valid = find_instance_centers(center[..., 0].contiguous(), conf_threshold,
+                                           nms_kernel_size, max_instances)
+    logits = torch.stack([~foreground, foreground], dim=-1).float()
+    seg = instance_ids(centers, valid, offset.contiguous(), logits, vehicles_id=1)
+    return seg, centers, valid
+
+
+def decode_instance_predictions(output: Dict[str, torch.Tensor], conf_threshold=0.1,
+                                nms_kernel_size=3, max_instances=MAX_INSTANCES,
+                                vehicles_id=1):
+    """Network output dict (channels-last) -> (b, s, h, w) int32 consecutive
+    instance ids per frame, on the output's device: one K6 and one K7 call over all
+    b * s frames."""
+    seg = output['segmentation']
+    b, s, h, w, C = seg.shape
+    center = output['instance_center'].float().reshape(b * s, h, w).contiguous()
+    centers, valid = find_instance_centers(center, conf_threshold, nms_kernel_size,
+                                           max_instances)
+    ids = instance_ids(centers, valid,
+                       output['instance_offset'].float().reshape(b * s, h, w, 2).contiguous(),
+                       seg.float().reshape(b * s, h, w, C).contiguous(), vehicles_id)
+    return ids.view(b, s, h, w)
+
+
+# ---------------------------------------------------------------------------
+# K8: per-id centroids
+# ---------------------------------------------------------------------------
+
+def segment_centroids_plain(labels, num_slots, flow=None):
+    """Plain version of ``segment_centroids``: f64 index_add_ sums in index order."""
+    B, h, w = labels.shape
+    dev = labels.device
+    x = torch.arange(h, dtype=torch.float32, device=dev)[:, None].expand(h, w)
+    y = torch.arange(w, dtype=torch.float32, device=dev)[None, :].expand(h, w)
+    if flow is None:
+        x, y = x.expand(B, h, w), y.expand(B, h, w)
+    else:
+        x, y = x + flow[..., 0], y + flow[..., 1]
+    lab = labels.reshape(B, -1).long()
+    lab = torch.where((lab >= 0) & (lab < num_slots), lab, num_slots)
+    rows = (lab + torch.arange(B, device=dev)[:, None] * (num_slots + 1)).reshape(-1)
+    vals = torch.stack([torch.ones_like(x), x, y], dim=-1).double().reshape(-1, 3)
+    acc = torch.zeros((B * (num_slots + 1), 3), dtype=torch.float64, device=dev)
+    acc.index_add_(0, rows, vals)
+    acc = acc.view(B, num_slots + 1, 3)[:, :num_slots]
+    counts = acc[..., :1]
+    centers = (acc[..., 1:] / counts.clamp_min(1.0)).float()
+    return centers, counts[..., 0] > 0
+
+
+def segment_centroids(labels, num_slots, flow=None):
+    """Count and mean coordinate of ids 0..num_slots-1 in each (h, w) frame of labels
+    (B, h, w) int32, over the pixel grid (row, column), or over the grid plus flow
+    (B, h, w, 2) float32 (kernel K8). Returns centres (B, num_slots, 2) float32 and
+    valid (B, num_slots) bool (count > 0); ids outside [0, num_slots) are dropped.
+    Sums are f64. A CPU tensor takes the plain version."""
+    if labels.dim() != 3 or (flow is not None and flow.shape != labels.shape + (2,)):
+        raise ValueError(f'segment_centroids: labels {tuple(labels.shape)} must be '
+                         f'(B, h, w) and flow (B, h, w, 2)')
+    if labels.device.type == 'cpu':
+        return segment_centroids_plain(labels, num_slots, flow)
+    _launch_checks('segment_centroids', [labels] + ([] if flow is None else [flow]),
+                   [torch.int32, torch.float32])
+    if num_slots * 20 > 48 * 1024:
+        raise ValueError(f'segment_centroids: {num_slots} slots, the kernel takes at most '
+                         f'{48 * 1024 // 20}')
+    B, h, w = labels.shape
+    dev = labels.device
+    fn = _build.load('segment_centroids').fiery_segment_centroids
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    acc = torch.zeros((B, num_slots, 3), dtype=torch.float64, device=dev)
+    done = torch.zeros((B,), dtype=torch.int32, device=dev)
+    centers = torch.empty((B, num_slots, 2), dtype=torch.float32, device=dev)
+    valid = torch.empty((B, num_slots), dtype=torch.bool, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    _check_rc('segment_centroids', fn(
+        labels.data_ptr(), None if flow is None else flow.data_ptr(), acc.data_ptr(),
+        done.data_ptr(), centers.data_ptr(), valid.data_ptr(), B, h, w, num_slots, stream))
+    segment_centroids.launches += 1
+    return centers, valid
+
+
+segment_centroids.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# Device temporal consistency (exact optimal assignment, no host round trip)
+# ---------------------------------------------------------------------------
+
+def make_instance_id_temporally_consistent_device(pred_inst, future_flow,
+                                                  matching_threshold=3.0,
+                                                  max_instances=MAX_INSTANCES):
+    """pred_inst (b, s, h, w) int consecutive per-frame ids, future_flow
+    (b, s, h, w, 2) -> (b, s, h, w) int32 ids consistent across time.
+
+    The JAX package's device tracker, vmapped over b: each frame's centroids are
+    matched to the previous frame's flow-advected centroids by an exact assignment
+    on a (max_instances + 1)^2 padded cost (distances clipped at 10x the threshold,
+    invalid pairs at 1e4, only the live previous tracks augmented); a match is
+    accepted under ``matching_threshold`` and every other instance takes a fresh id.
+    Cumulative ids live in s * max_instances + 1 slots. Every step stays on the
+    device: 2 K8 and 1 K9 launches, and tensor ops that never read a value on the
+    host. Centroid sums are f64 (the JAX device path sums in f32), so centroids
+    differ from it by f32 rounding only.
+    """
+    b, s, h, w = pred_inst.shape
+    dev = pred_inst.device
+    K = max_instances + 1
+    K_total = s * max_instances + 1
+    pred_inst = pred_inst.to(torch.int32)
+    future_flow = future_flow.float()
+    slot_ids = torch.arange(K, device=dev)
+    track_ids = torch.arange(K_total, device=dev).expand(b, K_total)
+    prev = pred_inst[:, 0].contiguous()
+    next_free = prev.reshape(b, -1).amax(dim=1).long() + 1
+    frames = [prev]
+    for t in range(1, s):
+        cur = pred_inst[:, t].contiguous()
+        prev_centers_all, prev_valid_all = segment_centroids(
+            prev, K_total, future_flow[:, t - 1].contiguous())
+        cur_centers, cur_valid = segment_centroids(cur, K)
+
+        # compact the live previous ids into slots 1..K-1; slot 0 stays background
+        live = prev_valid_all.clone()
+        live[:, 0] = False
+        rank = live.long().cumsum(dim=1) - 1
+        slot = torch.where(live & (rank < K - 1), rank + 1, K)
+        prev_slot_ids = torch.zeros((b, K + 1), dtype=torch.int64, device=dev).scatter_(
+            1, slot, track_ids)[:, :K]
+        prev_centers = prev_centers_all.gather(1, prev_slot_ids[..., None].expand(b, K, 2))
+        prev_valid = prev_valid_all.gather(1, prev_slot_ids) & (prev_slot_ids > 0)
+
+        diff = prev_centers[:, :, None] - cur_centers[:, None, :]
+        dist = torch.sqrt((diff * diff).sum(dim=-1))
+        valid_pair = prev_valid[:, :, None] & cur_valid[:, None, :]
+        valid_pair[:, :, 0] = False
+        valid_pair[:, 0, :] = False
+        dist = torch.where(valid_pair, dist, float('inf'))
+        cost = torch.where(valid_pair, dist.clamp(max=10.0 * matching_threshold), 1e4)
+        n_rows = prev_valid.sum(dim=1, dtype=torch.int32) + 1
+        col4row = linear_sum_assignment(cost.contiguous(), n_rows=n_rows)
+
+        # skipped rows (-1) scatter into the dropped column K
+        cols = torch.where(col4row < 0, K, col4row).long()
+        row4col = torch.zeros((b, K + 1), dtype=torch.int64, device=dev).scatter_(
+            1, cols, slot_ids.expand(b, K))[:, :K]
+        best_prev = prev_slot_ids.gather(1, row4col)
+        dsel = dist.gather(1, row4col[:, None, :])[:, 0]
+        matched = (dsel < matching_threshold) & cur_valid
+        unmatched = cur_valid & ~matched & (slot_ids > 0)
+        new_rank = unmatched.long().cumsum(dim=1) - 1
+        lut = torch.where(matched, best_prev, next_free[:, None] + new_rank)
+        lut[:, 0] = 0
+        lut = torch.where(cur_valid | (slot_ids == 0), lut, 0)
+        prev = lut.gather(1, cur.reshape(b, -1).long()).view(b, h, w).to(torch.int32)
+        next_free = next_free + unmatched.sum(dim=1)
+        frames.append(prev)
+    return torch.stack(frames, dim=1)
+
+
+# ---------------------------------------------------------------------------
+# Host temporal consistency (scipy Hungarian on numpy ids)
+# ---------------------------------------------------------------------------
+
+def _segment_centroids(labels, coord_maps, ids):
+    """Mean coordinate of each id in ``ids`` under per-pixel coordinate fields
+    (f64 bincounts). Returns (len(ids), len(coord_maps))."""
+    flat = labels.ravel()
+    size = int(ids.max()) + 1
+    counts = np.bincount(flat, minlength=size)[ids].astype(np.float64)
+    sums = [np.bincount(flat, weights=c.ravel().astype(np.float64),
+                        minlength=size)[ids] for c in coord_maps]
+    return np.stack(sums, axis=-1) / counts[:, None]
+
+
+def make_instance_id_temporally_consistent(pred_inst, future_flow,
+                                           matching_threshold=3.0):
+    """pred_inst: (1, s, h, w) int numpy; future_flow: (1, s, h, w, 2) numpy.
+
+    Returns (1, s, h, w) with ids consistent across time: each frame's centroids
+    are matched against the previous frame's flow-advected centroids (Hungarian
+    optimum, accepted under the distance threshold), and unmatched detections get
+    fresh ids. Assumes per-frame ids are consecutive 1..N.
+    """
+    pred_inst = np.asarray(pred_inst)
+    future_flow = np.asarray(future_flow)
+    assert pred_inst.shape[0] == 1, 'Assumes batch size = 1'
+    seq = pred_inst[0]
+    seq_len, h, w = seq.shape
+    pixel_grid = np.stack(np.meshgrid(np.arange(h, dtype=np.float32),
+                                      np.arange(w, dtype=np.float32),
+                                      indexing='ij'))
+
+    tracked = [seq[0]]
+    next_fresh_id = int(seq[0].max()) + 1
+
+    for t in range(1, seq_len):
+        prev_frame, cur_frame = tracked[-1], seq[t]
+        prev_ids = np.unique(prev_frame)[1:]
+        cur_ids = np.unique(cur_frame)[1:]
+        if len(prev_ids) == 0 or len(cur_ids) == 0:
+            tracked.append(cur_frame)
+            continue
+
+        # where the previous instances should be now, according to the flow
+        advected = pixel_grid + np.moveaxis(future_flow[0, t - 1], -1, 0)
+        prev_pos = _segment_centroids(prev_frame, advected, prev_ids)
+        cur_pos = _segment_centroids(cur_frame, pixel_grid, cur_ids)
+
+        cost = np.linalg.norm(prev_pos[:, None] - cur_pos[None, :], axis=-1)
+        rows, cols = scipy.optimize.linear_sum_assignment(cost)
+        accepted = cost[rows, cols] < matching_threshold
+
+        relabel = np.zeros(int(cur_ids.max()) + 1, dtype=seq.dtype)
+        relabel[cur_ids[cols[accepted]]] = prev_ids[rows[accepted]]
+        unmatched = np.setdiff1d(cur_ids, cur_ids[cols[accepted]])
+        relabel[unmatched] = next_fresh_id + np.arange(len(unmatched))
+        next_fresh_id += len(unmatched)
+        tracked.append(relabel[cur_frame])
+
+    return np.stack(tracked)[None]
+
+
+def predict_instance_segmentation_and_trajectories(
+        output, compute_matched_centers=False, make_consistent=True, vehicles_id=1):
+    """Postprocessing with the host tracker: decode on the output's device, ids to the
+    host as int16 and the flow rounded to f16 (the JAX package's cast points), then
+    the scipy tracker. Returns numpy (b, s, h, w) consistent ids, optionally with
+    matched centre trajectories {id: (T, 2) array in (y, x)}."""
+    decode_in = {k: output[k] for k in
+                 ['segmentation', 'instance_center', 'instance_offset']}
+    pred_inst = decode_instance_predictions(decode_in, vehicles_id=vehicles_id).to(
+        torch.int16).cpu().numpy()
+    batch_size, seq_len = pred_inst.shape[:2]
+
+    if make_consistent:
+        flow = output.get('instance_flow')
+        if flow is None:
+            flow = torch.zeros_like(output['instance_offset'])
+        flow = flow.to(torch.float16).cpu().numpy().astype(np.float32)
+        consistent = np.concatenate([
+            make_instance_id_temporally_consistent(pred_inst[b:b + 1], flow[b:b + 1])
+            for b in range(batch_size)], axis=0)
+    else:
+        consistent = pred_inst
+
+    if compute_matched_centers:
+        assert batch_size == 1
+        matched_centers = {}
+        h, w = consistent.shape[-2:]
+        grid = np.stack(np.meshgrid(np.arange(h, dtype=np.float32),
+                                    np.arange(w, dtype=np.float32), indexing='ij'))
+        for instance_id in np.unique(consistent[0, 0])[1:]:
+            for t in range(seq_len):
+                mask = consistent[0, t] == instance_id
+                if mask.sum() > 0:
+                    matched_centers.setdefault(instance_id, []).append(
+                        grid[:, mask].mean(axis=-1))
+        matched_centers = {k: np.stack(v)[:, ::-1] for k, v in matched_centers.items()}
+        return consistent, matched_centers
+
+    return consistent

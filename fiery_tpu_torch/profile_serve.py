@@ -2,11 +2,12 @@
 
 Full-width baseline.yml at batch 1 (PRECISION 16, seeded random weights, BatchNorm
 statistics calibrated on two seeded clips). Prints, as JSON lines:
-  * the request wall time (host clock around predict + synchronize), median of
-    --requests requests after a warm-up;
+  * the request wall time (host clock around predict_instances + synchronize),
+    median of --requests requests after a warm-up;
   * each stage's device time (CUDA events around the encoder, the bev_pool splat,
     the bev_warp warp, the temporal model, the present distribution, the future
-    rollout and the decoder), median over the same requests;
+    rollout, the decoder, the instance decode (K6, K7) and the temporal ID
+    tracking (K8, K9)), median over the same requests;
   * from torch.profiler over three requests: the device busy time per request, its
     share of the wall time, and the kernels that take the most device time.
 Needs a CUDA card.
@@ -20,14 +21,18 @@ import time
 
 import torch
 
+from fiery_tpu_torch import evaluate as evaluate_module
 from fiery_tpu_torch.models import fiery as fiery_module
 from fiery_tpu_torch.serve import (BASELINE, build_fiery, calibrate_batchnorm, init_params,
-                                   make_request, predict)
+                                   make_request, predict_instances)
 from fiery_tpu_torch.utils.config import get_cfg
 
 MODULE_STAGES = ('encoder', 'temporal_model', 'present_distribution', 'future_prediction',
                  'decoder')
-FUNCTION_STAGES = {'bev_pool_splat': 'lift_splat_depth', 'bev_warp': 'cumulative_warp_features'}
+FUNCTION_STAGES = {'bev_pool_splat': (fiery_module, 'lift_splat_depth'),
+                   'bev_warp': (fiery_module, 'cumulative_warp_features'),
+                   'decode': (evaluate_module, 'decode_instance_predictions'),
+                   'track': (evaluate_module, 'make_instance_id_temporally_consistent_device')}
 
 
 class StageTimer:
@@ -57,8 +62,8 @@ def instrument(model, timer):
         module = getattr(model, name)
         module.register_forward_pre_hook(lambda m, a, n=name: timer.start(n))
         module.register_forward_hook(lambda m, a, o, n=name: timer.stop(n))
-    for stage, attr in FUNCTION_STAGES.items():
-        fn = getattr(fiery_module, attr)
+    for stage, (module, attr) in FUNCTION_STAGES.items():
+        fn = getattr(module, attr)
 
         @functools.wraps(fn)
         def timed(*args, _fn=fn, _stage=stage, **kw):
@@ -66,7 +71,7 @@ def instrument(model, timer):
             out = _fn(*args, **kw)
             timer.stop(_stage)
             return out
-        setattr(fiery_module, attr, timed)
+        setattr(module, attr, timed)
 
 
 def main():
@@ -82,14 +87,14 @@ def main():
     requests = [make_request(cfg, seed=10 + i) for i in range(args.requests)]
     timer = StageTimer()
     instrument(model, timer)
-    predict(model, make_request(cfg, seed=9))
+    predict_instances(model, make_request(cfg, seed=9))
     torch.cuda.synchronize()
     timer.read_ms()
 
     walls, stages = [], []
     for req in requests:
         t0 = time.perf_counter()
-        predict(model, req)
+        predict_instances(model, req)
         torch.cuda.synchronize()
         walls.append(1e3 * (time.perf_counter() - t0))
         stages.append(timer.read_ms())
@@ -102,7 +107,7 @@ def main():
     with torch.profiler.profile(activities=activities) as prof:
         t0 = time.perf_counter()
         for req in requests[:3]:
-            predict(model, req)
+            predict_instances(model, req)
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0) / 3
     timer.read_ms()

@@ -10,6 +10,7 @@ running on the CPU.
     init_params(model, seed=0)                # or load_state_dict(state_dict_from_jax(...))
     calibrate_batchnorm(model, [make_request(cfg, seed=s) for s in (6, 7)])
     out = predict(model, make_request(cfg, seed=1))
+    out, ids = predict_instances(model, make_request(cfg, seed=1))  # + (1, 5, 200, 200) ids
 """
 
 import math
@@ -18,7 +19,9 @@ import os
 import numpy as np
 import torch
 
+from fiery_tpu_torch.evaluate import device_consistent
 from fiery_tpu_torch.models.fiery import Fiery, FieryConfig
+from fiery_tpu_torch.postprocess.instance import predict_instance_segmentation_and_trajectories
 
 BASELINE = os.path.join(os.path.dirname(os.path.abspath(__file__)), 'configs',
                         'baseline.yml')
@@ -120,3 +123,17 @@ def predict(model, request):
             for k in ('image', 'intrinsics', 'extrinsics', 'future_egomotion')]
     with torch.inference_mode():
         return model(*args)
+
+
+def predict_instances(model, request, device_matching=True):
+    """Answer one request with future instances: ``predict``, then the decode and
+    the temporal ID tracking. Returns (output dict, ids): ids are (b, s, h, w) int32
+    instance ids that stay the same across the s frames. With device_matching (the
+    default) everything runs on the model's device and ids stay there; otherwise the
+    ids go to the host for the scipy tracker and come back as a CPU tensor."""
+    output = predict(model, request)
+    with torch.inference_mode():
+        if device_matching:
+            return output, device_consistent(output)
+        return output, torch.from_numpy(
+            predict_instance_segmentation_and_trajectories(output).astype(np.int32))

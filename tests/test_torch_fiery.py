@@ -147,12 +147,15 @@ def test_port_imports_nothing_of_jax():
         'bad = sorted(k for k in sys.modules if k.split(".")[0] in ("jax", "jaxlib", '
         '"flax", "fiery_tpu"))\n'
         'assert not bad, bad\n'
-        'print(len([k for k in sys.modules if k.startswith("fiery_tpu_torch")]))\n')
+        'print(" ".join(k for k in sys.modules if k.startswith("fiery_tpu_torch")))\n')
     env = {k: v for k, v in os.environ.items() if k != 'PYTHONPATH'}
     out = subprocess.run([sys.executable, '-c', code], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 15
+    modules = set(out.stdout.split())
+    assert len(modules) >= 27
+    assert {'fiery_tpu_torch.ops.lap', 'fiery_tpu_torch.postprocess.instance',
+            'fiery_tpu_torch.training.metrics', 'fiery_tpu_torch.evaluate'} <= modules
 
 
 def test_entry_points_refuse_the_cpu_unless_asked(monkeypatch):
