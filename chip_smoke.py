@@ -15,7 +15,16 @@ Builds the package's CUDA kernels from csrc/, then:
      at the served shapes and on planted inputs (K6, K7 and K9 exactly, K8
      within one f32 ulp), and times them;
   5. decodes and tracks a planted full-width scene of 20 moving vehicles, which
-     both trackers must follow exactly (vehicle PQ = 1).
+     both trackers must follow exactly (vehicle PQ = 1);
+  6. trains: three full-width baseline.yml training steps at batch 3 (PRECISION
+     16, seeded random weights, synthetic clips) after a warm-up step, checking the
+     losses, that the parameters and BatchNorm statistics moved, and how often each
+     training kernel ran per step; prints the median step time, the peak memory,
+     per-stage times and the top device kernels of a profiled step;
+  7. holds the training kernels (K1 and K2 backward, K3 top-k select, K4 nearest
+     warp) against their plain versions at the training shapes, and times them;
+  8. runs a tiny training step on the card and on the CPU from the same weights,
+     batch and noise, and compares the losses and gradients.
 Prints a "kernels" JSON line, the card's name and power limit, and as its last
 line {"ok": true, "device": {...}}. Any failure raises and exits non-zero.
 Without a CUDA card, or without the package beside it, it fails.
@@ -33,20 +42,28 @@ import scipy.optimize
 import torch
 import torch.nn.functional as F
 
+from fiery_tpu_torch.data.synthetic import SyntheticFutureDataset
 from fiery_tpu_torch.evaluate import device_consistent
 from fiery_tpu_torch.models.fiery import FieryConfig
 from fiery_tpu_torch.ops import _build
 from fiery_tpu_torch.ops.lap import linear_sum_assignment, linear_sum_assignment_plain
-from fiery_tpu_torch.ops.lift_splat import (bev_pool, bev_pool_plain, create_frustum,
-                                            get_geometry, voxel_ids)
-from fiery_tpu_torch.ops.warp import bev_warp, bev_warp_plain
+from fiery_tpu_torch.ops.lift_splat import (bev_pool, bev_pool_backward,
+                                            bev_pool_backward_plain, bev_pool_plain,
+                                            create_frustum, get_geometry, voxel_ids)
+from fiery_tpu_torch.ops.warp import (_affine_grid, _warp_theta, bev_warp,
+                                      bev_warp_backward, bev_warp_backward_plain,
+                                      bev_warp_nearest, bev_warp_nearest_plain,
+                                      bev_warp_plain)
 from fiery_tpu_torch.postprocess.instance import (
     find_instance_centers, find_instance_centers_plain, instance_ids, instance_ids_plain,
     predict_instance_segmentation_and_trajectories, segment_centroids,
     segment_centroids_plain)
 from fiery_tpu_torch.serve import (BASELINE, build_fiery, calibrate_batchnorm, init_params,
                                    make_request, predict, predict_instances)
+from fiery_tpu_torch.training.losses import (_top_k_sum_from_threshold, compute_losses,
+                                             kth_largest, kth_largest_plain)
 from fiery_tpu_torch.training.metrics import PanopticMetric
+from fiery_tpu_torch.training.trainer import INPUTS, Trainer
 from fiery_tpu_torch.utils.config import get_cfg
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, f32 and f64 (non-tensor-core) flop/s
@@ -57,7 +74,12 @@ REPS = 25
 # the wrappers whose launches the main path counts, by kernel name
 COUNTERS = {'bev_pool': bev_pool, 'bev_warp': bev_warp,
             'instance_centers': find_instance_centers, 'group_pixels': instance_ids,
-            'segment_centroids': segment_centroids, 'lap': linear_sum_assignment}
+            'segment_centroids': segment_centroids, 'lap': linear_sum_assignment,
+            'bev_pool_backward': bev_pool_backward, 'bev_warp_backward': bev_warp_backward,
+            'kth_largest': kth_largest, 'bev_warp_nearest': bev_warp_nearest}
+TRAIN_KERNELS = ('bev_pool', 'bev_pool_backward', 'bev_warp', 'bev_warp_backward',
+                 'kth_largest', 'bev_warp_nearest')
+TRAIN_ONLY = ('bev_pool_backward', 'bev_warp_backward', 'kth_largest', 'bev_warp_nearest')
 
 
 def log(*args):
@@ -242,17 +264,20 @@ def phase_bev_warp(device, spatial_extent=(50.0, 50.0)):
     return rec
 
 
+TINY = {
+    'PRECISION': 32, 'TIME_RECEPTIVE_FIELD': 3, 'N_FUTURE_FRAMES': 2,
+    'IMAGE': {'FINAL_DIM': (64, 96), 'NAMES': ['CAM_A', 'CAM_B']},
+    'LIFT': {'X_BOUND': [-8.0, 8.0, 0.5], 'Y_BOUND': [-8.0, 8.0, 0.5],
+             'D_BOUND': [2.0, 8.0, 1.0]},
+    'MODEL': {'ENCODER': {'NAME': 'efficientnet-b0', 'OUT_CHANNELS': 16},
+              'TEMPORAL_MODEL': {'START_OUT_CHANNELS': 16},
+              'DISTRIBUTION': {'LATENT_DIM': 4},
+              'FUTURE_PRED': {'N_GRU_BLOCKS': 1, 'N_RES_LAYERS': 2}},
+}
+
+
 def tiny_cfg():
-    return get_cfg(cfg_dict={
-        'PRECISION': 32, 'TIME_RECEPTIVE_FIELD': 3, 'N_FUTURE_FRAMES': 2,
-        'IMAGE': {'FINAL_DIM': (64, 96), 'NAMES': ['CAM_A', 'CAM_B']},
-        'LIFT': {'X_BOUND': [-8.0, 8.0, 0.5], 'Y_BOUND': [-8.0, 8.0, 0.5],
-                 'D_BOUND': [2.0, 8.0, 1.0]},
-        'MODEL': {'ENCODER': {'NAME': 'efficientnet-b0', 'OUT_CHANNELS': 16},
-                  'TEMPORAL_MODEL': {'START_OUT_CHANNELS': 16},
-                  'DISTRIBUTION': {'LATENT_DIM': 4},
-                  'FUTURE_PRED': {'N_GRU_BLOCKS': 1, 'N_RES_LAYERS': 2}},
-    })
+    return get_cfg(cfg_dict=TINY)
 
 
 def phase_tiny_card_vs_cpu():
@@ -629,6 +654,295 @@ def phase_planted_scene(device):
         f'the host tracker alike, vehicle PQ {pq}')
 
 
+def stage_times(trainer, batch, generator):
+    """Device time of each stage of one training step (CUDA events between the
+    stages of Trainer.train_step, so each includes its host launch gaps)."""
+    names = ['H2D copy of the batch', 'label prep (K4)', 'forward (K1, K2)',
+             'losses (K3)', 'backward (K1, K2 backward)', 'clip + Adam']
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(len(names) + 1)]
+    ev[0].record()
+    batch = trainer.to_device(batch)
+    ev[1].record()
+    labels, fdi = trainer.prepare_future_labels(batch)
+    ev[2].record()
+    output = trainer.model(*(batch[k] for k in INPUTS), fdi, generator=generator)
+    ev[3].record()
+    total = sum(compute_losses(output, labels, trainer.uncertainty, trainer.cfg).values())
+    ev[4].record()
+    trainer.optimizer.zero_grad(set_to_none=True)
+    total.backward()
+    ev[5].record()
+    trainer.apply_gradients()
+    ev[6].record()
+    ev[6].synchronize()
+    return {n: ev[i].elapsed_time(ev[i + 1]) for i, n in enumerate(names)}
+
+
+def phase_train(n_steps=3):
+    """Full-width baseline.yml training at batch 3 (PRECISION 16: f32 weights, bf16
+    compute), seeded random weights with BatchNorm calibrated as for serving,
+    synthetic clips. One warm-up step, then the main path: n_steps timed steps with
+    the launch counts read around them."""
+    cfg = get_cfg(argparse.Namespace(config_file=BASELINE, opts=['DATASET.NAME', 'synthetic']))
+    trainer = Trainer(cfg)
+    init_params(trainer.model, seed=0)
+    calibrate_batchnorm(trainer.model, [make_request(cfg, seed=s) for s in (6, 7)])
+    b = cfg.BATCHSIZE
+    t0 = time.perf_counter()
+    dataset = SyntheticFutureDataset(cfg, n_samples=b * (n_steps + 2), seed=0)
+    batches = [dataset.get_batch(range(i * b, (i + 1) * b)) for i in range(n_steps + 2)]
+    log(f'train: {len(batches)} synthetic batches of {b} clips in '
+        f'{time.perf_counter() - t0:.1f} s')
+    gen = torch.Generator().manual_seed(0)
+    trainer.train_step(batches[0], gen)            # warm-up: cuDNN plans, kernel loads
+    torch.cuda.synchronize()
+    m = trainer.model
+    watched = {'stem conv': m.encoder.backbone._conv_stem.weight,
+               'future distribution': m.future_distribution.last_conv[1].weight,
+               'segmentation head': m.decoder.segmentation_head[3].weight,
+               'segmentation uncertainty': trainer.uncertainty['segmentation_weight'],
+               'stem BN running var': m.encoder.backbone._bn0.running_var,
+               'decoder BN running mean': m.decoder.bn1.running_mean,
+               'future distribution BN running var':
+                   m.future_distribution.encoder.model[0].layers.abn[0].running_var}
+    before = {k: v.detach().clone() for k, v in watched.items()}
+    torch.cuda.reset_peak_memory_stats()
+    for fn in COUNTERS.values():
+        fn.launches = 0
+    times, records = [], []
+    for i in range(n_steps):
+        t0 = time.perf_counter()
+        losses, total = trainer.train_step(batches[1 + i], gen)
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+        records.append({'total': float(total), **{k: float(v) for k, v in losses.items()}})
+    launches = {name: COUNTERS[name].launches for name in TRAIN_KERNELS}
+    peak = torch.cuda.max_memory_allocated()
+    for r in records:
+        if not all(np.isfinite(v) for v in r.values()):
+            raise AssertionError(f'train: non-finite losses {r}')
+    for name, n in launches.items():
+        if n != n_steps:
+            raise AssertionError(f'train: {name} launched {n} times in {n_steps} steps, '
+                                 f'expected once per step')
+    for k, v in watched.items():
+        if torch.equal(v.detach(), before[k]):
+            raise AssertionError(f'train: {k} did not change')
+    log(f'train (main path): step_ms={[round(x, 3) for x in times]} '
+        f'median_step_ms={statistics.median(times):.3f} peak_mem_bytes={peak} '
+        f'launches={launches}')
+    for i, r in enumerate(records):
+        log(f'  step {i} losses: ' + json.dumps({k: round(v, 5) for k, v in r.items()}))
+    log('train: parameters, uncertainty weights and BatchNorm statistics changed')
+
+    stages = stage_times(trainer, batches[-1], gen)
+    log('train stages (CUDA events, ms): ' + json.dumps({k: round(v, 3)
+                                                         for k, v in stages.items()}))
+    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.profiler.profile(activities=activities) as prof:
+        trainer.train_step(batches[-1], gen)
+        torch.cuda.synchronize()
+    wall = 1e3 * (time.perf_counter() - t0)
+    events = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in events) / 1e3
+    n_kernels = sum(e.count for e in events)
+    log(f'train profiled step: wall {wall:.3f} ms (profiler on), device busy {busy:.3f} ms, '
+        f'{n_kernels} device-side kernels and copies')
+    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:15]:
+        log(f'  {e.self_device_time_total / 1e3:9.3f} ms {e.count:5d}x  {e.key[:110]}')
+    return launches, dict(step_ms=statistics.median(times), peak_bytes=peak, stages=stages,
+                          busy_ms=busy)
+
+
+def phase_train_kernels(device):
+    """K1 and K2 backward, K3 and K4 against their plain versions at the full-width
+    training shapes (batch 3): K1/K2 backward in f32 (1e-5 + 1e-5 |x|) and bf16 (one
+    bf16 ulp), K3's k-th value equal and its top-k mean within 1e-6 relative, K4
+    equal. Times kernel, call, plain version and library call; bounds from the
+    shapes of this run."""
+    rec = {}
+    # K1 backward: 3 clips x 3 frames = 9 splat samples, each clip with the serve rig
+    _, _, ids, num_bins, z = bev_pool_inputs(device)
+    ids = ids.repeat(3, 1, 1, 1, 1).contiguous()
+    S, N, h, w, D = ids.shape
+    C = 64
+    g_ = torch.Generator(device=device).manual_seed(5)
+    depth32 = torch.softmax(torch.randn((S, N, h, w, D), generator=g_, device=device), -1)
+    feat32 = torch.randn((S, N, h, w, C), generator=g_, device=device)
+    grad32 = torch.randn((S, num_bins // z, C), generator=g_, device=device)
+    valid = ids < num_bins
+    n_valid = int(valid.sum())
+    rows = torch.where(valid, ids.long() // z + (torch.arange(S, device=device) * (
+        num_bins // z)).view(S, 1, 1, 1, 1), S * (num_bins // z)).view(-1)
+    for dtype in (torch.float32, torch.bfloat16):
+        depth, feat, g = depth32.to(dtype), feat32.to(dtype), grad32.to(dtype)
+        got = bev_pool_backward(depth, feat, ids, g, num_bins, z)
+        want = bev_pool_backward_plain(depth, feat, ids, g, num_bins, z)
+        torch.cuda.synchronize()
+        err = max(check_close('bev_pool_backward d_depth', got[0], want[0], dtype),
+                  check_close('bev_pool_backward d_feat', got[1], want[1], dtype))
+        del got, want
+
+        def library(depth=depth, feat=feat, g=g):
+            r = torch.cat([g.view(-1, C), g.new_zeros((1, C))]).index_select(0, rows)
+            r = r.view(S, N, h, w, D, C)
+            return (torch.einsum('snhwc,snhwdc->snhwd', feat, r),
+                    torch.einsum('snhwd,snhwdc->snhwc', depth, r))
+
+        es = depth.element_size()
+        nbytes = 2 * (depth.numel() + feat.numel()) * es + ids.numel() * 4 + g.numel() * es
+        rec[('bev_pool_backward', dtype)] = dict(
+            max_abs_err=err,
+            ms=kernel_ms(lambda: bev_pool_backward(depth, feat, ids, g, num_bins, z),
+                         ['pool_backward_kernel']),
+            call_ms=time_ms(lambda: bev_pool_backward(depth, feat, ids, g, num_bins, z)),
+            plain_ms=time_ms(lambda: bev_pool_backward_plain(depth, feat, ids, g, num_bins,
+                                                             z), reps=5, warmup=1),
+            library_ms=time_ms(library, reps=5, warmup=1), bytes=nbytes,
+            flops=4.0 * n_valid * C)
+
+    # K2 backward: the 6 past frames (3 clips x 2) of 200 x 200 x 64
+    B, H, W = 6, 200, 200
+    extent = (50.0, 50.0)
+    pose = torch.zeros((B, 6), device=device)
+    pose[:, 0] = torch.rand(B, generator=g_, device=device) * 4.0 - 2.0
+    pose[:, 1] = torch.rand(B, generator=g_, device=device) * 2.0 - 1.0
+    pose[:, 5] = torch.rand(B, generator=g_, device=device) * 0.2 - 0.1
+    gw32 = torch.randn((B, H, W, C), generator=g_, device=device)
+    for dtype in (torch.float32, torch.bfloat16):
+        g = gw32.to(dtype)
+        got = bev_warp_backward(g, pose, extent)
+        want = bev_warp_backward_plain(g, pose, extent)
+        torch.cuda.synchronize()
+        err = check_close('bev_warp_backward', got, want, dtype)
+        grid = _affine_grid(_warp_theta(pose, extent, dtype), H, W).to(dtype)
+        gc, xc = g.permute(0, 3, 1, 2), torch.zeros_like(g).permute(0, 3, 1, 2)
+
+        def library(gc=gc, xc=xc, grid=grid):
+            return torch.ops.aten.grid_sampler_2d_backward(gc, xc, grid, 0, 0, False,
+                                                           [True, False])
+
+        rec[('bev_warp_backward', dtype)] = dict(
+            max_abs_err=err,
+            ms=kernel_ms(lambda: bev_warp_backward(g, pose, extent), ['warp_scatter_kernel']),
+            call_ms=time_ms(lambda: bev_warp_backward(g, pose, extent)),
+            plain_ms=time_ms(lambda: bev_warp_backward_plain(g, pose, extent)),
+            library_ms=time_ms(library), bytes=2 * g.numel() * g.element_size() + pose.numel() * 4,
+            flops=8.0 * g.numel() + 30.0 * B * H * W)
+
+    # K3: the segmentation loss's 15 rows (3 clips x 5 frames) of 200 x 200, k = 10,000:
+    # random rows, and rows whose k-th value sits in ties (exact zeros, a repeated value)
+    k = 10000
+    x_rand = torch.rand((15, H * W), generator=g_, device=device) * 3.0
+    x_ties = x_rand.clone()
+    x_ties[::2, :30000] = 0.0
+    x_ties[1::2, ::2] = 1.5
+    for name, x in (('random', x_rand), ('ties', x_ties)):
+        got, want = kth_largest(x, k), kth_largest_plain(x, k)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError(f'kth_largest {name}: kernel != plain in '
+                                 f'{int((got != want).sum())} rows')
+        mean = float(_top_k_sum_from_threshold(x, got, k).sum() / (15 * k))
+        ref = float(torch.topk(x.double(), k).values.mean())
+        if abs(mean - ref) > 1e-6 * abs(ref):
+            raise AssertionError(f'top-k mean {name}: {mean} vs {ref}')
+        log(f'  kth_largest {name}: equal to plain; top-k mean {mean:.7f} vs topk {ref:.7f}')
+    x = x_ties
+    rec['kth_largest'] = dict(
+        max_abs_err=0.0, ms=kernel_ms(lambda: kth_largest(x, k), ['kth_largest_kernel']),
+        call_ms=time_ms(lambda: kth_largest(x, k)),
+        plain_ms=time_ms(lambda: kth_largest_plain(x, k)),
+        library_ms=time_ms(lambda: torch.topk(x, k)), bytes=x.numel() * 4 + 15 * 4,
+        flops=4 * 4.0 * x.numel())
+
+    # K4: the label stack, 12 future frames (3 clips x 4) of 200 x 200 x 7 f32
+    labels = torch.randn((12, H, W, 7), generator=g_, device=device)
+    labels[..., :2] = torch.randint(0, 3, (12, H, W, 2), generator=g_, device=device).float()
+    labels[..., 3:] = torch.where(torch.rand((12, H, W, 1), generator=g_, device=device) < 0.7,
+                                  255.0, labels[..., 3:])
+    lpose = torch.zeros((12, 6), device=device)
+    lpose[:, 0] = torch.rand(12, generator=g_, device=device) * 6.0 - 3.0
+    lpose[:, 1] = torch.rand(12, generator=g_, device=device) * 2.0 - 1.0
+    lpose[:, 5] = torch.rand(12, generator=g_, device=device) * 0.2 - 0.1
+    got = bev_warp_nearest(labels, lpose, extent)
+    want = bev_warp_nearest_plain(labels, lpose, extent)
+    torch.cuda.synchronize()
+    if not torch.equal(got, want):
+        raise AssertionError(f'bev_warp_nearest: kernel != plain at '
+                             f'{int((got != want).any(-1).sum())} pixels')
+    log('  bev_warp_nearest: equal to plain on the label stack')
+    lgrid = _affine_grid(_warp_theta(lpose, extent, torch.float32), H, W)
+    lc = labels.permute(0, 3, 1, 2)
+    rec['bev_warp_nearest'] = dict(
+        max_abs_err=0.0,
+        ms=kernel_ms(lambda: bev_warp_nearest(labels, lpose, extent), ['bev_warp_kernel']),
+        call_ms=time_ms(lambda: bev_warp_nearest(labels, lpose, extent)),
+        plain_ms=time_ms(lambda: bev_warp_nearest_plain(labels, lpose, extent)),
+        library_ms=time_ms(lambda: F.grid_sample(lc, lgrid, mode='nearest',
+                                                 padding_mode='zeros', align_corners=False)),
+        bytes=2 * labels.numel() * 4 + lpose.numel() * 4, flops=30.0 * 12 * H * W)
+
+    for key, r in rec.items():
+        r['bound_ms'], r['bound_by'] = bound(r['bytes'], r['flops'])
+        log(f'  {key if isinstance(key, str) else key[0] + " " + str(key[1])[6:]}: '
+            + json.dumps({k: v for k, v in r.items() if k != 'max_abs_err'}))
+    return rec
+
+
+def relative_l2_gradients(got, want):
+    """Worst relative L2 error of the gradients over the top-level modules and over
+    the leaves (each leaf's norm floored at 1e-3 of its module's)."""
+    worst_module, worst_leaf = (0.0, ''), (0.0, '')
+    for m in sorted({n.split('.')[0] for n in want}):
+        names = [n for n in want if n.split('.')[0] == m]
+        a = torch.cat([got[n].flatten() for n in names])
+        b = torch.cat([want[n].flatten() for n in names])
+        worst_module = max(worst_module, (float((a - b).norm() / b.norm()), m))
+        for n in names:
+            floor = max(float(want[n].norm()), 1e-3 * float(b.norm()))
+            worst_leaf = max(worst_leaf, (float((got[n] - want[n]).norm()) / floor, n))
+    return worst_module, worst_leaf
+
+
+def phase_tiny_train_card_vs_cpu():
+    """One tiny training step (f32, TF32 off) on the card and on the CPU from the same
+    weights, batch and noise, drop-connect off: the losses within rtol/atol 1e-3; the
+    gradients within a relative L2 error of 1e-2 per module and 1e-1 per leaf, the
+    criterion tests/test_torch_trainer.py holds the port to against JAX (f32 rounding
+    alone moves some leaves' gradients by per cents)."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_cfg(cfg_dict={**TINY, 'BATCHSIZE': 2})
+    trainers = {d: Trainer(cfg, device=d) for d in ('cpu', 'cuda')}
+    init_params(trainers['cpu'].model, seed=3)
+    trainers['cuda'].model.load_state_dict(trainers['cpu'].model.state_dict())
+    for tr in trainers.values():
+        for block in tr.model.encoder.backbone._blocks:
+            block.drop_rate = 0.0
+    batch = SyntheticFutureDataset(cfg, n_samples=2, n_instances=2, seed=4).get_batch([0, 1])
+    noise = torch.from_numpy(np.random.RandomState(5).randn(
+        2, 1, cfg.MODEL.DISTRIBUTION.LATENT_DIM).astype(np.float32))
+    losses = {d: tr.compute_gradients(batch, noise=noise)[0] for d, tr in trainers.items()}
+    torch.cuda.synchronize()
+    for k, v in losses['cpu'].items():
+        got = losses['cuda'][k].cpu()
+        log(f'  tiny train {k}: card {float(got):.6f} cpu {float(v):.6f}')
+        torch.testing.assert_close(got, v, rtol=1e-3, atol=1e-3, msg=k)
+    grads = {d: {n: p.grad.double().cpu() for n, p in tr.model.named_parameters()}
+             for d, tr in trainers.items()}
+    (module_err, module), (leaf_err, leaf) = relative_l2_gradients(grads['cuda'], grads['cpu'])
+    log(f'  tiny train gradients: worst module relative L2 error {module_err:.3e} ({module}), '
+        f'worst leaf {leaf_err:.3e} ({leaf}), over {len(grads["cpu"])} leaves')
+    if module_err > 1e-2 or leaf_err > 1e-1:
+        raise AssertionError('tiny train: card and CPU gradients differ')
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = True
+
+
+
 def main():
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device', file=sys.stderr)
@@ -641,11 +955,14 @@ def main():
     _build.build_all()
     log(f'build: {time.perf_counter() - t0:.1f} s for {_build.kernel_names()}')
 
-    # the serve first, so that its request times come before torch.profiler (which
-    # times the kernels below) has hooked into the process
+    # the serve and the training first, so that their request and step times come
+    # before torch.profiler (which times the kernels below) has hooked into the process
     t0 = time.perf_counter()
     launches, outputs = phase_serve()
     log(f'full-width serve: ok ({time.perf_counter() - t0:.1f} s)')
+    t0 = time.perf_counter()
+    train_launches, train = phase_train()
+    log(f'full-width train: ok ({time.perf_counter() - t0:.1f} s)')
     t0 = time.perf_counter()
     pool = phase_bev_pool(device)
     warp = phase_bev_warp(device)
@@ -659,27 +976,49 @@ def main():
     t0 = time.perf_counter()
     phase_planted_scene(device)
     log(f'planted scene: ok ({time.perf_counter() - t0:.1f} s)')
+    t0 = time.perf_counter()
+    train_kernels = phase_train_kernels(device)
+    log(f'training kernels vs plain: ok ({time.perf_counter() - t0:.1f} s)')
+    t0 = time.perf_counter()
+    phase_tiny_train_card_vs_cpu()
+    log(f'tiny train step card vs cpu: ok ({time.perf_counter() - t0:.1f} s)')
 
-    records = {'bev_pool': pool[torch.bfloat16], 'bev_warp': warp[torch.bfloat16], **decode}
+    # bf16 is the dtype of the served and trained paths
+    records = {'bev_pool': pool[torch.bfloat16], 'bev_warp': warp[torch.bfloat16], **decode,
+               'bev_pool_backward': train_kernels[('bev_pool_backward', torch.bfloat16)],
+               'bev_warp_backward': train_kernels[('bev_warp_backward', torch.bfloat16)],
+               'kth_largest': train_kernels['kth_largest'],
+               'bev_warp_nearest': train_kernels['bev_warp_nearest']}
     kernels = []
     for name, source, replaces in [
             ('bev_pool', 'bev_pool.cu', 'fiery_tpu/ops/lift_splat.py:104'),
+            ('bev_pool_backward', 'bev_pool.cu', 'fiery_tpu/ops/lift_splat.py:123'),
             ('bev_warp', 'bev_warp.cu', 'fiery_tpu/ops/warp.py:71'),
+            ('bev_warp_backward', 'bev_warp.cu', 'fiery_tpu/ops/warp.py:103'),
+            ('kth_largest', 'kth_largest.cu', 'fiery_tpu/training/losses.py:15'),
+            ('bev_warp_nearest', 'bev_warp.cu', 'fiery_tpu/ops/warp.py:85'),
             ('instance_centers', 'instance_centers.cu', 'fiery_tpu/postprocess/instance.py:73'),
             ('group_pixels', 'group_pixels.cu', 'fiery_tpu/postprocess/instance.py:98'),
             ('segment_centroids', 'segment_centroids.cu',
              'fiery_tpu/postprocess/instance.py:324'),
             ('lap', 'lap.cu', 'fiery_tpu/ops/lap.py:23')]:
-        r = records[name]      # bev_pool and bev_warp: bf16, the serve path's dtype
+        r = records[name]
+        # launches: the serve path's count for its kernels, the training path's for
+        # the training kernels; the splat and the warp run on both
         entry = {'name': name, 'route': 'cuda', 'source': 'fiery_tpu_torch/csrc/' + source,
-                 'replaces': replaces, 'launches': launches[name],
+                 'replaces': replaces,
+                 'launches': (train_launches if name in TRAIN_ONLY else launches)[name],
                  'max_abs_err': r['max_abs_err'], 'ms': r['ms'], 'plain_ms': r['plain_ms'],
                  'bound_ms': r['bound_ms'], 'bound_by': r['bound_by'],
                  'library_ms': r['library_ms']}
         entry['call_ms'] = r['call_ms']
+        if name in ('bev_pool', 'bev_warp'):
+            entry['train_launches'] = train_launches[name]
         if 'scipy_ms' in r:
             entry['scipy_ms'] = r['scipy_ms']
         kernels.append(entry)
+    log(f'train step (batch 3, full width): median_step_ms={train["step_ms"]:.3f} '
+        f'peak_mem_bytes={train["peak_bytes"]} device_busy_ms={train["busy_ms"]:.3f}')
     log(json.dumps({'kernels': kernels}))
     log(smi_line())
     print(json.dumps({'ok': True, 'device': {

@@ -10,7 +10,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from fiery_tpu_torch.models.layers import UpsamplingAdd
+from fiery_tpu_torch.models.layers import BatchNorm, Conv2d, UpsamplingAdd
 
 
 class BasicBlock(nn.Module):
@@ -18,16 +18,16 @@ class BasicBlock(nn.Module):
 
     def __init__(self, in_channels, channels, stride=1, bn_momentum=0.1):
         super().__init__()
-        self.conv1 = nn.Conv2d(in_channels, channels, 3, stride=stride, padding=1,
-                               bias=False)
-        self.bn1 = nn.BatchNorm2d(channels, momentum=bn_momentum)
-        self.conv2 = nn.Conv2d(channels, channels, 3, padding=1, bias=False)
-        self.bn2 = nn.BatchNorm2d(channels, momentum=bn_momentum)
+        self.conv1 = Conv2d(in_channels, channels, 3, stride=stride, padding=1,
+                            bias=False)
+        self.bn1 = BatchNorm(channels, momentum=bn_momentum)
+        self.conv2 = Conv2d(channels, channels, 3, padding=1, bias=False)
+        self.bn2 = BatchNorm(channels, momentum=bn_momentum)
         self.downsample = None
         if stride != 1 or in_channels != channels:
             self.downsample = nn.Sequential(
-                nn.Conv2d(in_channels, channels, 1, stride=stride, bias=False),
-                nn.BatchNorm2d(channels, momentum=bn_momentum))
+                Conv2d(in_channels, channels, 1, stride=stride, bias=False),
+                BatchNorm(channels, momentum=bn_momentum))
 
     def forward(self, x):
         identity = x if self.downsample is None else self.downsample(x)
@@ -37,18 +37,18 @@ class BasicBlock(nn.Module):
 
 def _head(in_channels, out_channels, bn_momentum):
     return nn.Sequential(
-        nn.Conv2d(in_channels, in_channels, 3, padding=1, bias=False),
-        nn.BatchNorm2d(in_channels, momentum=bn_momentum),
+        Conv2d(in_channels, in_channels, 3, padding=1, bias=False),
+        BatchNorm(in_channels, momentum=bn_momentum),
         nn.ReLU(),
-        nn.Conv2d(in_channels, out_channels, 1))
+        Conv2d(in_channels, out_channels, 1))
 
 
 class Decoder(nn.Module):
     def __init__(self, in_channels, n_classes=2, predict_future_flow=True, bn_momentum=0.1):
         super().__init__()
         m = bn_momentum
-        self.first_conv = nn.Conv2d(in_channels, 64, 7, stride=2, padding=3, bias=False)
-        self.bn1 = nn.BatchNorm2d(64, momentum=m)
+        self.first_conv = Conv2d(in_channels, 64, 7, stride=2, padding=3, bias=False)
+        self.bn1 = BatchNorm(64, momentum=m)
         self.layer1 = nn.Sequential(BasicBlock(64, 64, 1, m), BasicBlock(64, 64, 1, m))
         self.layer2 = nn.Sequential(BasicBlock(64, 128, 2, m), BasicBlock(128, 128, 1, m))
         self.layer3 = nn.Sequential(BasicBlock(128, 256, 2, m), BasicBlock(256, 256, 1, m))

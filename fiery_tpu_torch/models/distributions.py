@@ -4,7 +4,7 @@ fiery_tpu/models/distributions.py)."""
 import torch
 import torch.nn as nn
 
-from fiery_tpu_torch.models.layers import Bottleneck
+from fiery_tpu_torch.models.layers import Bottleneck, Conv2d
 
 
 class DistributionEncoder(nn.Module):
@@ -32,7 +32,7 @@ class DistributionModule(nn.Module):
         self.min_log_sigma, self.max_log_sigma = min_log_sigma, max_log_sigma
         self.encoder = DistributionEncoder(in_channels, compress_dim, bn_momentum)
         self.last_conv = nn.Sequential(nn.AdaptiveAvgPool2d(1),
-                                       nn.Conv2d(compress_dim, 2 * latent_dim, 1))
+                                       Conv2d(compress_dim, 2 * latent_dim, 1))
 
     def forward(self, s_t):
         """s_t (b, 1, h, w, c) channels-last."""

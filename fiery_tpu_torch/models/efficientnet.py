@@ -3,8 +3,9 @@ fiery_tpu/models/efficientnet.py), channels-first inside the encoder.
 
 TF-style SAME padding (asymmetric for even inputs under stride 2), BN eps 1e-3,
 swish, squeeze-excitation; attribute names follow efficientnet_pytorch
-(_conv_stem, _bn0, _blocks.i._expand_conv, ...). This slice serves only, so the
-train-time drop-connect of the residual branch is not ported.
+(_conv_stem, _bn0, _blocks.i._expand_conv, ...). In training, block i of the n
+kept blocks drops its residual branch per sample with probability
+drop_connect_rate * i / n (drop-connect), with masks drawn from a torch.Generator.
 """
 
 import math
@@ -12,6 +13,8 @@ import math
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+
+from fiery_tpu_torch.models.layers import BatchNorm, Conv2d
 
 # (num_repeat, kernel, stride, expand_ratio, in_filters, out_filters, se_ratio)
 _BLOCK_ARGS = [
@@ -65,7 +68,7 @@ def truncation_index(version, downsample):
     return sum(round_repeats(r, depth) for r, *_ in _BLOCK_ARGS[:5]) - 1
 
 
-class SamePadConv2d(nn.Conv2d):
+class SamePadConv2d(Conv2d):
     """Conv2d with TF SAME padding: total (ceil(n/s) - 1) * s + k - n, the odd pixel
     at the end."""
 
@@ -77,8 +80,7 @@ class SamePadConv2d(nn.Conv2d):
         pw = max((math.ceil(iw / sw) - 1) * sw + kw - iw, 0)
         if ph or pw:
             x = F.pad(x, [pw // 2, pw - pw // 2, ph // 2, ph - ph // 2])
-        return F.conv2d(x, self.weight, self.bias, self.stride, 0, self.dilation,
-                        self.groups)
+        return self._conv_forward(x, self.weight, self.bias)
 
 
 def swish(x):
@@ -89,12 +91,13 @@ class MBConvBlock(nn.Module):
     """Mobile inverted bottleneck with squeeze-excitation."""
 
     def __init__(self, kernel, stride, expand_ratio, in_channels, out_channels, se_ratio,
-                 bn_momentum=0.1, bn_epsilon=1e-3):
+                 bn_momentum=0.1, bn_epsilon=1e-3, drop_rate=0.0):
         super().__init__()
+        self.drop_rate = drop_rate
         expanded = in_channels * expand_ratio
 
         def bn(c):
-            return nn.BatchNorm2d(c, eps=bn_epsilon, momentum=bn_momentum)
+            return BatchNorm(c, eps=bn_epsilon, momentum=bn_momentum)
 
         self.has_expand = expand_ratio != 1
         if self.has_expand:
@@ -112,7 +115,10 @@ class MBConvBlock(nn.Module):
         self._bn2 = bn(out_channels)
         self.has_skip = stride == 1 and in_channels == out_channels
 
-    def forward(self, x):
+    def forward(self, x, generator=None):
+        """x (N, C, H, W). In training with a drop rate, the residual branch of each
+        sample is kept with probability 1 - rate and scaled by 1 / (1 - rate); the
+        uniforms come from ``generator`` (torch's default one if None)."""
         inputs = x
         if self.has_expand:
             x = swish(self._bn0(self._expand_conv(x)))
@@ -122,7 +128,14 @@ class MBConvBlock(nn.Module):
             s = self._se_expand(swish(self._se_reduce(s)))
             x = torch.sigmoid(s) * x
         x = self._bn2(self._project_conv(x))
-        return x + inputs if self.has_skip else x
+        if not self.has_skip:
+            return x
+        if self.training and self.drop_rate > 0:
+            keep = 1.0 - self.drop_rate
+            device = generator.device if generator is not None else x.device
+            u = torch.rand((x.shape[0], 1, 1, 1), generator=generator, device=device)
+            x = x / keep * (u < keep).to(device=x.device, dtype=x.dtype)
+        return x + inputs
 
 
 class EfficientNetFPN(nn.Module):
@@ -132,22 +145,24 @@ class EfficientNetFPN(nn.Module):
 
     def __init__(self, version='b4', downsample=8, bn_momentum=0.1):
         super().__init__()
-        width, _, _ = _GLOBAL_PARAMS[version]
+        width, _, drop_connect_rate = _GLOBAL_PARAMS[version]
         self.downsample = downsample
         stem = round_filters(32, width)
         self._conv_stem = SamePadConv2d(3, stem, 3, stride=2, bias=False)
-        self._bn0 = nn.BatchNorm2d(stem, eps=1e-3, momentum=bn_momentum)
+        self._bn0 = BatchNorm(stem, eps=1e-3, momentum=bn_momentum)
         n_blocks = truncation_index(version, downsample) + 1
+        # the rate grows with the block's index over the truncated length
         self._blocks = nn.ModuleList([
-            MBConvBlock(k, s, e, ci, co, se, bn_momentum=bn_momentum)
-            for (k, s, e, ci, co, se) in block_specs(version)[:n_blocks]])
+            MBConvBlock(k, s, e, ci, co, se, bn_momentum=bn_momentum,
+                        drop_rate=drop_connect_rate * i / n_blocks)
+            for i, (k, s, e, ci, co, se) in enumerate(block_specs(version)[:n_blocks])])
 
-    def forward(self, x):
+    def forward(self, x, generator=None):
         x = swish(self._bn0(self._conv_stem(x)))
         endpoints = {}
         prev = x
         for block in self._blocks:
-            x = block(x)
+            x = block(x, generator)
             if prev.shape[-2] > x.shape[-2]:
                 endpoints[f'reduction_{len(endpoints) + 1}'] = prev
             prev = x

@@ -11,7 +11,7 @@ import torch.nn as nn
 
 from fiery_tpu_torch.models.efficientnet import (EfficientNetFPN, block_specs,
                                                  truncation_index)
-from fiery_tpu_torch.models.layers import UpsamplingConcat
+from fiery_tpu_torch.models.layers import Conv2d, UpsamplingConcat
 
 
 def _endpoint_channels(version, downsample):
@@ -34,11 +34,12 @@ class Encoder(nn.Module):
         self.upsampling_layer = UpsamplingConcat(chans[hi] + chans[lo], upsampling_out,
                                                  bn_momentum=bn_momentum)
         head = out_channels + depth_channels if use_depth_distribution else out_channels
-        self.depth_layer = nn.Conv2d(upsampling_out, head, kernel_size=1)
+        self.depth_layer = Conv2d(upsampling_out, head, kernel_size=1)
 
-    def forward(self, x):
-        """x (B, H, W, 3) -> (depth (B, h, w, D), features (B, h, w, C))."""
-        feat_hi, feat_lo = self.backbone(x.permute(0, 3, 1, 2))
+    def forward(self, x, generator=None):
+        """x (B, H, W, 3) -> (depth (B, h, w, D), features (B, h, w, C)). The
+        generator draws the backbone's drop-connect masks in training."""
+        feat_hi, feat_lo = self.backbone(x.permute(0, 3, 1, 2), generator)
         x = self.depth_layer(self.upsampling_layer(feat_hi, feat_lo)).permute(0, 2, 3, 1)
         D, C = self.D, self.C
         if not self.use_depth_distribution:

@@ -1,12 +1,17 @@
-"""Top-level FIERY model, eval forward (counterpart of fiery_tpu/models/fiery.py).
+"""Top-level FIERY model (counterpart of fiery_tpu/models/fiery.py).
 
 encoder -> bev_pool splat (kernel K1) -> bilinear ego-motion warp (kernel K2) ->
-egopose concat -> trimmed temporal model -> present distribution (zero noise) ->
-SpatialGRU rollout -> decoder. Tensor conventions, channels-last everywhere:
+egopose concat -> temporal model -> latent sample -> SpatialGRU rollout -> decoder.
+Eval (``model.eval()``) trims the temporal model to the present frame and samples
+the present distribution (zero noise unless given); training (``model.train()``)
+runs the whole temporal model, batch-statistics BatchNorm and drop-connect, and
+samples the future distribution of the warped future labels. Tensor conventions,
+channels-last everywhere:
   image (b, s, n, H, W, 3) uint8 or float, intrinsics (b, s, n, 3, 3),
   extrinsics (b, s, n, 4, 4), future_egomotion (b, s, 6), BEV states (b, t, X, Y, C);
   outputs (f32): segmentation (b, t, X, Y, n_classes), instance_center (b, t, X, Y, 1),
-  instance_offset / instance_flow (b, t, X, Y, 2), present_mu / present_log_sigma (b, 1, L).
+  instance_offset / instance_flow (b, t, X, Y, 2), present_mu / present_log_sigma and,
+  given future distribution inputs, future_mu / future_log_sigma (b, 1, L).
 """
 
 import dataclasses
@@ -78,7 +83,8 @@ class FieryConfig:
     def from_cfg(cls, cfg):
         """Build from a CfgNode (fiery_tpu_torch.utils.config.get_cfg())."""
         levers = {'LIFT.TOPK': cfg.LIFT.TOPK, 'LIFT.WARP_FREE': cfg.LIFT.WARP_FREE,
-                  'LIFT.DEPTH_CULL': cfg.LIFT.DEPTH_CULL}
+                  'LIFT.DEPTH_CULL': cfg.LIFT.DEPTH_CULL,
+                  'MODEL.TEMPORAL_MODEL.TRIM_TRAIN': cfg.MODEL.TEMPORAL_MODEL.TRIM_TRAIN}
         on = [k for k, v in levers.items() if v]
         if on:
             raise NotImplementedError(f'{", ".join(on)}: not ported yet; the port serves '
@@ -174,14 +180,20 @@ class Fiery(nn.Module):
                 dist = dict(latent_dim=c.latent_dim, min_log_sigma=c.min_log_sigma,
                             max_log_sigma=c.max_log_sigma, bn_momentum=m)
                 self.present_distribution = DistributionModule(fp_in, **dist)
-                # used by training only; kept so checkpoints load whole
+                # conditioned on the future labels: training (and eval with labels)
                 self.future_distribution = DistributionModule(
                     fp_in + c.n_future * c.probabilistic_future_dim, **dist)
             self.future_prediction = FuturePrediction(fp_in, c.latent_dim, c.n_gru_blocks,
                                                       c.n_res_layers, m)
         self.decoder = Decoder(fp_in, c.n_classes, c.instance_flow_enabled, m)
 
-    def forward(self, image, intrinsics, extrinsics, future_egomotion, noise=None):
+    def forward(self, image, intrinsics, extrinsics, future_egomotion,
+                future_distribution_inputs=None, noise=None, generator=None):
+        """future_distribution_inputs (b, 1 + n_future, X, Y, 6): the warped label
+        maps of the present and future frames, which training needs. noise (b, 1, L):
+        the latent's standard-normal draw; if None, training draws it from
+        ``generator`` (torch's default one if None) and eval takes zero. The
+        generator also draws the drop-connect masks."""
         c = self.cfg
         rf, dt = c.receptive_field, c.compute_dtype
         image = image[:, :rf]
@@ -190,7 +202,7 @@ class Fiery(nn.Module):
         image = image.to(dt)
         egomotion = future_egomotion[:, :rf].float()
         x = self.calculate_birds_eye_view_features(
-            image, intrinsics[:, :rf].float(), extrinsics[:, :rf].float())
+            image, intrinsics[:, :rf].float(), extrinsics[:, :rf].float(), generator)
         x = cumulative_warp_features(x, egomotion, mode='bilinear',
                                      spatial_extent=c.spatial_extent)
         if c.input_egopose:
@@ -201,17 +213,17 @@ class Fiery(nn.Module):
             ego = torch.cat([torch.zeros_like(ego[:, :1]), ego[:, :rf - 1]], dim=1)
             x = torch.cat([x, ego.to(x.dtype)], dim=-1)
 
-        states = self.temporal_model(x, trim=True)
+        # eval trims the stack to the present frame (exact under running statistics);
+        # training keeps every frame, whose batch statistics the BatchNorms need
+        states = self.temporal_model(x, trim=not self.training)
         output = {}
         if c.n_future > 0:
             present_state = states[:, :1]
             b, _, h, w, _ = present_state.shape
             if c.probabilistic_enabled:
-                mu, log_sigma = self.present_distribution(present_state)
-                output['present_mu'], output['present_log_sigma'] = mu, log_sigma
-                if noise is None:
-                    noise = torch.zeros_like(mu)
-                sample = mu + torch.exp(log_sigma) * noise
+                sample, distributions = self.distribution_forward(
+                    present_state, future_distribution_inputs, noise, generator)
+                output.update(distributions)
                 future_input = sample[:, :, None, None, :].expand(
                     b, c.n_future, h, w, c.latent_dim).to(dt)
             else:
@@ -224,13 +236,41 @@ class Fiery(nn.Module):
         output.update({k: v.float() for k, v in bev_output.items()})
         return output
 
-    def calculate_birds_eye_view_features(self, x, intrinsics, extrinsics):
+    def distribution_forward(self, present_state, future_distribution_inputs, noise,
+                             generator):
+        """The latent sample (b, 1, L) f32: mu + exp(log_sigma) * noise, of the future
+        distribution in training and of the present one in eval; and the
+        distributions' parameters."""
+        b, _, h, w, _ = present_state.shape
+        mu, log_sigma = self.present_distribution(present_state)
+        output = {'present_mu': mu, 'present_log_sigma': log_sigma}
+        if future_distribution_inputs is not None:
+            # the future frames' label maps, flattened into channels
+            fdi = future_distribution_inputs[:, 1:].permute(0, 2, 3, 1, 4).reshape(
+                b, h, w, -1)[:, None].to(present_state.dtype)
+            future_mu, future_log_sigma = self.future_distribution(
+                torch.cat([present_state, fdi], dim=-1))
+            output['future_mu'], output['future_log_sigma'] = future_mu, future_log_sigma
+            if self.training:
+                mu, log_sigma = future_mu, future_log_sigma
+        elif self.training:
+            raise ValueError('training samples the future distribution: pass '
+                             'future_distribution_inputs')
+        if noise is None:
+            if self.training:
+                device = generator.device if generator is not None else mu.device
+                noise = torch.randn(mu.shape, generator=generator, device=device)
+            else:
+                noise = torch.zeros_like(mu)
+        return mu + torch.exp(log_sigma) * noise.to(mu.device, mu.dtype), output
+
+    def calculate_birds_eye_view_features(self, x, intrinsics, extrinsics, generator=None):
         """(b, s, n, H, W, 3) images -> (b, s, X, Y, C) BEV features."""
         c = self.cfg
         b, s, n = x.shape[:3]
         geometry = get_geometry(self.frustum, pack_sequence_dim(intrinsics),
                                 pack_sequence_dim(extrinsics))   # (b*s, n, D, h, w, 3)
-        depth, feat = self.encoder(x.reshape(b * s * n, *x.shape[3:]))
+        depth, feat = self.encoder(x.reshape(b * s * n, *x.shape[3:]), generator)
         depth = depth.reshape(b * s, n, *depth.shape[1:])          # (b*s, n, h, w, D)
         feat = feat.reshape(b * s, n, *feat.shape[1:])             # (b*s, n, h, w, C)
         res, start, dim = c.bev_parameters

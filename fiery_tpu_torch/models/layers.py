@@ -5,8 +5,11 @@ views, the layout cuDNN's convolutions take; a view of a contiguous NHWC tensor
 permuted to NCHW is already in PyTorch's channels_last memory format, so no copy
 is made. Attribute names are the reference's torch parameter names, so a
 state_dict matches the checkpoint format fiery_tpu/utils/weight_import.py maps.
-BatchNorm is torch's (momentum convention, running statistics at eval; eps 1e-5
-unless stated).
+
+Mixed precision as the JAX package has it: parameters may stay float32 while the
+activations are bfloat16 (PRECISION 16); ``Conv2d`` and ``Conv3d`` cast their
+weights to the input's dtype on the fly, and ``BatchNorm`` keeps float32
+parameters and statistics for any input dtype.
 """
 
 from collections import OrderedDict
@@ -14,6 +17,55 @@ from collections import OrderedDict
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+
+
+class _InputDtype:
+    """Convolution mixin: compute in the input's dtype, weights cast on the fly."""
+
+    def _conv_forward(self, x, weight, bias):
+        return super()._conv_forward(x, weight.to(x.dtype),
+                                     None if bias is None else bias.to(x.dtype))
+
+
+class Conv2d(_InputDtype, nn.Conv2d):
+    pass
+
+
+class Conv3d(_InputDtype, nn.Conv3d):
+    pass
+
+
+class BatchNorm(nn.modules.batchnorm._BatchNorm):
+    """BatchNorm over the channels (dim 1) of a 4-D or 5-D input, the port's one BN.
+
+    Eval normalises with the running statistics, as torch's BatchNorm2d/3d do. In
+    training it normalises with the batch statistics and updates the running ones
+    as the JAX package's ``_BNCore`` does: running <- (1 - m) running + m batch,
+    with the BIASED batch variance (torch's own update takes the unbiased one).
+    torch's fused kernel updates a copy with the unbiased variance v n / (n - 1),
+    and the biased update is formed from it with a few C-sized operations instead
+    of a second pass over the activation.
+    """
+
+    def _check_input_dim(self, x):
+        if x.dim() not in (4, 5):
+            raise ValueError(f'BatchNorm expects a 4-D or 5-D input, got {x.dim()}-D')
+
+    def forward(self, x):
+        if not (self.training and self.track_running_stats):
+            return super().forward(x)
+        self.num_batches_tracked.add_(1)
+        # momentum None: the cumulative average, 1 / batches seen
+        m = self.momentum if self.momentum is not None else 1.0 / float(
+            self.num_batches_tracked)
+        unbiased = self.running_var.clone()      # (1 - m) old + m v n / (n - 1) after
+        out = F.batch_norm(x, self.running_mean, unbiased, self.weight, self.bias, True,
+                           m, self.eps)
+        n = x.numel() // x.shape[1]
+        with torch.no_grad():
+            # (1 - m) old + m v = (1 - m) old / n + unbiased (n - 1) / n
+            self.running_var.mul_((1.0 - m) / n).add_(unbiased, alpha=(n - 1) / n)
+        return out
 
 
 def resize_bilinear(x, out_hw):
@@ -27,16 +79,16 @@ class ConvBlock(nn.Module):
     def __init__(self, in_channels, out_channels, kernel_size=3, stride=1,
                  bn_momentum=0.1):
         super().__init__()
-        self.conv = nn.Conv2d(in_channels, out_channels, kernel_size, stride=stride,
-                              padding=(kernel_size - 1) // 2, bias=False)
-        self.norm = nn.BatchNorm2d(out_channels, momentum=bn_momentum)
+        self.conv = Conv2d(in_channels, out_channels, kernel_size, stride=stride,
+                           padding=(kernel_size - 1) // 2, bias=False)
+        self.norm = BatchNorm(out_channels, momentum=bn_momentum)
 
     def forward(self, x):
         return F.relu(self.norm(self.conv(x)))
 
 
 def _bn_relu(channels, bn_momentum):
-    return nn.Sequential(nn.BatchNorm2d(channels, momentum=bn_momentum), nn.ReLU())
+    return nn.Sequential(BatchNorm(channels, momentum=bn_momentum), nn.ReLU())
 
 
 class Bottleneck(nn.Module):
@@ -51,12 +103,12 @@ class Bottleneck(nn.Module):
         mid = in_channels // 2
         self.downsample = downsample
         self.layers = nn.Sequential(OrderedDict([
-            ('conv_down_project', nn.Conv2d(in_channels, mid, 1, bias=False)),
+            ('conv_down_project', Conv2d(in_channels, mid, 1, bias=False)),
             ('abn_down_project', _bn_relu(mid, bn_momentum)),
-            ('conv', nn.Conv2d(mid, mid, kernel_size, stride=2 if downsample else 1,
-                               padding=(kernel_size - 1) // 2, bias=False)),
+            ('conv', Conv2d(mid, mid, kernel_size, stride=2 if downsample else 1,
+                            padding=(kernel_size - 1) // 2, bias=False)),
             ('abn', _bn_relu(mid, bn_momentum)),
-            ('conv_up_project', nn.Conv2d(mid, out_channels, 1, bias=False)),
+            ('conv_up_project', Conv2d(mid, out_channels, 1, bias=False)),
             ('abn_up_project', _bn_relu(out_channels, bn_momentum)),
         ]))
         if out_channels == in_channels and not downsample:
@@ -65,8 +117,8 @@ class Bottleneck(nn.Module):
             proj = OrderedDict()
             if downsample:
                 proj['upsample_skip_proj'] = nn.MaxPool2d(2, stride=2)
-            proj['conv_skip_proj'] = nn.Conv2d(in_channels, out_channels, 1, bias=False)
-            proj['bn_skip_proj'] = nn.BatchNorm2d(out_channels, momentum=bn_momentum)
+            proj['conv_skip_proj'] = Conv2d(in_channels, out_channels, 1, bias=False)
+            proj['bn_skip_proj'] = BatchNorm(out_channels, momentum=bn_momentum)
             self.projection = nn.Sequential(proj)
 
     def forward(self, x):
@@ -87,11 +139,11 @@ class UpsamplingConcat(nn.Module):
         super().__init__()
         self.scale_factor = scale_factor
         self.conv = nn.Sequential(
-            nn.Conv2d(in_channels, out_channels, 3, padding=1, bias=False),
-            nn.BatchNorm2d(out_channels, momentum=bn_momentum),
+            Conv2d(in_channels, out_channels, 3, padding=1, bias=False),
+            BatchNorm(out_channels, momentum=bn_momentum),
             nn.ReLU(),
-            nn.Conv2d(out_channels, out_channels, 3, padding=1, bias=False),
-            nn.BatchNorm2d(out_channels, momentum=bn_momentum),
+            Conv2d(out_channels, out_channels, 3, padding=1, bias=False),
+            BatchNorm(out_channels, momentum=bn_momentum),
             nn.ReLU(),
         )
 
@@ -109,8 +161,8 @@ class UpsamplingAdd(nn.Module):
         super().__init__()
         self.upsample_layer = nn.Sequential(
             nn.Upsample(scale_factor=scale_factor, mode='bilinear', align_corners=False),
-            nn.Conv2d(in_channels, out_channels, 1, bias=False),
-            nn.BatchNorm2d(out_channels, momentum=bn_momentum),
+            Conv2d(in_channels, out_channels, 1, bias=False),
+            BatchNorm(out_channels, momentum=bn_momentum),
         )
 
     def forward(self, x, x_skip):

@@ -13,7 +13,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from fiery_tpu_torch.models.layers import ConvBlock, resize_bilinear
+from fiery_tpu_torch.models.layers import (BatchNorm, Conv2d, Conv3d, ConvBlock,
+                                           resize_bilinear)
 
 
 class Conv1x1x1NormActivated(nn.Sequential):
@@ -21,8 +22,8 @@ class Conv1x1x1NormActivated(nn.Sequential):
 
     def __init__(self, in_channels, out_channels, bn_momentum=0.1):
         super().__init__(OrderedDict([
-            ('conv', nn.Conv3d(in_channels, out_channels, kernel_size=1, bias=False)),
-            ('norm', nn.BatchNorm3d(out_channels, momentum=bn_momentum)),
+            ('conv', Conv3d(in_channels, out_channels, kernel_size=1, bias=False)),
+            ('norm', BatchNorm(out_channels, momentum=bn_momentum)),
             ('activation', nn.ReLU()),
         ]))
 
@@ -34,9 +35,9 @@ class CausalConv3d(nn.Module):
         super().__init__()
         kt, kh, kw = kernel_size
         self.kt = kt
-        self.conv = nn.Conv3d(in_channels, out_channels, kernel_size,
-                              padding=(0, kh // 2, kw // 2), bias=False)
-        self.norm = nn.BatchNorm3d(out_channels, momentum=bn_momentum)
+        self.conv = Conv3d(in_channels, out_channels, kernel_size,
+                           padding=(0, kh // 2, kw // 2), bias=False)
+        self.norm = BatchNorm(out_channels, momentum=bn_momentum)
 
     def forward(self, x):
         if self.kt > 1:
@@ -67,8 +68,8 @@ class Bottleneck3D(nn.Module):
         self.projection = None
         if out_channels != in_channels:
             self.projection = nn.Sequential(
-                nn.Conv3d(in_channels, out_channels, kernel_size=1, bias=False),
-                nn.BatchNorm3d(out_channels, momentum=bn_momentum))
+                Conv3d(in_channels, out_channels, kernel_size=1, bias=False),
+                BatchNorm(out_channels, momentum=bn_momentum))
 
     def forward(self, x):
         h = self.layers(x)
@@ -152,8 +153,8 @@ class TemporalBlock(nn.Module):
         self.projection = None
         if out_channels != in_channels:
             self.projection = nn.Sequential(
-                nn.Conv3d(in_channels, out_channels, kernel_size=1, bias=False),
-                nn.BatchNorm3d(out_channels, momentum=bn_momentum))
+                Conv3d(in_channels, out_channels, kernel_size=1, bias=False),
+                BatchNorm(out_channels, momentum=bn_momentum))
 
     def forward(self, x, drop_front=0):
         s = drop_front
@@ -178,8 +179,8 @@ class SpatialGRU(nn.Module):
     def __init__(self, input_size, hidden_size, bn_momentum=0.1):
         super().__init__()
         c = input_size + hidden_size
-        self.conv_update = nn.Conv2d(c, hidden_size, 3, padding=1, bias=True)
-        self.conv_reset = nn.Conv2d(c, hidden_size, 3, padding=1, bias=True)
+        self.conv_update = Conv2d(c, hidden_size, 3, padding=1, bias=True)
+        self.conv_reset = Conv2d(c, hidden_size, 3, padding=1, bias=True)
         self.conv_state_tilde = ConvBlock(c, hidden_size, 3, bn_momentum=bn_momentum)
 
     def forward(self, x, state):

@@ -4,8 +4,9 @@ Counterpart of fiery_tpu/ops/lift_splat.py. Every frustum point keeps a fixed
 slot: out-of-bounds points are routed to a dump bin (id X*Y*Z) that is dropped.
 The main path (``lift_splat_depth``) never materialises the (P, C) lifted volume:
 the ``bev_pool`` kernel (csrc/bev_pool.cu) multiplies depth and features on the
-fly while it splats. ``lift_splat`` keeps the JAX signature over a lifted volume
-and is the plain reference form.
+fly while it splats, and its backward kernel gathers the output gradient rows and
+contracts them with features and depth without building it either. ``lift_splat``
+keeps the JAX signature over a lifted volume and is the plain reference form.
 """
 
 import ctypes
@@ -96,52 +97,134 @@ def bev_pool_plain(depth, feat, ids, num_bins, z_bins=1):
     return out.to(depth.dtype)
 
 
+def bev_pool_backward_plain(depth, feat, ids, g, num_bins, z_bins=1):
+    """Plain version of ``bev_pool_backward``: gather each frustum row's output
+    gradient row g[s, id // z_bins] (zero for the dump bin), then contract it with
+    feat for d_depth and with depth for d_feat, in f32; both cast to depth's dtype."""
+    S, N, h, w, D = depth.shape
+    C = feat.shape[-1]
+    valid = ids < num_bins
+    first_row = torch.arange(S, device=ids.device).view(S, 1, 1, 1, 1) * (num_bins // z_bins)
+    rows = torch.where(valid, ids, 0).long() // z_bins + first_row
+    gg = g.float().reshape(-1, C)[rows.view(-1)].view(S, N, h, w, D, C)
+    gg = gg * valid[..., None].to(gg.dtype)
+    d_depth = torch.einsum('snhwc,snhwdc->snhwd', feat.float(), gg)
+    d_feat = torch.einsum('snhwd,snhwdc->snhwc', depth.float(), gg)
+    return d_depth.to(depth.dtype), d_feat.to(depth.dtype)
+
+
+def _check_pool_inputs(name, depth, feat, ids, num_bins, z_bins):
+    S, N, h, w, D = depth.shape
+    C = feat.shape[-1]
+    if feat.shape != (S, N, h, w, C) or ids.shape != depth.shape:
+        raise ValueError(f'{name}: shapes depth {tuple(depth.shape)}, feat '
+                         f'{tuple(feat.shape)}, ids {tuple(ids.shape)} do not agree')
+    if num_bins % z_bins:
+        raise ValueError(f'{name}: num_bins {num_bins} is not a multiple of {z_bins}')
+    if depth.device.type == 'cpu':
+        return
+    if depth.device.type != 'cuda':
+        raise ValueError(f'{name}: unsupported device {depth.device}')
+    if depth.dtype not in (torch.float32, torch.bfloat16) or feat.dtype != depth.dtype:
+        raise TypeError(f'{name}: depth/feat must share float32 or bfloat16, got '
+                        f'{depth.dtype}/{feat.dtype}')
+    if ids.dtype != torch.int32:
+        raise TypeError(f'{name}: ids must be int32, got {ids.dtype}')
+    if not (depth.is_contiguous() and feat.is_contiguous() and ids.is_contiguous()):
+        raise ValueError(f'{name}: inputs must be contiguous')
+    if not (feat.device == depth.device == ids.device):
+        raise ValueError(f'{name}: inputs must be on one device')
+
+
+class _BevPool(torch.autograd.Function):
+    """The fused splat with its backward kernel; the ids get no gradient."""
+
+    @staticmethod
+    def forward(ctx, depth, feat, ids, num_bins, z_bins):
+        ctx.save_for_backward(depth, feat, ids)
+        ctx.num_bins, ctx.z_bins = num_bins, z_bins
+        if depth.device.type == 'cpu':
+            return bev_pool_plain(depth, feat, ids, num_bins, z_bins)
+        S, N, h, w, D = depth.shape
+        C = feat.shape[-1]
+        fn = _build.load('bev_pool').fiery_bev_pool
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 2 + [ctypes.c_int] * 5 \
+            + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        out = torch.zeros((S, num_bins // z_bins, C), dtype=torch.float32,
+                          device=depth.device)
+        stream = torch.cuda.current_stream(depth.device).cuda_stream
+        rc = fn(depth.data_ptr(), feat.data_ptr(), ids.data_ptr(), out.data_ptr(),
+                S * N * h * w, N * h * w, D, C, num_bins, z_bins,
+                int(depth.dtype == torch.bfloat16), stream)
+        if rc != 0:
+            raise RuntimeError(f'bev_pool kernel launch failed: CUDA error {rc}')
+        bev_pool.launches += 1
+        return out if depth.dtype == torch.float32 else out.to(depth.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        depth, feat, ids = ctx.saved_tensors
+        d_depth, d_feat = bev_pool_backward(depth, feat, ids, g.contiguous(),
+                                            ctx.num_bins, ctx.z_bins)
+        return d_depth, d_feat, None, None, None
+
+
 def bev_pool(depth, feat, ids, num_bins, z_bins=1):
-    """Fused lift + splat (kernel K1, csrc/bev_pool.cu).
+    """Fused lift + splat (kernel K1, csrc/bev_pool.cu), differentiable in depth and
+    feat.
 
     depth (S, N, h, w, D) softmax weights; feat (S, N, h, w, C); ids (S, N, h, w, D)
     int32 flat voxel ids in [0, num_bins] (num_bins is the dump bin). Returns
     out (S, num_bins // z_bins, C) with out[s, id // z_bins] += depth * feat,
-    accumulated in f32 and cast to depth's dtype. A CPU tensor takes the plain
-    version; a CUDA tensor launches the kernel.
+    accumulated in f32 and cast to depth's dtype; its backward is
+    ``bev_pool_backward``. A CPU tensor takes the plain versions; a CUDA tensor
+    launches the kernels.
     """
-    S, N, h, w, D = depth.shape
-    C = feat.shape[-1]
-    if feat.shape != (S, N, h, w, C) or ids.shape != depth.shape:
-        raise ValueError(f'bev_pool: shapes depth {tuple(depth.shape)}, feat '
-                         f'{tuple(feat.shape)}, ids {tuple(ids.shape)} do not agree')
-    if num_bins % z_bins:
-        raise ValueError(f'bev_pool: num_bins {num_bins} is not a multiple of {z_bins}')
-    if depth.device.type == 'cpu':
-        return bev_pool_plain(depth, feat, ids, num_bins, z_bins)
-    if depth.device.type != 'cuda':
-        raise ValueError(f'bev_pool: unsupported device {depth.device}')
-    if depth.dtype not in (torch.float32, torch.bfloat16) or feat.dtype != depth.dtype:
-        raise TypeError(f'bev_pool: depth/feat must share float32 or bfloat16, got '
-                        f'{depth.dtype}/{feat.dtype}')
-    if ids.dtype != torch.int32:
-        raise TypeError(f'bev_pool: ids must be int32, got {ids.dtype}')
-    if not (depth.is_contiguous() and feat.is_contiguous() and ids.is_contiguous()):
-        raise ValueError('bev_pool: inputs must be contiguous')
-    if not (feat.device == depth.device == ids.device):
-        raise ValueError('bev_pool: inputs must be on one device')
-    lib = _build.load('bev_pool')
-    fn = lib.fiery_bev_pool
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 2 + [ctypes.c_int] * 5 \
-        + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    out = torch.zeros((S, num_bins // z_bins, C), dtype=torch.float32, device=depth.device)
-    stream = torch.cuda.current_stream(depth.device).cuda_stream
-    rc = fn(depth.data_ptr(), feat.data_ptr(), ids.data_ptr(), out.data_ptr(),
-            S * N * h * w, N * h * w, D, C, num_bins, z_bins,
-            int(depth.dtype == torch.bfloat16), stream)
-    if rc != 0:
-        raise RuntimeError(f'bev_pool kernel launch failed: CUDA error {rc}')
-    bev_pool.launches += 1
-    return out if depth.dtype == torch.float32 else out.to(depth.dtype)
+    _check_pool_inputs('bev_pool', depth, feat, ids, num_bins, z_bins)
+    return _BevPool.apply(depth, feat, ids, num_bins, z_bins)
 
 
 bev_pool.launches = 0
+
+
+def bev_pool_backward(depth, feat, ids, g, num_bins, z_bins=1):
+    """Gradients of ``bev_pool`` (kernel K1 backward, csrc/bev_pool.cu): g
+    (S, num_bins // z_bins, C) in depth's dtype -> (d_depth, d_feat), shaped and
+    typed as depth and feat, summed in f32. For each frustum row p and bin d with
+    id = ids[p, d] not the dump bin, r = g[s, id // z_bins]:
+        d_feat[p, c] = sum_d depth[p, d] r[c],   d_depth[p, d] = sum_c feat[p, c] r[c].
+    A CPU tensor takes the plain version; a CUDA tensor launches the kernel."""
+    _check_pool_inputs('bev_pool_backward', depth, feat, ids, num_bins, z_bins)
+    S, N, h, w, D = depth.shape
+    C = feat.shape[-1]
+    if g.shape != (S, num_bins // z_bins, C):
+        raise ValueError(f'bev_pool_backward: g {tuple(g.shape)} must be '
+                         f'{(S, num_bins // z_bins, C)}')
+    if depth.device.type == 'cpu':
+        return bev_pool_backward_plain(depth, feat, ids, g, num_bins, z_bins)
+    if g.dtype != depth.dtype or not g.is_contiguous() or g.device != depth.device:
+        raise ValueError(f'bev_pool_backward: g must be contiguous {depth.dtype} on '
+                         f'{depth.device}, got {g.dtype} on {g.device}')
+    if C > 256:
+        raise ValueError(f'bev_pool_backward: C = {C} > 256 channels')
+    fn = _build.load('bev_pool').fiery_bev_pool_backward
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_longlong] * 2 + [ctypes.c_int] * 5 \
+        + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    d_depth = torch.empty_like(depth)
+    d_feat = torch.empty_like(feat)
+    stream = torch.cuda.current_stream(depth.device).cuda_stream
+    rc = fn(depth.data_ptr(), feat.data_ptr(), ids.data_ptr(), g.data_ptr(),
+            d_depth.data_ptr(), d_feat.data_ptr(), S * N * h * w, N * h * w, D, C,
+            num_bins, z_bins, int(depth.dtype == torch.bfloat16), stream)
+    if rc != 0:
+        raise RuntimeError(f'bev_pool_backward kernel launch failed: CUDA error {rc}')
+    bev_pool_backward.launches += 1
+    return d_depth, d_feat
+
+
+bev_pool_backward.launches = 0
 
 
 def lift_splat_depth(depth, feat, geometry, bev_resolution, bev_start_position,

@@ -1,13 +1,14 @@
 """SE(2) ego-motion warps of channels-last BEV maps (counterpart of fiery_tpu/ops/warp.py).
 
 torch ``grid_sample`` parity: align_corners=False, zero padding, the reference's
-forward-axis sign flip and (tx, ty) swap. The bilinear warp runs in the
-``bev_warp`` kernel (csrc/bev_warp.cu) on the card; its plain version below is
-the same arithmetic in the same order, with every division a multiplication by
-a reciprocal (as PyTorch's CUDA division by a scalar computes it), so that the two
-agree on CPU and card alike. theta and the sampling grid are rounded to the feature
-dtype (as the JAX package computes them in x.dtype); the 4-tap blend is f32,
-rounded once.
+forward-axis sign flip and (tx, ty) swap. Three kernels of csrc/bev_warp.cu run the
+warps on the card: ``bev_warp`` (bilinear, the features), ``bev_warp_backward``
+(its gradient with respect to the features) and ``bev_warp_nearest`` (the label
+maps). Their plain versions below are the same arithmetic in the same order, with
+every division a multiplication by a reciprocal (as PyTorch's CUDA division by a
+scalar computes it), so that the two agree on CPU and card alike. theta and the
+sampling grid are rounded to the feature dtype (as the JAX package computes them
+in x.dtype); the 4-tap blend is f32, rounded once.
 """
 
 import ctypes
@@ -15,7 +16,8 @@ import ctypes
 import torch
 
 from fiery_tpu_torch.ops import _build
-from fiery_tpu_torch.utils.geometry import mat2pose_vec, pose_vec2mat
+from fiery_tpu_torch.utils.geometry import (invert_pose_matrix, mat2pose_vec,
+                                            pose_vec2mat)
 
 
 def _warp_theta(flow, spatial_extent, dtype):
@@ -41,84 +43,205 @@ def _affine_grid(theta, H, W):
     return torch.stack([gx, gy], dim=-1)
 
 
-def _grid_sample_bilinear(image, grid):
-    """Bilinear sample of f32 image (B, H, W, C) at f32 grid (B, Ho, Wo, 2)."""
-    B, H, W, _ = image.shape
+def _sample_coords(pose, shape, dtype, spatial_extent):
+    """(ix, iy), each (B, H, W) f32: where each output pixel samples the input, in
+    input pixels. theta and the grid are rounded to ``dtype``."""
+    _, H, W = shape[:3]
+    theta = _warp_theta(pose.float(), spatial_extent, dtype)
+    grid = _affine_grid(theta, H, W).to(dtype).float()
     ix = ((grid[..., 0] + 1.0) * W - 1.0) * 0.5
     iy = ((grid[..., 1] + 1.0) * H - 1.0) * 0.5
+    return ix, iy
+
+
+def _bilinear_taps(ix, iy, H, W):
+    """The four taps of each sample point: [(flat pixel index, weight), ...], each
+    (B, H, W); an out-of-map tap has weight 0 (and a clamped index)."""
     x0, y0 = torch.floor(ix), torch.floor(iy)
     wx1, wy1 = ix - x0, iy - y0
     wx0, wy0 = 1.0 - wx1, 1.0 - wy1
-    bi = torch.arange(B, device=image.device).view(B, 1, 1)
-
-    def tap(yf, xf):
+    taps = []
+    for yf, xf, w in ((y0, x0, wy0 * wx0), (y0, x0 + 1, wy0 * wx1),
+                      (y0 + 1, x0, wy1 * wx0), (y0 + 1, x0 + 1, wy1 * wx1)):
         valid = (xf >= 0) & (xf < W) & (yf >= 0) & (yf < H)
-        xi = xf.clamp(0, W - 1).long()
-        yi = yf.clamp(0, H - 1).long()
-        return image[bi, yi, xi] * valid[..., None].to(image.dtype)
+        flat = yf.clamp(0, H - 1).long() * W + xf.clamp(0, W - 1).long()
+        taps.append((flat, w * valid.to(w.dtype)))
+    return taps
 
-    return (tap(y0, x0) * (wy0 * wx0)[..., None]
-            + tap(y0, x0 + 1) * (wy0 * wx1)[..., None]
-            + tap(y0 + 1, x0) * (wy1 * wx0)[..., None]
-            + tap(y0 + 1, x0 + 1) * (wy1 * wx1)[..., None])
+
+def _gather(image, flat):
+    """image (B, H, W, C), flat (B, Ho, Wo) pixel indices -> (B, Ho, Wo, C)."""
+    B, C = image.shape[0], image.shape[-1]
+    bi = torch.arange(B, device=image.device).view(B, 1, 1)
+    return image.reshape(B, -1, C)[bi, flat]
 
 
 def bev_warp_plain(x, pose, spatial_extent):
-    """Plain version of ``bev_warp``."""
+    """Plain version of ``bev_warp``: four gathers blended in f32, rounded once."""
+    B, H, W, _ = x.shape
+    ix, iy = _sample_coords(pose, x.shape, x.dtype, spatial_extent)
+    xf = x.float()
+    out = None
+    for flat, w in _bilinear_taps(ix, iy, H, W):
+        term = _gather(xf, flat) * w[..., None]
+        out = term if out is None else out + term
+    return out.to(x.dtype)
+
+
+def bev_warp_backward_plain(g, pose, spatial_extent):
+    """Plain version of ``bev_warp_backward``: the gradient of ``bev_warp`` with
+    respect to x, each output value's g scattered into its four taps with f32
+    ``index_add_``, rounded once to g's dtype (the forward's x dtype)."""
+    B, H, W, C = g.shape
+    ix, iy = _sample_coords(pose, g.shape, g.dtype, spatial_extent)
+    gf = g.float()
+    dx = torch.zeros((B * H * W, C), dtype=torch.float32, device=g.device)
+    base = (torch.arange(B, device=g.device) * (H * W)).view(B, 1, 1)
+    for flat, w in _bilinear_taps(ix, iy, H, W):
+        dx.index_add_(0, (flat + base).view(-1), (gf * w[..., None]).view(-1, C))
+    return dx.view(B, H, W, C).to(g.dtype)
+
+
+def bev_warp_nearest_plain(x, pose, spatial_extent):
+    """Plain version of ``bev_warp_nearest``: torch.round (half to even) of the
+    sample point, zero outside the map."""
+    _, H, W, _ = x.shape
+    ix, iy = _sample_coords(pose, x.shape, x.dtype, spatial_extent)
+    xr, yr = torch.round(ix), torch.round(iy)
+    valid = (xr >= 0) & (xr < W) & (yr >= 0) & (yr < H)
+    flat = yr.clamp(0, H - 1).long() * W + xr.clamp(0, W - 1).long()
+    return _gather(x, flat) * valid[..., None].to(x.dtype)
+
+
+def _check_shapes(name, x, pose):
+    if x.dim() != 4 or pose.shape != (x.shape[0], 6):
+        raise ValueError(f'{name}: x {tuple(x.shape)} must be (B, H, W, C) and pose '
+                         f'{tuple(pose.shape)} (B, 6)')
+
+
+def _check_card(name, x, pose):
+    """What the kernels take: CUDA tensors on one device, float32 or bfloat16 maps,
+    float32 poses, contiguous."""
+    if x.device.type != 'cuda' or pose.device != x.device:
+        raise ValueError(f'{name}: x on {x.device}, pose on {pose.device}')
+    if x.dtype not in (torch.float32, torch.bfloat16) or pose.dtype != torch.float32:
+        raise TypeError(f'{name}: x must be float32 or bfloat16 and pose float32, got '
+                        f'{x.dtype}/{pose.dtype}')
+    if not (x.is_contiguous() and pose.is_contiguous()):
+        raise ValueError(f'{name}: inputs must be contiguous')
+
+
+def _scalars(x, spatial_extent):
     H, W = x.shape[1:3]
-    theta = _warp_theta(pose.float(), spatial_extent, x.dtype)
-    grid = _affine_grid(theta, H, W).to(x.dtype).float()
-    return _grid_sample_bilinear(x.float(), grid).to(x.dtype)
+    return (1.0 / spatial_extent[0], 1.0 / spatial_extent[1], 1.0 / W, 1.0 / H,
+            int(x.dtype == torch.bfloat16))
+
+
+def _launch_warp(x, pose, spatial_extent, nearest):
+    """fiery_bev_warp on the card (bilinear or nearest)."""
+    fn = _build.load('bev_warp').fiery_bev_warp
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_float] * 4 \
+        + [ctypes.c_int] * 2 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    out = torch.empty_like(x)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    rc = fn(x.data_ptr(), pose.data_ptr(), out.data_ptr(), *x.shape,
+            *_scalars(x, spatial_extent), int(nearest), stream)
+    if rc != 0:
+        raise RuntimeError(f'bev_warp kernel launch failed: CUDA error {rc}')
+    return out
+
+
+class _BevWarp(torch.autograd.Function):
+    """The bilinear warp with its backward kernel; the pose is input data and gets
+    no gradient."""
+
+    @staticmethod
+    def forward(ctx, x, pose, spatial_extent):
+        ctx.save_for_backward(pose)
+        ctx.spatial_extent = spatial_extent
+        if x.device.type == 'cpu':
+            return bev_warp_plain(x, pose, spatial_extent)
+        _check_card('bev_warp', x, pose)
+        out = _launch_warp(x, pose, spatial_extent, nearest=False)
+        bev_warp.launches += 1
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        (pose,) = ctx.saved_tensors
+        return bev_warp_backward(g.contiguous(), pose, ctx.spatial_extent), None, None
 
 
 def bev_warp(x, pose, spatial_extent):
-    """SE(2) bilinear warp (kernel K2, csrc/bev_warp.cu).
+    """SE(2) bilinear warp (kernel K2, csrc/bev_warp.cu), differentiable in x.
 
     x (B, H, W, C) float32 or bfloat16, channels-last; pose (B, 6) float32;
     spatial_extent (extent_x, extent_y) in metres. Returns x warped by each pose,
-    same shape and dtype. A CPU tensor takes the plain version; a CUDA tensor
-    launches the kernel.
+    same shape and dtype; its backward is ``bev_warp_backward``. A CPU tensor
+    takes the plain versions; a CUDA tensor launches the kernels.
     """
-    if x.dim() != 4 or pose.shape != (x.shape[0], 6):
-        raise ValueError(f'bev_warp: x {tuple(x.shape)} must be (B, H, W, C) and pose '
-                         f'{tuple(pose.shape)} (B, 6)')
-    if x.device.type == 'cpu':
-        return bev_warp_plain(x, pose, spatial_extent)
-    if x.device.type != 'cuda' or pose.device != x.device:
-        raise ValueError(f'bev_warp: x on {x.device}, pose on {pose.device}')
-    if x.dtype not in (torch.float32, torch.bfloat16) or pose.dtype != torch.float32:
-        raise TypeError(f'bev_warp: x must be float32 or bfloat16 and pose float32, got '
-                        f'{x.dtype}/{pose.dtype}')
-    if not (x.is_contiguous() and pose.is_contiguous()):
-        raise ValueError('bev_warp: inputs must be contiguous')
-    lib = _build.load('bev_warp')
-    fn = lib.fiery_bev_warp
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_float] * 4 \
-        + [ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    B, H, W, C = x.shape
-    out = torch.empty_like(x)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    rc = fn(x.data_ptr(), pose.data_ptr(), out.data_ptr(), B, H, W, C,
-            1.0 / spatial_extent[0], 1.0 / spatial_extent[1], 1.0 / W, 1.0 / H,
-            int(x.dtype == torch.bfloat16), stream)
-    if rc != 0:
-        raise RuntimeError(f'bev_warp kernel launch failed: CUDA error {rc}')
-    bev_warp.launches += 1
-    return out
+    _check_shapes('bev_warp', x, pose)
+    return _BevWarp.apply(x, pose, spatial_extent)
 
 
 bev_warp.launches = 0
 
 
+def bev_warp_backward(g, pose, spatial_extent):
+    """Gradient of ``bev_warp`` with respect to x (kernel K2 backward,
+    csrc/bev_warp.cu): g (B, H, W, C) in the forward's dtype -> dx, same shape and
+    dtype, summed in f32. A CPU tensor takes the plain version; a CUDA tensor
+    launches the kernel."""
+    _check_shapes('bev_warp_backward', g, pose)
+    if g.device.type == 'cpu':
+        return bev_warp_backward_plain(g, pose, spatial_extent)
+    _check_card('bev_warp_backward', g, pose)
+    fn = _build.load('bev_warp').fiery_bev_warp_backward
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_float] * 4 \
+        + [ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    dx = torch.zeros(g.shape, dtype=torch.float32, device=g.device)
+    stream = torch.cuda.current_stream(g.device).cuda_stream
+    rc = fn(g.data_ptr(), pose.data_ptr(), dx.data_ptr(), *g.shape,
+            *_scalars(g, spatial_extent), stream)
+    if rc != 0:
+        raise RuntimeError(f'bev_warp_backward kernel launch failed: CUDA error {rc}')
+    bev_warp_backward.launches += 1
+    return dx if g.dtype == torch.float32 else dx.to(g.dtype)
+
+
+bev_warp_backward.launches = 0
+
+
+def bev_warp_nearest(x, pose, spatial_extent):
+    """SE(2) nearest warp (kernel K4, the nearest mode of csrc/bev_warp.cu), for label
+    maps: no gradient. Same arguments as ``bev_warp``. A CPU tensor takes the plain
+    version; a CUDA tensor launches the kernel."""
+    if x.requires_grad:
+        raise ValueError('bev_warp_nearest has no gradient; it warps label maps')
+    _check_shapes('bev_warp_nearest', x, pose)
+    if x.device.type == 'cpu':
+        return bev_warp_nearest_plain(x, pose, spatial_extent)
+    _check_card('bev_warp_nearest', x, pose)
+    out = _launch_warp(x, pose, spatial_extent, nearest=True)
+    bev_warp_nearest.launches += 1
+    return out
+
+
+bev_warp_nearest.launches = 0
+
+_WARPS = {'bilinear': bev_warp, 'nearest': bev_warp_nearest}
+
+
 def warp_features(x, flow, mode='bilinear', spatial_extent=None):
-    """SE(2) warp of BEV maps x (b, H, W, C) by pose vectors flow (b, 6). H is the
-    forward (X) axis, W the sides (Y) axis. Only the bilinear mode is ported."""
+    """SE(2) warp of BEV maps x (b, H, W, C) by pose vectors flow (b, 6), bilinear
+    or nearest. H is the forward (X) axis, W the sides (Y) axis."""
     if flow is None:
         return x
-    if mode != 'bilinear':
-        raise NotImplementedError(f'warp mode {mode!r}: only bilinear is ported')
-    return bev_warp(x.contiguous(), flow.float().contiguous(), spatial_extent)
+    if mode not in _WARPS:
+        raise ValueError(f'warp mode {mode!r}: expected one of {sorted(_WARPS)}')
+    return _WARPS[mode](x.contiguous(), flow.float().contiguous(), spatial_extent)
 
 
 def compose_poses_to_present(flow):
@@ -143,3 +266,22 @@ def cumulative_warp_features(x, flow, mode='bilinear', spatial_extent=None):
         poses.reshape(b * (seq_len - 1), 6), mode=mode, spatial_extent=spatial_extent,
     ).view(b, seq_len - 1, *x.shape[2:])
     return torch.cat([warped, x[:, -1:]], dim=1)
+
+
+def cumulative_warp_features_reverse(x, flow, mode='nearest', spatial_extent=None):
+    """Warp future BEV frames x (b, t, H, W, C) back to the present frame (label
+    preparation): x[:, 0] is unchanged, x[:, i] is warped by
+    inv(flow[0]) @ ... @ inv(flow[i-1]), flow (b, t, 6)."""
+    b, seq_len = x.shape[:2]
+    if seq_len == 1:
+        return x
+    inv = invert_pose_matrix(pose_vec2mat(flow))
+    mats = [inv[:, 0]]
+    for i in range(2, seq_len):
+        mats.append(mats[-1] @ inv[:, i - 1])
+    poses = mat2pose_vec(torch.stack(mats, dim=1))
+    warped = warp_features(
+        x[:, 1:].reshape(b * (seq_len - 1), *x.shape[2:]),
+        poses.reshape(b * (seq_len - 1), 6), mode=mode, spatial_extent=spatial_extent,
+    ).view(b, seq_len - 1, *x.shape[2:])
+    return torch.cat([x[:, :1], warped], dim=1)

@@ -66,7 +66,9 @@ def calibrate_batchnorm(model, requests):
     """Set every BatchNorm's running statistics to the batch statistics of a few
     requests batched together (the pooled BatchNorms see one value per clip), so
     that random weights give unit-scale activations, as trained weights do (with
-    identity statistics a deep random net grows them to 1e5)."""
+    identity statistics a deep random net grows them to 1e5). The model runs its
+    eval path (the trimmed temporal model) with only the BatchNorms in training
+    mode."""
     bns = [m for m in model.modules()
            if isinstance(m, torch.nn.modules.batchnorm._BatchNorm)]
     momenta = [m.momentum for m in bns]
@@ -76,10 +78,13 @@ def calibrate_batchnorm(model, requests):
     device = next(model.parameters()).device
     args = [torch.as_tensor(np.concatenate([r[k] for r in requests])).to(device)
             for k in ('image', 'intrinsics', 'extrinsics', 'future_egomotion')]
-    model.train()
+    training = model.training
+    model.eval()
+    for m in bns:
+        m.train()
     with torch.no_grad():
         model(*args)
-    model.eval()
+    model.train(training)
     for m, momentum in zip(bns, momenta):
         m.momentum = momentum
     return model

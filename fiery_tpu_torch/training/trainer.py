@@ -1,0 +1,127 @@
+"""The training step (counterpart of fiery_tpu/training/trainer.py).
+
+A step prepares the labels (the future label maps warped back to the present frame
+by the nearest warp, kernel K4), runs the model's training forward (the future
+distribution sampled with fresh noise, drop-connect), computes the losses (the
+top-k segmentation mean through kernel K3), back-propagates (through the backward
+kernels of the splat K1 and the warp K2), clips the global gradient norm and takes
+an Adam step with coupled L2 weight decay, in the order of the JAX package's optax
+chain: clip, add the decayed weights, Adam.
+
+The model keeps float32 parameters; under PRECISION 16 it computes in bfloat16
+(the convolutions cast their weights on the fly), as the JAX package's modules do
+with ``dtype=bfloat16``. The learned uncertainty weights of the losses are
+parameters too and take part in the clip and in Adam.
+
+    trainer = Trainer(cfg)                              # on cuda
+    init_params(trainer.model, seed=0)
+    losses, total = trainer.train_step(batch, generator)
+"""
+
+import torch
+
+from fiery_tpu_torch.models.fiery import Fiery, FieryConfig
+from fiery_tpu_torch.ops.warp import cumulative_warp_features_reverse
+from fiery_tpu_torch.training.losses import compute_losses, init_uncertainty_weights
+
+INPUTS = ('image', 'intrinsics', 'extrinsics', 'future_egomotion')
+
+
+class Trainer:
+    """Owns the model, the uncertainty weights and the optimizer."""
+
+    def __init__(self, cfg, device=None):
+        device = torch.device('cuda' if device is None else device)
+        if device.type == 'cuda' and not torch.cuda.is_available():
+            raise RuntimeError('fiery_tpu_torch trains on a CUDA device and none is '
+                               'available; pass device="cpu" to run on the CPU')
+        self.cfg = cfg
+        self.device = device
+        self.model = Fiery(FieryConfig.from_cfg(cfg)).to(device).train()
+        self.uncertainty = init_uncertainty_weights(cfg.INSTANCE_FLOW.ENABLED).to(device)
+        self.params = list(self.model.parameters()) + list(self.uncertainty.parameters())
+        # torch.optim.Adam's weight decay is coupled L2 (wd * param added to the
+        # clipped gradient before the moments), the JAX package's
+        # add_decayed_weights + scale_by_adam
+        self.optimizer = torch.optim.Adam(self.params, lr=cfg.OPTIMIZER.LR,
+                                          weight_decay=cfg.OPTIMIZER.WEIGHT_DECAY)
+
+    def to_device(self, batch):
+        return {k: torch.as_tensor(v).to(self.device, non_blocking=True)
+                for k, v in batch.items()}
+
+    def prepare_future_labels(self, batch):
+        """The present and future label maps warped back to the present frame, and
+        the future distribution's conditioning input.
+
+        batch (tensors on the device, channels-last): segmentation (b, s, h, w, 1),
+        instance (b, s, h, w), centerness (b, s, h, w, 1), offset and flow
+        (b, s, h, w, 2), future_egomotion (b, s, 6); or a precomputed
+        warped_label_stack (b, 1 + n_future, h, w, 7). All label maps share the
+        warp's grid, so they are warped as one 7-channel stack.
+        """
+        rf = self.model.cfg.receptive_field
+        if 'warped_label_stack' in batch:
+            stacked = batch['warped_label_stack'].float()
+        else:
+            maps = [batch['segmentation'][:, rf - 1:].float(),
+                    batch['instance'][:, rf - 1:].float()[..., None],
+                    batch['centerness'][:, rf - 1:].float(),
+                    batch['offset'][:, rf - 1:].float()]
+            if self.cfg.INSTANCE_FLOW.ENABLED:
+                maps.append(batch['flow'][:, rf - 1:].float())
+            stacked = cumulative_warp_features_reverse(
+                torch.cat(maps, dim=-1), batch['future_egomotion'][:, rf - 1:].float(),
+                mode='nearest', spatial_extent=self.model.cfg.spatial_extent)
+        labels = {'segmentation': torch.round(stacked[..., 0]).long(),
+                  'instance': torch.round(stacked[..., 1]).long(),
+                  'centerness': stacked[..., 2:3],
+                  'offset': stacked[..., 3:5]}
+        if self.cfg.INSTANCE_FLOW.ENABLED:
+            labels['flow'] = stacked[..., 5:7]
+        # every warped map but the raw instance ids
+        future_distribution_inputs = torch.cat([stacked[..., 0:1], stacked[..., 2:]], dim=-1)
+        return labels, future_distribution_inputs
+
+    def compute_gradients(self, batch, generator=None, noise=None):
+        """Forward, losses and backward of one step, leaving the gradients in the
+        parameters' ``.grad``. Returns (loss dict, total loss), detached."""
+        batch = self.to_device(batch)
+        self.model.train()
+        labels, fdi = self.prepare_future_labels(batch)
+        output = self.model(*(batch[k] for k in INPUTS), fdi, noise=noise,
+                            generator=generator)
+        losses = compute_losses(output, labels, self.uncertainty, self.cfg)
+        total = sum(losses.values())
+        self.optimizer.zero_grad(set_to_none=True)
+        total.backward()
+        return {k: v.detach() for k, v in losses.items()}, total.detach()
+
+    def apply_gradients(self):
+        """Clip the global gradient norm, then the Adam step. clip_grad_norm_ scales
+        by clip / (norm + 1e-6) where optax scales by clip / max(norm, clip): the two
+        differ by ~1e-6 relative when the norm exceeds the clip, and not otherwise."""
+        torch.nn.utils.clip_grad_norm_(self.params, self.cfg.GRAD_NORM_CLIP)
+        self.optimizer.step()
+
+    def train_step(self, batch, generator=None, noise=None):
+        """One optimisation step on a batch (numpy arrays or tensors). The generator
+        draws the latent noise (unless ``noise`` (b, 1, L) is given) and the
+        drop-connect masks. Returns (loss dict, total loss), detached tensors."""
+        losses, total = self.compute_gradients(batch, generator, noise)
+        self.apply_gradients()
+        return losses, total
+
+    @torch.no_grad()
+    def eval_step(self, batch, noise=None):
+        """The eval forward (running statistics, the present distribution, zero
+        noise unless given) and the losses: (output, labels, loss dict)."""
+        batch = self.to_device(batch)
+        self.model.eval()
+        try:
+            labels, fdi = self.prepare_future_labels(batch)
+            output = self.model(*(batch[k] for k in INPUTS), fdi, noise=noise)
+            return output, labels, compute_losses(output, labels, self.uncertainty,
+                                                  self.cfg)
+        finally:
+            self.model.train()

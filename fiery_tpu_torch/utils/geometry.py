@@ -57,3 +57,12 @@ def pack_sequence_dim(x):
 def unpack_sequence_dim(x, b, s):
     """(b*s, ...) -> (b, s, ...)."""
     return x.reshape(b, s, *x.shape[1:])
+
+
+def invert_pose_matrix(x):
+    """Invert a batch of (..., 4, 4) rigid poses analytically: [R^T, -R^T t]."""
+    rot_t = x[..., :3, :3].transpose(-1, -2)
+    inv = torch.cat([rot_t, -rot_t @ x[..., :3, 3:]], dim=-1)
+    bottom = torch.zeros_like(inv[..., :1, :])
+    bottom[..., 0, 3] = 1.0
+    return torch.cat([inv, bottom], dim=-2)

@@ -259,3 +259,18 @@ def state_dict_from_jax(variables_np: Dict, model_cfg) -> Dict[str, torch.Tensor
     for name in [k for k in out if k.endswith('.running_mean')]:
         out[name[:-len('running_mean')] + 'num_batches_tracked'] = torch.tensor(0)
     return out
+
+
+def train_state_from_jax(params_np: Dict, batch_stats_np: Dict, model_cfg):
+    """A JAX train state -> (this package's Fiery state_dict, uncertainty weights).
+
+    params_np is the JAX TrainState's ``params`` in numpy: ``{'model': ...,
+    'uncertainty': {'segmentation_weight': ..., ...}}``; batch_stats_np its
+    ``batch_stats``. The future distribution and the running statistics are in the
+    state_dict; the learned task weights, which live outside the model, come back as
+    a dict of scalar tensors keyed as the JAX package keys them."""
+    state_dict = state_dict_from_jax({'params': params_np['model'],
+                                      'batch_stats': batch_stats_np}, model_cfg)
+    uncertainty = {k: torch.tensor(np.asarray(v, np.float32))
+                   for k, v in params_np['uncertainty'].items()}
+    return state_dict, uncertainty

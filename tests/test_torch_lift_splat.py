@@ -139,6 +139,57 @@ def test_all_out_of_bounds_geometry_splats_nothing():
     assert (ids == int(np.prod(dim))).all()
 
 
+def test_bev_pool_backward_plain_is_autograd_of_plain():
+    """The plain backward equals torch autograd through the plain forward (dump-bin
+    rows get nothing), and the autograd.Function routes a CPU tensor's gradient to it."""
+    rng = np.random.RandomState(7)
+    S, N, h, w, D, C, num_bins, z = 2, 3, 4, 5, 6, 8, 60, 3
+    ids = torch.from_numpy(rng.randint(0, num_bins + 1, (S, N, h, w, D)).astype(np.int32))
+    depth = torch.from_numpy(rng.rand(S, N, h, w, D).astype(np.float32)).requires_grad_()
+    feat = torch.from_numpy(rng.randn(S, N, h, w, C).astype(np.float32)).requires_grad_()
+    g = torch.from_numpy(rng.randn(S, num_bins // z, C).astype(np.float32))
+    want = torch.autograd.grad(LS.bev_pool_plain(depth, feat, ids, num_bins, z),
+                               (depth, feat), g)
+    got = LS.bev_pool_backward_plain(depth, feat, ids, g, num_bins, z)
+    through_fn = torch.autograd.grad(LS.bev_pool(depth, feat, ids, num_bins, z),
+                                     (depth, feat), g)
+    for a, b, c in zip(got, want, through_fn):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
+        torch.testing.assert_close(c, a, rtol=0, atol=0)
+    dump = ids == num_bins
+    assert bool(dump.any()) and float(got[0].detach()[dump].abs().max()) == 0.0
+
+
+def test_lift_splat_depth_backward_matches_jax_vjp():
+    """K1's gradients with respect to depth and features against jax.vjp of the JAX
+    splat of softmax(depth) x features (``_sorted_splat_bwd`` through the outer
+    product), f32."""
+    import jax
+    rng = np.random.RandomState(8)
+    frustum, intr, extr = _geometry(rng)
+    geometry = np.asarray(JLS.get_geometry(jnp.asarray(frustum), jnp.asarray(intr),
+                                           jnp.asarray(extr)))
+    D, h, w = frustum.shape[:3]
+    depth = rng.dirichlet(np.ones(D), (2, 3, h, w)).astype(np.float32)
+    feat = rng.randn(2, 3, h, w, 16).astype(np.float32)
+    res, start, dim = calculate_birds_eye_view_parameters(*BOUNDS)
+    g = rng.randn(2, 32, 32, 16).astype(np.float32)
+
+    def jax_splat(d, f):
+        return JLS.lift_splat(d[..., :, None] * f[..., None, :], jnp.asarray(geometry),
+                              res, start, dim)
+
+    _, vjp = jax.vjp(jax_splat, jnp.asarray(depth), jnp.asarray(feat))
+    want = vjp(jnp.asarray(g))
+    dt, ft = (torch.from_numpy(a).requires_grad_() for a in (depth, feat))
+    out = LS.lift_splat_depth(dt, ft, torch.tensor(geometry), res, start, dim)
+    got = torch.autograd.grad(out, (dt, ft), torch.from_numpy(g))
+    for name, a, b in zip(('d_depth', 'd_feat'), got, want):
+        assert float(np.abs(np.asarray(b)).max()) > 0
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-5, atol=1e-5,
+                                   err_msg=name)
+
+
 def test_bev_pool_checks_its_inputs():
     depth = torch.rand(1, 2, 3, 4, 5)
     with pytest.raises(ValueError):

@@ -151,3 +151,64 @@ def test_bottleneck3d(out_channels):
     with torch.no_grad():
         got = model(torch.from_numpy(x).permute(0, 4, 1, 2, 3)).permute(0, 2, 3, 4, 1)
     _close(got, want, 'bottleneck3d')
+
+
+@pytest.mark.parametrize('dims', [4, 5])
+def test_batchnorm_train_statistics_match_jax(dims):
+    """One train-mode forward: the output and the new running statistics equal the
+    JAX BatchNorm's (biased batch variance, the same momentum); eval is torch's."""
+    from fiery_tpu.models.layers import BatchNorm as JaxBatchNorm
+    from fiery_tpu_torch.models.layers import BatchNorm
+    rng = np.random.RandomState(20 + dims)
+    shape = (3, 5, 6, 7) if dims == 4 else (2, 3, 5, 6, 7)
+    x = (rng.randn(*shape) * 2.0 + 0.5).astype(np.float32)       # channels-last, C = 7
+    scale, bias = rng.rand(7).astype(np.float32) + 0.5, rng.randn(7).astype(np.float32)
+    mean, var = rng.randn(7).astype(np.float32), rng.rand(7).astype(np.float32) + 0.5
+    variables = {'params': {'BatchNorm_0': {'scale': scale, 'bias': bias}},
+                 'batch_stats': {'BatchNorm_0': {'mean': mean, 'var': var}}}
+    want, new = JaxBatchNorm(momentum=0.05).apply(variables, x, train=True,
+                                                  mutable=['batch_stats'])
+    bn = BatchNorm(7, momentum=0.05).train()
+    with torch.no_grad():
+        for p, v in ((bn.weight, scale), (bn.bias, bias), (bn.running_mean, mean),
+                     (bn.running_var, var)):
+            p.copy_(torch.from_numpy(v))
+        xt = torch.from_numpy(x).movedim(-1, 1)
+        got = bn(xt).movedim(1, -1)
+    _close(got, want, 'train output')
+    np.testing.assert_allclose(bn.running_mean.numpy(), new['batch_stats']['BatchNorm_0']['mean'],
+                               rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(bn.running_var.numpy(), new['batch_stats']['BatchNorm_0']['var'],
+                               rtol=1e-5, atol=1e-6)
+    ref = (torch.nn.BatchNorm2d if dims == 4 else torch.nn.BatchNorm3d)(7).eval()
+    ref.load_state_dict(bn.state_dict())
+    with torch.no_grad():
+        torch.testing.assert_close(bn.eval()(xt), ref(xt), rtol=0, atol=0)
+
+
+def test_drop_connect():
+    """Block i of n drops with rate 0.2 i / n; a training skip block keeps or drops
+    its whole residual branch per sample (kept branches scaled by 1 / keep), with the
+    uniforms drawn from the generator; eval and non-skip blocks never drop."""
+    from fiery_tpu_torch.models.efficientnet import EfficientNetFPN, MBConvBlock
+    from fiery_tpu_torch.serve import init_params
+    net = EfficientNetFPN('b0', 8)
+    n = len(net._blocks)
+    assert [b.drop_rate for b in net._blocks] == [0.2 * i / n for i in range(n)]
+    block = init_params(MBConvBlock(3, 1, 6, 16, 16, 0.25, drop_rate=0.4), seed=1).train()
+    x = torch.from_numpy(np.random.RandomState(30).randn(64, 16, 6, 5).astype(np.float32))
+    with torch.no_grad():
+        block.drop_rate = 0.0
+        branch = block(x) - x
+        block.drop_rate = 0.4
+        got = block(x, torch.Generator().manual_seed(7))
+        keep = torch.rand((64, 1, 1, 1), generator=torch.Generator().manual_seed(7)) < 0.6
+        torch.testing.assert_close(got, x + branch / 0.6 * keep, rtol=1e-5, atol=1e-5)
+        assert 10 < int(keep.sum()) < 54
+        block.eval()
+        dropped_at_eval = block(x, torch.Generator().manual_seed(7))
+        block.drop_rate = 0.0
+        torch.testing.assert_close(dropped_at_eval, block(x), rtol=0, atol=0)
+        proj = MBConvBlock(3, 2, 6, 16, 24, 0.25, drop_rate=0.4).train()
+        a = proj(x, torch.Generator().manual_seed(7))
+        torch.testing.assert_close(proj(x, torch.Generator().manual_seed(8)), a)

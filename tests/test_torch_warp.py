@@ -78,10 +78,81 @@ def test_warp_theta_and_grid_match_jax():
 
 
 def test_warp_features_rejects_unported_mode():
+    """Bilinear and nearest are the two modes; any other raises."""
     x = torch.zeros(1, 4, 4, 2)
-    with pytest.raises(NotImplementedError):
-        W.warp_features(x, torch.zeros(1, 6), mode='nearest', spatial_extent=(1.0, 1.0))
+    with pytest.raises(ValueError, match='bicubic'):
+        W.warp_features(x, torch.zeros(1, 6), mode='bicubic', spatial_extent=(1.0, 1.0))
     assert W.warp_features(x, None) is x
+    with pytest.raises(ValueError, match='no gradient'):
+        W.warp_features(x.requires_grad_(), torch.zeros(1, 6), mode='nearest',
+                        spatial_extent=(1.0, 1.0))
+
+
+def test_cumulative_warp_reverse_nearest_matches_jax():
+    """The label warp (nearest, reverse poses) equals the JAX package's exactly on
+    generic poses, label-like values included (integers, 255 ignore)."""
+    rng = np.random.RandomState(5)
+    x = rng.randn(2, 4, 24, 20, 7).astype(np.float32)
+    x[..., 0] = rng.randint(0, 3, x.shape[:-1])
+    x[..., 3:5] = np.where(rng.rand(*x.shape[:-1], 1) < 0.5, 255.0, x[..., 3:5])
+    flow = _poses(rng, (2, 4))
+    extent = (6.0, 5.0)
+    want = np.asarray(JW.cumulative_warp_features_reverse(
+        jnp.asarray(x), jnp.asarray(flow), mode='nearest', spatial_extent=extent))
+    got = W.cumulative_warp_features_reverse(torch.from_numpy(x), torch.from_numpy(flow),
+                                             mode='nearest', spatial_extent=extent).numpy()
+    np.testing.assert_array_equal(got[:, 0], x[:, 0])
+    assert (got[:, 1:] == 0).mean() > 0.01            # some taps fell outside the map
+    np.testing.assert_array_equal(got, want)
+
+
+def test_bev_warp_nearest_plain_matches_grid_sample():
+    """torch's grid_sample(mode='nearest') on the plain version's grid; it rounds
+    half to even as torch.round does."""
+    rng = np.random.RandomState(6)
+    x = torch.from_numpy(rng.randn(3, 30, 40, 5).astype(np.float32))
+    flow = torch.from_numpy(_poses(rng, (3,)))
+    extent = (15.0, 20.0)
+    got = W.bev_warp_nearest_plain(x, flow, extent)
+    grid = W._affine_grid(W._warp_theta(flow, extent, torch.float32), 30, 40)
+    want = F.grid_sample(x.permute(0, 3, 1, 2), grid, mode='nearest', padding_mode='zeros',
+                         align_corners=False).permute(0, 2, 3, 1)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+def test_bev_warp_backward_plain_is_autograd_of_plain():
+    """The plain backward equals torch autograd through the plain forward, and the
+    autograd.Function routes a CPU tensor's gradient to it."""
+    rng = np.random.RandomState(7)
+    x = torch.from_numpy(rng.randn(3, 20, 18, 4).astype(np.float32)).requires_grad_()
+    flow = torch.from_numpy(_poses(rng, (3,)))
+    g = torch.from_numpy(rng.randn(3, 20, 18, 4).astype(np.float32))
+    extent = (10.0, 9.0)
+    (want,) = torch.autograd.grad(W.bev_warp_plain(x, flow, extent), x, g)
+    got = W.bev_warp_backward_plain(g, flow, extent)
+    torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
+    (through_fn,) = torch.autograd.grad(W.bev_warp(x, flow, extent), x, g)
+    torch.testing.assert_close(through_fn, got, rtol=0, atol=0)
+    assert float(got.abs().sum()) > 0
+
+
+def test_cumulative_warp_backward_matches_jax_vjp():
+    """K2's gradient with respect to the features against jax.vjp of the JAX
+    cumulative warp, f32."""
+    import jax
+    rng = np.random.RandomState(8)
+    x = rng.randn(2, 3, 16, 16, 6).astype(np.float32)
+    flow = _poses(rng, (2, 3))
+    g = rng.randn(*x.shape).astype(np.float32)
+    extent = (8.0, 8.0)
+    _, vjp = jax.vjp(lambda v: JW.cumulative_warp_features(
+        v, jnp.asarray(flow), mode='bilinear', spatial_extent=extent), jnp.asarray(x))
+    (want,) = vjp(jnp.asarray(g))
+    xt = torch.from_numpy(x).requires_grad_()
+    out = W.cumulative_warp_features(xt, torch.from_numpy(flow), mode='bilinear',
+                                     spatial_extent=extent)
+    (got,) = torch.autograd.grad(out, xt, torch.from_numpy(g))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-5)
 
 
 @pytest.mark.gpu
