@@ -24,7 +24,14 @@ Builds the package's CUDA kernels from csrc/, then:
   7. holds the training kernels (K1 and K2 backward, K3 top-k select, K4 nearest
      warp) against their plain versions at the training shapes, and times them;
   8. runs a tiny training step on the card and on the CPU from the same weights,
-     batch and noise, and compares the losses and gradients.
+     batch and noise, and compares the losses and gradients;
+  9. the levers: serves three full-width requests and trains three full-width
+     steps at batch 3 of the combination LIFT.TOPK 8 + LIFT.WARP_FREE (+
+     DATASET.PREWARP_LABELS and host-warped labels in training), with the launch
+     counts of that path (the top-k select K5 and its backward, K1 at D = 8, no
+     K2, no K4); holds K5 and its backward against their plain versions at those
+     shapes, bf16 and f32, with planted ties, exactly, and times them; and runs
+     the tiny combination card vs CPU, forward and training step.
 Prints a "kernels" JSON line, the card's name and power limit, and as its last
 line {"ok": true, "device": {...}}. Any failure raises and exits non-zero.
 Without a CUDA card, or without the package beside it, it fails.
@@ -36,20 +43,26 @@ import statistics
 import subprocess
 import sys
 import time
+import types
 
 import numpy as np
 import scipy.optimize
 import torch
 import torch.nn.functional as F
 
+from fiery_tpu_torch.data.label_warp import make_prewarp_transform
 from fiery_tpu_torch.data.synthetic import SyntheticFutureDataset
 from fiery_tpu_torch.evaluate import device_consistent
 from fiery_tpu_torch.models.fiery import FieryConfig
 from fiery_tpu_torch.ops import _build
+from fiery_tpu_torch.ops import lift_splat as lift_splat_module
 from fiery_tpu_torch.ops.lap import linear_sum_assignment, linear_sum_assignment_plain
 from fiery_tpu_torch.ops.lift_splat import (bev_pool, bev_pool_backward,
                                             bev_pool_backward_plain, bev_pool_plain,
-                                            create_frustum, get_geometry, voxel_ids)
+                                            create_frustum, get_geometry, topk_select,
+                                            topk_select_backward,
+                                            topk_select_backward_plain, topk_select_plain,
+                                            voxel_ids)
 from fiery_tpu_torch.ops.warp import (_affine_grid, _warp_theta, bev_warp,
                                       bev_warp_backward, bev_warp_backward_plain,
                                       bev_warp_nearest, bev_warp_nearest_plain,
@@ -76,10 +89,24 @@ COUNTERS = {'bev_pool': bev_pool, 'bev_warp': bev_warp,
             'instance_centers': find_instance_centers, 'group_pixels': instance_ids,
             'segment_centroids': segment_centroids, 'lap': linear_sum_assignment,
             'bev_pool_backward': bev_pool_backward, 'bev_warp_backward': bev_warp_backward,
-            'kth_largest': kth_largest, 'bev_warp_nearest': bev_warp_nearest}
+            'kth_largest': kth_largest, 'bev_warp_nearest': bev_warp_nearest,
+            'topk_select': topk_select, 'topk_select_backward': topk_select_backward}
 TRAIN_KERNELS = ('bev_pool', 'bev_pool_backward', 'bev_warp', 'bev_warp_backward',
-                 'kth_largest', 'bev_warp_nearest')
-TRAIN_ONLY = ('bev_pool_backward', 'bev_warp_backward', 'kth_largest', 'bev_warp_nearest')
+                 'kth_largest', 'bev_warp_nearest', 'topk_select', 'topk_select_backward')
+TRAIN_ONLY = ('bev_pool_backward', 'bev_warp_backward', 'kth_largest', 'bev_warp_nearest',
+              'topk_select_backward')
+# the levers' combination (the JAX package's fastest configuration): the sparse top-k
+# splat and the warp-free lift; training adds the host label warp
+COMBO_OPTS = ('LIFT.TOPK', '8', 'LIFT.WARP_FREE', 'True')
+COMBO_TRAIN_OPTS = COMBO_OPTS + ('DATASET.PREWARP_LABELS', 'True')
+# launches per training step, by configuration
+TRAIN_PER_STEP = {
+    'dense': {'bev_pool': 1, 'bev_pool_backward': 1, 'bev_warp': 1, 'bev_warp_backward': 1,
+              'kth_largest': 1, 'bev_warp_nearest': 1, 'topk_select': 0,
+              'topk_select_backward': 0},
+    'combo': {'bev_pool': 1, 'bev_pool_backward': 1, 'bev_warp': 0, 'bev_warp_backward': 0,
+              'kth_largest': 1, 'bev_warp_nearest': 0, 'topk_select': 1,
+              'topk_select_backward': 1}}
 
 
 def log(*args):
@@ -276,37 +303,63 @@ TINY = {
 }
 
 
-def tiny_cfg():
-    return get_cfg(cfg_dict=TINY)
+# the tiny combination: k = 3 of its D = 6 depth bins, warp-free
+TINY_COMBO = {**TINY, 'LIFT': {**TINY['LIFT'], 'TOPK': 3, 'WARP_FREE': True}}
 
 
-def phase_tiny_card_vs_cpu():
-    """Same seeded weights and request through the kernels (cuda) and the plain
-    versions (cpu), f32 with TF32 off: every output within rtol/atol 1e-3."""
+def voxel_ids_of(fn):
+    """Run fn() and return the voxel ids that the splats of its forwards computed
+    (on the host), in call order."""
+    captured, original = [], lift_splat_module.voxel_ids
+
+    def capture(*args, **kw):
+        ids = original(*args, **kw)
+        captured.append(ids.cpu())
+        return ids
+
+    lift_splat_module.voxel_ids = capture
+    try:
+        return fn(), captured
+    finally:
+        lift_splat_module.voxel_ids = original
+
+
+def phase_tiny_card_vs_cpu(overrides=TINY, name='tiny', yaw=None):
+    """Same seeded weights and request (its ego-motion turned by ``yaw`` radians a
+    frame, if given) through the kernels (cuda) and the plain versions (cpu), f32
+    with TF32 off: every output within rtol/atol 1e-3; and how many voxel ids the
+    two devices' lift geometry puts in different bins."""
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    cfg = tiny_cfg()
+    cfg = get_cfg(cfg_dict=overrides)
     cpu = init_params(build_fiery(cfg, device='cpu'), seed=3)
     calibrate_batchnorm(cpu, [make_request(cfg, seed=s) for s in (6, 7)])
     card = build_fiery(cfg, device='cuda')
     card.load_state_dict(cpu.state_dict())
     request = make_request(cfg, seed=5)
-    want = predict(cpu, request)
-    got = predict(card, request)
+    if yaw is not None:
+        request['future_egomotion'][..., 5] = yaw
+    want, ids_cpu = voxel_ids_of(lambda: predict(cpu, request))
+    got, ids_card = voxel_ids_of(lambda: predict(card, request))
     torch.cuda.synchronize()
+    differ = sum(int((a != b).sum()) for a, b in zip(ids_card, ids_cpu))
+    log(f'  {name}: voxel ids that differ card vs cpu: {differ} of '
+        f'{sum(a.numel() for a in ids_cpu)}')
     for k, v in want.items():
         d = (got[k].cpu() - v).abs()
-        log(f'  tiny {k}: max_abs_err={float(d.max()):.3e} max_abs={float(v.abs().max()):.3e}')
+        log(f'  {name} {k}: max_abs_err={float(d.max()):.3e} '
+            f'max_abs={float(v.abs().max()):.3e}')
         torch.testing.assert_close(got[k].cpu(), v, rtol=1e-3, atol=1e-3, msg=k)
     torch.backends.cudnn.allow_tf32 = True
 
 
-def phase_serve(n_requests=3):
-    """Full-width baseline.yml (PRECISION 16) at batch 1, seeded random weights.
-    The main path is predict_instances (forward, decode, device tracker). After
-    it, predict and predict_instances are timed in turns on the same requests: the
-    request time without and with decoding."""
-    cfg = get_cfg(argparse.Namespace(config_file=BASELINE, opts=[]))
+def phase_serve(n_requests=3, opts=(), name='serve'):
+    """Full-width baseline.yml (PRECISION 16) at batch 1, seeded random weights,
+    with the config overrides ``opts``. The main path is predict_instances
+    (forward, decode, device tracker). After it, predict and predict_instances are
+    timed in turns on the same requests: the request time without and with
+    decoding."""
+    cfg = get_cfg(argparse.Namespace(config_file=BASELINE, opts=list(opts)))
     model = init_params(build_fiery(cfg), seed=0)
     calibrate_batchnorm(model, [make_request(cfg, seed=s) for s in (6, 7)])
     mc = model.cfg
@@ -344,16 +397,18 @@ def phase_serve(n_requests=3):
                 or int(ids.max()) > T * 100):
             raise AssertionError(f'instance ids {ids.dtype} {tuple(ids.shape)} '
                                  f'in [{int(ids.min())}, {int(ids.max())}]')
-    # per request: one splat, one warp, one decode (K7 launches twice), and per
-    # tracking step two centroid launches (previous, current) and one assignment
-    per_request = {'bev_pool': 1, 'bev_warp': 1, 'instance_centers': 1, 'group_pixels': 2,
-                   'segment_centroids': 2 * (T - 1), 'lap': T - 1}
-    for name, n in per_request.items():
-        if launches[name] != n * n_requests:
-            raise AssertionError(f'{name} launched {launches[name]} times for '
+    # per request: one splat (after one top-k select under LIFT.TOPK), one warp
+    # (none warp-free), one decode (K7 launches twice), and per tracking step two
+    # centroid launches (previous, current) and one assignment
+    per_request = {'bev_pool': 1, 'bev_warp': 0 if mc.warp_free else 1,
+                   'topk_select': 1 if mc.depth_topk else 0, 'instance_centers': 1,
+                   'group_pixels': 2, 'segment_centroids': 2 * (T - 1), 'lap': T - 1}
+    for k, n in per_request.items():
+        if launches[k] != n * n_requests:
+            raise AssertionError(f'{name}: {k} launched {launches[k]} times for '
                                  f'{n_requests} requests, expected {n * n_requests}')
 
-    log(f'serve (main path): request_ms={[round(t, 3) for t in times]} '
+    log(f'{name} (main path): request_ms={[round(t, 3) for t in times]} '
         f'peak_mem_bytes={peak} launches={launches}')
     # the request time without and with decoding, in turns on the same requests
     timed = {predict: [], predict_instances: []}
@@ -365,9 +420,9 @@ def phase_serve(n_requests=3):
                 torch.cuda.synchronize()
                 timed[fn].append(1e3 * (time.perf_counter() - t0))
     bare, full = timed[predict], timed[predict_instances]
-    log(f'serve: request_ms={[round(t, 3) for t in bare]} '
+    log(f'{name}: request_ms={[round(t, 3) for t in bare]} '
         f'median_ms={statistics.median(bare):.3f} (predict, without decoding)')
-    log(f'serve with decode and tracking: request_ms={[round(t, 3) for t in full]} '
+    log(f'{name} with decode and tracking: request_ms={[round(t, 3) for t in full]} '
         f'median_ms={statistics.median(full):.3f} (predict_instances)')
 
     # the device decode and tracking never wait on the host
@@ -378,13 +433,13 @@ def phase_serve(n_requests=3):
     finally:
         torch.cuda.set_sync_debug_mode('default')
     torch.cuda.synchronize()
-    log('serve: device decode + tracking ran under set_sync_debug_mode("error")')
+    log(f'{name}: device decode + tracking ran under set_sync_debug_mode("error")')
     diffs, unexplained = [], []
     for out, ids in zip(outputs, tracks):
         host, dev = predict_instance_segmentation_and_trajectories(out), ids.cpu().numpy()
         diffs.append(int((host != dev).sum()))
         unexplained.append(relabel_disagreement(dev, host))
-    log(f'serve: pixels whose host (scipy, f16 flow) id differs from the device id: '
+    log(f'{name}: pixels whose host (scipy, f16 flow) id differs from the device id: '
         f'{diffs} of {T * X * Y} per request, {unexplained} after the best relabel of the '
         f'device ids; ids per request: {[int(ids.max()) for ids in tracks]}')
     return launches, outputs
@@ -657,8 +712,9 @@ def phase_planted_scene(device):
 def stage_times(trainer, batch, generator):
     """Device time of each stage of one training step (CUDA events between the
     stages of Trainer.train_step, so each includes its host launch gaps)."""
-    names = ['H2D copy of the batch', 'label prep (K4)', 'forward (K1, K2)',
-             'losses (K3)', 'backward (K1, K2 backward)', 'clip + Adam']
+    names = ['H2D copy of the batch', 'label prep (K4, or the prewarped stack)',
+             'forward (K5, K1, K2)', 'losses (K3)', 'backward (K1, K5, K2 backward)',
+             'clip + Adam']
     ev = [torch.cuda.Event(enable_timing=True) for _ in range(len(names) + 1)]
     ev[0].record()
     batch = trainer.to_device(batch)
@@ -678,12 +734,18 @@ def stage_times(trainer, batch, generator):
     return {n: ev[i].elapsed_time(ev[i + 1]) for i, n in enumerate(names)}
 
 
-def phase_train(n_steps=3):
+def phase_train(n_steps=3, kind='dense', opts=()):
     """Full-width baseline.yml training at batch 3 (PRECISION 16: f32 weights, bf16
     compute), seeded random weights with BatchNorm calibrated as for serving,
-    synthetic clips. One warm-up step, then the main path: n_steps timed steps with
-    the launch counts read around them."""
-    cfg = get_cfg(argparse.Namespace(config_file=BASELINE, opts=['DATASET.NAME', 'synthetic']))
+    synthetic clips, with the config overrides ``opts``; under
+    DATASET.PREWARP_LABELS each batch's label stack is warped on the host before
+    its step, outside the step's time. One warm-up step, then the main path:
+    n_steps timed steps with the launch counts read around them, held to
+    TRAIN_PER_STEP[kind]."""
+    name = 'train' if kind == 'dense' else f'train {kind}'
+    held = torch.cuda.memory_allocated()       # what earlier phases still hold
+    cfg = get_cfg(argparse.Namespace(config_file=BASELINE,
+                                     opts=['DATASET.NAME', 'synthetic', *opts]))
     trainer = Trainer(cfg)
     init_params(trainer.model, seed=0)
     calibrate_batchnorm(trainer.model, [make_request(cfg, seed=s) for s in (6, 7)])
@@ -691,8 +753,18 @@ def phase_train(n_steps=3):
     t0 = time.perf_counter()
     dataset = SyntheticFutureDataset(cfg, n_samples=b * (n_steps + 2), seed=0)
     batches = [dataset.get_batch(range(i * b, (i + 1) * b)) for i in range(n_steps + 2)]
-    log(f'train: {len(batches)} synthetic batches of {b} clips in '
+    log(f'{name}: {len(batches)} synthetic batches of {b} clips in '
         f'{time.perf_counter() - t0:.1f} s')
+    prewarp_ms = None
+    if cfg.DATASET.PREWARP_LABELS:
+        transform, prewarp_ms = make_prewarp_transform(cfg), []
+        for i, batch in enumerate(batches):
+            t0 = time.perf_counter()
+            batches[i] = transform(batch)
+            prewarp_ms.append(1e3 * (time.perf_counter() - t0))
+        log(f'{name}: host label prewarp ms per batch of {b} clips (numpy, outside the '
+            f'step): {[round(t, 3) for t in prewarp_ms]}')
+        prewarp_ms = statistics.median(prewarp_ms)
     gen = torch.Generator().manual_seed(0)
     trainer.train_step(batches[0], gen)            # warm-up: cuDNN plans, kernel loads
     torch.cuda.synchronize()
@@ -716,44 +788,144 @@ def phase_train(n_steps=3):
         torch.cuda.synchronize()
         times.append(1e3 * (time.perf_counter() - t0))
         records.append({'total': float(total), **{k: float(v) for k, v in losses.items()}})
-    launches = {name: COUNTERS[name].launches for name in TRAIN_KERNELS}
+    launches = {k: COUNTERS[k].launches for k in TRAIN_KERNELS}
     peak = torch.cuda.max_memory_allocated()
     for r in records:
         if not all(np.isfinite(v) for v in r.values()):
-            raise AssertionError(f'train: non-finite losses {r}')
-    for name, n in launches.items():
-        if n != n_steps:
-            raise AssertionError(f'train: {name} launched {n} times in {n_steps} steps, '
-                                 f'expected once per step')
+            raise AssertionError(f'{name}: non-finite losses {r}')
+    for k, n in TRAIN_PER_STEP[kind].items():
+        if launches[k] != n * n_steps:
+            raise AssertionError(f'{name}: {k} launched {launches[k]} times in {n_steps} '
+                                 f'steps, expected {n} per step')
     for k, v in watched.items():
         if torch.equal(v.detach(), before[k]):
-            raise AssertionError(f'train: {k} did not change')
-    log(f'train (main path): step_ms={[round(x, 3) for x in times]} '
+            raise AssertionError(f'{name}: {k} did not change')
+    log(f'{name} (main path): step_ms={[round(x, 3) for x in times]} '
         f'median_step_ms={statistics.median(times):.3f} peak_mem_bytes={peak} '
-        f'launches={launches}')
+        f'(of which {held} held by earlier phases) launches={launches}')
     for i, r in enumerate(records):
         log(f'  step {i} losses: ' + json.dumps({k: round(v, 5) for k, v in r.items()}))
-    log('train: parameters, uncertainty weights and BatchNorm statistics changed')
+    log(f'{name}: parameters, uncertainty weights and BatchNorm statistics changed')
 
     stages = stage_times(trainer, batches[-1], gen)
-    log('train stages (CUDA events, ms): ' + json.dumps({k: round(v, 3)
-                                                         for k, v in stages.items()}))
-    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    with torch.profiler.profile(activities=activities) as prof:
-        trainer.train_step(batches[-1], gen)
+    log(f'{name} stages (CUDA events, ms): ' + json.dumps({k: round(v, 3)
+                                                          for k, v in stages.items()}))
+    rec = dict(step_ms=statistics.median(times), peak_bytes=peak, held_bytes=held,
+               stages=stages, prewarp_ms=prewarp_ms)
+
+    def profile():
+        """One step under torch.profiler: the device busy time and the top kernels.
+        Called after every timed phase, so that no timed step runs after the
+        profiler has hooked into the process."""
+        activities = [torch.profiler.ProfilerActivity.CPU,
+                      torch.profiler.ProfilerActivity.CUDA]
         torch.cuda.synchronize()
-    wall = 1e3 * (time.perf_counter() - t0)
-    events = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy = sum(e.self_device_time_total for e in events) / 1e3
-    n_kernels = sum(e.count for e in events)
-    log(f'train profiled step: wall {wall:.3f} ms (profiler on), device busy {busy:.3f} ms, '
-        f'{n_kernels} device-side kernels and copies')
-    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:15]:
-        log(f'  {e.self_device_time_total / 1e3:9.3f} ms {e.count:5d}x  {e.key[:110]}')
-    return launches, dict(step_ms=statistics.median(times), peak_bytes=peak, stages=stages,
-                          busy_ms=busy)
+        t0 = time.perf_counter()
+        with torch.profiler.profile(activities=activities) as prof:
+            trainer.train_step(batches[-1], gen)
+            torch.cuda.synchronize()
+        wall = 1e3 * (time.perf_counter() - t0)
+        events = [e for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+        rec['busy_ms'] = sum(e.self_device_time_total for e in events) / 1e3
+        n_kernels = sum(e.count for e in events)
+        log(f'{name} profiled step: wall {wall:.3f} ms (profiler on), device busy '
+            f'{rec["busy_ms"]:.3f} ms, {n_kernels} device-side kernels and copies')
+        for e in sorted(events, key=lambda e: -e.self_device_time_total)[:15]:
+            log(f'  {e.self_device_time_total / 1e3:9.3f} ms {e.count:5d}x  {e.key[:110]}')
+
+    def step():
+        """One more step, on a batch of the timed run: its wall ms."""
+        t0 = time.perf_counter()
+        trainer.train_step(batches[1], gen)
+        torch.cuda.synchronize()
+        return 1e3 * (time.perf_counter() - t0)
+
+    return launches, rec, types.SimpleNamespace(step=step, profile=profile)
+
+
+def planted_topk_depth(n_pix, D, dtype, device, seed):
+    """(n_pix, D) softmax weights of seeded logits, with every fourth row planted with
+    ties at the k-th value: three repeated levels, all +0.0, all ones, or -0.0
+    beside +0.0."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    depth = torch.softmax(torch.randn((n_pix, D), generator=g, device=device), -1)
+    levels = torch.randint(0, 3, (n_pix, D), generator=g, device=device) / 4.0
+    signed = torch.tensor([-0.0, 0.0, 0.25], device=device)[
+        torch.randint(0, 3, (n_pix, D), generator=g, device=device)]
+    depth[0::16], depth[4::16], depth[8::16] = levels[0::16], 0.0, 1.0
+    depth[12::16] = signed[12::16]
+    return depth.to(dtype)
+
+
+def phase_topk_kernels(device, k=8):
+    """K5 (the top-k depth select) and its backward against their plain versions at
+    the combination's shapes: the select on the served request's 3 x 6 x 28 x 60
+    pixels and on the training batch's 9 x 6 x 28 x 60, its backward at the training
+    shape; bf16 (the path's dtype) and f32; the voxel ids of the seeded rig; planted
+    ties. Both must equal their plain versions exactly. Times kernel, call, plain
+    version and the library call (torch.topk and a gather of the ids)."""
+    _, feat_serve, ids_serve, num_bins, z = bev_pool_inputs(device)
+    rec = {}
+    for shape_name, reps in (('serve', 1), ('train', 3)):
+        ids = ids_serve.repeat(reps, 1, 1, 1, 1).contiguous()
+        D = ids.shape[-1]
+        n_pix = ids.numel() // D
+        for dtype in (torch.float32, torch.bfloat16):
+            depth = planted_topk_depth(n_pix, D, dtype, device, seed=7).view(ids.shape)
+            got = topk_select(depth, ids, k)
+            want = topk_select_plain(depth, ids, k)
+            torch.cuda.synchronize()
+            for part, a, b in zip(('top_w', 'ids_k', 'idx'), got, want):
+                if not torch.equal(a, b):
+                    raise AssertionError(f'topk_select {shape_name} {dtype} {part}: kernel '
+                                         f'!= plain at {int((a != b).sum())} values')
+            es = depth.element_size()
+
+            def library(depth=depth, ids=ids):
+                top = torch.topk(depth, k, dim=-1)
+                return top.values, ids.gather(-1, top.indices)
+
+            nbytes = n_pix * (D * (es + 4) + k * (es + 4 + 1))
+            rec[('topk_select', shape_name, dtype)] = dict(
+                max_abs_err=0.0,
+                ms=kernel_ms(lambda: topk_select(depth, ids, k), ['topk_select_kernel']),
+                call_ms=time_ms(lambda: topk_select(depth, ids, k)),
+                plain_ms=time_ms(lambda: topk_select_plain(depth, ids, k)),
+                library_ms=time_ms(library), bytes=nbytes, flops=float(n_pix * D * D))
+            if shape_name == 'serve':
+                # K1 on the selected bins, as the sparse splat runs it (D = k)
+                top_w, ids_k = got[0].contiguous(), got[1].contiguous()
+                feat = feat_serve.to(dtype)
+                rec[('topk_select', shape_name, dtype)]['k1_at_k_ms'] = kernel_ms(
+                    lambda: bev_pool(top_w, feat, ids_k, num_bins, z), ['bev_pool_kernel'])
+                continue
+            idx = got[2]
+            g = planted_topk_depth(n_pix, k, dtype, device, seed=8).view(idx.shape)
+            got_b = topk_select_backward(g, idx, D)
+            want_b = topk_select_backward_plain(g, idx, D)
+            torch.cuda.synchronize()
+            if not torch.equal(got_b, want_b):
+                raise AssertionError(f'topk_select_backward {dtype}: kernel != plain at '
+                                     f'{int((got_b != want_b).sum())} values')
+
+            def library_b(g=g, idx=idx):
+                return torch.zeros(idx.shape[:-1] + (D,), dtype=g.dtype,
+                                   device=device).scatter_(-1, idx.long(), g)
+
+            rec[('topk_select_backward', shape_name, dtype)] = dict(
+                max_abs_err=0.0,
+                ms=kernel_ms(lambda: topk_select_backward(g, idx, D),
+                             ['topk_select_backward_kernel']),
+                call_ms=time_ms(lambda: topk_select_backward(g, idx, D)),
+                plain_ms=time_ms(lambda: topk_select_backward_plain(g, idx, D)),
+                library_ms=time_ms(library_b), bytes=n_pix * (k * (es + 1) + D * es),
+                flops=0.0)
+    for key, r in rec.items():
+        r['bound_ms'], r['bound_by'] = bound(r['bytes'], r['flops'])
+        log(f'  {key[0]} {key[1]} {str(key[2])[6:]}: equal to plain; '
+            + json.dumps({k_: v for k_, v in r.items() if k_ != 'max_abs_err'}))
+    return rec
 
 
 def phase_train_kernels(device):
@@ -892,30 +1064,35 @@ def phase_train_kernels(device):
     return rec
 
 
-def relative_l2_gradients(got, want):
-    """Worst relative L2 error of the gradients over the top-level modules and over
-    the leaves (each leaf's norm floored at 1e-3 of its module's)."""
+def relative_l2_gradients(got, want, leaves_only=()):
+    """Worst relative L2 error of the gradients over the top-level modules (but
+    those in ``leaves_only``) and over the leaves (each leaf's norm floored at 1e-3
+    of its module's)."""
     worst_module, worst_leaf = (0.0, ''), (0.0, '')
     for m in sorted({n.split('.')[0] for n in want}):
         names = [n for n in want if n.split('.')[0] == m]
         a = torch.cat([got[n].flatten() for n in names])
         b = torch.cat([want[n].flatten() for n in names])
-        worst_module = max(worst_module, (float((a - b).norm() / b.norm()), m))
+        if m not in leaves_only:
+            worst_module = max(worst_module, (float((a - b).norm() / b.norm()), m))
         for n in names:
             floor = max(float(want[n].norm()), 1e-3 * float(b.norm()))
             worst_leaf = max(worst_leaf, (float((got[n] - want[n]).norm()) / floor, n))
     return worst_module, worst_leaf
 
 
-def phase_tiny_train_card_vs_cpu():
+def phase_tiny_train_card_vs_cpu(overrides=TINY, name='tiny train', leaves_only=()):
     """One tiny training step (f32, TF32 off) on the card and on the CPU from the same
     weights, batch and noise, drop-connect off: the losses within rtol/atol 1e-3; the
     gradients within a relative L2 error of 1e-2 per module and 1e-1 per leaf, the
     criterion tests/test_torch_trainer.py holds the port to against JAX (f32 rounding
-    alone moves some leaves' gradients by per cents)."""
+    alone moves some leaves' gradients by per cents). The modules in ``leaves_only``
+    are held per leaf only, as tests/test_torch_levers.py holds the combination's
+    future prediction and decoder (their f32 gradients move by per cents with the
+    order of the sums alone)."""
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    cfg = get_cfg(cfg_dict={**TINY, 'BATCHSIZE': 2})
+    cfg = get_cfg(cfg_dict={**overrides, 'BATCHSIZE': 2})
     trainers = {d: Trainer(cfg, device=d) for d in ('cpu', 'cuda')}
     init_params(trainers['cpu'].model, seed=3)
     trainers['cuda'].model.load_state_dict(trainers['cpu'].model.state_dict())
@@ -923,21 +1100,24 @@ def phase_tiny_train_card_vs_cpu():
         for block in tr.model.encoder.backbone._blocks:
             block.drop_rate = 0.0
     batch = SyntheticFutureDataset(cfg, n_samples=2, n_instances=2, seed=4).get_batch([0, 1])
+    if cfg.DATASET.PREWARP_LABELS:
+        batch = make_prewarp_transform(cfg)(batch)
     noise = torch.from_numpy(np.random.RandomState(5).randn(
         2, 1, cfg.MODEL.DISTRIBUTION.LATENT_DIM).astype(np.float32))
     losses = {d: tr.compute_gradients(batch, noise=noise)[0] for d, tr in trainers.items()}
     torch.cuda.synchronize()
     for k, v in losses['cpu'].items():
         got = losses['cuda'][k].cpu()
-        log(f'  tiny train {k}: card {float(got):.6f} cpu {float(v):.6f}')
+        log(f'  {name} {k}: card {float(got):.6f} cpu {float(v):.6f}')
         torch.testing.assert_close(got, v, rtol=1e-3, atol=1e-3, msg=k)
     grads = {d: {n: p.grad.double().cpu() for n, p in tr.model.named_parameters()}
              for d, tr in trainers.items()}
-    (module_err, module), (leaf_err, leaf) = relative_l2_gradients(grads['cuda'], grads['cpu'])
-    log(f'  tiny train gradients: worst module relative L2 error {module_err:.3e} ({module}), '
+    (module_err, module), (leaf_err, leaf) = relative_l2_gradients(
+        grads['cuda'], grads['cpu'], leaves_only)
+    log(f'  {name} gradients: worst module relative L2 error {module_err:.3e} ({module}), '
         f'worst leaf {leaf_err:.3e} ({leaf}), over {len(grads["cpu"])} leaves')
     if module_err > 1e-2 or leaf_err > 1e-1:
-        raise AssertionError('tiny train: card and CPU gradients differ')
+        raise AssertionError(f'{name}: card and CPU gradients differ')
     torch.backends.cudnn.allow_tf32 = True
     torch.backends.cuda.matmul.allow_tf32 = True
 
@@ -961,8 +1141,31 @@ def main():
     launches, outputs = phase_serve()
     log(f'full-width serve: ok ({time.perf_counter() - t0:.1f} s)')
     t0 = time.perf_counter()
-    train_launches, train = phase_train()
+    combo_launches, _ = phase_serve(opts=COMBO_OPTS, name='serve combo')
+    log(f'full-width serve of the combination: ok ({time.perf_counter() - t0:.1f} s)')
+    t0 = time.perf_counter()
+    train_launches, train, dense_run = phase_train()
     log(f'full-width train: ok ({time.perf_counter() - t0:.1f} s)')
+    t0 = time.perf_counter()
+    combo_train_launches, combo_train, combo_run = phase_train(
+        kind='combo', opts=COMBO_TRAIN_OPTS)
+    log(f'full-width train of the combination: ok ({time.perf_counter() - t0:.1f} s)')
+    # the two configurations' steps in turns on this card, then one profiled step each
+    t0 = time.perf_counter()
+    turns = {'dense': [], 'combo': []}
+    for _ in range(4):
+        for key, run in (('dense', dense_run), ('combo', combo_run)):
+            turns[key].append(run.step())
+    for key, ms in turns.items():
+        log(f'train in turns, {key}: step_ms={[round(x, 3) for x in ms]} '
+            f'median_step_ms={statistics.median(ms):.3f}')
+    dense_run.profile()
+    combo_run.profile()
+    del dense_run, combo_run
+    log(f'train steps in turns and profiled: ok ({time.perf_counter() - t0:.1f} s)')
+    t0 = time.perf_counter()
+    topk = phase_topk_kernels(device)
+    log(f'top-k select kernels vs plain: ok ({time.perf_counter() - t0:.1f} s)')
     t0 = time.perf_counter()
     pool = phase_bev_pool(device)
     warp = phase_bev_warp(device)
@@ -982,13 +1185,21 @@ def main():
     t0 = time.perf_counter()
     phase_tiny_train_card_vs_cpu()
     log(f'tiny train step card vs cpu: ok ({time.perf_counter() - t0:.1f} s)')
+    t0 = time.perf_counter()
+    phase_tiny_card_vs_cpu(TINY_COMBO, name='tiny combo', yaw=0.2)
+    phase_tiny_train_card_vs_cpu({**TINY_COMBO, 'DATASET': {'PREWARP_LABELS': True}},
+                                 name='tiny combo train',
+                                 leaves_only=('future_prediction', 'decoder'))
+    log(f'tiny combination card vs cpu: ok ({time.perf_counter() - t0:.1f} s)')
 
     # bf16 is the dtype of the served and trained paths
     records = {'bev_pool': pool[torch.bfloat16], 'bev_warp': warp[torch.bfloat16], **decode,
                'bev_pool_backward': train_kernels[('bev_pool_backward', torch.bfloat16)],
                'bev_warp_backward': train_kernels[('bev_warp_backward', torch.bfloat16)],
                'kth_largest': train_kernels['kth_largest'],
-               'bev_warp_nearest': train_kernels['bev_warp_nearest']}
+               'bev_warp_nearest': train_kernels['bev_warp_nearest'],
+               'topk_select': topk[('topk_select', 'serve', torch.bfloat16)],
+               'topk_select_backward': topk[('topk_select_backward', 'train', torch.bfloat16)]}
     kernels = []
     for name, source, replaces in [
             ('bev_pool', 'bev_pool.cu', 'fiery_tpu/ops/lift_splat.py:104'),
@@ -1001,24 +1212,34 @@ def main():
             ('group_pixels', 'group_pixels.cu', 'fiery_tpu/postprocess/instance.py:98'),
             ('segment_centroids', 'segment_centroids.cu',
              'fiery_tpu/postprocess/instance.py:324'),
-            ('lap', 'lap.cu', 'fiery_tpu/ops/lap.py:23')]:
+            ('lap', 'lap.cu', 'fiery_tpu/ops/lap.py:23'),
+            ('topk_select', 'topk_select.cu', 'fiery_tpu/ops/lift_splat.py:226'),
+            ('topk_select_backward', 'topk_select.cu', 'fiery_tpu/ops/lift_splat.py:226')]:
         r = records[name]
         # launches: the serve path's count for its kernels, the training path's for
-        # the training kernels; the splat and the warp run on both
+        # the training kernels (the splat and the warp run on both); K5's from the
+        # combination's serve and training paths
+        served, trained = ((combo_launches, combo_train_launches) if name.startswith('topk')
+                           else (launches, train_launches))
         entry = {'name': name, 'route': 'cuda', 'source': 'fiery_tpu_torch/csrc/' + source,
                  'replaces': replaces,
-                 'launches': (train_launches if name in TRAIN_ONLY else launches)[name],
+                 'launches': (trained if name in TRAIN_ONLY else served)[name],
                  'max_abs_err': r['max_abs_err'], 'ms': r['ms'], 'plain_ms': r['plain_ms'],
                  'bound_ms': r['bound_ms'], 'bound_by': r['bound_by'],
                  'library_ms': r['library_ms']}
         entry['call_ms'] = r['call_ms']
-        if name in ('bev_pool', 'bev_warp'):
-            entry['train_launches'] = train_launches[name]
+        if name in ('bev_pool', 'bev_warp', 'topk_select'):
+            entry['train_launches'] = trained[name]
+        if name == 'bev_pool':
+            entry['combo_launches'] = combo_launches[name]
+            entry['combo_train_launches'] = combo_train_launches[name]
         if 'scipy_ms' in r:
             entry['scipy_ms'] = r['scipy_ms']
         kernels.append(entry)
-    log(f'train step (batch 3, full width): median_step_ms={train["step_ms"]:.3f} '
-        f'peak_mem_bytes={train["peak_bytes"]} device_busy_ms={train["busy_ms"]:.3f}')
+    for label, r in (('', train), (' of the combination', combo_train)):
+        log(f'train step{label} (batch 3, full width): median_step_ms={r["step_ms"]:.3f} '
+            f'peak_mem_bytes={r["peak_bytes"]} held_by_earlier_phases={r["held_bytes"]} '
+            f'device_busy_ms={r["busy_ms"]:.3f} host_prewarp_ms={r["prewarp_ms"]}')
     log(json.dumps({'kernels': kernels}))
     log(smi_line())
     print(json.dumps({'ok': True, 'device': {

@@ -1,9 +1,11 @@
-"""Numpy pose helpers and the nearest SE(2) warp, for label generation on the host.
+"""Numpy pose helpers, the nearest SE(2) warp and the host label prewarp.
 
-A copy of the parts of fiery_tpu/data/label_warp.py that data/labels.py needs: the
-pose conversions of utils/geometry.py and the nearest warp of ops/warp.py in numpy,
-f32 throughout, so that the synthetic dataset makes the same labels as the JAX
-package's.
+A copy of fiery_tpu/data/label_warp.py: the pose conversions of utils/geometry.py
+and the nearest warp of ops/warp.py in numpy, f32 throughout, so that the synthetic
+dataset makes the same labels as the JAX package's; and the label stack's warp to
+the present frame (``warp_label_stack``), which DATASET.PREWARP_LABELS runs on the
+host between steps (``PrewarpTransform``), so that the training step takes the
+warped stack as it is and no label warp (kernel K4) runs on the card.
 """
 
 import numpy as np
@@ -88,3 +90,55 @@ def _warp_nearest(x, flow, spatial_extent):
     yi_c = np.clip(yi, 0, H - 1)
     out = x[np.arange(b)[:, None, None], yi_c, xi_c]              # (b, H, W, C)
     return out * valid[..., None].astype(x.dtype)
+
+
+def warp_label_stack(stack, future_egomotion, spatial_extent):
+    """Numpy twin of cumulative_warp_features_reverse(mode='nearest'): stack
+    (b, s, H, W, C) f32 label maps, future_egomotion (b, s, 6) f32. Frame 0 is
+    returned unchanged; frame i is warped by inv(flow[0]) @ ... @ inv(flow[i-1])."""
+    stack = np.asarray(stack, np.float32)
+    flow = np.asarray(future_egomotion, np.float32)
+    b, s = stack.shape[:2]
+    if s == 1:
+        return stack
+    inv = _invert_pose(_pose_vec2mat(flow))
+    mats = [inv[:, 0]]
+    for i in range(2, s):
+        mats.append(mats[-1] @ inv[:, i - 1])
+    poses = _mat2pose_vec(np.stack(mats, axis=1)).astype(np.float32)
+    warped = _warp_nearest(
+        stack[:, 1:].reshape(b * (s - 1), *stack.shape[2:]),
+        poses.reshape(b * (s - 1), 6), spatial_extent,
+    ).reshape(b, s - 1, *stack.shape[2:])
+    return np.concatenate([stack[:, :1], warped], axis=1)
+
+
+class PrewarpTransform:
+    """Batch transform that adds ``warped_label_stack``: the label maps stacked as
+    ``Trainer.prepare_future_labels`` stacks them (segmentation, instance,
+    centerness, offset[, flow], channels-last) and warped on the host. The raw
+    label keys stay in the batch. A class, not a closure, so that it pickles into
+    data-loader worker processes."""
+
+    def __init__(self, cfg):
+        self.rf = cfg.TIME_RECEPTIVE_FIELD
+        self.ext = (cfg.LIFT.X_BOUND[1], cfg.LIFT.Y_BOUND[1])
+        self.with_flow = cfg.INSTANCE_FLOW.ENABLED
+
+    def __call__(self, batch):
+        rf = self.rf
+        maps = [np.asarray(batch['segmentation'][:, rf - 1:], np.float32),
+                np.asarray(batch['instance'][:, rf - 1:], np.float32)[..., None],
+                np.asarray(batch['centerness'][:, rf - 1:], np.float32),
+                np.asarray(batch['offset'][:, rf - 1:], np.float32)]
+        if self.with_flow:
+            maps.append(np.asarray(batch['flow'][:, rf - 1:], np.float32))
+        stacked = np.concatenate(maps, axis=-1)
+        ego = np.asarray(batch['future_egomotion'][:, rf - 1:], np.float32)
+        out = dict(batch)
+        out['warped_label_stack'] = warp_label_stack(stacked, ego, self.ext)
+        return out
+
+
+def make_prewarp_transform(cfg):
+    return PrewarpTransform(cfg)

@@ -5,7 +5,12 @@ egopose concat -> temporal model -> latent sample -> SpatialGRU rollout -> decod
 Eval (``model.eval()``) trims the temporal model to the present frame and samples
 the present distribution (zero noise unless given); training (``model.train()``)
 runs the whole temporal model, batch-statistics BatchNorm and drop-connect, and
-samples the future distribution of the warped future labels. Tensor conventions,
+samples the future distribution of the warped future labels. The levers of the
+JAX package: LIFT.TOPK splats only each pixel's k largest depth bins (kernel K5,
+then K1 at D = k); LIFT.WARP_FREE moves the past frames' lift geometry into the
+present frame, so no BEV warp runs; TRIM_TRAIN trims the temporal model in
+training too; DEPTH_CULL (``depth_keep``) drops far depth planes that never reach
+the grid. Tensor conventions,
 channels-last everywhere:
   image (b, s, n, H, W, 3) uint8 or float, intrinsics (b, s, n, 3, 3),
   extrinsics (b, s, n, 4, 4), future_egomotion (b, s, 6), BEV states (b, t, X, Y, C);
@@ -15,7 +20,7 @@ channels-last everywhere:
 """
 
 import dataclasses
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn as nn
@@ -26,8 +31,10 @@ from fiery_tpu_torch.models.encoder import Encoder
 from fiery_tpu_torch.models.future_prediction import FuturePrediction
 from fiery_tpu_torch.models.temporal_model import (TemporalModel, TemporalModelIdentity,
                                                    temporal_out_channels)
-from fiery_tpu_torch.ops.lift_splat import create_frustum, get_geometry, lift_splat_depth
-from fiery_tpu_torch.ops.warp import cumulative_warp_features
+from fiery_tpu_torch.ops.lift_splat import (create_frustum, get_geometry, lift_splat_depth,
+                                            lift_splat_topk)
+from fiery_tpu_torch.ops.warp import (compose_poses_to_present, cumulative_warp_features,
+                                      warp_points_to_present)
 from fiery_tpu_torch.utils.geometry import (calculate_birds_eye_view_parameters,
                                             pack_sequence_dim)
 
@@ -68,6 +75,17 @@ class FieryConfig:
     probabilistic_enabled: bool = True
     probabilistic_future_dim: int = 6
     precision: int = 32   # 16 -> bf16 compute (BN and the geometry stay f32)
+    # per-camera kept depth-plane counts (compute_depth_plane_keep, LIFT.DEPTH_CULL),
+    # given by Trainer(cfg, depth_keep=...); None splats every plane
+    depth_keep: Optional[Tuple[int, ...]] = None
+    # LIFT.TOPK: splat only each pixel's k largest depth bins; 0 splats all of them
+    depth_topk: int = 0
+    # MODEL.TEMPORAL_MODEL.TRIM_TRAIN: trim the temporal model in training too, so
+    # the BatchNorms' batch statistics cover the kept frames only
+    temporal_trim_train: bool = False
+    # LIFT.WARP_FREE: the past frames' lift geometry moves into the present frame
+    # (bin assignment instead of the bilinear warp of the splatted features)
+    warp_free: bool = False
 
     def __post_init__(self):
         if self.subsample and (self.time_receptive_field + self.n_future_frames + 1) // 2 != 8:
@@ -78,17 +96,31 @@ class FieryConfig:
             raise ValueError(f'IMAGE.FINAL_DIM must be divisible by 16 (got '
                              f'{self.final_dim}): the encoder FPN upsamples the '
                              f'stride-16 endpoint by exactly 2x onto the stride-8 one.')
+        if self.depth_topk:
+            if not 0 < self.depth_topk <= self.depth_channels:
+                raise ValueError(f'LIFT.TOPK must be in [1, D={self.depth_channels}] '
+                                 f'(got {self.depth_topk})')
+            if self.depth_keep is not None:
+                raise ValueError('LIFT.TOPK and LIFT.DEPTH_CULL are exclusive: the sparse '
+                                 'top-k splat already drops out-of-bounds mass via the '
+                                 'dump bin.')
+        if self.warp_free and self.depth_keep is not None:
+            raise ValueError('LIFT.WARP_FREE and LIFT.DEPTH_CULL are exclusive: the static '
+                             'culling envelope is computed in per-frame grid coordinates '
+                             'and does not account for the ego motion folded into the '
+                             'geometry.')
 
     @classmethod
     def from_cfg(cls, cfg):
-        """Build from a CfgNode (fiery_tpu_torch.utils.config.get_cfg())."""
-        levers = {'LIFT.TOPK': cfg.LIFT.TOPK, 'LIFT.WARP_FREE': cfg.LIFT.WARP_FREE,
-                  'LIFT.DEPTH_CULL': cfg.LIFT.DEPTH_CULL,
-                  'MODEL.TEMPORAL_MODEL.TRIM_TRAIN': cfg.MODEL.TEMPORAL_MODEL.TRIM_TRAIN}
-        on = [k for k, v in levers.items() if v]
-        if on:
-            raise NotImplementedError(f'{", ".join(on)}: not ported yet; the port serves '
-                                      f'the dense exact splat')
+        """Build from a CfgNode (fiery_tpu_torch.utils.config.get_cfg()). The keep
+        counts of DEPTH_CULL depend on the rig and come later (``Trainer``), but its
+        exclusive combinations are refused here."""
+        if cfg.LIFT.DEPTH_CULL and (cfg.LIFT.TOPK or cfg.LIFT.WARP_FREE):
+            raise ValueError(
+                'LIFT.DEPTH_CULL is exclusive with LIFT.TOPK (the sparse splat already '
+                'drops out-of-bounds mass via the dump bin) and with LIFT.WARP_FREE (the '
+                'static culling envelope is computed in per-frame grid coordinates and '
+                'does not account for the ego motion folded into the geometry).')
         return cls(
             time_receptive_field=cfg.TIME_RECEPTIVE_FIELD,
             n_future_frames=cfg.N_FUTURE_FRAMES,
@@ -102,6 +134,9 @@ class FieryConfig:
             encoder_name=cfg.MODEL.ENCODER.NAME,
             encoder_out_channels=cfg.MODEL.ENCODER.OUT_CHANNELS,
             use_depth_distribution=cfg.MODEL.ENCODER.USE_DEPTH_DISTRIBUTION,
+            depth_topk=cfg.LIFT.TOPK,
+            warp_free=cfg.LIFT.WARP_FREE,
+            temporal_trim_train=cfg.MODEL.TEMPORAL_MODEL.TRIM_TRAIN,
             temporal_name=cfg.MODEL.TEMPORAL_MODEL.NAME,
             start_out_channels=cfg.MODEL.TEMPORAL_MODEL.START_OUT_CHANNELS,
             extra_in_channels=cfg.MODEL.TEMPORAL_MODEL.EXTRA_IN_CHANNELS,
@@ -202,9 +237,11 @@ class Fiery(nn.Module):
         image = image.to(dt)
         egomotion = future_egomotion[:, :rf].float()
         x = self.calculate_birds_eye_view_features(
-            image, intrinsics[:, :rf].float(), extrinsics[:, :rf].float(), generator)
-        x = cumulative_warp_features(x, egomotion, mode='bilinear',
-                                     spatial_extent=c.spatial_extent)
+            image, intrinsics[:, :rf].float(), extrinsics[:, :rf].float(), generator,
+            egomotion=egomotion if c.warp_free else None)
+        if not c.warp_free:
+            x = cumulative_warp_features(x, egomotion, mode='bilinear',
+                                         spatial_extent=c.spatial_extent)
         if c.input_egopose:
             b, s = egomotion.shape[:2]
             h, w = x.shape[2:4]
@@ -214,8 +251,9 @@ class Fiery(nn.Module):
             x = torch.cat([x, ego.to(x.dtype)], dim=-1)
 
         # eval trims the stack to the present frame (exact under running statistics);
-        # training keeps every frame, whose batch statistics the BatchNorms need
-        states = self.temporal_model(x, trim=not self.training)
+        # training keeps every frame, whose batch statistics the BatchNorms need,
+        # unless TRIM_TRAIN trims it too
+        states = self.temporal_model(x, trim=not self.training or c.temporal_trim_train)
         output = {}
         if c.n_future > 0:
             present_state = states[:, :1]
@@ -264,15 +302,32 @@ class Fiery(nn.Module):
                 noise = torch.zeros_like(mu)
         return mu + torch.exp(log_sigma) * noise.to(mu.device, mu.dtype), output
 
-    def calculate_birds_eye_view_features(self, x, intrinsics, extrinsics, generator=None):
-        """(b, s, n, H, W, 3) images -> (b, s, X, Y, C) BEV features."""
+    def calculate_birds_eye_view_features(self, x, intrinsics, extrinsics, generator=None,
+                                          egomotion=None):
+        """(b, s, n, H, W, 3) images -> (b, s, X, Y, C) BEV features. With
+        ``egomotion`` (b, s, 6) (the warp-free lift) the past frames' geometry is
+        moved into the present frame by the composed poses, in f32, before it is
+        cast to the compute dtype; the present frame's is left as it is."""
         c = self.cfg
         b, s, n = x.shape[:3]
         geometry = get_geometry(self.frustum, pack_sequence_dim(intrinsics),
                                 pack_sequence_dim(extrinsics))   # (b*s, n, D, h, w, 3)
+        if egomotion is not None and s > 1:
+            geometry = geometry.reshape(b, s, *geometry.shape[1:])
+            poses = compose_poses_to_present(egomotion)            # (b, s-1, 6)
+            past = pack_sequence_dim(geometry[:, :-1])
+            xy = warp_points_to_present(past[..., :2], pack_sequence_dim(poses),
+                                        c.spatial_extent, (c.x_bound[:2], c.y_bound[:2]))
+            past = torch.cat([xy, past[..., 2:]], dim=-1).view(b, s - 1, *past.shape[1:])
+            geometry = pack_sequence_dim(torch.cat([past, geometry[:, -1:]], dim=1))
         depth, feat = self.encoder(x.reshape(b * s * n, *x.shape[3:]), generator)
         depth = depth.reshape(b * s, n, *depth.shape[1:])          # (b*s, n, h, w, D)
         feat = feat.reshape(b * s, n, *feat.shape[1:])             # (b*s, n, h, w, C)
         res, start, dim = c.bev_parameters
-        bev = lift_splat_depth(depth, feat, geometry.to(feat.dtype), res, start, dim)
+        geometry = geometry.to(feat.dtype)
+        if c.depth_topk:
+            bev = lift_splat_topk(depth, feat, geometry, c.depth_topk, res, start, dim)
+        else:
+            bev = lift_splat_depth(depth, feat, geometry, res, start, dim,
+                                   depth_keep=c.depth_keep)
         return bev.view(b, s, *bev.shape[1:])

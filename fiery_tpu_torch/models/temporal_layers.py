@@ -160,13 +160,18 @@ class TemporalBlock(nn.Module):
         s = drop_front
         assert 0 <= s < x.shape[2]
         # the (2,3,3) path and the pooling read one context frame before s; the
-        # causal conv's zero pre-pad corrupts only that frame's own output
+        # causal conv's zero pre-pad corrupts only that frame's own output. The three
+        # 1x1x1 prologs run over the context frame too and drop it after: in training
+        # (TRIM_TRAIN) their BatchNorms then take batch statistics over the frames
+        # the JAX package's fused prolog covers
         xc = x[:, :, s - 1:] if s else x
         xs = x[:, :, s:]
-        p0 = self.convolution_paths[0](xc)
-        paths = [p0[:, :, 1:] if s else p0,
-                 self.convolution_paths[1](xs),
-                 self.convolution_paths[2](xs)]
+        prolog1, conv1 = self.convolution_paths[1]
+        p0, p1, p2 = (self.convolution_paths[0](xc), prolog1(xc),
+                      self.convolution_paths[2](xc))
+        if s:
+            p0, p1, p2 = p0[:, :, 1:], p1[:, :, 1:], p2[:, :, 1:]
+        paths = [p0, conv1(p1), p2]
         if self.pyramid_pooling is not None:
             paths.append(self.pyramid_pooling(xc, drop_front=min(s, 1)))
         h = self.aggregation(torch.cat(paths, dim=1))

@@ -7,6 +7,9 @@ the ``bev_pool`` kernel (csrc/bev_pool.cu) multiplies depth and features on the
 fly while it splats, and its backward kernel gathers the output gradient rows and
 contracts them with features and depth without building it either. ``lift_splat``
 keeps the JAX signature over a lifted volume and is the plain reference form.
+The sparse splat (``lift_splat_topk``, LIFT.TOPK) picks each pixel's k largest
+depth bins with the ``topk_select`` kernel (csrc/topk_select.cu) and splats them
+through ``bev_pool`` at D = k.
 """
 
 import ctypes
@@ -228,13 +231,258 @@ bev_pool_backward.launches = 0
 
 
 def lift_splat_depth(depth, feat, geometry, bev_resolution, bev_start_position,
-                     bev_dimension):
+                     bev_dimension, depth_keep=None):
     """The serving splat: depth (B, N, h, w, D), features (B, N, h, w, C) and
     geometry (B, N, D, h, w, 3) -> (B, X, Y, C), through ``bev_pool``. The ids are
-    reordered to the (h, w, D) layout of depth instead of transposing features."""
+    reordered to the (h, w, D) layout of depth instead of transposing features.
+
+    depth_keep: optional per-camera keep counts (N,) from
+    ``compute_depth_plane_keep``; the planes d >= depth_keep[n] of camera n go to
+    the dump bin, which gives the JAX package's culled splat (which slices them out)
+    exactly."""
     B, C = depth.shape[0], feat.shape[-1]
     X, Y, Z = (int(d) for d in bev_dimension)
     ids = voxel_ids(geometry, bev_resolution, bev_start_position, bev_dimension)
-    ids = ids.permute(0, 1, 3, 4, 2).contiguous()
-    out = bev_pool(depth.contiguous(), feat.contiguous(), ids, X * Y * Z, Z)
+    ids = ids.permute(0, 1, 3, 4, 2)
+    if depth_keep is not None:
+        N, D = ids.shape[1], ids.shape[-1]
+        if len(depth_keep) != N:
+            raise ValueError(f'depth_keep has {len(depth_keep)} counts for {N} cameras')
+        keep = torch.tensor([int(k) for k in depth_keep], device=ids.device)
+        culled = torch.arange(D, device=ids.device) >= keep.view(1, N, 1, 1, 1)
+        ids = torch.where(culled, torch.full_like(ids, X * Y * Z), ids)
+    out = bev_pool(depth.contiguous(), feat.contiguous(), ids.contiguous(), X * Y * Z, Z)
     return out.view(B, X, Y, C)
+
+
+def _order_bits(x):
+    """Order-preserving unsigned keys of floats, as int64, in their native width:
+    bf16 -> 16 bits, anything else -> 32 bits of its f32 value. The sign bit is set
+    for values >= 0 and every bit flipped for negative ones (-0.0 and +0.0 are
+    distinct keys). Returns (keys, nbits)."""
+    if x.dtype == torch.bfloat16:
+        b = x.view(torch.int16).to(torch.int64) & 0xFFFF
+        return torch.where((b >> 15) == 0, b | 0x8000, ~b & 0xFFFF), 16
+    b = x.float().view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    return torch.where((b >> 31) == 0, b | 0x80000000, ~b & 0xFFFFFFFF), 32
+
+
+def _kth_largest_bits(u, k, nbits):
+    """Exact k-th largest key along the last axis, (..., 1): the 4-bit dense
+    histogram descent of the JAX package, nbits / 4 levels."""
+    prefix = torch.zeros(u.shape[:-1] + (1,), dtype=u.dtype, device=u.device)
+    rank = torch.full(u.shape[:-1] + (1,), k, dtype=torch.int64, device=u.device)
+    buckets = torch.arange(16, device=u.device)
+    for level in range(nbits // 4):
+        shift = nbits - 4 - 4 * level
+        b = (u >> shift) & 0xF
+        onehot = b[..., None] == buckets
+        if level:
+            active = (u >> (shift + 4)) == (prefix >> (shift + 4))
+            onehot &= active[..., None]
+        hist = onehot.sum(dim=-2)                                  # (..., 16)
+        cnt_ge = torch.cumsum(hist.flip(-1), dim=-1).flip(-1)
+        bstar = (cnt_ge >= rank).sum(dim=-1, keepdim=True) - 1     # largest bucket >= rank
+        cnt_gt = torch.where(buckets == bstar, cnt_ge - hist, 0).sum(dim=-1, keepdim=True)
+        rank = rank - cnt_gt
+        prefix = prefix | (bstar << shift)
+    return prefix
+
+
+def topk_select_plain(depth, ids, k):
+    """Plain version of ``topk_select``, the JAX package's ``_topk_select_nosort``
+    step by step: the exact k-th key, then every bin above it and the lowest-index
+    ties at it, compacted into k slots in ascending bin order. Returns (top_w,
+    ids_k, idx) with idx the selected bins (..., k) uint8."""
+    u, nbits = _order_bits(depth)
+    kth = _kth_largest_bits(u, k, nbits)
+    gt, eq = u > kth, u == kth
+    n_gt = gt.sum(dim=-1, keepdim=True)
+    eq_rank = torch.cumsum(eq.long(), dim=-1)                      # 1-based among ties
+    sel = gt | (eq & (eq_rank <= k - n_gt))                        # exactly k true
+    slot = torch.where(sel, torch.cumsum(sel.long(), dim=-1) - 1, k)
+    D = depth.shape[-1]
+    bins = torch.arange(D, device=depth.device).expand(depth.shape).contiguous()
+    # slot k collects the unselected bins and is dropped
+    idx = torch.zeros(depth.shape[:-1] + (k + 1,), dtype=torch.int64, device=depth.device)
+    idx = idx.scatter(-1, slot, bins)[..., :k]
+    return depth.gather(-1, idx), ids.gather(-1, idx), idx.to(torch.uint8)
+
+
+def topk_select_backward_plain(g, idx, D):
+    """Plain version of ``topk_select_backward``."""
+    out = torch.zeros(g.shape[:-1] + (D,), dtype=g.dtype, device=g.device)
+    return out.scatter(-1, idx.long(), g)
+
+
+def _check_topk_inputs(depth, ids, k):
+    D = depth.shape[-1]
+    if ids.shape != depth.shape:
+        raise ValueError(f'topk_select: ids {tuple(ids.shape)} must be shaped as depth '
+                         f'{tuple(depth.shape)}')
+    if not 1 <= k <= D:
+        raise ValueError(f'topk_select: k = {k} outside [1, {D}]')
+    if depth.device.type == 'cpu':
+        return
+    if depth.device.type != 'cuda' or ids.device != depth.device:
+        raise ValueError(f'topk_select: depth and ids must share a CUDA device, got '
+                         f'{depth.device} and {ids.device}')
+    if depth.dtype not in (torch.float32, torch.bfloat16) or ids.dtype != torch.int32:
+        raise TypeError(f'topk_select: depth must be float32 or bfloat16 and ids int32, '
+                        f'got {depth.dtype}/{ids.dtype}')
+    if D > 64:
+        raise ValueError(f'topk_select: D = {D} > 64 depth bins')
+    if not (depth.is_contiguous() and ids.is_contiguous()):
+        raise ValueError('topk_select: inputs must be contiguous')
+
+
+class _TopkSelect(torch.autograd.Function):
+    """The select with its backward kernel; the ids get no gradient."""
+
+    @staticmethod
+    def forward(ctx, depth, ids, k):
+        D = depth.shape[-1]
+        if depth.device.type == 'cpu':
+            top_w, ids_k, idx = topk_select_plain(depth, ids, k)
+        else:
+            fn = _build.load('topk_select').fiery_topk_select
+            fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_longlong] + [ctypes.c_int] * 3 \
+                + [ctypes.c_void_p]
+            fn.restype = ctypes.c_int
+            shape = depth.shape[:-1] + (k,)
+            top_w = torch.empty(shape, dtype=depth.dtype, device=depth.device)
+            ids_k = torch.empty(shape, dtype=torch.int32, device=depth.device)
+            idx = torch.empty(shape, dtype=torch.uint8, device=depth.device)
+            stream = torch.cuda.current_stream(depth.device).cuda_stream
+            rc = fn(depth.data_ptr(), ids.data_ptr(), top_w.data_ptr(), ids_k.data_ptr(),
+                    idx.data_ptr(), depth.numel() // D, D, k,
+                    int(depth.dtype == torch.bfloat16), stream)
+            if rc != 0:
+                raise RuntimeError(f'topk_select kernel launch failed: CUDA error {rc}')
+            topk_select.launches += 1
+        ctx.save_for_backward(idx)
+        ctx.D = D
+        ctx.mark_non_differentiable(ids_k, idx)
+        ctx.set_materialize_grads(False)
+        return top_w, ids_k, idx
+
+    @staticmethod
+    def backward(ctx, g, g_ids, g_idx):
+        if g is None:
+            return None, None, None
+        idx, = ctx.saved_tensors
+        return topk_select_backward(g.contiguous(), idx, ctx.D), None, None
+
+
+def topk_select(depth, ids, k):
+    """Exact top-k depth bins of each pixel (kernel K5, csrc/topk_select.cu),
+    differentiable in depth.
+
+    depth (..., D) float32 or bfloat16 weights, ids (..., D) int32 voxel ids ->
+    (top_w (..., k) in depth's dtype, ids_k (..., k) int32, idx (..., k) uint8): the
+    JAX package's ``_topk_select_nosort`` set (ties at the k-th weight take the
+    lowest bins) in ascending bin order, and the selected bins. The gradient of
+    top_w flows back to the selected bins (``topk_select_backward``). A CPU tensor
+    takes the plain versions; a CUDA tensor launches the kernels.
+    """
+    _check_topk_inputs(depth, ids, k)
+    return _TopkSelect.apply(depth, ids, k)
+
+
+topk_select.launches = 0
+
+
+def topk_select_backward(g, idx, D):
+    """Gradient of ``topk_select`` with respect to depth (kernel K5 backward,
+    csrc/topk_select.cu): g (..., k) -> d_depth (..., D) of g's dtype, with
+    d_depth[..., idx[..., j]] = g[..., j] and zero elsewhere. A CPU tensor takes the
+    plain version; a CUDA tensor launches the kernel."""
+    if idx.shape != g.shape or idx.dtype != torch.uint8:
+        raise ValueError(f'topk_select_backward: idx must be uint8 shaped as g '
+                         f'{tuple(g.shape)}, got {idx.dtype} {tuple(idx.shape)}')
+    if g.device.type == 'cpu':
+        return topk_select_backward_plain(g, idx, D)
+    if (g.device.type != 'cuda' or idx.device != g.device
+            or g.dtype not in (torch.float32, torch.bfloat16)
+            or not (g.is_contiguous() and idx.is_contiguous()) or D > 64):
+        raise ValueError(f'topk_select_backward: g must be contiguous float32 or bfloat16 '
+                         f'on the device of idx with D <= 64, got {g.dtype} on {g.device}, '
+                         f'D = {D}')
+    k = g.shape[-1]
+    fn = _build.load('topk_select').fiery_topk_select_backward
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_longlong] + [ctypes.c_int] * 3 \
+        + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    d_depth = torch.empty(g.shape[:-1] + (D,), dtype=g.dtype, device=g.device)
+    stream = torch.cuda.current_stream(g.device).cuda_stream
+    rc = fn(g.data_ptr(), idx.data_ptr(), d_depth.data_ptr(), g.numel() // k, D, k,
+            int(g.dtype == torch.bfloat16), stream)
+    if rc != 0:
+        raise RuntimeError(f'topk_select_backward kernel launch failed: CUDA error {rc}')
+    topk_select_backward.launches += 1
+    return d_depth
+
+
+topk_select_backward.launches = 0
+
+
+def lift_splat_topk(depth, feat, geometry, k, bev_resolution, bev_start_position,
+                    bev_dimension):
+    """The sparse top-k splat (LIFT.TOPK): only the k largest depth bins of each
+    pixel enter the splat. depth (B, N, h, w, D), features (B, N, h, w, C), geometry
+    (B, N, D, h, w, 3) -> (B, X, Y, C). ``topk_select`` (K5) picks the bins and their
+    voxel ids, and ``bev_pool`` (K1) splats them at D = k; the k-wide lifted volume
+    is never built, and the gradient runs through K1's backward and then K5's."""
+    B, C = depth.shape[0], feat.shape[-1]
+    X, Y, Z = (int(d) for d in bev_dimension)
+    ids = voxel_ids(geometry, bev_resolution, bev_start_position, bev_dimension)
+    ids = ids.permute(0, 1, 3, 4, 2).contiguous()                 # (B, N, h, w, D)
+    top_w, ids_k, _ = topk_select(depth.contiguous(), ids, k)
+    out = bev_pool(top_w, feat.contiguous(), ids_k, X * Y * Z, Z)
+    return out.view(B, X, Y, C)
+
+
+def compute_depth_plane_keep(frustum, intrinsics, extrinsics, bev_resolution,
+                             bev_start_position, bev_dimension, t_margin=0.5,
+                             rot_margin_deg=2.0):
+    """Per-camera keep count of leading depth planes (static far-plane culling,
+    LIFT.DEPTH_CULL), in numpy over observed calibrations.
+
+    A depth plane of camera n can be culled when, for every observed pose, every
+    point of it lies outside the XY BEV box widened by the slack
+    ``t_margin + d_cam * sin(rot_margin)`` (d_cam: the distance from the camera),
+    which bounds how far a point moves under any pose within the margins of an
+    observed one. Only a contiguous far range is culled.
+
+    frustum (D, h, w, 3); intrinsics / extrinsics (..., N, 3, 3) / (..., N, 4, 4)
+    over any number of observed frames. Returns np.int32 (N,) keep counts.
+    """
+    frustum = np.asarray(frustum)
+    intr = np.asarray(intrinsics, np.float64).reshape(-1, *intrinsics.shape[-3:])
+    extr = np.asarray(extrinsics, np.float64).reshape(-1, *extrinsics.shape[-3:])
+    n_obs, N = intr.shape[0], intr.shape[1]
+    D = frustum.shape[0]
+    res = np.asarray(bev_resolution, np.float64)
+    start = np.asarray(bev_start_position, np.float64)
+    dim = np.asarray(bev_dimension)
+    # the XY box of bins [0, dim), widened by one bin: voxel_ids truncates, so the
+    # (-1, 0) fractional bin lands in bin 0
+    lo = start[:2] - res[:2] / 2.0 - res[:2]
+    hi = start[:2] - res[:2] / 2.0 + dim[:2] * res[:2] + res[:2]
+    points = np.concatenate([frustum[..., :2] * frustum[..., 2:3], frustum[..., 2:3]],
+                            axis=-1)
+    rot_sin = np.sin(np.radians(rot_margin_deg))
+    keep = np.zeros((N,), np.int32)
+    for n in range(N):
+        needed = np.zeros((D,), bool)
+        for o in range(n_obs):
+            R, t = extr[o, n, :3, :3], extr[o, n, :3, 3]
+            combined = R @ np.linalg.inv(intr[o, n])
+            pts = np.einsum('ij,dhwj->dhwi', combined, points) + t   # (D, h, w, 3)
+            slack = t_margin + np.linalg.norm(pts - t, axis=-1) * rot_sin
+            inside = ((pts[..., 0] > lo[0] - slack) & (pts[..., 0] < hi[0] + slack)
+                      & (pts[..., 1] > lo[1] - slack) & (pts[..., 1] < hi[1] + slack))
+            needed |= inside.any(axis=(1, 2))
+        # contiguous far cull: keep through the last needed plane
+        keep[n] = int(np.max(np.nonzero(needed)[0])) + 1 if needed.any() else 1
+    return keep

@@ -254,6 +254,33 @@ def compose_poses_to_present(flow):
     return mat2pose_vec(torch.stack(mats[::-1], dim=1))
 
 
+def warp_points_to_present(points_xy, flow, spatial_extent, bev_bounds):
+    """Map frame-t metric BEV points (..., 2) to the present frame: the inverse of
+    ``warp_features``' sampling affine in point space, so that past frames splat
+    straight into the present grid (the warp-free lift, LIFT.WARP_FREE).
+
+    points_xy's leading axis matches flow (b, 6); bev_bounds ((x_lo, x_hi),
+    (y_lo, y_hi)). Computed in the points' dtype, in the JAX package's order of
+    operations: a rotation with aspect a = h_x / h_y about the grid centre, after
+    the extent-scaled translation."""
+    (x_lo, x_hi), (y_lo, y_hi) = bev_bounds
+    c_x, h_x = (x_lo + x_hi) / 2.0, (x_hi - x_lo) / 2.0
+    c_y, h_y = (y_lo + y_hi) / 2.0, (y_hi - y_lo) / 2.0
+    a = h_x / h_y
+    dt = points_xy.dtype
+    angle = flow[:, 5].to(dt)
+    # the theta translation in metric units of the output grid's axes
+    fx = (flow[:, 0] * (h_x / spatial_extent[0])).to(dt)
+    fy = (flow[:, 1] * (h_y / spatial_extent[1])).to(dt)
+    shape = (-1,) + (1,) * (points_xy.dim() - 2)
+    cos_t, sin_t = torch.cos(angle).view(shape), torch.sin(angle).view(shape)
+    p = points_xy[..., 0] - c_x + fx.view(shape)
+    q = points_xy[..., 1] - c_y - fy.view(shape)
+    x_p = c_x + cos_t * p - (a * sin_t) * q
+    y_p = c_y + (sin_t / a) * p + cos_t * q
+    return torch.stack([x_p, y_p], dim=-1)
+
+
 def cumulative_warp_features(x, flow, mode='bilinear', spatial_extent=None):
     """Warp past BEV frames x (b, t, H, W, C) to the present by the composed poses
     of flow (b, t, 6); the present frame x[:, -1] is unchanged."""

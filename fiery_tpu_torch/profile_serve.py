@@ -1,11 +1,13 @@
 """Where the serve time goes on the card: python -m fiery_tpu_torch.profile_serve
 
 Full-width baseline.yml at batch 1 (PRECISION 16, seeded random weights, BatchNorm
-statistics calibrated on two seeded clips). Prints, as JSON lines:
+statistics calibrated on two seeded clips); ``--topk 8 --warp-free`` serves the
+sparse, warp-free combination (LIFT.TOPK 8, LIFT.WARP_FREE True). Prints, as JSON
+lines:
   * the request wall time (host clock around predict_instances + synchronize),
     median of --requests requests after a warm-up;
   * each stage's device time (CUDA events around the encoder, the bev_pool splat,
-    the bev_warp warp, the temporal model, the present distribution, the future
+    or the top-k splat (K5, K1), the bev_warp warp, the temporal model, the present distribution, the future
     rollout, the decoder, the instance decode (K6, K7) and the temporal ID
     tracking (K8, K9)), median over the same requests;
   * from torch.profiler over three requests: the device busy time per request, its
@@ -30,6 +32,7 @@ from fiery_tpu_torch.utils.config import get_cfg
 MODULE_STAGES = ('encoder', 'temporal_model', 'present_distribution', 'future_prediction',
                  'decoder')
 FUNCTION_STAGES = {'bev_pool_splat': (fiery_module, 'lift_splat_depth'),
+                   'topk_splat': (fiery_module, 'lift_splat_topk'),
                    'bev_warp': (fiery_module, 'cumulative_warp_features'),
                    'decode': (evaluate_module, 'decode_instance_predictions'),
                    'track': (evaluate_module, 'make_instance_id_temporally_consistent_device')}
@@ -77,11 +80,16 @@ def instrument(model, timer):
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument('--requests', type=int, default=10)
+    parser.add_argument('--topk', type=int, default=0,
+                        help='LIFT.TOPK: splat only the k largest depth bins per pixel')
+    parser.add_argument('--warp-free', action='store_true',
+                        help='LIFT.WARP_FREE: lift past frames straight into the present')
     args = parser.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit('profile_serve needs a CUDA device')
 
-    cfg = get_cfg(argparse.Namespace(config_file=BASELINE, opts=[]))
+    opts = ['LIFT.TOPK', str(args.topk), 'LIFT.WARP_FREE', str(args.warp_free)]
+    cfg = get_cfg(argparse.Namespace(config_file=BASELINE, opts=opts))
     model = init_params(build_fiery(cfg), seed=0)
     calibrate_batchnorm(model, [make_request(cfg, seed=s) for s in (6, 7)])
     requests = [make_request(cfg, seed=10 + i) for i in range(args.requests)]
@@ -99,7 +107,8 @@ def main():
         walls.append(1e3 * (time.perf_counter() - t0))
         stages.append(timer.read_ms())
     stage_ms = {k: statistics.median(s[k] for s in stages) for k in stages[0]}
-    print(json.dumps({'request_ms_median': statistics.median(walls),
+    print(json.dumps({'topk': args.topk, 'warp_free': args.warp_free,
+                      'request_ms_median': statistics.median(walls),
                       'request_ms': walls, 'stage_device_ms_median': stage_ms,
                       'stage_device_ms_sum': sum(stage_ms.values())}), flush=True)
 

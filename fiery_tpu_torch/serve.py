@@ -11,6 +11,10 @@ running on the CPU.
     calibrate_batchnorm(model, [make_request(cfg, seed=s) for s in (6, 7)])
     out = predict(model, make_request(cfg, seed=1))
     out, ids = predict_instances(model, make_request(cfg, seed=1))  # + (1, 5, 200, 200) ids
+
+The levers come as overrides, e.g. the sparse, warp-free combination:
+    cfg = get_cfg(argparse.Namespace(config_file=BASELINE,
+                                     opts=['LIFT.TOPK', '8', 'LIFT.WARP_FREE', 'True']))
 """
 
 import math

@@ -8,15 +8,20 @@ kernels of the splat K1 and the warp K2), clips the global gradient norm and tak
 an Adam step with coupled L2 weight decay, in the order of the JAX package's optax
 chain: clip, add the decayed weights, Adam.
 
+Under DATASET.PREWARP_LABELS the batch carries the label stack already warped on
+the host (data/label_warp.py ``PrewarpTransform``), and K4 does not run.
+
 The model keeps float32 parameters; under PRECISION 16 it computes in bfloat16
 (the convolutions cast their weights on the fly), as the JAX package's modules do
 with ``dtype=bfloat16``. The learned uncertainty weights of the losses are
 parameters too and take part in the clip and in Adam.
 
-    trainer = Trainer(cfg)                              # on cuda
+    trainer = Trainer(cfg)                              # on cuda; depth_keep= for DEPTH_CULL
     init_params(trainer.model, seed=0)
     losses, total = trainer.train_step(batch, generator)
 """
+
+import dataclasses
 
 import torch
 
@@ -30,14 +35,20 @@ INPUTS = ('image', 'intrinsics', 'extrinsics', 'future_egomotion')
 class Trainer:
     """Owns the model, the uncertainty weights and the optimizer."""
 
-    def __init__(self, cfg, device=None):
+    def __init__(self, cfg, depth_keep=None, device=None):
+        """depth_keep: the per-camera kept depth-plane counts of LIFT.DEPTH_CULL
+        (``ops.lift_splat.compute_depth_plane_keep``), or None."""
         device = torch.device('cuda' if device is None else device)
         if device.type == 'cuda' and not torch.cuda.is_available():
             raise RuntimeError('fiery_tpu_torch trains on a CUDA device and none is '
                                'available; pass device="cpu" to run on the CPU')
         self.cfg = cfg
         self.device = device
-        self.model = Fiery(FieryConfig.from_cfg(cfg)).to(device).train()
+        model_cfg = FieryConfig.from_cfg(cfg)
+        if depth_keep is not None:
+            model_cfg = dataclasses.replace(
+                model_cfg, depth_keep=tuple(int(k) for k in depth_keep))
+        self.model = Fiery(model_cfg).to(device).train()
         self.uncertainty = init_uncertainty_weights(cfg.INSTANCE_FLOW.ENABLED).to(device)
         self.params = list(self.model.parameters()) + list(self.uncertainty.parameters())
         # torch.optim.Adam's weight decay is coupled L2 (wd * param added to the
