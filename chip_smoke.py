@@ -3,10 +3,11 @@
 Builds the package's CUDA kernels from csrc/, then:
   1. serves three seeded full-width baseline.yml requests (PRECISION 16, random
      weights) through predict_instances, the decode and the device tracker
-     included, and checks how often each of the six kernels ran on that path,
-     that the device tracker never waits on the host, and how far the host
-     (scipy) tracker's ids are from the device tracker's; times the request
-     with and without decoding;
+     included, and checks how often each kernel ran on that path (one BatchNorm
+     launch per eval BatchNorm call, counted by hooks in a warm-up request; two GRU
+     launches per rollout step), that no plain version ran, that the device
+     tracker never waits on the host, and how far the host (scipy) tracker's ids
+     are from the device tracker's; times the request with and without decoding;
   2. holds K1 and K2 against their plain PyTorch versions at the baseline serve
      shapes, in f32 and in bf16, and times kernel, plain version and library call;
   3. runs a tiny config on the card and on the CPU with the same seeded weights
@@ -17,10 +18,14 @@ Builds the package's CUDA kernels from csrc/, then:
   5. decodes and tracks a planted full-width scene of 20 moving vehicles, which
      both trackers must follow exactly (vehicle PQ = 1);
   6. trains: three full-width baseline.yml training steps at batch 3 (PRECISION
-     16, seeded random weights, synthetic clips) after a warm-up step, checking the
-     losses, that the parameters and BatchNorm statistics moved, and how often each
-     training kernel ran per step; prints the median step time, the peak memory,
-     per-stage times and the top device kernels of a profiled step;
+     16, seeded random weights, synthetic clips, drop-connect and noise drawn on
+     the card) after a warm-up step, checking the losses, that the parameters and
+     BatchNorm statistics moved, and how often each training kernel ran per step
+     (the BatchNorm and GRU kernels forward and backward included); runs one more
+     step, from the batch on the card, under set_sync_debug_mode('error'); prints
+     the median step time, the peak memory, per-stage times (CUDA events, and the
+     host clock with a synchronize between stages) and the top device kernels of a
+     profiled step;
   7. holds the training kernels (K1 and K2 backward, K3 top-k select, K4 nearest
      warp) against their plain versions at the training shapes, and times them;
   8. runs a tiny training step on the card and on the CPU from the same weights,
@@ -31,7 +36,11 @@ Builds the package's CUDA kernels from csrc/, then:
      counts of that path (the top-k select K5 and its backward, K1 at D = 8, no
      K2, no K4); holds K5 and its backward against their plain versions at those
      shapes, bf16 and f32, with planted ties, exactly, and times them; and runs
-     the tiny combination card vs CPU, forward and training step.
+     the tiny combination card vs CPU, forward and training step;
+ 10. holds the BatchNorm kernel (K10: every epilogue, eval and training, forward
+     and backward, 4-D and 5-D, f32 and bf16) and the GRU's gate kernels (K11,
+     forward and backward, batch 1 and 3) against their plain versions at the
+     training step's shapes, and times them.
 Prints a "kernels" JSON line, the card's name and power limit, and as its last
 line {"ok": true, "device": {...}}. Any failure raises and exits non-zero.
 Without a CUDA card, or without the package beside it, it fails.
@@ -54,9 +63,18 @@ from fiery_tpu_torch.data.label_warp import make_prewarp_transform
 from fiery_tpu_torch.data.synthetic import SyntheticFutureDataset
 from fiery_tpu_torch.evaluate import device_consistent
 from fiery_tpu_torch.models.fiery import FieryConfig
+from fiery_tpu_torch.models.layers import BatchNorm, _InputDtype
 from fiery_tpu_torch.ops import _build
+from fiery_tpu_torch.ops.batch_norm import (POSTS, batch_norm_backward,
+                                            batch_norm_backward_plain, batch_norm_forward,
+                                            batch_norm_forward_plain)
 from fiery_tpu_torch.ops import lift_splat as lift_splat_module
 from fiery_tpu_torch.ops.lap import linear_sum_assignment, linear_sum_assignment_plain
+from fiery_tpu_torch.ops.spatial_gru import (gru_output, reset_concat, reset_concat_backward,
+                                             reset_concat_backward_plain, reset_concat_plain,
+                                             spatial_gru, spatial_gru_backward, state_update,
+                                             state_update_backward,
+                                             state_update_backward_plain, state_update_plain)
 from fiery_tpu_torch.ops.lift_splat import (bev_pool, bev_pool_backward,
                                             bev_pool_backward_plain, bev_pool_plain,
                                             create_frustum, get_geometry, topk_select,
@@ -90,11 +108,16 @@ COUNTERS = {'bev_pool': bev_pool, 'bev_warp': bev_warp,
             'segment_centroids': segment_centroids, 'lap': linear_sum_assignment,
             'bev_pool_backward': bev_pool_backward, 'bev_warp_backward': bev_warp_backward,
             'kth_largest': kth_largest, 'bev_warp_nearest': bev_warp_nearest,
-            'topk_select': topk_select, 'topk_select_backward': topk_select_backward}
+            'topk_select': topk_select, 'topk_select_backward': topk_select_backward,
+            'batch_norm': batch_norm_forward, 'batch_norm_backward': batch_norm_backward,
+            'spatial_gru': spatial_gru, 'spatial_gru_backward': spatial_gru_backward}
+# the wrappers whose plain versions must not run on the card's paths
+PLAIN_COUNTED = (batch_norm_forward, batch_norm_backward, spatial_gru, spatial_gru_backward)
 TRAIN_KERNELS = ('bev_pool', 'bev_pool_backward', 'bev_warp', 'bev_warp_backward',
-                 'kth_largest', 'bev_warp_nearest', 'topk_select', 'topk_select_backward')
+                 'kth_largest', 'bev_warp_nearest', 'topk_select', 'topk_select_backward',
+                 'batch_norm', 'batch_norm_backward', 'spatial_gru', 'spatial_gru_backward')
 TRAIN_ONLY = ('bev_pool_backward', 'bev_warp_backward', 'kth_largest', 'bev_warp_nearest',
-              'topk_select_backward')
+              'topk_select_backward', 'batch_norm_backward', 'spatial_gru_backward')
 # the levers' combination (the JAX package's fastest configuration): the sparse top-k
 # splat and the warp-free lift; training adds the host label warp
 COMBO_OPTS = ('LIFT.TOPK', '8', 'LIFT.WARP_FREE', 'True')
@@ -111,6 +134,51 @@ TRAIN_PER_STEP = {
 
 def log(*args):
     print(*args, flush=True)
+
+
+def reset_counters():
+    """Every launch counter, the plain versions' calls, the BatchNorm kernel's
+    layouts, and the layout copies of the convolutions and BatchNorm gradients."""
+    for fn in COUNTERS.values():
+        fn.launches = 0
+    for fn in PLAIN_COUNTED:
+        fn.plain_calls = 0
+    batch_norm_forward.forms = {k: 0 for k in batch_norm_forward.forms}
+    batch_norm_backward.grad_copies.clear()
+    _InputDtype.layout_copies.clear()
+
+
+def layout_report():
+    """The BatchNorm kernel's calls by layout and the copies made for layouts, since
+    reset_counters(); fails if a plain version ran."""
+    plain = {name: fn.plain_calls for name, fn in zip(
+        ('batch_norm', 'batch_norm_backward', 'spatial_gru', 'spatial_gru_backward'),
+        PLAIN_COUNTED)}
+    if any(plain.values()):
+        raise AssertionError(f'plain versions ran on the card: {plain}')
+    return {'batch_norm_forms': dict(batch_norm_forward.forms),
+            'conv_layout_copies': {str(k): v for k, v in _InputDtype.layout_copies.items()},
+            'bn_grad_layout_copies': {str(k): v for k, v in
+                                      batch_norm_backward.grad_copies.items()}}
+
+
+def count_bn_calls(model, fn):
+    """fn() with a forward pre-hook on every BatchNorm of model: (its result, the
+    number of BatchNorm calls it made, the K10 forward launches they imply: three
+    a call in training mode (statistics, their reduction, apply), one in eval)."""
+    calls = [0, 0]
+
+    def hook(module, _):
+        calls[0] += 1
+        calls[1] += 3 if module.training else 1
+
+    handles = [m.register_forward_pre_hook(hook) for m in model.modules()
+               if isinstance(m, BatchNorm)]
+    try:
+        return fn(), calls[0], calls[1]
+    finally:
+        for h in handles:
+            h.remove()
 
 
 def smi_line():
@@ -145,24 +213,29 @@ def bound(nbytes, flops, flops_per_s=F32_FLOPS_PER_S):
     return 1e3 * max(t_bytes, t_ops), 'bytes' if t_bytes >= t_ops else 'operations'
 
 
-def kernel_ms(fn, symbols, reps=REPS, warmup=3):
+def kernel_ms(fn, symbols, reps=REPS, warmup=3, attempts=3):
     """Mean device time per call of the kernels whose names contain one of
     ``symbols`` (torch.profiler's CUPTI trace over reps calls, after warm-up): the
-    kernel's own time, without the host's launch gaps."""
+    kernel's own time, without the host's launch gaps. A trace that holds none of
+    them (CUPTI now and then drops a window's kernels) is taken again, up to
+    ``attempts`` times, before it fails."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=activities) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    total_us = sum(e.self_device_time_total for e in prof.key_averages()
-                   if e.device_type == torch.autograd.DeviceType.CUDA
-                   and any(sym in e.key for sym in symbols))
-    if total_us <= 0:
-        raise AssertionError(f'the profiler saw no device time for {symbols}')
-    return total_us / 1e3 / reps
+    for _ in range(attempts):
+        with torch.profiler.profile(activities=activities) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        total_us = sum(e.self_device_time_total for e in prof.key_averages()
+                       if e.device_type == torch.autograd.DeviceType.CUDA
+                       and any(sym in e.key for sym in symbols))
+        if total_us > 0:
+            return total_us / 1e3 / reps
+        log(f'  the profiler saw no device time for {symbols}; measuring again')
+    raise AssertionError(f'the profiler saw no device time for {symbols} in {attempts} '
+                         f'traces')
 
 
 def bf16_ulp(x):
@@ -370,12 +443,11 @@ def phase_serve(n_requests=3, opts=(), name='serve'):
                 'present_mu': (1, 1, mc.latent_dim), 'present_log_sigma': (1, 1, mc.latent_dim)}
     requests = [make_request(cfg, seed=10 + i) for i in range(n_requests)]
     warm = make_request(cfg, seed=9)       # warm-up (cuDNN plans, kernels)
-    predict_instances(model, warm)
+    _, bn_calls, bn_launches = count_bn_calls(model, lambda: predict_instances(model, warm))
     predict_instances(model, warm, device_matching=False)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    for fn in COUNTERS.values():
-        fn.launches = 0
+    reset_counters()
     times, outputs, tracks = [], [], []
     for req in requests:
         t0 = time.perf_counter()
@@ -385,6 +457,7 @@ def phase_serve(n_requests=3, opts=(), name='serve'):
         outputs.append(out)
         tracks.append(ids)
     launches = {name: fn.launches for name, fn in COUNTERS.items()}
+    layouts = layout_report()
     peak = torch.cuda.max_memory_allocated()
     for out, ids in zip(outputs, tracks):
         shapes = {k: tuple(v.shape) for k, v in out.items()}
@@ -398,11 +471,15 @@ def phase_serve(n_requests=3, opts=(), name='serve'):
             raise AssertionError(f'instance ids {ids.dtype} {tuple(ids.shape)} '
                                  f'in [{int(ids.min())}, {int(ids.max())}]')
     # per request: one splat (after one top-k select under LIFT.TOPK), one warp
-    # (none warp-free), one decode (K7 launches twice), and per tracking step two
-    # centroid launches (previous, current) and one assignment
+    # (none warp-free), one decode (K7 launches twice), per tracking step two
+    # centroid launches (previous, current) and one assignment, one BatchNorm
+    # launch per (eval) BatchNorm call (counted by hooks in the warm-up request) and
+    # two GRU launches per step of each GRU block
     per_request = {'bev_pool': 1, 'bev_warp': 0 if mc.warp_free else 1,
                    'topk_select': 1 if mc.depth_topk else 0, 'instance_centers': 1,
-                   'group_pixels': 2, 'segment_centroids': 2 * (T - 1), 'lap': T - 1}
+                   'group_pixels': 2, 'segment_centroids': 2 * (T - 1), 'lap': T - 1,
+                   'batch_norm': bn_launches, 'spatial_gru': 2 * mc.n_gru_blocks * mc.n_future,
+                   'batch_norm_backward': 0, 'spatial_gru_backward': 0}
     for k, n in per_request.items():
         if launches[k] != n * n_requests:
             raise AssertionError(f'{name}: {k} launched {launches[k]} times for '
@@ -410,6 +487,8 @@ def phase_serve(n_requests=3, opts=(), name='serve'):
 
     log(f'{name} (main path): request_ms={[round(t, 3) for t in times]} '
         f'peak_mem_bytes={peak} launches={launches}')
+    log(f'{name}: {bn_calls} BatchNorm calls per request; per {n_requests} requests '
+        f'{json.dumps(layouts)}')
     # the request time without and with decoding, in turns on the same requests
     timed = {predict: [], predict_instances: []}
     for _ in range(3):
@@ -709,29 +788,50 @@ def phase_planted_scene(device):
         f'the host tracker alike, vehicle PQ {pq}')
 
 
-def stage_times(trainer, batch, generator):
-    """Device time of each stage of one training step (CUDA events between the
-    stages of Trainer.train_step, so each includes its host launch gaps)."""
+def stage_times(trainer, batch, generator, sync):
+    """Time of each stage of one training step. sync=False: CUDA events recorded on
+    the current stream between the stages of Trainer.train_step, each stage's span
+    including its host launch gaps. sync=True: the host clock between stages with
+    torch.cuda.synchronize() at each boundary, so that every stage's device work
+    is inside its own span and the stages sum to the step. Also returns whether
+    the autograd engine's backward ran on the stream the events are recorded on
+    (read in a gradient hook on the loss)."""
     names = ['H2D copy of the batch', 'label prep (K4, or the prewarped stack)',
-             'forward (K5, K1, K2)', 'losses (K3)', 'backward (K1, K5, K2 backward)',
-             'clip + Adam']
-    ev = [torch.cuda.Event(enable_timing=True) for _ in range(len(names) + 1)]
-    ev[0].record()
+             'forward', 'losses (K3)', 'backward', 'clip + Adam']
+    marks = []
+
+    def mark():
+        if sync:
+            torch.cuda.synchronize()
+            marks.append(time.perf_counter())
+        else:
+            marks.append(torch.cuda.Event(enable_timing=True))
+            marks[-1].record()
+
+    main_stream = torch.cuda.current_stream()
+    backward_streams = []
+    mark()
     batch = trainer.to_device(batch)
-    ev[1].record()
+    mark()
     labels, fdi = trainer.prepare_future_labels(batch)
-    ev[2].record()
+    mark()
     output = trainer.model(*(batch[k] for k in INPUTS), fdi, generator=generator)
-    ev[3].record()
+    mark()
     total = sum(compute_losses(output, labels, trainer.uncertainty, trainer.cfg).values())
-    ev[4].record()
+    total.register_hook(lambda g: backward_streams.append(torch.cuda.current_stream()))
+    mark()
     trainer.optimizer.zero_grad(set_to_none=True)
     total.backward()
-    ev[5].record()
+    mark()
     trainer.apply_gradients()
-    ev[6].record()
-    ev[6].synchronize()
-    return {n: ev[i].elapsed_time(ev[i + 1]) for i, n in enumerate(names)}
+    mark()
+    if sync:
+        times = [1e3 * (b - a) for a, b in zip(marks, marks[1:])]
+    else:
+        marks[-1].synchronize()
+        times = [a.elapsed_time(b) for a, b in zip(marks, marks[1:])]
+    same = all(st == main_stream for st in backward_streams)
+    return dict(zip(names, times)), same
 
 
 def phase_train(n_steps=3, kind='dense', opts=()):
@@ -765,8 +865,11 @@ def phase_train(n_steps=3, kind='dense', opts=()):
         log(f'{name}: host label prewarp ms per batch of {b} clips (numpy, outside the '
             f'step): {[round(t, 3) for t in prewarp_ms]}')
         prewarp_ms = statistics.median(prewarp_ms)
-    gen = torch.Generator().manual_seed(0)
-    trainer.train_step(batches[0], gen)            # warm-up: cuDNN plans, kernel loads
+    # drop-connect masks and the latent noise drawn on the card
+    gen = torch.Generator(device='cuda').manual_seed(0)
+    # warm-up: cuDNN plans, kernel loads; and the BatchNorm calls of a step
+    _, bn_calls, bn_launches = count_bn_calls(trainer.model,
+                                              lambda: trainer.train_step(batches[0], gen))
     torch.cuda.synchronize()
     m = trainer.model
     watched = {'stem conv': m.encoder.backbone._conv_stem.weight,
@@ -779,8 +882,7 @@ def phase_train(n_steps=3, kind='dense', opts=()):
                    m.future_distribution.encoder.model[0].layers.abn[0].running_var}
     before = {k: v.detach().clone() for k, v in watched.items()}
     torch.cuda.reset_peak_memory_stats()
-    for fn in COUNTERS.values():
-        fn.launches = 0
+    reset_counters()
     times, records = [], []
     for i in range(n_steps):
         t0 = time.perf_counter()
@@ -789,11 +891,20 @@ def phase_train(n_steps=3, kind='dense', opts=()):
         times.append(1e3 * (time.perf_counter() - t0))
         records.append({'total': float(total), **{k: float(v) for k, v in losses.items()}})
     launches = {k: COUNTERS[k].launches for k in TRAIN_KERNELS}
+    layouts = layout_report()
     peak = torch.cuda.max_memory_allocated()
     for r in records:
         if not all(np.isfinite(v) for v in r.values()):
             raise AssertionError(f'{name}: non-finite losses {r}')
-    for k, n in TRAIN_PER_STEP[kind].items():
+    # three BatchNorm launches forward per training-mode BatchNorm call (one per
+    # eval-mode call) and three backward per call, and two GRU launches each way
+    # per step of each GRU block
+    mc = trainer.model.cfg
+    gru = 2 * mc.n_gru_blocks * mc.n_future
+    per_step = {**TRAIN_PER_STEP[kind], 'batch_norm': bn_launches,
+                'batch_norm_backward': 3 * bn_calls,
+                'spatial_gru': gru, 'spatial_gru_backward': gru}
+    for k, n in per_step.items():
         if launches[k] != n * n_steps:
             raise AssertionError(f'{name}: {k} launched {launches[k]} times in {n_steps} '
                                  f'steps, expected {n} per step')
@@ -806,10 +917,32 @@ def phase_train(n_steps=3, kind='dense', opts=()):
     for i, r in enumerate(records):
         log(f'  step {i} losses: ' + json.dumps({k: round(v, 5) for k, v in r.items()}))
     log(f'{name}: parameters, uncertainty weights and BatchNorm statistics changed')
+    log(f'{name}: {bn_calls} BatchNorm calls per step; per {n_steps} steps '
+        f'{json.dumps(layouts)}')
 
-    stages = stage_times(trainer, batches[-1], gen)
-    log(f'{name} stages (CUDA events, ms): ' + json.dumps({k: round(v, 3)
-                                                          for k, v in stages.items()}))
+    # no host sync from the batch's arrival on the card to the end of the step's
+    # device work (the drop-connect masks and the noise are drawn on the card)
+    on_card = trainer.to_device(batches[1])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    torch.cuda.set_sync_debug_mode('error')
+    try:
+        trainer.train_step(on_card, gen)
+    finally:
+        torch.cuda.set_sync_debug_mode('default')
+    torch.cuda.synchronize()
+    log(f'{name}: a step from the batch on the card ran under set_sync_debug_mode("error") '
+        f'in {1e3 * (time.perf_counter() - t0):.3f} ms')
+    del on_card
+
+    stages, same_stream = stage_times(trainer, batches[-1], gen, sync=False)
+    log(f'{name} stages (CUDA events between stages, ms): '
+        + json.dumps({k: round(v, 3) for k, v in stages.items()})
+        + f' sum {sum(stages.values()):.3f}; backward on the events\' stream: {same_stream}')
+    stages, _ = stage_times(trainer, batches[-1], gen, sync=True)
+    log(f'{name} stages (host clock, synchronized between stages, ms): '
+        + json.dumps({k: round(v, 3) for k, v in stages.items()})
+        + f' sum {sum(stages.values()):.3f}')
     rec = dict(step_ms=statistics.median(times), peak_bytes=peak, held_bytes=held,
                stages=stages, prewarp_ms=prewarp_ms)
 
@@ -825,8 +958,11 @@ def phase_train(n_steps=3, kind='dense', opts=()):
             trainer.train_step(batches[-1], gen)
             torch.cuda.synchronize()
         wall = 1e3 * (time.perf_counter() - t0)
+        # device-side kernels and copies; not the ranges that user annotations
+        # (Optimizer.step) span on the device timeline, which hold kernels of their own
         events = [e for e in prof.key_averages()
-                  if e.device_type == torch.autograd.DeviceType.CUDA]
+                  if e.device_type == torch.autograd.DeviceType.CUDA
+                  and not e.is_user_annotation]
         rec['busy_ms'] = sum(e.self_device_time_total for e in events) / 1e3
         n_kernels = sum(e.count for e in events)
         log(f'{name} profiled step: wall {wall:.3f} ms (profiler on), device busy '
@@ -1064,6 +1200,238 @@ def phase_train_kernels(device):
     return rec
 
 
+# BatchNorm call sites of the full-width training step (batch 3), one per epilogue:
+# channels-first shapes of channels-last memory
+BN_SITES = {
+    'swish': (54, 144, 112, 240),    # encoder: stage 2's expanded 1x1 (_bn0), the largest
+    'add': (54, 32, 56, 120),        # encoder: an MBConv's projection and residual (_bn2)
+    'none': (15, 128, 50, 50),       # decoder: layer2's projecting BasicBlock (bn2)
+    'relu': (12, 32, 200, 200),      # future prediction: a Bottleneck's down-projection
+    'add_relu': (15, 64, 100, 100),  # decoder: layer1's BasicBlock (bn2)
+    'relu_add': (12, 64, 200, 200),  # future prediction: an identity Bottleneck
+}
+BN_SITE_5D = (3, 64, 3, 200, 200)    # temporal model: a block's projection (5-D)
+BN_SERVED = (18, 144, 112, 240)      # the largest call of a request (eval)
+BN_EPS = 1e-3
+
+
+def rows(shape, dtype, gen, device, mean=0.0):
+    """Seeded normals as a channels-first view of channels-last memory."""
+    t = torch.randn(shape[:1] + shape[2:] + shape[1:2], generator=gen, device=device) + mean
+    return t.to(dtype).movedim(-1, 1)
+
+
+def rel_l2(got, want):
+    got, want = got.double(), want.double()
+    return float((got - want).norm() / want.norm().clamp_min(1e-30))
+
+
+def check_stats(name, got, want):
+    """Within 1e-6 of the largest magnitude (relative)."""
+    err = float((got - want).abs().max())
+    if err > 1e-6 * float(want.abs().max()) + 1e-30:
+        raise AssertionError(f'{name}: statistics differ by {err}')
+
+
+def check_grads(name, got, want, dtype):
+    """Relative L2 error within 1e-5 (f32) or 1e-2 (bf16), each output; returns the
+    largest absolute error."""
+    tol = 1e-5 if dtype == torch.float32 else 1e-2
+    worst = 0.0
+    for i, (a, b) in enumerate(zip(got, want)):
+        if b is None:
+            continue
+        err = rel_l2(a, b)
+        if err > tol or not torch.isfinite(a).all():
+            raise AssertionError(f'{name} output {i}: relative L2 error {err:.3e} > {tol}')
+        worst = max(worst, float((a.float() - b.float()).abs().max()))
+    return worst
+
+
+def bn_case(shape, post, dtype, training, device, seed):
+    """K10 forward and backward against their plain versions on one shape: y, the
+    batch and running statistics, dx, dweight, dbias and dresidual. Returns the
+    largest absolute errors of y and of the gradients."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    C = shape[1]
+    x = rows(shape, dtype, gen, device, mean=0.5)
+    res = rows(shape, dtype, gen, device) if post in ('add', 'add_relu', 'relu_add') else None
+    dy = rows(shape, dtype, gen, device)
+    w = torch.rand(C, generator=gen, device=device) + 0.5
+    b = torch.randn(C, generator=gen, device=device)
+    rm = torch.randn(C, generator=gen, device=device) * 0.1 + 0.5
+    rv = torch.rand(C, generator=gen, device=device) + 0.5
+    stats_k, stats_p = (rm.clone(), rv.clone()), (rm.clone(), rv.clone())
+    got = batch_norm_forward(x, w, b, *stats_k, training, 0.1, BN_EPS, post, res)
+    want = batch_norm_forward_plain(x, w, b, *stats_p, training, 0.1, BN_EPS, post, res)
+    torch.cuda.synchronize()
+    tag = f'batch_norm {post} {"train" if training else "eval"} {tuple(shape)}'
+    if got[0].stride() != x.stride():
+        raise AssertionError(f'{tag}: y in another layout than x')
+    y_err = check_close(tag, got[0], want[0], dtype)
+    if training:
+        for label, a, c in zip(('mean', 'var', 'running mean', 'running var'),
+                               got[1:3] + stats_k, want[1:3] + stats_p):
+            check_stats(f'{tag} {label}', a, c)
+    del want
+    mean, var, clamp = got[1:]
+    gk = batch_norm_backward(dy, x, w, b, mean, var, clamp, BN_EPS, post, res, training)
+    gp = batch_norm_backward_plain(dy, x, w, b, mean, var, clamp, BN_EPS, post, res,
+                                   training)
+    torch.cuda.synchronize()
+    return y_err, check_grads(f'{tag} backward', gk, gp, dtype)
+
+
+def gru_case(B, Cx, dtype, device, seed, C=64, T=4, H=200, W=200):
+    """K11's two launches and their backward against the plain versions at one
+    rollout shape, with the state in slots of (B, T, C, H, W) buffers and the
+    concat's gradient a channel slice, as the GRU runs them. Returns the inputs
+    and the largest absolute errors forward and backward."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    x = torch.randn((B, T, H, W, Cx), generator=gen, device=device).to(dtype).permute(
+        0, 1, 4, 2, 3)
+    prev = gru_output(torch.empty((B, C, H, W), dtype=dtype, device=device), T)
+    prev.copy_(torch.randn(prev.shape, generator=gen, device=device))
+    h, x_t = prev[:, 1], x[:, 1]
+    r_pre, u_pre, ht = (rows((B, C, H, W), dtype, gen, device) for _ in range(3))
+    out = gru_output(h, T)
+    tag = f'spatial_gru B={B} C_x={Cx}'
+    err = max(check_close(f'{tag} reset_concat', reset_concat(x_t, r_pre, h),
+                          reset_concat_plain(x_t, r_pre, h), dtype),
+              check_close(f'{tag} state_update', state_update(u_pre, h, ht, out[:, 2]),
+                          state_update_plain(u_pre, h, ht), dtype))
+    dcat = rows((B, Cx + C, H, W), dtype, gen, device)
+    dout = prev[:, 3]
+    got = reset_concat_backward(dcat[:, Cx:], r_pre, h) + state_update_backward(
+        dout, u_pre, h, ht)
+    want = reset_concat_backward_plain(dcat[:, Cx:], r_pre, h) \
+        + state_update_backward_plain(dout, u_pre, h, ht)
+    torch.cuda.synchronize()
+    bwd_err = check_grads(f'{tag} backward', got, want, dtype)
+    return dict(x_t=x_t, h=h, r_pre=r_pre, u_pre=u_pre, ht=ht, out=out, dcat=dcat,
+                dout=dout), err, bwd_err
+
+
+def phase_norm_gru_kernels(device):
+    """K10 (BatchNorm with its epilogue) forward, eval and training, and backward
+    against their plain versions: every epilogue at a call site of the training
+    step that uses it (4-D) and at the temporal model's 5-D shape, f32 and bf16
+    (forward within 1e-5 + 1e-5 |y| or one bf16 ulp, statistics 1e-6 relative,
+    gradients 1e-5 or 1e-2 relative L2). K11 (the GRU's gate launches) forward and
+    backward at B = 1 (served) and B = 3 (trained), f32 and bf16, same tolerances.
+    Times the bf16 calls at the largest shapes: kernel, call, plain version, the
+    library ops they replace; bounds from this run's shapes."""
+    errs = {'batch_norm': 0.0, 'batch_norm_backward': 0.0}
+    seed = 0
+    for post in POSTS:
+        for shape in (BN_SITES[post], BN_SITE_5D):
+            for dtype in (torch.float32, torch.bfloat16):
+                for training in (False, True):
+                    seed += 1
+                    fwd, bwd = bn_case(shape, post, dtype, training, device, seed)
+                    if dtype == torch.bfloat16:
+                        errs['batch_norm'] = max(errs['batch_norm'], fwd)
+                        errs['batch_norm_backward'] = max(errs['batch_norm_backward'], bwd)
+        log(f'  batch_norm {post}: forward (eval, train) and backward equal to plain within '
+            f'tolerance at {BN_SITES[post]} and {BN_SITE_5D}, f32 and bf16')
+    rec = {}
+    gen = torch.Generator(device=device).manual_seed(99)
+    dtype = torch.bfloat16
+    for key, shape, training in (('batch_norm', BN_SITES['swish'], True),
+                                 ('batch_norm eval', BN_SERVED, False)):
+        x = rows(shape, dtype, gen, device)
+        C = shape[1]
+        w, b = torch.ones(C, device=device), torch.zeros(C, device=device)
+        rm, rv = torch.zeros(C, device=device), torch.ones(C, device=device)
+        args = (x, w, b, rm, rv, training, 0.1, BN_EPS, 'swish')
+        lib_stats = (rm.clone(), rv.clone())
+        nbytes = 2 * x.numel() * x.element_size() + 4 * C * 4
+        rec[key] = dict(
+            ms=kernel_ms(lambda: batch_norm_forward(*args),
+                         ['stats_kernel', 'stats_finalize_kernel', 'apply_kernel']),
+            call_ms=time_ms(lambda: batch_norm_forward(*args)),
+            plain_ms=time_ms(lambda: batch_norm_forward_plain(*args), reps=5, warmup=1),
+            library_ms=time_ms(lambda: F.silu(F.batch_norm(x, *lib_stats, w, b, training,
+                                                           0.1, BN_EPS))),
+            bytes=nbytes, flops=(12.0 if training else 9.0) * x.numel(), shape=shape)
+        if training:
+            _, mean, var, clamp = batch_norm_forward(*args)
+            dy = rows(shape, dtype, gen, device)
+            bargs = (dy, x, w, b, mean, var, clamp, BN_EPS, 'swish', None, True)
+            xl, wl, bl = (t.detach().clone().requires_grad_() for t in (x, w, b))
+            yl = F.silu(F.batch_norm(xl, *lib_stats, wl, bl, True, 0.1, BN_EPS))
+            rec['batch_norm_backward'] = dict(
+                ms=kernel_ms(lambda: batch_norm_backward(*bargs),
+                             ['backward_reduce_kernel', 'backward_finalize_kernel',
+                              'backward_apply_kernel']),
+                call_ms=time_ms(lambda: batch_norm_backward(*bargs)),
+                plain_ms=time_ms(lambda: batch_norm_backward_plain(*bargs), reps=5, warmup=1),
+                library_ms=time_ms(lambda: torch.autograd.grad(yl, (xl, wl, bl), dy,
+                                                               retain_graph=True)),
+                bytes=3 * x.numel() * x.element_size() + 6 * C * 4,
+                flops=26.0 * x.numel(), shape=shape)
+            del yl, xl, dy, mean, var, clamp
+        del x
+
+    errs.update(spatial_gru=0.0, spatial_gru_backward=0.0)
+    for B, Cx in ((1, 32), (3, 64)):
+        for dtype in (torch.float32, torch.bfloat16):
+            t, fwd, bwd = gru_case(B, Cx, dtype, device, seed=B)
+            if dtype == torch.bfloat16:
+                errs['spatial_gru'] = max(errs['spatial_gru'], fwd)
+                errs['spatial_gru_backward'] = max(errs['spatial_gru_backward'], bwd)
+        log(f'  spatial_gru B={B} C_x={Cx}: both launches and their backward equal to plain '
+            f'within tolerance, f32 and bf16')
+        x_t, h, r_pre, u_pre, ht = (t[k] for k in ('x_t', 'h', 'r_pre', 'u_pre', 'ht'))
+        slot, dcat, dout = t['out'][:, 2], t['dcat'], t['dout']
+        n = h.numel()
+        es = h.element_size()
+
+        def old_step():
+            """The torch ops the two launches replace (one step, the stack's share
+            as one slot written)."""
+            r = torch.sigmoid(r_pre)
+            cat = torch.cat([x_t, (1.0 - r) * h], dim=1)
+            u = torch.sigmoid(u_pre)
+            return cat, torch.stack([(1.0 - u) * h + u * ht], dim=1)
+
+        leaves = [v.detach().clone().requires_grad_() for v in (r_pre, h, u_pre, ht)]
+        r_l, h_l, u_l, ht_l = leaves
+        cat_l = torch.cat([x_t, (1.0 - torch.sigmoid(r_l)) * h_l], dim=1)
+        u_s = torch.sigmoid(u_l)
+        new_l = torch.stack([(1.0 - u_s) * h_l + u_s * ht_l], dim=1)
+        rec[('spatial_gru', B)] = dict(
+            ms=kernel_ms(lambda: (reset_concat(x_t, r_pre, h),
+                                  state_update(u_pre, h, ht, slot)),
+                         ['reset_concat_kernel', 'state_update_kernel']),
+            call_ms=time_ms(lambda: (reset_concat(x_t, r_pre, h),
+                                     state_update(u_pre, h, ht, slot))),
+            plain_ms=time_ms(lambda: (reset_concat_plain(x_t, r_pre, h),
+                                      state_update_plain(u_pre, h, ht))),
+            library_ms=time_ms(old_step),
+            bytes=es * (x_t.numel() + 4 * n + (x_t.numel() + n) + n), flops=20.0 * n)
+        rec[('spatial_gru_backward', B)] = dict(
+            ms=kernel_ms(lambda: (reset_concat_backward(dcat[:, Cx:], r_pre, h),
+                                  state_update_backward(dout, u_pre, h, ht)),
+                         ['reset_concat_backward_kernel', 'state_update_backward_kernel']),
+            call_ms=time_ms(lambda: (reset_concat_backward(dcat[:, Cx:], r_pre, h),
+                                     state_update_backward(dout, u_pre, h, ht))),
+            plain_ms=time_ms(lambda: (reset_concat_backward_plain(dcat[:, Cx:], r_pre, h),
+                                      state_update_backward_plain(dout, u_pre, h, ht))),
+            library_ms=time_ms(lambda: torch.autograd.grad(
+                (cat_l, new_l), leaves, (dcat, dout[:, None]), retain_graph=True)),
+            # reads dcat's state half, dout, r_pre, u_pre, h and h_tilde; writes
+            # dr_pre, du_pre, dh and dh_tilde (dh once, though the two launches
+            # write it in two parts)
+            bytes=es * 10 * n, flops=25.0 * n)
+        del t, leaves, cat_l, new_l, u_s
+    for key, r in rec.items():
+        r['bound_ms'], r['bound_by'] = bound(r['bytes'], r['flops'])
+        name = key if isinstance(key, str) else f'{key[0]} B={key[1]}'
+        log(f'  {name}: ' + json.dumps({k: v for k, v in r.items()}))
+    return rec, errs
+
+
 def relative_l2_gradients(got, want, leaves_only=()):
     """Worst relative L2 error of the gradients over the top-level modules (but
     those in ``leaves_only``) and over the leaves (each leaf's norm floored at 1e-3
@@ -1186,6 +1554,9 @@ def main():
     phase_tiny_train_card_vs_cpu()
     log(f'tiny train step card vs cpu: ok ({time.perf_counter() - t0:.1f} s)')
     t0 = time.perf_counter()
+    norm_gru, norm_gru_errs = phase_norm_gru_kernels(device)
+    log(f'BatchNorm and GRU kernels vs plain: ok ({time.perf_counter() - t0:.1f} s)')
+    t0 = time.perf_counter()
     phase_tiny_card_vs_cpu(TINY_COMBO, name='tiny combo', yaw=0.2)
     phase_tiny_train_card_vs_cpu({**TINY_COMBO, 'DATASET': {'PREWARP_LABELS': True}},
                                  name='tiny combo train',
@@ -1199,7 +1570,13 @@ def main():
                'kth_largest': train_kernels['kth_largest'],
                'bev_warp_nearest': train_kernels['bev_warp_nearest'],
                'topk_select': topk[('topk_select', 'serve', torch.bfloat16)],
-               'topk_select_backward': topk[('topk_select_backward', 'train', torch.bfloat16)]}
+               'topk_select_backward': topk[('topk_select_backward', 'train', torch.bfloat16)],
+               'batch_norm': norm_gru['batch_norm'],
+               'batch_norm_backward': norm_gru['batch_norm_backward'],
+               'spatial_gru': norm_gru[('spatial_gru', 3)],
+               'spatial_gru_backward': norm_gru[('spatial_gru_backward', 3)]}
+    for name, err in norm_gru_errs.items():
+        records[name]['max_abs_err'] = err
     kernels = []
     for name, source, replaces in [
             ('bev_pool', 'bev_pool.cu', 'fiery_tpu/ops/lift_splat.py:104'),
@@ -1214,7 +1591,12 @@ def main():
              'fiery_tpu/postprocess/instance.py:324'),
             ('lap', 'lap.cu', 'fiery_tpu/ops/lap.py:23'),
             ('topk_select', 'topk_select.cu', 'fiery_tpu/ops/lift_splat.py:226'),
-            ('topk_select_backward', 'topk_select.cu', 'fiery_tpu/ops/lift_splat.py:226')]:
+            ('topk_select_backward', 'topk_select.cu', 'fiery_tpu/ops/lift_splat.py:226'),
+            ('batch_norm', 'batch_norm.cu', 'fiery_tpu/models/layers.py:133'),
+            ('batch_norm_backward', 'batch_norm.cu', 'fiery_tpu/models/layers.py:133'),
+            ('spatial_gru', 'spatial_gru.cu', 'fiery_tpu/models/temporal_layers.py:372'),
+            ('spatial_gru_backward', 'spatial_gru.cu',
+             'fiery_tpu/models/temporal_layers.py:372')]:
         r = records[name]
         # launches: the serve path's count for its kernels, the training path's for
         # the training kernels (the splat and the warp run on both); K5's from the
@@ -1228,11 +1610,15 @@ def main():
                  'bound_ms': r['bound_ms'], 'bound_by': r['bound_by'],
                  'library_ms': r['library_ms']}
         entry['call_ms'] = r['call_ms']
-        if name in ('bev_pool', 'bev_warp', 'topk_select'):
+        if name in ('bev_pool', 'bev_warp', 'topk_select', 'batch_norm', 'spatial_gru'):
             entry['train_launches'] = trained[name]
-        if name == 'bev_pool':
+        if name in ('bev_pool', 'batch_norm', 'batch_norm_backward', 'spatial_gru',
+                    'spatial_gru_backward'):
             entry['combo_launches'] = combo_launches[name]
             entry['combo_train_launches'] = combo_train_launches[name]
+        if name == 'batch_norm':
+            entry.update({f'eval_{k}': norm_gru['batch_norm eval'][k]
+                          for k in ('ms', 'call_ms', 'plain_ms', 'library_ms', 'bound_ms')})
         if 'scipy_ms' in r:
             entry['scipy_ms'] = r['scipy_ms']
         kernels.append(entry)

@@ -8,7 +8,6 @@ utils/weight_import.state_dict_from_jax splits the fused weights.
 
 import torch
 import torch.nn as nn
-import torch.nn.functional as F
 
 from fiery_tpu_torch.models.layers import BatchNorm, Conv2d, UpsamplingAdd
 
@@ -20,26 +19,32 @@ class BasicBlock(nn.Module):
         super().__init__()
         self.conv1 = Conv2d(in_channels, channels, 3, stride=stride, padding=1,
                             bias=False)
-        self.bn1 = BatchNorm(channels, momentum=bn_momentum)
+        self.bn1 = BatchNorm(channels, momentum=bn_momentum, post='relu')
         self.conv2 = Conv2d(channels, channels, 3, padding=1, bias=False)
-        self.bn2 = BatchNorm(channels, momentum=bn_momentum)
+        project = stride != 1 or in_channels != channels
+        # relu(bn2(h) + identity) rides whichever BN comes last, as in the JAX package
+        self.bn2 = BatchNorm(channels, momentum=bn_momentum,
+                             post='none' if project else 'add_relu')
         self.downsample = None
-        if stride != 1 or in_channels != channels:
+        if project:
             self.downsample = nn.Sequential(
                 Conv2d(in_channels, channels, 1, stride=stride, bias=False),
-                BatchNorm(channels, momentum=bn_momentum))
+                BatchNorm(channels, momentum=bn_momentum, post='add_relu'))
 
     def forward(self, x):
-        identity = x if self.downsample is None else self.downsample(x)
-        h = F.relu(self.bn1(self.conv1(x)))
-        return F.relu(self.bn2(self.conv2(h)) + identity)
+        h = self.bn1(self.conv1(x))
+        if self.downsample is None:
+            return self.bn2(self.conv2(h), residual=x)
+        h = self.bn2(self.conv2(h))
+        conv, bn = self.downsample
+        return bn(conv(x), residual=h)
 
 
 def _head(in_channels, out_channels, bn_momentum):
     return nn.Sequential(
         Conv2d(in_channels, in_channels, 3, padding=1, bias=False),
-        BatchNorm(in_channels, momentum=bn_momentum),
-        nn.ReLU(),
+        BatchNorm(in_channels, momentum=bn_momentum, post='relu'),
+        nn.Identity(),          # the ReLU, folded into the BN; keeps the key of [3]
         Conv2d(in_channels, out_channels, 1))
 
 
@@ -48,7 +53,7 @@ class Decoder(nn.Module):
         super().__init__()
         m = bn_momentum
         self.first_conv = Conv2d(in_channels, 64, 7, stride=2, padding=3, bias=False)
-        self.bn1 = BatchNorm(64, momentum=m)
+        self.bn1 = BatchNorm(64, momentum=m, post='relu')
         self.layer1 = nn.Sequential(BasicBlock(64, 64, 1, m), BasicBlock(64, 64, 1, m))
         self.layer2 = nn.Sequential(BasicBlock(64, 128, 2, m), BasicBlock(128, 128, 1, m))
         self.layer3 = nn.Sequential(BasicBlock(128, 256, 2, m), BasicBlock(256, 256, 1, m))
@@ -66,7 +71,7 @@ class Decoder(nn.Module):
         b, s = x.shape[:2]
         x = x.reshape(b * s, *x.shape[2:]).permute(0, 3, 1, 2)
         skip1 = x
-        x = F.relu(self.bn1(self.first_conv(x)))
+        x = self.bn1(self.first_conv(x))
         x = self.layer1(x)
         skip2 = x
         x = self.layer2(x)

@@ -96,24 +96,24 @@ class MBConvBlock(nn.Module):
         self.drop_rate = drop_rate
         expanded = in_channels * expand_ratio
 
-        def bn(c):
-            return BatchNorm(c, eps=bn_epsilon, momentum=bn_momentum)
+        def bn(c, post):
+            return BatchNorm(c, eps=bn_epsilon, momentum=bn_momentum, post=post)
 
         self.has_expand = expand_ratio != 1
         if self.has_expand:
             self._expand_conv = SamePadConv2d(in_channels, expanded, 1, bias=False)
-            self._bn0 = bn(expanded)
+            self._bn0 = bn(expanded, 'swish')
         self._depthwise_conv = SamePadConv2d(expanded, expanded, kernel, stride=stride,
                                              groups=expanded, bias=False)
-        self._bn1 = bn(expanded)
+        self._bn1 = bn(expanded, 'swish')
         self.has_se = bool(se_ratio) and 0 < se_ratio <= 1
         if self.has_se:
             squeezed = max(1, int(in_channels * se_ratio))
             self._se_reduce = SamePadConv2d(expanded, squeezed, 1)
             self._se_expand = SamePadConv2d(squeezed, expanded, 1)
         self._project_conv = SamePadConv2d(expanded, out_channels, 1, bias=False)
-        self._bn2 = bn(out_channels)
         self.has_skip = stride == 1 and in_channels == out_channels
+        self._bn2 = bn(out_channels, 'add' if self.has_skip else 'none')
 
     def forward(self, x, generator=None):
         """x (N, C, H, W). In training with a drop rate, the residual branch of each
@@ -121,20 +121,22 @@ class MBConvBlock(nn.Module):
         uniforms come from ``generator`` (torch's default one if None)."""
         inputs = x
         if self.has_expand:
-            x = swish(self._bn0(self._expand_conv(x)))
-        x = swish(self._bn1(self._depthwise_conv(x)))
+            x = self._bn0(self._expand_conv(x))
+        x = self._bn1(self._depthwise_conv(x))
         if self.has_se:
             s = x.mean(dim=(-2, -1), keepdim=True)
             s = self._se_expand(swish(self._se_reduce(s)))
             x = torch.sigmoid(s) * x
-        x = self._bn2(self._project_conv(x))
-        if not self.has_skip:
-            return x
-        if self.training and self.drop_rate > 0:
-            keep = 1.0 - self.drop_rate
-            device = generator.device if generator is not None else x.device
-            u = torch.rand((x.shape[0], 1, 1, 1), generator=generator, device=device)
-            x = x / keep * (u < keep).to(device=x.device, dtype=x.dtype)
+        x = self._project_conv(x)
+        if not (self.has_skip and self.training and self.drop_rate > 0):
+            # the residual add rides the BN, as in the JAX package, unless
+            # drop-connect must mask the branch first
+            return self._bn2(x, residual=inputs if self.has_skip else None)
+        x = self._bn2(x, post='none')
+        keep = 1.0 - self.drop_rate
+        device = generator.device if generator is not None else x.device
+        u = torch.rand((x.shape[0], 1, 1, 1), generator=generator, device=device)
+        x = x / keep * (u < keep).to(device=x.device, dtype=x.dtype)
         return x + inputs
 
 
@@ -149,7 +151,7 @@ class EfficientNetFPN(nn.Module):
         self.downsample = downsample
         stem = round_filters(32, width)
         self._conv_stem = SamePadConv2d(3, stem, 3, stride=2, bias=False)
-        self._bn0 = BatchNorm(stem, eps=1e-3, momentum=bn_momentum)
+        self._bn0 = BatchNorm(stem, eps=1e-3, momentum=bn_momentum, post='swish')
         n_blocks = truncation_index(version, downsample) + 1
         # the rate grows with the block's index over the truncated length
         self._blocks = nn.ModuleList([
@@ -158,7 +160,7 @@ class EfficientNetFPN(nn.Module):
             for i, (k, s, e, ci, co, se) in enumerate(block_specs(version)[:n_blocks])])
 
     def forward(self, x, generator=None):
-        x = swish(self._bn0(self._conv_stem(x)))
+        x = self._bn0(self._conv_stem(x))
         endpoints = {}
         prev = x
         for block in self._blocks:

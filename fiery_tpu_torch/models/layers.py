@@ -10,62 +10,86 @@ Mixed precision as the JAX package has it: parameters may stay float32 while the
 activations are bfloat16 (PRECISION 16); ``Conv2d`` and ``Conv3d`` cast their
 weights to the input's dtype on the fly, and ``BatchNorm`` keeps float32
 parameters and statistics for any input dtype.
+
+The op after a BatchNorm (ReLU, swish, a residual add) is its ``post=`` epilogue,
+at the sites where the JAX package folds it (``post=`` of its BatchNorm). Where a
+ReLU inside an index-numbered ``nn.Sequential`` is folded, an ``nn.Identity`` keeps
+its slot, so the state_dict keys of the modules after it do not move.
 """
 
-from collections import OrderedDict
+from collections import Counter, OrderedDict
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from fiery_tpu_torch.ops.batch_norm import POSTS, batch_norm
+
 
 class _InputDtype:
-    """Convolution mixin: compute in the input's dtype, weights cast on the fly."""
+    """Convolution mixin: compute in the input's dtype, weights cast on the fly, and
+    return channels-last memory, the layout the BatchNorm kernel takes. An output in
+    another layout (PyTorch's CPU convolutions return one for a 5-D batch of 1) is
+    copied, and counted by its shape in ``layout_copies``."""
+
+    layout_copies = Counter()
 
     def _conv_forward(self, x, weight, bias):
-        return super()._conv_forward(x, weight.to(x.dtype),
-                                     None if bias is None else bias.to(x.dtype))
+        y = super()._conv_forward(x, weight.to(x.dtype),
+                                  None if bias is None else bias.to(x.dtype))
+        if not y.is_contiguous(memory_format=self.out_format):
+            _InputDtype.layout_copies[tuple(y.shape)] += 1
+            y = y.contiguous(memory_format=self.out_format)
+        return y
 
 
 class Conv2d(_InputDtype, nn.Conv2d):
-    pass
+    out_format = torch.channels_last
 
 
 class Conv3d(_InputDtype, nn.Conv3d):
-    pass
+    out_format = torch.channels_last_3d
 
 
 class BatchNorm(nn.modules.batchnorm._BatchNorm):
-    """BatchNorm over the channels (dim 1) of a 4-D or 5-D input, the port's one BN.
+    """BatchNorm over the channels (dim 1) of a 4-D or 5-D input with the op that
+    follows it fused in (``post``, one of ops.batch_norm.POSTS: none, relu, swish,
+    add, add_relu, relu_add), the port's one BN; it runs kernel K10
+    (ops/batch_norm.py) and is what the JAX package's ``_BNCore`` computes.
 
-    Eval normalises with the running statistics, as torch's BatchNorm2d/3d do. In
-    training it normalises with the batch statistics and updates the running ones
-    as the JAX package's ``_BNCore`` does: running <- (1 - m) running + m batch,
-    with the BIASED batch variance (torch's own update takes the unbiased one).
-    torch's fused kernel updates a copy with the unbiased variance v n / (n - 1),
-    and the biased update is formed from it with a few C-sized operations instead
-    of a second pass over the activation.
+    Eval normalises with the running statistics. In training it normalises with
+    the batch statistics and updates the running ones as ``_BNCore`` does:
+    running <- (1 - m) running + m batch, with the BIASED batch variance (torch's
+    own update takes the unbiased one); momentum None is the cumulative average,
+    m = 1 / batches seen. The epilogues add, add_relu and relu_add take the
+    ``residual`` argument of ``forward``; ``post=`` of ``forward`` overrides the
+    module's for one call.
     """
+
+    def __init__(self, num_features, eps=1e-5, momentum=0.1, post='none'):
+        super().__init__(num_features, eps=eps, momentum=momentum)
+        if post not in POSTS:
+            raise ValueError(f'Invalid BN epilogue {post}')
+        self.post = post
 
     def _check_input_dim(self, x):
         if x.dim() not in (4, 5):
             raise ValueError(f'BatchNorm expects a 4-D or 5-D input, got {x.dim()}-D')
 
-    def forward(self, x):
-        if not (self.training and self.track_running_stats):
-            return super().forward(x)
-        self.num_batches_tracked.add_(1)
-        # momentum None: the cumulative average, 1 / batches seen
-        m = self.momentum if self.momentum is not None else 1.0 / float(
-            self.num_batches_tracked)
-        unbiased = self.running_var.clone()      # (1 - m) old + m v n / (n - 1) after
-        out = F.batch_norm(x, self.running_mean, unbiased, self.weight, self.bias, True,
-                           m, self.eps)
-        n = x.numel() // x.shape[1]
-        with torch.no_grad():
-            # (1 - m) old + m v = (1 - m) old / n + unbiased (n - 1) / n
-            self.running_var.mul_((1.0 - m) / n).add_(unbiased, alpha=(n - 1) / n)
-        return out
+    def extra_repr(self):
+        return super().extra_repr() + f', post={self.post}'
+
+    def forward(self, x, residual=None, post=None):
+        self._check_input_dim(x)
+        m = 0.0
+        if self.training:
+            self.num_batches_tracked.add_(1)
+            # momentum None: the cumulative average, 1 / batches seen
+            m = self.momentum if self.momentum is not None else 1.0 / float(
+                self.num_batches_tracked)
+        return batch_norm(x, self.weight, self.bias, self.running_mean, self.running_var,
+                          self.training, m, self.eps, self.post if post is None else post,
+                          residual)
 
 
 def resize_bilinear(x, out_hw):
@@ -81,14 +105,14 @@ class ConvBlock(nn.Module):
         super().__init__()
         self.conv = Conv2d(in_channels, out_channels, kernel_size, stride=stride,
                            padding=(kernel_size - 1) // 2, bias=False)
-        self.norm = BatchNorm(out_channels, momentum=bn_momentum)
+        self.norm = BatchNorm(out_channels, momentum=bn_momentum, post='relu')
 
     def forward(self, x):
-        return F.relu(self.norm(self.conv(x)))
+        return self.norm(self.conv(x))
 
 
 def _bn_relu(channels, bn_momentum):
-    return nn.Sequential(BatchNorm(channels, momentum=bn_momentum), nn.ReLU())
+    return nn.Sequential(BatchNorm(channels, momentum=bn_momentum, post='relu'))
 
 
 class Bottleneck(nn.Module):
@@ -113,22 +137,28 @@ class Bottleneck(nn.Module):
         ]))
         if out_channels == in_channels and not downsample:
             self.projection = None
+            # the identity residual rides the last BN: relu(bn(h)) + x
+            self.layers.abn_up_project[0].post = 'relu_add'
         else:
             proj = OrderedDict()
             if downsample:
                 proj['upsample_skip_proj'] = nn.MaxPool2d(2, stride=2)
             proj['conv_skip_proj'] = Conv2d(in_channels, out_channels, 1, bias=False)
-            proj['bn_skip_proj'] = BatchNorm(out_channels, momentum=bn_momentum)
+            proj['bn_skip_proj'] = BatchNorm(out_channels, momentum=bn_momentum,
+                                             post='add')
             self.projection = nn.Sequential(proj)
 
     def forward(self, x):
-        residual = self.layers(x)
         if self.projection is None:
-            return residual + x
+            return self.layers.abn_up_project[0](self.layers[:-1](x), residual=x)
+        residual = self.layers(x)
+        skip = x
         if self.downsample:
             # pad right/bottom if odd so the max pool matches the strided conv
-            x = F.pad(x, (0, x.shape[-1] % 2, 0, x.shape[-2] % 2))
-        return residual + self.projection(x)
+            skip = F.pad(skip, (0, skip.shape[-1] % 2, 0, skip.shape[-2] % 2))
+            skip = self.projection.upsample_skip_proj(skip)
+        skip = self.projection.conv_skip_proj(skip)
+        return self.projection.bn_skip_proj(skip, residual=residual)
 
 
 class UpsamplingConcat(nn.Module):
@@ -140,11 +170,10 @@ class UpsamplingConcat(nn.Module):
         self.scale_factor = scale_factor
         self.conv = nn.Sequential(
             Conv2d(in_channels, out_channels, 3, padding=1, bias=False),
-            BatchNorm(out_channels, momentum=bn_momentum),
-            nn.ReLU(),
+            BatchNorm(out_channels, momentum=bn_momentum, post='relu'),
+            nn.Identity(),          # the ReLU, folded into the BN; keeps conv.3, conv.4
             Conv2d(out_channels, out_channels, 3, padding=1, bias=False),
-            BatchNorm(out_channels, momentum=bn_momentum),
-            nn.ReLU(),
+            BatchNorm(out_channels, momentum=bn_momentum, post='relu'),
         )
 
     def forward(self, x_to_upsample, x):
@@ -162,9 +191,10 @@ class UpsamplingAdd(nn.Module):
         self.upsample_layer = nn.Sequential(
             nn.Upsample(scale_factor=scale_factor, mode='bilinear', align_corners=False),
             Conv2d(in_channels, out_channels, 1, bias=False),
-            BatchNorm(out_channels, momentum=bn_momentum),
+            BatchNorm(out_channels, momentum=bn_momentum, post='add'),
         )
 
     def forward(self, x, x_skip):
-        return self.upsample_layer(x) + x_skip
+        up, conv, bn = self.upsample_layer
+        return bn(conv(up(x)), residual=x_skip)
 

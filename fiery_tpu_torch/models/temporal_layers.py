@@ -15,16 +15,17 @@ import torch.nn.functional as F
 
 from fiery_tpu_torch.models.layers import (BatchNorm, Conv2d, Conv3d, ConvBlock,
                                            resize_bilinear)
+from fiery_tpu_torch.ops.spatial_gru import (gru_frames, gru_output, gru_reset_concat,
+                                             gru_stack, gru_state_update)
 
 
 class Conv1x1x1NormActivated(nn.Sequential):
-    """1x1x1 Conv3d (``conv``) + BatchNorm3d (``norm``) + ReLU."""
+    """1x1x1 Conv3d (``conv``) + BatchNorm3d (``norm``) with the ReLU folded in."""
 
     def __init__(self, in_channels, out_channels, bn_momentum=0.1):
         super().__init__(OrderedDict([
             ('conv', Conv3d(in_channels, out_channels, kernel_size=1, bias=False)),
-            ('norm', BatchNorm(out_channels, momentum=bn_momentum)),
-            ('activation', nn.ReLU()),
+            ('norm', BatchNorm(out_channels, momentum=bn_momentum, post='relu')),
         ]))
 
 
@@ -37,12 +38,12 @@ class CausalConv3d(nn.Module):
         self.kt = kt
         self.conv = Conv3d(in_channels, out_channels, kernel_size,
                            padding=(0, kh // 2, kw // 2), bias=False)
-        self.norm = BatchNorm(out_channels, momentum=bn_momentum)
+        self.norm = BatchNorm(out_channels, momentum=bn_momentum, post='relu')
 
     def forward(self, x):
         if self.kt > 1:
             x = F.pad(x, (0, 0, 0, 0, self.kt - 1, 0))
-        return F.relu(self.norm(self.conv(x)))
+        return self.norm(self.conv(x))
 
 
 def causal_max_pool3d(x, kernel_size=(2, 3, 3)):
@@ -67,13 +68,20 @@ class Bottleneck3D(nn.Module):
         ]))
         self.projection = None
         if out_channels != in_channels:
-            self.projection = nn.Sequential(
-                Conv3d(in_channels, out_channels, kernel_size=1, bias=False),
-                BatchNorm(out_channels, momentum=bn_momentum))
+            self.projection = _projection(in_channels, out_channels, bn_momentum)
 
     def forward(self, x):
         h = self.layers(x)
-        return h + (x if self.projection is None else self.projection(x))
+        if self.projection is None:
+            return h + x
+        conv, bn = self.projection
+        return bn(conv(x), residual=h)
+
+
+def _projection(in_channels, out_channels, bn_momentum):
+    """The residual's 1x1x1 conv + BN, whose epilogue adds the block's output."""
+    return nn.Sequential(Conv3d(in_channels, out_channels, kernel_size=1, bias=False),
+                         BatchNorm(out_channels, momentum=bn_momentum, post='add'))
 
 
 def _causal_avg_pool3d(x, pool_size):
@@ -114,6 +122,12 @@ class PyramidSpatioTemporalPooling(nn.Module):
         for pool_size, branch in zip(self.pool_sizes, self.features):
             pooled = branch.conv_bn_relu(_causal_avg_pool3d(x, pool_size)[:, :, drop_front:])
             c, t = pooled.shape[1:3]
+            if pooled.shape[-2:] == (1, 1):
+                # a bilinear resize of a 1x1 map is a broadcast (exactly, as the JAX
+                # package's resize computes it); its gradient is then a sum, not
+                # 40,000 atomic adds into each value
+                out.append(pooled.expand(b, c, t, h, w))
+                continue
             frames = pooled.transpose(1, 2).reshape(b * t, c, *pooled.shape[-2:])
             frames = resize_bilinear(frames, (h, w))
             out.append(frames.view(b, t, c, h, w).transpose(1, 2))
@@ -152,9 +166,7 @@ class TemporalBlock(nn.Module):
             Conv1x1x1NormActivated(agg_in, out_channels, bn_momentum))
         self.projection = None
         if out_channels != in_channels:
-            self.projection = nn.Sequential(
-                Conv3d(in_channels, out_channels, kernel_size=1, bias=False),
-                BatchNorm(out_channels, momentum=bn_momentum))
+            self.projection = _projection(in_channels, out_channels, bn_momentum)
 
     def forward(self, x, drop_front=0):
         s = drop_front
@@ -175,11 +187,15 @@ class TemporalBlock(nn.Module):
         if self.pyramid_pooling is not None:
             paths.append(self.pyramid_pooling(xc, drop_front=min(s, 1)))
         h = self.aggregation(torch.cat(paths, dim=1))
-        return h + (xs if self.projection is None else self.projection(xs))
+        if self.projection is None:
+            return xs + h
+        conv, bn = self.projection
+        return bn(conv(xs), residual=h)
 
 
 class SpatialGRU(nn.Module):
-    """Convolutional GRU with 3x3 gates; the same weights at every step."""
+    """Convolutional GRU with 3x3 gates; the same weights at every step. The gate
+    arithmetic around the convolutions is kernel K11 (ops/spatial_gru.py)."""
 
     def __init__(self, input_size, hidden_size, bn_momentum=0.1):
         super().__init__()
@@ -190,14 +206,13 @@ class SpatialGRU(nn.Module):
 
     def forward(self, x, state):
         """x (B, T, C_in, H, W) frames, state (B, C_h, H, W) -> (B, T, C_h, H, W)."""
-        outputs = []
-        for t in range(x.shape[1]):
-            x_t = x[:, t]
+        out = gru_output(state, x.shape[1])
+        states = []
+        for t, x_t in enumerate(gru_frames(x)):
             x_and_state = torch.cat([x_t, state], dim=1)
-            update = torch.sigmoid(self.conv_update(x_and_state))
-            reset = torch.sigmoid(self.conv_reset(x_and_state))
             # the reference gates the state with (1 - reset)
-            tilde = self.conv_state_tilde(torch.cat([x_t, (1.0 - reset) * state], dim=1))
-            state = (1.0 - update) * state + update * tilde
-            outputs.append(state)
-        return torch.stack(outputs, dim=1)
+            tilde = self.conv_state_tilde(
+                gru_reset_concat(x_t, self.conv_reset(x_and_state), state))
+            state = gru_state_update(self.conv_update(x_and_state), state, tilde, out, t)
+            states.append(state)
+        return gru_stack(out, states)

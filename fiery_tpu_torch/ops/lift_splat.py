@@ -18,6 +18,7 @@ import numpy as np
 import torch
 
 from fiery_tpu_torch.ops import _build
+from fiery_tpu_torch.utils.device import device_constant
 
 
 def create_frustum(final_dim, downsample, d_bound):
@@ -41,7 +42,8 @@ def get_geometry(frustum, intrinsics, extrinsics):
     rotation = extrinsics[..., :3, :3]
     translation = extrinsics[..., :3, 3]
     points = torch.cat([frustum[..., :2] * frustum[..., 2:3], frustum[..., 2:3]], dim=-1)
-    combined = rotation @ torch.linalg.inv(intrinsics)
+    # inv_ex: linalg.inv's result without its singularity check, which waits on the card
+    combined = rotation @ torch.linalg.inv_ex(intrinsics).inverse
     pts = torch.einsum('...ij,dhwj->...dhwi', combined, points)
     return pts + translation[..., None, None, None, :]
 
@@ -52,13 +54,11 @@ def voxel_ids(geometry, bev_resolution, bev_start_position, bev_dimension):
     Computed in geometry's dtype. Trunc (toward zero), not floor: fractional bins
     in (-1, 0) land in bin 0 and survive the bounds check, as in the reference.
     """
-    res = torch.as_tensor(np.asarray(bev_resolution), dtype=geometry.dtype,
-                          device=geometry.device)
-    start = torch.as_tensor(np.asarray(bev_start_position), dtype=geometry.dtype,
-                            device=geometry.device)
+    res = device_constant(bev_resolution, geometry.dtype, geometry.device)
+    start = device_constant(bev_start_position, geometry.dtype, geometry.device)
     X, Y, Z = (int(d) for d in bev_dimension)
     vox = torch.trunc((geometry - (start - res / 2.0)) / res).to(torch.int32)
-    dim = torch.tensor([X, Y, Z], dtype=torch.int32, device=geometry.device)
+    dim = device_constant((X, Y, Z), torch.int32, geometry.device)
     valid = ((vox >= 0) & (vox < dim)).all(dim=-1)
     flat = (vox[..., 0] * Y + vox[..., 1]) * Z + vox[..., 2]
     return torch.where(valid, flat, torch.full_like(flat, X * Y * Z))

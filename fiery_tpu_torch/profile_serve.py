@@ -11,7 +11,12 @@ lines:
     rollout, the decoder, the instance decode (K6, K7) and the temporal ID
     tracking (K8, K9)), median over the same requests;
   * from torch.profiler over three requests: the device busy time per request, its
-    share of the wall time, and the kernels that take the most device time.
+    share of the wall time, the kernels that take the most device time, and the
+    BatchNorm (K10) and GRU gate (K11) kernels' launches and device time;
+  * the host time of one call (µs, host clock over 3000 back-to-back calls at a
+    small shape, so the card never holds the host back) of the eval BatchNorm
+    with its ReLU (K10), of ``F.batch_norm`` + ``F.relu`` on the same tensors,
+    and of the GRU's reset-gated concat (K11) when serving.
 Needs a CUDA card.
 """
 
@@ -22,9 +27,13 @@ import statistics
 import time
 
 import torch
+import torch.nn.functional as F
 
 from fiery_tpu_torch import evaluate as evaluate_module
 from fiery_tpu_torch.models import fiery as fiery_module
+from fiery_tpu_torch.models.layers import BatchNorm
+from fiery_tpu_torch.ops.batch_norm import batch_norm_forward
+from fiery_tpu_torch.ops.spatial_gru import gru_reset_concat, spatial_gru
 from fiery_tpu_torch.serve import (BASELINE, build_fiery, calibrate_batchnorm, init_params,
                                    make_request, predict_instances)
 from fiery_tpu_torch.utils.config import get_cfg
@@ -113,6 +122,7 @@ def main():
                       'stage_device_ms_sum': sum(stage_ms.values())}), flush=True)
 
     activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    batch_norm_forward.launches = spatial_gru.launches = 0
     with torch.profiler.profile(activities=activities) as prof:
         t0 = time.perf_counter()
         for req in requests[:3]:
@@ -122,7 +132,8 @@ def main():
     timer.read_ms()
     rows = []   # device-side events only (kernels, copies): no double count of the ops
     for e in prof.key_averages():
-        if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0:
+        if (e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0
+                and not e.is_user_annotation):
             rows.append((e.self_device_time_total / 3e3, e.count / 3, e.key))
     rows.sort(reverse=True)
     busy_ms = sum(r[0] for r in rows)
@@ -130,10 +141,47 @@ def main():
                       'device_busy_ms_per_request': busy_ms,
                       'device_busy_share': busy_ms / wall_ms if wall_ms else None,
                       'kernels_per_request': sum(r[1] for r in rows)}), flush=True)
+    # K10's kernels (stats, stats_finalize, apply) and K11's (reset_concat,
+    # state_update), by their symbols
+    for name, symbols, fn in (('batch_norm', ('stats_kernel', 'stats_finalize_kernel',
+                                              'apply_kernel'), batch_norm_forward),
+                              ('spatial_gru', ('reset_concat_kernel', 'state_update_kernel'),
+                               spatial_gru)):
+        print(json.dumps({'kernel': name, 'launches_per_request': fn.launches / 3,
+                          'device_ms_per_request': sum(
+                              r[0] for r in rows if any(s in r[2] for s in symbols))}),
+              flush=True)
     for ms, count, key in rows[:25]:
         print(json.dumps({'kernel': key[:120], 'device_ms_per_request': ms,
                           'calls_per_request': count}), flush=True)
+    print(json.dumps({'host_us_per_call': host_us_per_call()}), flush=True)
     print(json.dumps({'device': torch.cuda.get_device_name(0)}), flush=True)
+
+
+def host_us_per_call(n=3000):
+    """Host µs of one call of each wrapper the request makes most often, against
+    the PyTorch calls it replaced, at a small bf16 shape (64 channels, 8 x 8)."""
+    x = torch.randn(1, 64, 8, 8, device='cuda', dtype=torch.bfloat16).contiguous(
+        memory_format=torch.channels_last)
+    bn = init_params(BatchNorm(64, post='relu'), seed=0).cuda().eval()
+    h = x.permute(0, 2, 3, 1).contiguous().permute(0, 3, 1, 2)
+    calls = {'batch_norm_relu (K10)': lambda: bn(x),
+             'F.batch_norm + F.relu': lambda: F.relu(F.batch_norm(
+                 x, bn.running_mean, bn.running_var, bn.weight, bn.bias, False, 0.1,
+                 bn.eps)),
+             'gru_reset_concat (K11)': lambda: gru_reset_concat(h, h, h)}
+    out = {}
+    with torch.inference_mode():
+        for name, fn in calls.items():
+            for _ in range(50):
+                fn()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(n):
+                fn()
+            out[name] = 1e6 * (time.perf_counter() - t0) / n
+            torch.cuda.synchronize()
+    return out
 
 
 if __name__ == '__main__':

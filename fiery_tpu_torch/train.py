@@ -64,7 +64,7 @@ def main(argv=None):
     prewarp = make_prewarp_transform(cfg) if cfg.DATASET.PREWARP_LABELS else None
     trainer = Trainer(cfg, depth_keep=depth_keep, device=args.device)
     init_params(trainer.model, seed=args.seed)
-    generator = torch.Generator().manual_seed(args.seed)
+    generator = torch.Generator(device=trainer.device).manual_seed(args.seed)
     for step in range(args.steps):
         batch = batch_at(step)
         if prewarp is not None:

@@ -15,6 +15,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from fiery_tpu_torch.ops import _build
+from fiery_tpu_torch.utils.device import device_constant
 
 
 def kth_largest_plain(x, k):
@@ -121,8 +122,7 @@ def segmentation_loss(prediction, target, class_weights, ignore_index=255,
     discounted per frame, then the mean of each frame's int(top_k_ratio * h * w)
     largest pixels (use_top_k) or of all of them."""
     b, s, h, w, n = prediction.shape
-    class_weights = torch.as_tensor(class_weights, dtype=prediction.dtype,
-                                    device=prediction.device)
+    class_weights = device_constant(class_weights, prediction.dtype, prediction.device)
     logp = F.log_softmax(prediction, dim=-1)
     tgt = target.clamp(0, n - 1).long()
     nll = -logp.gather(-1, tgt[..., None])[..., 0]

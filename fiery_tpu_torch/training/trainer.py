@@ -18,7 +18,11 @@ parameters too and take part in the clip and in Adam.
 
     trainer = Trainer(cfg)                              # on cuda; depth_keep= for DEPTH_CULL
     init_params(trainer.model, seed=0)
+    generator = torch.Generator(device=trainer.device).manual_seed(0)
     losses, total = trainer.train_step(batch, generator)
+
+The generator lives on the trainer's device, so that drawing the drop-connect
+masks and the latent noise never waits on the host.
 """
 
 import dataclasses
@@ -97,6 +101,9 @@ class Trainer:
     def compute_gradients(self, batch, generator=None, noise=None):
         """Forward, losses and backward of one step, leaving the gradients in the
         parameters' ``.grad``. Returns (loss dict, total loss), detached."""
+        if generator is not None and generator.device.type != self.device.type:
+            raise ValueError(f'the generator is on {generator.device} and the trainer on '
+                             f'{self.device}: each draw would be a blocking copy')
         batch = self.to_device(batch)
         self.model.train()
         labels, fdi = self.prepare_future_labels(batch)
@@ -116,9 +123,10 @@ class Trainer:
         self.optimizer.step()
 
     def train_step(self, batch, generator=None, noise=None):
-        """One optimisation step on a batch (numpy arrays or tensors). The generator
-        draws the latent noise (unless ``noise`` (b, 1, L) is given) and the
-        drop-connect masks. Returns (loss dict, total loss), detached tensors."""
+        """One optimisation step on a batch (numpy arrays or tensors). The generator,
+        on the trainer's device, draws the latent noise (unless ``noise`` (b, 1, L)
+        is given) and the drop-connect masks. Returns (loss dict, total loss),
+        detached tensors."""
         losses, total = self.compute_gradients(batch, generator, noise)
         self.apply_gradients()
         return losses, total

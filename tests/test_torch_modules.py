@@ -156,7 +156,9 @@ def test_bottleneck3d(out_channels):
 @pytest.mark.parametrize('dims', [4, 5])
 def test_batchnorm_train_statistics_match_jax(dims):
     """One train-mode forward: the output and the new running statistics equal the
-    JAX BatchNorm's (biased batch variance, the same momentum); eval is torch's."""
+    JAX BatchNorm's (biased batch variance, the same momentum); so does eval with
+    the new running statistics, which is also bit for bit _BNCore's formula,
+    (x - mean) * (scale / sqrt(var + eps)) + bias, in f32."""
     from fiery_tpu.models.layers import BatchNorm as JaxBatchNorm
     from fiery_tpu_torch.models.layers import BatchNorm
     rng = np.random.RandomState(20 + dims)
@@ -180,10 +182,14 @@ def test_batchnorm_train_statistics_match_jax(dims):
                                rtol=1e-5, atol=1e-6)
     np.testing.assert_allclose(bn.running_var.numpy(), new['batch_stats']['BatchNorm_0']['var'],
                                rtol=1e-5, atol=1e-6)
-    ref = (torch.nn.BatchNorm2d if dims == 4 else torch.nn.BatchNorm3d)(7).eval()
-    ref.load_state_dict(bn.state_dict())
+    want = JaxBatchNorm(momentum=0.05).apply(
+        {'params': variables['params'], 'batch_stats': new['batch_stats']}, x, train=False)
     with torch.no_grad():
-        torch.testing.assert_close(bn.eval()(xt), ref(xt), rtol=0, atol=0)
+        got = bn.eval()(xt).movedim(1, -1)
+    _close(got, want, 'eval output')
+    rm, rv = bn.running_mean.numpy(), bn.running_var.numpy()
+    mul = scale * (np.float32(1.0) / np.sqrt(rv + np.float32(1e-5)))
+    torch.testing.assert_close(got, torch.from_numpy((x - rm) * mul + bias), rtol=0, atol=0)
 
 
 def test_drop_connect():
