@@ -38,16 +38,24 @@ Builds the package's CUDA kernels from csrc/, then:
      shapes, bf16 and f32, with planted ties, exactly, and times them; and runs
      the tiny combination card vs CPU, forward and training step;
  10. holds the BatchNorm kernel (K10: every epilogue, eval and training, forward
-     and backward, 4-D and 5-D, f32 and bf16) and the GRU's gate kernels (K11,
-     forward and backward, batch 1 and 3) against their plain versions at the
-     training step's shapes, and times them.
+     and backward, 4-D and 5-D, f32 and bf16; y bit for bit) and the GRU's gate
+     kernels (K11, forward and backward, batch 1 and 3) against their plain
+     versions at the training step's shapes; runs K10's exact checks (every bf16
+     value through every epilogue, C = 21, 23, 35, a dy slice at an odd row
+     stride, two runs with the same bits); times each K10 pass at the largest
+     training and served calls, bf16 and f32, post none and swish, and K11.
+The request and the step also print K10's census (each BatchNorm call's shape
+and epilogue, from hooks) with its summed bound, and K10's device time in one
+profiled request and step.
 Prints a "kernels" JSON line, the card's name and power limit, and as its last
 line {"ok": true, "device": {...}}. Any failure raises and exits non-zero.
 Without a CUDA card, or without the package beside it, it fails.
 """
 
 import argparse
+import importlib.util
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -164,21 +172,67 @@ def layout_report():
 
 def count_bn_calls(model, fn):
     """fn() with a forward pre-hook on every BatchNorm of model: (its result, the
-    number of BatchNorm calls it made, the K10 forward launches they imply: three
-    a call in training mode (statistics, their reduction, apply), one in eval)."""
-    calls = [0, 0]
+    number of BatchNorm calls it made, the K10 forward launches they imply: two a
+    call in training mode (the statistics with their reduction, then apply), one
+    in eval; and the census of the calls, (shape, bytes a value, post, with a
+    residual, training) each)."""
+    census = []
 
-    def hook(module, _):
-        calls[0] += 1
-        calls[1] += 3 if module.training else 1
+    def hook(module, args, kwargs):
+        x = args[0]
+        residual = kwargs.get('residual', args[1] if len(args) > 1 else None)
+        post = kwargs.get('post', args[2] if len(args) > 2 else None) or module.post
+        census.append((tuple(x.shape), x.element_size(), post, residual is not None,
+                       module.training))
 
-    handles = [m.register_forward_pre_hook(hook) for m in model.modules()
+    handles = [m.register_forward_pre_hook(hook, with_kwargs=True) for m in model.modules()
                if isinstance(m, BatchNorm)]
     try:
-        return fn(), calls[0], calls[1]
+        out = fn()
     finally:
         for h in handles:
             h.remove()
+    return out, len(census), sum(2 if c[4] else 1 for c in census), census
+
+
+def census_bound(census, backward=False):
+    """K10's summed bound over a census of BatchNorm calls: (calls, GB, bound ms),
+    each call's bytes over the HBM rate, its inputs read once and its outputs
+    written once (the per-channel vectors left out). Forward: x (and the residual)
+    read, y written. Backward: dy and x read, dx written, and for add_relu the
+    residual read and its gradient written."""
+    total = 0
+    for shape, es, post, with_res, _ in census:
+        n = es * int(np.prod(shape))
+        if backward:
+            total += n * (3 + (2 if post == 'add_relu' else 0))
+        else:
+            total += n * (2 + (1 if with_res else 0))
+    return len(census), total / 1e9, 1e3 * total / HBM_BYTES_PER_S
+
+
+K10_PASS_NAMES = ('stats', 'apply', 'backward_reduce', 'backward_apply')
+
+
+def k10_pass(key):
+    """The K10 pass a kernel's name belongs to, or None: its kernels are templates
+    in an anonymous namespace ("(anonymous namespace)::apply_kernel<..."), which
+    keeps out other kernels whose names hold the same words (Adam's
+    multi_tensor_apply_kernel)."""
+    for name in ('backward_reduce', 'backward_apply', 'stats', 'apply'):
+        if f'::{name}_kernel<' in key:
+            return name
+    return None
+
+
+def k10_device_ms(events):
+    """K10's device ms by pass over profiler key averages."""
+    out = dict.fromkeys(K10_PASS_NAMES, 0.0)
+    for e in events:
+        name = k10_pass(e.key)
+        if name:
+            out[name] += e.self_device_time_total / 1e3
+    return out
 
 
 def smi_line():
@@ -219,6 +273,13 @@ def kernel_ms(fn, symbols, reps=REPS, warmup=3, attempts=3):
     kernel's own time, without the host's launch gaps. A trace that holds none of
     them (CUPTI now and then drops a window's kernels) is taken again, up to
     ``attempts`` times, before it fails."""
+    return pass_ms(fn, lambda key: 'all' if any(s in key for s in symbols) else None,
+                   ('all',), reps, warmup, attempts)['all']
+
+
+def pass_ms(fn, classify, names, reps=REPS, warmup=3, attempts=3):
+    """kernel_ms by group, from one trace: {name: mean device ms per call} over
+    the kernels that ``classify(kernel name)`` puts in each of ``names``."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -228,14 +289,15 @@ def kernel_ms(fn, symbols, reps=REPS, warmup=3, attempts=3):
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        total_us = sum(e.self_device_time_total for e in prof.key_averages()
-                       if e.device_type == torch.autograd.DeviceType.CUDA
-                       and any(sym in e.key for sym in symbols))
-        if total_us > 0:
-            return total_us / 1e3 / reps
-        log(f'  the profiler saw no device time for {symbols}; measuring again')
-    raise AssertionError(f'the profiler saw no device time for {symbols} in {attempts} '
-                         f'traces')
+        out = dict.fromkeys(names, 0.0)
+        for e in prof.key_averages():
+            group = classify(e.key) if e.device_type == torch.autograd.DeviceType.CUDA else None
+            if group in out:
+                out[group] += e.self_device_time_total / 1e3 / reps
+        if all(v > 0 for v in out.values()):
+            return out
+        log(f'  the profiler saw no device time for some of {names}; measuring again')
+    raise AssertionError(f'the profiler saw no device time for {names} in {attempts} traces')
 
 
 def bf16_ulp(x):
@@ -443,7 +505,8 @@ def phase_serve(n_requests=3, opts=(), name='serve'):
                 'present_mu': (1, 1, mc.latent_dim), 'present_log_sigma': (1, 1, mc.latent_dim)}
     requests = [make_request(cfg, seed=10 + i) for i in range(n_requests)]
     warm = make_request(cfg, seed=9)       # warm-up (cuDNN plans, kernels)
-    _, bn_calls, bn_launches = count_bn_calls(model, lambda: predict_instances(model, warm))
+    _, bn_calls, bn_launches, census = count_bn_calls(
+        model, lambda: predict_instances(model, warm))
     predict_instances(model, warm, device_matching=False)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -489,6 +552,11 @@ def phase_serve(n_requests=3, opts=(), name='serve'):
         f'peak_mem_bytes={peak} launches={launches}')
     log(f'{name}: {bn_calls} BatchNorm calls per request; per {n_requests} requests '
         f'{json.dumps(layouts)}')
+    n_calls, gb, bound_ms = census_bound(census)
+    log(f'{name} K10 census: {n_calls} calls, {gb:.4f} GB (inputs read once, outputs '
+        f'written once), summed bound {bound_ms:.4f} ms at 3.35 TB/s; channel counts '
+        f'{sorted({c[0][1] for c in census})}; calls under 1 M values '
+        f'{sum(np.prod(c[0]) < 1e6 for c in census)}')
     # the request time without and with decoding, in turns on the same requests
     timed = {predict: [], predict_instances: []}
     for _ in range(3):
@@ -521,7 +589,26 @@ def phase_serve(n_requests=3, opts=(), name='serve'):
     log(f'{name}: pixels whose host (scipy, f16 flow) id differs from the device id: '
         f'{diffs} of {T * X * Y} per request, {unexplained} after the best relabel of the '
         f'device ids; ids per request: {[int(ids.max()) for ids in tracks]}')
-    return launches, outputs
+
+    def profile():
+        """One request under torch.profiler: K10's device ms against its summed
+        bound (called after every timed phase)."""
+        activities = [torch.profiler.ProfilerActivity.CPU,
+                      torch.profiler.ProfilerActivity.CUDA]
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=activities) as prof:
+            predict_instances(model, requests[0])
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA
+                  and not e.is_user_annotation]
+        k10 = k10_device_ms(events)
+        busy = sum(e.self_device_time_total for e in events) / 1e3
+        log(f'{name} profiled request: device busy {busy:.3f} ms; K10 {sum(k10.values()):.4f} '
+            f'ms ({json.dumps({k: round(v, 4) for k, v in k10.items()})}) against its summed '
+            f'bound {bound_ms:.4f} ms ({n_calls} calls, {gb:.4f} GB); {smi_line()}')
+
+    return launches, outputs, profile
 
 
 def relabel_disagreement(a, b):
@@ -868,8 +955,8 @@ def phase_train(n_steps=3, kind='dense', opts=()):
     # drop-connect masks and the latent noise drawn on the card
     gen = torch.Generator(device='cuda').manual_seed(0)
     # warm-up: cuDNN plans, kernel loads; and the BatchNorm calls of a step
-    _, bn_calls, bn_launches = count_bn_calls(trainer.model,
-                                              lambda: trainer.train_step(batches[0], gen))
+    _, bn_calls, bn_launches, census = count_bn_calls(
+        trainer.model, lambda: trainer.train_step(batches[0], gen))
     torch.cuda.synchronize()
     m = trainer.model
     watched = {'stem conv': m.encoder.backbone._conv_stem.weight,
@@ -896,13 +983,13 @@ def phase_train(n_steps=3, kind='dense', opts=()):
     for r in records:
         if not all(np.isfinite(v) for v in r.values()):
             raise AssertionError(f'{name}: non-finite losses {r}')
-    # three BatchNorm launches forward per training-mode BatchNorm call (one per
-    # eval-mode call) and three backward per call, and two GRU launches each way
+    # two BatchNorm launches forward per training-mode BatchNorm call (one per
+    # eval-mode call) and two backward per call, and two GRU launches each way
     # per step of each GRU block
     mc = trainer.model.cfg
     gru = 2 * mc.n_gru_blocks * mc.n_future
     per_step = {**TRAIN_PER_STEP[kind], 'batch_norm': bn_launches,
-                'batch_norm_backward': 3 * bn_calls,
+                'batch_norm_backward': 2 * bn_calls,
                 'spatial_gru': gru, 'spatial_gru_backward': gru}
     for k, n in per_step.items():
         if launches[k] != n * n_steps:
@@ -919,6 +1006,11 @@ def phase_train(n_steps=3, kind='dense', opts=()):
     log(f'{name}: parameters, uncertainty weights and BatchNorm statistics changed')
     log(f'{name}: {bn_calls} BatchNorm calls per step; per {n_steps} steps '
         f'{json.dumps(layouts)}')
+    fwd_census, bwd_census = census_bound(census), census_bound(census, backward=True)
+    log(f'{name} K10 census: {bn_calls} calls; forward {fwd_census[1]:.4f} GB, summed bound '
+        f'{fwd_census[2]:.4f} ms; backward {bwd_census[1]:.4f} GB, summed bound '
+        f'{bwd_census[2]:.4f} ms (inputs read once, outputs written once, 3.35 TB/s); '
+        f'channel counts {sorted({c[0][1] for c in census})}')
 
     # no host sync from the batch's arrival on the card to the end of the step's
     # device work (the drop-connect masks and the noise are drawn on the card)
@@ -967,6 +1059,12 @@ def phase_train(n_steps=3, kind='dense', opts=()):
         n_kernels = sum(e.count for e in events)
         log(f'{name} profiled step: wall {wall:.3f} ms (profiler on), device busy '
             f'{rec["busy_ms"]:.3f} ms, {n_kernels} device-side kernels and copies')
+        k10 = k10_device_ms(events)
+        rec['k10_ms'] = sum(k10.values())
+        log(f'{name} profiled step: K10 {rec["k10_ms"]:.4f} ms '
+            f'({json.dumps({k: round(v, 4) for k, v in k10.items()})}) against its summed '
+            f'bound {fwd_census[2] + bwd_census[2]:.4f} ms (forward {fwd_census[2]:.4f}, '
+            f'backward {bwd_census[2]:.4f}); {smi_line()}')
         for e in sorted(events, key=lambda e: -e.self_device_time_total)[:15]:
             log(f'  {e.self_device_time_total / 1e3:9.3f} ms {e.count:5d}x  {e.key[:110]}')
 
@@ -1221,6 +1319,14 @@ def rows(shape, dtype, gen, device, mean=0.0):
     return t.to(dtype).movedim(-1, 1)
 
 
+def bits_differ(got, want):
+    """The number of values whose bits differ (two NaNs agree)."""
+    bits = {2: torch.int16, 4: torch.int32}[got.element_size()]
+    same = (got.contiguous().view(bits) == want.contiguous().view(bits)) | (
+        torch.isnan(got) & torch.isnan(want))
+    return int((~same).sum())
+
+
 def rel_l2(got, want):
     got, want = got.double(), want.double()
     return float((got - want).norm() / want.norm().clamp_min(1e-30))
@@ -1269,6 +1375,10 @@ def bn_case(shape, post, dtype, training, device, seed):
     if got[0].stride() != x.stride():
         raise AssertionError(f'{tag}: y in another layout than x')
     y_err = check_close(tag, got[0], want[0], dtype)
+    n_diff = bits_differ(got[0], want[0])
+    if n_diff:
+        raise AssertionError(f'{tag}: {n_diff} values of y differ from the plain version\'s '
+                             f'bits')
     if training:
         for label, a, c in zip(('mean', 'var', 'running mean', 'running var'),
                                got[1:3] + stats_k, want[1:3] + stats_p):
@@ -1312,15 +1422,108 @@ def gru_case(B, Cx, dtype, device, seed, C=64, T=4, H=200, W=200):
                 dout=dout), err, bwd_err
 
 
+def bn_exact_checks(device):
+    """The card tests' K10 checks (tests/test_torch_norm_gru_gpu.py): every bf16 bit
+    pattern through every epilogue (y, dx, dres against the plain version, bit for
+    bit but at the NaN inputs of the epilogues that take a max), the channel
+    counts that are not multiples of 8, a dy slice at an odd row stride, and two
+    runs that give the same bits."""
+    spec = importlib.util.spec_from_file_location(
+        'test_torch_norm_gru_gpu', os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                                'tests', 'test_torch_norm_gru_gpu.py'))
+    card = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(card)
+    for post in POSTS:
+        for C, seeded in ((64, False), (1, False), (64, True)):
+            found = card.bf16_sweep(device, post, C, seeded)
+            log(f'  batch_norm every bf16 value, {post}, C={C}'
+                f'{", seeded constants" if seeded else ""}: values whose bits differ '
+                f'from the plain version (of them at NaN inputs of a max) '
+                + json.dumps({k: v[:2] for k, v in found.items()}))
+            for name, (diff, excused, examples) in found.items():
+                if diff != excused:
+                    raise AssertionError(f'batch_norm {post} C={C} {name}: {diff - excused} '
+                                         f'values differ from the plain version: {examples}')
+    for C in (21, 23, 35):
+        for post in ('none', 'swish', 'add_relu'):
+            for training in (False, True):
+                card.test_batch_norm_odd_channel_counts_match_plain(device, C, post, training)
+    for dtype in (torch.float32, torch.bfloat16):
+        card.test_batch_norm_backward_reads_a_dy_slice_at_an_odd_row_stride(device, dtype)
+    card.test_batch_norm_is_deterministic_and_refuses_other_layouts(device)
+    log('  batch_norm: C = 21, 23, 35 equal to plain (y bit for bit); a dy slice at row '
+        'stride 99 read in place; two runs give the same bits')
+
+
+def bn_timings(device):
+    """K10's passes on their own at the largest training call (BN_SITES['swish'],
+    forward and backward) and the largest served call (BN_SERVED, eval), bf16 and
+    f32, with post none and swish (bytes against arithmetic): each pass's device
+    ms, one call's ms (CUDA events), the library call's (F.batch_norm, + F.silu
+    for swish; its autograd for the backward) and the bound (bytes: inputs read
+    once, outputs written once). Returns the records, bf16 swish under the
+    kernels line's keys."""
+    rec = {}
+    gen = torch.Generator(device=device).manual_seed(99)
+    for dtype in (torch.bfloat16, torch.float32):
+        for post in ('swish', 'none'):
+            lib_post = F.silu if post == 'swish' else (lambda t: t)
+            headline = dtype == torch.bfloat16 and post == 'swish'
+            tag = f'{str(dtype)[6:]} {post}'
+            for key, shape, training in (('batch_norm', BN_SITES['swish'], True),
+                                         ('batch_norm eval', BN_SERVED, False)):
+                x = rows(shape, dtype, gen, device)
+                C, n, es = shape[1], x.numel(), x.element_size()
+                w, b = torch.ones(C, device=device), torch.zeros(C, device=device)
+                rm, rv = torch.zeros(C, device=device), torch.ones(C, device=device)
+                args = (x, w, b, rm, rv, training, 0.1, BN_EPS, post)
+                lib_stats = (rm.clone(), rv.clone())
+                by_pass = pass_ms(lambda: batch_norm_forward(*args), k10_pass,
+                                  ('stats', 'apply') if training else ('apply',))
+                r = dict(ms=sum(by_pass.values()), pass_ms=by_pass,
+                         call_ms=time_ms(lambda: batch_norm_forward(*args)),
+                         library_ms=time_ms(lambda: lib_post(F.batch_norm(
+                             x, *lib_stats, w, b, training, 0.1, BN_EPS))),
+                         bytes=2 * n * es, flops=(12.0 if training else 9.0) * n, shape=shape)
+                if headline:
+                    r['plain_ms'] = time_ms(lambda: batch_norm_forward_plain(*args), reps=5,
+                                            warmup=1)
+                rec[key if headline else f'{key} {tag}'] = r
+                if training:
+                    _, mean, var, clamp = batch_norm_forward(*args)
+                    dy = rows(shape, dtype, gen, device)
+                    bargs = (dy, x, w, b, mean, var, clamp, BN_EPS, post, None, True)
+                    xl, wl, bl = (t.detach().clone().requires_grad_() for t in (x, w, b))
+                    yl = lib_post(F.batch_norm(xl, *lib_stats, wl, bl, True, 0.1, BN_EPS))
+                    by_pass = pass_ms(lambda: batch_norm_backward(*bargs), k10_pass,
+                                      ('backward_reduce', 'backward_apply'))
+                    r = dict(ms=sum(by_pass.values()), pass_ms=by_pass,
+                             call_ms=time_ms(lambda: batch_norm_backward(*bargs)),
+                             library_ms=time_ms(lambda: torch.autograd.grad(
+                                 yl, (xl, wl, bl), dy, retain_graph=True)),
+                             bytes=3 * n * es, flops=26.0 * n, shape=shape)
+                    if headline:
+                        r['plain_ms'] = time_ms(lambda: batch_norm_backward_plain(*bargs),
+                                                reps=5, warmup=1)
+                    rec['batch_norm_backward' if headline else f'batch_norm_backward {tag}'] = r
+                    del yl, xl, dy, mean, var, clamp
+                del x
+                torch.cuda.empty_cache()
+    log(f'  batch_norm timings: {smi_line()}')
+    return rec
+
+
 def phase_norm_gru_kernels(device):
     """K10 (BatchNorm with its epilogue) forward, eval and training, and backward
     against their plain versions: every epilogue at a call site of the training
     step that uses it (4-D) and at the temporal model's 5-D shape, f32 and bf16
-    (forward within 1e-5 + 1e-5 |y| or one bf16 ulp, statistics 1e-6 relative,
-    gradients 1e-5 or 1e-2 relative L2). K11 (the GRU's gate launches) forward and
-    backward at B = 1 (served) and B = 3 (trained), f32 and bf16, same tolerances.
-    Times the bf16 calls at the largest shapes: kernel, call, plain version, the
-    library ops they replace; bounds from this run's shapes."""
+    (y equal to the plain version in every bit, and within 1e-5 + 1e-5 |y| or one
+    bf16 ulp; statistics 1e-6 relative, gradients 1e-5 or 1e-2 relative L2); the
+    card tests' exact checks (bn_exact_checks); each K10 pass timed (bn_timings).
+    K11 (the GRU's gate launches) forward and backward at B = 1 (served) and B = 3
+    (trained), f32 and bf16, same tolerances, timed at the bf16 calls: kernel,
+    call, plain version, the library ops they replace; bounds from this run's
+    shapes."""
     errs = {'batch_norm': 0.0, 'batch_norm_backward': 0.0}
     seed = 0
     for post in POSTS:
@@ -1334,44 +1537,8 @@ def phase_norm_gru_kernels(device):
                         errs['batch_norm_backward'] = max(errs['batch_norm_backward'], bwd)
         log(f'  batch_norm {post}: forward (eval, train) and backward equal to plain within '
             f'tolerance at {BN_SITES[post]} and {BN_SITE_5D}, f32 and bf16')
-    rec = {}
-    gen = torch.Generator(device=device).manual_seed(99)
-    dtype = torch.bfloat16
-    for key, shape, training in (('batch_norm', BN_SITES['swish'], True),
-                                 ('batch_norm eval', BN_SERVED, False)):
-        x = rows(shape, dtype, gen, device)
-        C = shape[1]
-        w, b = torch.ones(C, device=device), torch.zeros(C, device=device)
-        rm, rv = torch.zeros(C, device=device), torch.ones(C, device=device)
-        args = (x, w, b, rm, rv, training, 0.1, BN_EPS, 'swish')
-        lib_stats = (rm.clone(), rv.clone())
-        nbytes = 2 * x.numel() * x.element_size() + 4 * C * 4
-        rec[key] = dict(
-            ms=kernel_ms(lambda: batch_norm_forward(*args),
-                         ['stats_kernel', 'stats_finalize_kernel', 'apply_kernel']),
-            call_ms=time_ms(lambda: batch_norm_forward(*args)),
-            plain_ms=time_ms(lambda: batch_norm_forward_plain(*args), reps=5, warmup=1),
-            library_ms=time_ms(lambda: F.silu(F.batch_norm(x, *lib_stats, w, b, training,
-                                                           0.1, BN_EPS))),
-            bytes=nbytes, flops=(12.0 if training else 9.0) * x.numel(), shape=shape)
-        if training:
-            _, mean, var, clamp = batch_norm_forward(*args)
-            dy = rows(shape, dtype, gen, device)
-            bargs = (dy, x, w, b, mean, var, clamp, BN_EPS, 'swish', None, True)
-            xl, wl, bl = (t.detach().clone().requires_grad_() for t in (x, w, b))
-            yl = F.silu(F.batch_norm(xl, *lib_stats, wl, bl, True, 0.1, BN_EPS))
-            rec['batch_norm_backward'] = dict(
-                ms=kernel_ms(lambda: batch_norm_backward(*bargs),
-                             ['backward_reduce_kernel', 'backward_finalize_kernel',
-                              'backward_apply_kernel']),
-                call_ms=time_ms(lambda: batch_norm_backward(*bargs)),
-                plain_ms=time_ms(lambda: batch_norm_backward_plain(*bargs), reps=5, warmup=1),
-                library_ms=time_ms(lambda: torch.autograd.grad(yl, (xl, wl, bl), dy,
-                                                               retain_graph=True)),
-                bytes=3 * x.numel() * x.element_size() + 6 * C * 4,
-                flops=26.0 * x.numel(), shape=shape)
-            del yl, xl, dy, mean, var, clamp
-        del x
+    bn_exact_checks(device)
+    rec = bn_timings(device)
 
     errs.update(spatial_gru=0.0, spatial_gru_backward=0.0)
     for B, Cx in ((1, 32), (3, 64)):
@@ -1506,10 +1673,10 @@ def main():
     # the serve and the training first, so that their request and step times come
     # before torch.profiler (which times the kernels below) has hooked into the process
     t0 = time.perf_counter()
-    launches, outputs = phase_serve()
+    launches, outputs, serve_profile = phase_serve()
     log(f'full-width serve: ok ({time.perf_counter() - t0:.1f} s)')
     t0 = time.perf_counter()
-    combo_launches, _ = phase_serve(opts=COMBO_OPTS, name='serve combo')
+    combo_launches, _, _ = phase_serve(opts=COMBO_OPTS, name='serve combo')
     log(f'full-width serve of the combination: ok ({time.perf_counter() - t0:.1f} s)')
     t0 = time.perf_counter()
     train_launches, train, dense_run = phase_train()
@@ -1529,6 +1696,7 @@ def main():
             f'median_step_ms={statistics.median(ms):.3f}')
     dense_run.profile()
     combo_run.profile()
+    serve_profile()
     del dense_run, combo_run
     log(f'train steps in turns and profiled: ok ({time.perf_counter() - t0:.1f} s)')
     t0 = time.perf_counter()

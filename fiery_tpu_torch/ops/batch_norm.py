@@ -33,6 +33,7 @@ A CPU tensor takes the plain versions; a CUDA tensor launches the kernels.
 """
 
 import ctypes
+import math
 from collections import Counter
 
 import torch
@@ -41,7 +42,7 @@ from fiery_tpu_torch.ops import _build
 
 POSTS = ('none', 'relu', 'swish', 'add', 'add_relu', 'relu_add')
 RESIDUAL_POSTS = ('add', 'add_relu', 'relu_add')
-MAX_CHANNELS = 1024       # the kernels hold a row group of <= 1024 lanes in one block
+MAX_CHANNELS = 1024       # the kernels keep <= 1024 channels' constants in shared memory
 
 
 def _reduce_dims(x):
@@ -174,18 +175,62 @@ def row_stride(t):
     return t.shape[1] if R is None else R
 
 
-def _tiling(x):
-    """(rows M, channels C, rows per group G, blocks): a block's lanes are G whole
-    rows (G C <= 1024 lanes, one per thread), so each thread keeps one channel; the
-    grid is enough blocks to fill the card, each walking its row groups in a
-    fixed order."""
-    C = x.shape[1]
-    M = x.numel() // C
-    G = max(1, 256 // C)
-    threads = (G * C + 31) // 32 * 32
-    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-    groups = (M + G - 1) // G
-    return M, C, G, max(1, min(groups, sms * max(1, 2048 // threads)))
+BLOCK_THREADS = 512    # a block's threads (up to 1024 when a lane is one value)
+ROWS_MIN = 4           # kernel rows a thread walks at the least, before the grid grows
+GROUP = 8              # blocks whose partials the reductions' first level adds
+
+
+def vector_width(C, itemsize, row_strides=(), align=0, rows=0):
+    """(V, fold): V, the values a kernel thread moves with one access, the widest
+    power of two with V * itemsize <= 16 bytes whose bytes divide ``align`` (the
+    bitwise OR of the tensors' addresses, mod 16); the kernel's rows are ``fold``
+    rows of C channels, so that fold C is a multiple of V. fold = 1 when V divides
+    C and every row stride; otherwise fold = V / gcd(C, V) consecutive rows, which
+    needs dense rows (every row stride C) and a row count ``rows`` that fold
+    divides. 16 bytes (8 bf16, 4 f32) for every C that is a multiple of 8, and for
+    the other C when their rows are dense and their count allows it."""
+    V = 16 // itemsize
+    while V > 1:
+        if align % (V * itemsize) == 0:
+            fold = V // math.gcd(C, V)
+            if fold == 1 and all(r % V == 0 for r in row_strides):
+                return V, 1
+            if (fold > 1 and all(r == C for r in row_strides) and rows % fold == 0
+                    and fold * C // V <= BLOCK_THREADS):
+                return V, fold
+        V //= 2
+    return 1, 1
+
+
+def grid(M, C, V, fold, sms):
+    """(G, threads, R, blocks) of a call of M rows of C channels, V values a thread,
+    fold rows a kernel row of W = fold C values: a block is G row groups of W / V
+    lanes (a thread each, 512 threads or one row group); block b owns kernel rows
+    [b R, (b + 1) R), R a multiple of G. The blocks are as many as the rows fill
+    (each thread ROWS_MIN kernel rows or more), at most one per SM."""
+    M //= fold
+    L = fold * C // V
+    G = max(1, BLOCK_THREADS // L)
+    threads = -(-G * L // 32) * 32
+    blocks = max(1, min(-(-M // (G * ROWS_MIN)), sms))
+    R = -(-M // blocks)
+    R = -(-R // G) * G
+    return G, threads, R, -(-M // R)
+
+
+def partial_slots(blocks):
+    """The f64 partials of a reduction: one per block, then one per group of GROUP
+    blocks (the first level of the last blocks' sum)."""
+    return blocks + -(-blocks // GROUP)
+
+
+def thread_rows(M, R, G, block, group, second_pass=False):
+    """The rows that the kernel thread of row group ``group`` in ``block`` visits,
+    in its order: ascending in a reduction (the first pass), descending in the
+    apply pass that follows it, so that the rows read last are reread first (from
+    L2)."""
+    rows = range(block * R + group, min(M, (block + 1) * R), G)
+    return rows[::-1] if second_pass else rows
 
 
 def _check_card(name, x, residual, post):
@@ -205,21 +250,41 @@ def _check_card(name, x, residual, post):
 
 
 _PLANS = {}
+_SMS = {}
 
 
-def _plan(name, x, residual, post):
-    """The launch plan of x's shape, strides, dtype and card (and the residual's)
-    under ``post``, checked and tiled at its first call: (M, C, G, blocks, form,
-    is_bf16, post index, card index). Every later call of that key reuses it, so a
-    call's host work is a dictionary lookup, the parameters' checks and the
-    launch."""
+def _sms(dev):
+    n = _SMS.get(dev)
+    if n is None:
+        n = _SMS[dev] = torch.cuda.get_device_properties(dev).multi_processor_count
+    return n
+
+
+def _plan(name, x, residual, post, align, dy=None, dy_align=0):
+    """The launch plan of x's shape, strides, dtype and card (and the residual's and
+    dy's) under ``post``, with ``align`` the OR of x's and the residual's addresses
+    mod 16 (``dy_align`` dy's), checked and tiled at its first call: (M, C, V,
+    fold, G, threads, R, blocks, dy's row stride or None when dy is to be copied
+    to x's layout, form, is_bf16, post index, card index). Every later call of that key
+    reuses it, so a call's host work is a dictionary lookup, the parameters'
+    checks and the launch."""
     dev = x.get_device()
-    key = (name, x.shape, x.stride(), x.dtype, dev, post, None if residual is None else
-           (residual.shape, residual.stride(), residual.dtype, residual.get_device()))
+    key = (name, x.shape, x.stride(), x.dtype, dev, post, align, None if residual is None else
+           (residual.shape, residual.stride(), residual.dtype, residual.get_device()),
+           None if dy is None else (dy.shape, dy.stride(), dy.dtype, dy_align))
     plan = _PLANS.get(key)
     if plan is None:
         _check_card(name, x, residual, post)
-        plan = _PLANS[key] = (*_tiling(x), rows_form(x), int(x.dtype == torch.bfloat16),
+        C = x.shape[1]
+        M = x.numel() // C
+        dy_rs = row_stride(dy) if dy is not None and dy.dtype == x.dtype else None
+        if dy_rs is not None:        # dy read in place: its stride and address count
+            strides, align = (dy_rs,), align | dy_align
+        else:                        # no dy, or a copy of it in x's layout
+            strides = ()
+        V, fold = vector_width(C, x.element_size(), strides, align, M)
+        plan = _PLANS[key] = (M, C, V, fold, *grid(M, C, V, fold, _sms(dev)), dy_rs,
+                              rows_form(x), int(x.dtype == torch.bfloat16),
                               POSTS.index(post), dev)
     return plan
 
@@ -233,9 +298,10 @@ def _check_params(name, dev, params):
 
 _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 _ARGTYPES = {
-    'fiery_batch_norm_forward': [_P] * 11 + [_LL] + [_I] * 3 + [_F] * 2 + [_I] * 3 + [_P],
-    'fiery_batch_norm_backward': [_P, _LL] + [_P] * 11 + [_LL] + [_I] * 3 + [_F] + [_I] * 3
-                                 + [_P],
+    'fiery_batch_norm_forward': [_P] * 11 + [_LL] + [_I] * 5 + [_LL, _I] + [_F] * 2
+                                + [_I] * 3 + [_P],
+    'fiery_batch_norm_backward': [_P, _LL] + [_P] * 11 + [_LL] + [_I] * 5 + [_LL, _I] + [_F]
+                                 + [_I] * 3 + [_P],
 }
 _FNS = {}
 
@@ -272,35 +338,39 @@ def batch_norm_forward(x, weight, bias, running_mean, running_var, training, mom
                        post='none', residual=None):
     """K10's forward (csrc/batch_norm.cu): (y, mean, var, clamp) as
     ``batch_norm_forward_plain`` returns them, without autograd. A CPU tensor takes
-    the plain version; a CUDA tensor launches the kernels (three in training:
-    statistics, their reduction with the running update, apply; one in eval)."""
+    the plain version; a CUDA tensor launches the kernels (two in training: the
+    statistics with their reduction and the running update, then apply; one in
+    eval)."""
     if x.device.type == 'cpu':
         batch_norm_forward.plain_calls += 1
         return batch_norm_forward_plain(x, weight, bias, running_mean, running_var, training,
                                         momentum, eps, post, residual)
-    M, C, G, blocks, form, bf16, post_i, dev = _plan('batch_norm', x, residual, post)
+    xp, rp = x.data_ptr(), _ptr(residual)
+    M, C, V, fold, G, threads, R, blocks, _, form, bf16, post_i, dev = _plan(
+        'batch_norm', x, residual, post, (xp | rp) & 15)
     _check_params('batch_norm', dev, (weight, bias, running_mean, running_var))
     y = torch.empty_like(x)
     if training:
         stats = torch.empty((3, C), dtype=torch.float32, device=x.device)
         mean, var, clamp = stats
-        partial = torch.empty((blocks, 2, C), dtype=torch.float64, device=x.device)
+        partial = torch.empty((partial_slots(blocks), 2, C), dtype=torch.float64,
+                              device=x.device)
     else:
         mean, var, clamp, partial = running_mean, running_var, None, None
     rc = _fn('fiery_batch_norm_forward')(
-        x.data_ptr(), _ptr(residual), y.data_ptr(), mean.data_ptr(), var.data_ptr(),
-        _ptr(clamp), running_mean.data_ptr(), running_var.data_ptr(), weight.data_ptr(),
-        bias.data_ptr(), _ptr(partial), M, C, G, blocks, eps, momentum, int(training),
+        xp, rp, y.data_ptr(), mean.data_ptr(), var.data_ptr(), _ptr(clamp),
+        running_mean.data_ptr(), running_var.data_ptr(), weight.data_ptr(), bias.data_ptr(),
+        _ptr(partial), M, C, V, fold, G, threads, R, blocks, eps, momentum, int(training),
         post_i, bf16, torch._C._cuda_getCurrentRawStream(dev))
     if rc != 0:
         raise RuntimeError(f'batch_norm kernel launch failed: CUDA error {rc}')
     if M:
-        batch_norm_forward.launches += 3 if training else 1
+        batch_norm_forward.launches += 2 if training else 1
     batch_norm_forward.forms[form] += 1
     return y, mean, var, clamp
 
 
-batch_norm_forward.launches = 0        # kernel launches (3 a training call, 1 an eval call)
+batch_norm_forward.launches = 0        # kernel launches (2 a training call, 1 an eval call)
 batch_norm_forward.plain_calls = 0     # calls that took the plain version (CPU tensors)
 batch_norm_forward.forms = {'4d': 0, '5d': 0}    # the card calls by layout
 
@@ -360,32 +430,34 @@ def batch_norm_backward(dy, x, weight, bias, mean, var, clamp, eps, post, residu
         batch_norm_backward.plain_calls += 1
         return batch_norm_backward_plain(dy, x, weight, bias, mean, var, clamp, eps, post,
                                          residual, training)
-    M, C, G, blocks, form, bf16, post_i, dev = _plan(
-        'batch_norm_backward', x, residual, 'add_relu' if post == 'add_relu' else 'none')
+    xp, rp, dyp = x.data_ptr(), _ptr(residual), dy.data_ptr()
+    M, C, V, fold, G, threads, R, blocks, dy_rs, form, bf16, post_i, dev = _plan(
+        'batch_norm_backward', x, residual, 'add_relu' if post == 'add_relu' else 'none',
+        (xp | rp) & 15, dy, dyp & 15)
     _check_params('batch_norm_backward', dev, (weight, bias, mean, var))
-    dy_rs = row_stride(dy) if dy.dtype == x.dtype else None
     if dy_rs is None:
         dy = dy.to(x.dtype).contiguous(
             memory_format=torch.channels_last if x.dim() == 4 else torch.channels_last_3d)
         batch_norm_backward.grad_copies[tuple(x.shape)] += 1
-        dy_rs = x.shape[1]
+        dy_rs, dyp = C, dy.data_ptr()
     dx = torch.empty_like(x)
     dres = torch.empty_like(x) if post == 'add_relu' else None
     dparams = torch.empty((4, C), dtype=torch.float32, device=x.device)
     dweight, dbias = dparams[0], dparams[1]
-    partial = torch.empty((blocks, 2, C), dtype=torch.float64, device=x.device)
+    partial = torch.empty((partial_slots(blocks), 2, C), dtype=torch.float64,
+                          device=x.device)
     rc = _fn('fiery_batch_norm_backward')(
-        dy.data_ptr(), dy_rs, x.data_ptr(), _ptr(residual), dx.data_ptr(), _ptr(dres),
-        mean.data_ptr(), var.data_ptr(), _ptr(clamp), weight.data_ptr(), bias.data_ptr(),
-        dparams.data_ptr(), partial.data_ptr(), M, C, G, blocks, eps, int(training),
+        dyp, dy_rs, xp, rp, dx.data_ptr(), _ptr(dres), mean.data_ptr(), var.data_ptr(),
+        _ptr(clamp), weight.data_ptr(), bias.data_ptr(), dparams.data_ptr(),
+        partial.data_ptr(), M, C, V, fold, G, threads, R, blocks, eps, int(training),
         POSTS.index(post), bf16, torch._C._cuda_getCurrentRawStream(dev))
     if rc != 0:
         raise RuntimeError(f'batch_norm_backward kernel launch failed: CUDA error {rc}')
     if M:
-        batch_norm_backward.launches += 3
+        batch_norm_backward.launches += 2
     return dx, dweight, dbias, dres
 
 
-batch_norm_backward.launches = 0       # kernel launches (3 a call: reduce, finalize, apply)
+batch_norm_backward.launches = 0       # kernel launches (2 a call: reduce with its finalize, apply)
 batch_norm_backward.plain_calls = 0
 batch_norm_backward.grad_copies = Counter()

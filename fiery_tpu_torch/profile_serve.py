@@ -141,10 +141,10 @@ def main():
                       'device_busy_ms_per_request': busy_ms,
                       'device_busy_share': busy_ms / wall_ms if wall_ms else None,
                       'kernels_per_request': sum(r[1] for r in rows)}), flush=True)
-    # K10's kernels (stats, stats_finalize, apply) and K11's (reset_concat,
+    # K10's kernels (stats, apply; eval runs apply only) and K11's (reset_concat,
     # state_update), by their symbols
-    for name, symbols, fn in (('batch_norm', ('stats_kernel', 'stats_finalize_kernel',
-                                              'apply_kernel'), batch_norm_forward),
+    for name, symbols, fn in (('batch_norm', ('::stats_kernel<', '::apply_kernel<'),
+                               batch_norm_forward),
                               ('spatial_gru', ('reset_concat_kernel', 'state_update_kernel'),
                                spatial_gru)):
         print(json.dumps({'kernel': name, 'launches_per_request': fn.launches / 3,

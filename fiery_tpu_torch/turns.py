@@ -10,7 +10,14 @@ levers' combination (LIFT.TOPK 8, LIFT.WARP_FREE; DATASET.PREWARP_LABELS in
 training, the labels warped on the host outside the step):
   * request ms: host clock around ``predict`` + synchronize, after a warm-up;
   * step ms at batch 3: host clock around ``Trainer.train_step`` + synchronize,
-    drop-connect and noise drawn on the card, after a warm-up step.
+    drop-connect and noise drawn on the card, after a warm-up step;
+  * the same requests again, with the host time inside the BatchNorm wrapper
+    (K10's ``ops.batch_norm.batch_norm_forward``, where ``batch_norm`` calls it in
+    either tree) summed per request: its ms and its share of the request's ms,
+    and the launch plans its cache added (misses) over those requests;
+  * after the timed runs, one request and one step under torch.profiler: the
+    device busy ms, and the device ms and launches of the BatchNorm kernel (K10,
+    by its kernels' names in either tree).
 Each process prints one JSON line of its medians; the last line gathers them per
 checkout. Only entry points that both trees have are used. Needs a CUDA card.
 A step's stage times are ``chip_smoke.py``'s (``stage_times``).
@@ -27,6 +34,7 @@ CHILD = r'''
 import argparse, json, statistics, sys, time
 import torch
 from fiery_tpu_torch.ops import _build
+from fiery_tpu_torch.ops import batch_norm as BN
 from fiery_tpu_torch.data.label_warp import make_prewarp_transform
 from fiery_tpu_torch.data.synthetic import SyntheticFutureDataset
 from fiery_tpu_torch.serve import (BASELINE, build_fiery, calibrate_batchnorm, init_params,
@@ -36,6 +44,25 @@ from fiery_tpu_torch.utils.config import get_cfg
 
 requests, steps = int(sys.argv[1]), int(sys.argv[2])
 _build.build_all()
+# the K10 kernels' names, of either tree (three launches a pass, or two), in their
+# anonymous namespace (which keeps out Adam's multi_tensor_apply_kernel)
+K10 = ('::stats_kernel', '::stats_finalize_kernel', '::apply_kernel', '::backward_reduce_kernel',
+       '::backward_finalize_kernel', '::backward_apply_kernel')
+
+
+def profiled(fn):
+    """(device busy ms, K10 device ms, K10 launches) of fn() under torch.profiler."""
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        fn()
+        torch.cuda.synchronize()
+    ev = [e for e in prof.key_averages()
+          if e.device_type == torch.autograd.DeviceType.CUDA and not e.is_user_annotation]
+    k10 = [e for e in ev if any(k in e.key for k in K10)]
+    return (sum(e.self_device_time_total for e in ev) / 1e3,
+            sum(e.self_device_time_total for e in k10) / 1e3, sum(e.count for e in k10))
+
 combo = ['LIFT.TOPK', '8', 'LIFT.WARP_FREE', 'True']
 out = {}
 
@@ -48,6 +75,28 @@ def timed(fn):
     return 1e3 * (time.perf_counter() - t0)
 
 
+def k10_host(fn):
+    """(ms of fn(), of it the host ms inside the K10 forward wrapper, the plans its
+    cache added), the wrapper timed where ops.batch_norm.batch_norm looks it up."""
+    orig, spent = BN.batch_norm_forward, [0.0]
+
+    def wrapper(*args, **kwargs):
+        t0 = time.perf_counter()
+        try:
+            return orig(*args, **kwargs)
+        finally:
+            spent[0] += time.perf_counter() - t0
+
+    wrapper.__dict__.update(orig.__dict__)    # the counters the wrapper bumps
+    BN.batch_norm_forward, plans = wrapper, len(BN._PLANS)
+    try:
+        ms = timed(fn)
+    finally:
+        BN.batch_norm_forward = orig
+        orig.__dict__.update(wrapper.__dict__)
+    return ms, 1e3 * spent[0], len(BN._PLANS) - plans
+
+
 for kind, opts in (('dense', []), ('combo', combo)):
     cfg = get_cfg(argparse.Namespace(config_file=BASELINE, opts=list(opts)))
     model = init_params(build_fiery(cfg), seed=0)
@@ -56,6 +105,12 @@ for kind, opts in (('dense', []), ('combo', combo)):
     ms = [timed(lambda r=r: predict(model, r)) for r in reqs]
     out[f'request_ms_{kind}'] = statistics.median(ms[1:])
     out[f'request_ms_{kind}_all'] = ms[1:]
+    host = [k10_host(lambda r=r: predict(model, r)) for r in reqs[1:]]
+    out[f'k10_host_ms_{kind}'] = statistics.median(h[1] for h in host)
+    out[f'k10_host_share_{kind}'] = statistics.median(h[1] / h[0] for h in host)
+    out[f'k10_plan_misses_{kind}'] = sum(h[2] for h in host)
+    (out[f'busy_request_ms_{kind}'], out[f'k10_request_ms_{kind}'],
+     out[f'k10_request_launches_{kind}']) = profiled(lambda: predict(model, reqs[1]))
     del model
     topts = ['DATASET.NAME', 'synthetic'] + opts + (
         ['DATASET.PREWARP_LABELS', 'True'] if kind == 'combo' else [])
@@ -73,6 +128,8 @@ for kind, opts in (('dense', []), ('combo', combo)):
     ms = [timed(lambda x=x: trainer.train_step(x, gen)) for x in batches]
     out[f'step_ms_{kind}'] = statistics.median(ms[1:])
     out[f'step_ms_{kind}_all'] = ms[1:]
+    (out[f'busy_step_ms_{kind}'], out[f'k10_step_ms_{kind}'],
+     out[f'k10_step_launches_{kind}']) = profiled(lambda: trainer.train_step(batches[1], gen))
     del trainer
     torch.cuda.empty_cache()
 print('TURNS ' + json.dumps(out), flush=True)
