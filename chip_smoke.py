@@ -14,7 +14,10 @@ Builds the package's CUDA kernels from csrc/, then:
      and request, and compares every output;
   4. holds the decode and tracking kernels (K6-K9) against their plain versions
      at the served shapes and on planted inputs (K6, K7 and K9 exactly, K8
-     within one f32 ulp), and times them;
+     within one f32 ulp), K9 also on tie-heavy, non-finite and n = 17 to 1024
+     problems, and times them: K9 against its latency bound (a chain of
+     dependent warp minima) and split into a launch, rows and Dijkstra steps;
+     K4's and K8's library calls compute the kernels' whole functions;
   5. decodes and tracks a planted full-width scene of 20 moving vehicles, which
      both trackers must follow exactly (vehicle PQ = 1);
   6. trains: three full-width baseline.yml training steps at batch 3 (PRECISION
@@ -42,8 +45,10 @@ Builds the package's CUDA kernels from csrc/, then:
      kernels (K11, forward and backward, batch 1 and 3) against their plain
      versions at the training step's shapes; runs K10's exact checks (every bf16
      value through every epilogue, C = 21, 23, 35, a dy slice at an odd row
-     stride, two runs with the same bits); times each K10 pass at the largest
-     training and served calls, bf16 and f32, post none and swish, and K11.
+     stride, two runs with the same bits) and K11's (every bf16 value through its
+     four kernels at each access width, bit for bit); times each K10 pass at the
+     largest training and served calls, bf16 and f32, post none and swish, and
+     K11 (with autograd's sum of its two dh parts, and the host µs of a call).
 The request and the step also print K10's census (each BatchNorm call's shape
 and epilogue, from hooks) with its summed bound, and K10's device time in one
 profiled request and step.
@@ -53,6 +58,7 @@ Without a CUDA card, or without the package beside it, it fails.
 """
 
 import argparse
+import ctypes
 import importlib.util
 import json
 import os
@@ -93,6 +99,7 @@ from fiery_tpu_torch.ops.warp import (_affine_grid, _warp_theta, bev_warp,
                                       bev_warp_backward, bev_warp_backward_plain,
                                       bev_warp_nearest, bev_warp_nearest_plain,
                                       bev_warp_plain)
+from fiery_tpu_torch.profile_serve import host_us_per_call
 from fiery_tpu_torch.postprocess.instance import (
     find_instance_centers, find_instance_centers_plain, instance_ids, instance_ids_plain,
     predict_instance_segmentation_and_trajectories, segment_centroids,
@@ -660,7 +667,8 @@ def phase_decode_kernels(device, outputs):
     """K6-K9 against their plain versions at the shapes of the served request:
     K6 and K7 on the served heads and on planted inputs (exactly), K8 on the served
     ids and flow (within one f32 ulp), K9 on seeded tracker costs (exactly, and its
-    total within 1e-3 of scipy's optimum). Times each."""
+    total within 1e-3 of scipy's optimum) and on ``lap_problem_sets``. Times each,
+    K9 also against its latency bound (``warp_min_ns``) and by ``lap_breakdown``."""
     out = outputs[0]
     _, T, H, W, C = out['segmentation'].shape
     center = out['instance_center'].reshape(T, H, W).contiguous()
@@ -739,12 +747,29 @@ def phase_decode_kernels(device, outputs):
             raise AssertionError(f'segment_centroids ({slots} slots): kernel differs from '
                                  f'plain by more than one f32 ulp (max {float(diff.max())})')
         err = max(err, float(diff.max()))
-        rows = labels.reshape(-1).long()
-        vals = torch.ones((rows.numel(), 3), dtype=torch.float64, device=device)
 
-        def library(rows=rows, vals=vals, slots=slots):
-            return torch.zeros((slots, 3), dtype=torch.float64, device=device).index_add_(
-                0, rows, vals)
+        def library(labels=labels, slots=slots, f=f):
+            """The same function in PyTorch calls: the ids outside [0, slots) to a
+            spare slot, the pixel grid (plus the flow) as f64 values, their counts
+            and coordinate sums by index_add_, the means."""
+            _, h, w = labels.shape
+            ids = labels.reshape(-1).long()
+            ids = torch.where((ids >= 0) & (ids < slots), ids, slots)
+            gx = torch.arange(h, dtype=torch.float32, device=device)[:, None].expand(h, w)
+            gy = torch.arange(w, dtype=torch.float32, device=device)[None, :].expand(h, w)
+            if f is not None:
+                gx, gy = gx + f[0, ..., 0], gy + f[0, ..., 1]
+            counts = torch.zeros(slots + 1, dtype=torch.float64, device=device).index_add_(
+                0, ids, torch.ones(ids.numel(), dtype=torch.float64, device=device))
+            sums = torch.zeros((slots + 1, 2), dtype=torch.float64, device=device)
+            sums.index_add_(0, ids, torch.stack([gx, gy], -1).reshape(-1, 2).double())
+            mean = (sums[:slots] / counts[:slots, None].clamp_min(1.0)).float()
+            return mean, counts[:slots] > 0
+
+        cl, vl = library()
+        if not torch.equal(vl, vp[0]) or bool(((cl - cp[0]).abs() > ulp32(cp[0])).any()):
+            raise AssertionError(f'segment_centroids ({slots} slots): the library calls do '
+                                 f'not compute the kernel\'s function')
 
         nb = labels.numel() * 4 + (0 if f is None else f.numel() * 4) + slots * 9
         parts.append(dict(
@@ -771,6 +796,7 @@ def phase_decode_kernels(device, outputs):
     torch.cuda.synchronize()
     if not torch.equal(got, want):
         raise AssertionError('lap: kernel col4row != plain')
+    lap_problem_sets(device)
     cost_np = cost.cpu().numpy().astype(np.float64)
     for b, n in enumerate(n_rows):
         col = got[b].cpu().numpy()
@@ -793,6 +819,8 @@ def phase_decode_kernels(device, outputs):
         return 1e3 * (time.perf_counter() - t0)
 
     scipy_ms = statistics.median(scipy_once() for _ in range(REPS))
+    min_ns = warp_min_ns()
+    breakdown = lap_breakdown(cost[2:3])
     rec['lap'] = dict(
         max_abs_err=0.0, ms=kernel_ms(lambda: linear_sum_assignment(full, full_rows),
                                       ['lap_kernel']),
@@ -800,8 +828,9 @@ def phase_decode_kernels(device, outputs):
         plain_ms=time_ms(lambda: linear_sum_assignment_plain(full, full_rows), reps=3,
                          warmup=1),
         library_ms=None, scipy_ms=scipy_ms, bytes=full.numel() * 4 + 4 + 101 * 4,
-        flops=3.0 * 101 * steps, steps=steps)
-
+        flops=3.0 * 101 * steps, steps=steps, warp_min_ns=min_ns,
+        latency_bound_ms=steps * min_ns * 1e-6, **breakdown)
+    rec['lap']['latency_share'] = rec['lap']['latency_bound_ms'] / rec['lap']['ms']
     for name, r in rec.items():
         if 'bound_pair' in r:
             (b0, by0), (b1, by1) = r.pop('bound_pair')
@@ -810,6 +839,75 @@ def phase_decode_kernels(device, outputs):
             r['bound_ms'], r['bound_by'] = bound(r['bytes'], r['flops'])
         log(f'  {name}: ' + json.dumps({k: v for k, v in r.items() if k != 'max_abs_err'}))
     return rec
+
+
+def lap_problem_sets(device):
+    """K9 against its plain version (on the host, where a Dijkstra step costs no
+    synchronisation), col4row exactly, on the problems beyond the tracker's: 101 x
+    101 integer costs in {0, .., 4}, where most steps meet tied minima, with n_rows
+    1, 8 and 101; tracker costs with a row of +inf, a row of NaN, and two rows that
+    can only take one column (the second must stay -1); and random costs at n = 17
+    and 40 (one and two columns a lane), 200 (the matrix staged in over 48 KB of
+    shared memory), 238 (read from global memory) and 1024, the limit."""
+    rng = np.random.RandomState(9)
+    nonfinite = tracker_costs([101, 101], seed=11)
+    nonfinite[0, 3] = np.inf
+    nonfinite[1, 7] = np.nan
+    nonfinite[1, [9, 12]] = np.inf
+    nonfinite[1, [9, 12], 5] = 1.0
+    sets = [('integers', rng.randint(0, 5, (3, 101, 101)).astype(np.float32), [1, 8, 101]),
+            ('non-finite rows', nonfinite, [101, 101])]
+    sets += [(f'n={n}', rng.rand(1, n, n).astype(np.float32), [n])
+             for n in (17, 40, 200, 238, 1024)]
+    for name, cost, n_rows in sets:
+        cost, rows_t = torch.from_numpy(cost), torch.tensor(n_rows, dtype=torch.int32)
+        t0 = time.perf_counter()
+        want = linear_sum_assignment_plain(cost, rows_t)
+        plain_s = time.perf_counter() - t0
+        got = linear_sum_assignment(cost.to(device), rows_t.to(device)).cpu()
+        if not torch.equal(got, want):
+            raise AssertionError(f'lap {name}: kernel col4row != plain at '
+                                 f'{int((got != want).sum())} rows')
+        if name == 'non-finite rows' and not (got[0, 3] == got[1, 7] == got[1, 12] == -1):
+            raise AssertionError('lap: a row without a finite path was assigned')
+        log(f'  lap {name}: equal to plain ({linear_sum_assignment_plain.steps} Dijkstra '
+            f'steps, plain {plain_s:.1f} s on the host)')
+
+
+def lap_breakdown(cost, n_rows=(0, 1, 8, 30, 60, 101)):
+    """Where K9's time goes on one (1, n, n) tracker problem: its device ms at each
+    count of rows to augment, against those rows and the Dijkstra steps they take
+    (the plain version counts them); a least-squares fit gives the µs of a launch,
+    of a row and of a step."""
+    fit = []
+    for nr in n_rows:
+        rows_t = torch.tensor([nr], dtype=torch.int32, device=cost.device)
+        linear_sum_assignment_plain(cost.cpu(), rows_t.cpu())
+        fit.append((nr, linear_sum_assignment_plain.steps, kernel_ms(
+            lambda: linear_sum_assignment(cost, rows_t), ['lap_kernel'])))
+    A = np.array([[1.0, nr, steps] for nr, steps, _ in fit])
+    coef = np.linalg.lstsq(A, np.array([ms for _, _, ms in fit]), rcond=None)[0] * 1e3
+    log('  lap device ms by rows (Dijkstra steps): '
+        + json.dumps({f'{nr} ({steps})': ms for nr, steps, ms in fit}))
+    return dict(launch_us=float(coef[0]), row_us=float(coef[1]), step_us=float(coef[2]))
+
+
+def warp_min_ns(iters=(1 << 16, 1 << 20)):
+    """ns of one dependent warp-wide minimum (redux.sync) on the card: one warp runs
+    a chain of them (csrc/lap.cu fiery_lap_min_chain), timed with CUDA events at
+    two chain lengths; the difference over the difference of lengths."""
+    fn = _build.load('lap').fiery_lap_min_chain
+    fn.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    out = torch.empty(1, dtype=torch.int32, device='cuda')
+
+    def chain(n):
+        rc = fn(n, out.data_ptr(), torch.cuda.current_stream().cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f'min chain launch failed: CUDA error {rc}')
+
+    short, long_ = (time_ms(lambda n=n: chain(n), reps=5, warmup=1) for n in iters)
+    return 1e6 * (long_ - short) / (iters[1] - iters[0])
 
 
 def planted_scene(device, T=5, H=200, W=200, n=20, seed=6):
@@ -1280,15 +1378,20 @@ def phase_train_kernels(device):
         raise AssertionError(f'bev_warp_nearest: kernel != plain at '
                              f'{int((got != want).any(-1).sum())} pixels')
     log('  bev_warp_nearest: equal to plain on the label stack')
-    lgrid = _affine_grid(_warp_theta(lpose, extent, torch.float32), H, W)
     lc = labels.permute(0, 3, 1, 2)
+
+    def nearest_library():
+        """The same function in PyTorch calls: theta and the sampling grid from the
+        poses, then grid_sample's nearest mode."""
+        grid = _affine_grid(_warp_theta(lpose, extent, torch.float32), H, W)
+        return F.grid_sample(lc, grid, mode='nearest', padding_mode='zeros',
+                             align_corners=False)
     rec['bev_warp_nearest'] = dict(
         max_abs_err=0.0,
         ms=kernel_ms(lambda: bev_warp_nearest(labels, lpose, extent), ['bev_warp_kernel']),
         call_ms=time_ms(lambda: bev_warp_nearest(labels, lpose, extent)),
         plain_ms=time_ms(lambda: bev_warp_nearest_plain(labels, lpose, extent)),
-        library_ms=time_ms(lambda: F.grid_sample(lc, lgrid, mode='nearest',
-                                                 padding_mode='zeros', align_corners=False)),
+        library_ms=time_ms(nearest_library),
         bytes=2 * labels.numel() * 4 + lpose.numel() * 4, flops=30.0 * 12 * H * W)
 
     for key, r in rec.items():
@@ -1422,17 +1525,37 @@ def gru_case(B, Cx, dtype, device, seed, C=64, T=4, H=200, W=200):
                 dout=dout), err, bwd_err
 
 
+def card_tests():
+    """tests/test_torch_norm_gru_gpu.py, the card tests of K10 and K11, as a module."""
+    spec = importlib.util.spec_from_file_location(
+        'test_torch_norm_gru_gpu', os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                                'tests', 'test_torch_norm_gru_gpu.py'))
+    card = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(card)
+    return card
+
+
+def gru_exact_checks(device):
+    """The card tests' K11 check (tests/test_torch_norm_gru_gpu.py gru_sweep): every
+    bf16 bit pattern as r_pre and u_pre through both forward launches and both
+    backward launches, at 16-, 4- and 2-byte accesses and at one channel: every
+    output equal to the plain version in every bit."""
+    card = card_tests()
+    for C, offset in ((64, 0), (64, 2), (64, 1), (1, 0)):
+        found = card.gru_sweep(device, C, offset)
+        log(f'  spatial_gru every bf16 value, C={C}, channel offset {offset}: values whose '
+            f'bits differ from the plain version ' + json.dumps(found))
+        if any(found.values()):
+            raise AssertionError(f'spatial_gru C={C} offset {offset}: {found}')
+
+
 def bn_exact_checks(device):
     """The card tests' K10 checks (tests/test_torch_norm_gru_gpu.py): every bf16 bit
     pattern through every epilogue (y, dx, dres against the plain version, bit for
     bit but at the NaN inputs of the epilogues that take a max), the channel
     counts that are not multiples of 8, a dy slice at an odd row stride, and two
     runs that give the same bits."""
-    spec = importlib.util.spec_from_file_location(
-        'test_torch_norm_gru_gpu', os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                                                'tests', 'test_torch_norm_gru_gpu.py'))
-    card = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(card)
+    card = card_tests()
     for post in POSTS:
         for C, seeded in ((64, False), (1, False), (64, True)):
             found = card.bf16_sweep(device, post, C, seeded)
@@ -1540,6 +1663,7 @@ def phase_norm_gru_kernels(device):
     bn_exact_checks(device)
     rec = bn_timings(device)
 
+    gru_exact_checks(device)
     errs.update(spatial_gru=0.0, spatial_gru_backward=0.0)
     for B, Cx in ((1, 32), (3, 64)):
         for dtype in (torch.float32, torch.bfloat16):
@@ -1591,7 +1715,16 @@ def phase_norm_gru_kernels(device):
             # dr_pre, du_pre, dh and dh_tilde (dh once, though the two launches
             # write it in two parts)
             bytes=es * 10 * n, flops=25.0 * n)
+        # what autograd's sum of the two launches' dh parts costs (one add of two
+        # maps), which a single write would save
+        dh_a, dh_b = reset_concat_backward(dcat[:, Cx:], r_pre, h)[1], state_update_backward(
+            dout, u_pre, h, ht)[1]
+        rec[('spatial_gru_backward', B)]['dh_sum_ms'] = kernel_ms(lambda: dh_a + dh_b,
+                                                                 ['add'])
         del t, leaves, cat_l, new_l, u_s
+    host = host_us_per_call()
+    log('  host µs of one wrapper call (bf16, 64 channels, 8 x 8): ' + json.dumps(host))
+    rec[('spatial_gru', 3)]['host_us'] = host['gru_reset_concat (K11)']
     for key, r in rec.items():
         r['bound_ms'], r['bound_by'] = bound(r['bytes'], r['flops'])
         name = key if isinstance(key, str) else f'{key[0]} B={key[1]}'
@@ -1787,8 +1920,9 @@ def main():
         if name == 'batch_norm':
             entry.update({f'eval_{k}': norm_gru['batch_norm eval'][k]
                           for k in ('ms', 'call_ms', 'plain_ms', 'library_ms', 'bound_ms')})
-        if 'scipy_ms' in r:
-            entry['scipy_ms'] = r['scipy_ms']
+        entry.update({k: r[k] for k in ('scipy_ms', 'steps', 'warp_min_ns', 'latency_bound_ms',
+                                        'latency_share', 'launch_us', 'row_us', 'step_us',
+                                        'dh_sum_ms', 'host_us') if k in r})
         kernels.append(entry)
     for label, r in (('', train), (' of the combination', combo_train)):
         log(f'train step{label} (batch 3, full width): median_step_ms={r["step_ms"]:.3f} '

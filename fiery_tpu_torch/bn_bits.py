@@ -1,4 +1,5 @@
-"""Hold the BatchNorm kernel (K10) of two checkouts against each other, bit for bit:
+"""Hold the BatchNorm kernel (K10) and the SpatialGRU gate kernels (K11) of two
+checkouts against each other, bit for bit:
 
     python -m fiery_tpu_torch.bn_bits PARENT_CHECKOUT .
 
@@ -7,12 +8,16 @@ that both trees have (``ops.batch_norm.batch_norm_forward`` and
 ``batch_norm_backward``), on the same seeded inputs (bf16 and f32, 4-D and 5-D,
 eval and training, every epilogue, 16-byte and one-channel widths) and on all
 65,536 bf16 bit patterns as x in eval (mean 0, var + eps = 1, weight 1, bias 0,
-so that z = x; the residual is x in reverse order; dy is 1). Prints, per output,
-the number of values whose bits differ (two NaNs agree), and as its last line a
-JSON summary: the differing values of y and of every output. y must agree in
-every bit (the exit code is 1 when it does not); the statistics and the
-gradients are sums taken in another order and may differ in their last bits.
-Needs a CUDA card.
+so that z = x; the residual is x in reverse order; dy is 1). K11 through
+``ops.spatial_gru.reset_concat``, ``state_update`` and their backwards: one GRU
+step at batch 1 and 3 (bf16 and f32), and all bf16 bit patterns as the gates'
+pre-activations at 16-, 4- and 2-byte accesses and at one channel. Prints, per
+output, the number of values whose bits differ (two NaNs agree), and as its last
+line a JSON summary: the differing values of each kind of output. K10's y and
+K11's forward outputs (cat, h_new) must agree in every bit (the exit code is 1
+when they do not); K10's statistics and gradients are sums taken in another
+order and may differ in their last bits, and K11's gradients agree where both
+trees keep the f32 order. Needs a CUDA card.
 """
 
 import argparse
@@ -27,6 +32,7 @@ CHILD = r'''
 import sys
 import torch
 from fiery_tpu_torch.ops import batch_norm as BN
+from fiery_tpu_torch.ops import spatial_gru as GRU
 
 POSTS = ('none', 'relu', 'swish', 'add', 'add_relu', 'relu_add')
 RESIDUAL = ('add', 'add_relu', 'relu_add')
@@ -77,10 +83,61 @@ for post in POSTS:
         for name, t in (('y', y), ('dx', dx), ('dres', dres)):
             if t is not None:
                 out[f'{post} every bf16 C={C} {name}'] = t.cpu().clone()
+
+# K11: one GRU step's two launches and their backward, as the GRU runs them (the
+# state in slots of (B, T, C, H, W) buffers, the concat's gradient a channel slice)
+C, T, H, W = 64, 4, 50, 60
+for B, Cx in ((1, 32), (3, 64)):
+    for dtype in (torch.float32, torch.bfloat16):
+        gen = torch.Generator(device=dev).manual_seed(B)
+        x = torch.randn((B, T, H, W, Cx), generator=gen, device=dev).to(dtype).permute(
+            0, 1, 4, 2, 3)
+        prev = GRU.gru_output(torch.empty((B, C, H, W), dtype=dtype, device=dev), T)
+        prev.copy_(torch.randn(prev.shape, generator=gen, device=dev))
+        h = prev[:, 1]
+        r_pre, u_pre, ht = (rows((B, C, H, W), dtype, gen) for _ in range(3))
+        dcat = rows((B, Cx + C, H, W), dtype, gen)
+        slots = GRU.gru_output(h, T)
+        GRU.state_update(u_pre, h, ht, slots[:, 2])
+        key = f'gru B={B} {str(dtype)[6:]}'
+        outs = (('cat', GRU.reset_concat(x[:, 1], r_pre, h)), ('h_new', slots[:, 2]))
+        outs += tuple(zip(('dr_pre', 'dh_reset'),
+                          GRU.reset_concat_backward(dcat[:, Cx:], r_pre, h)))
+        outs += tuple(zip(('du_pre', 'dh_update', 'dh_tilde'),
+                          GRU.state_update_backward(prev[:, 3], u_pre, h, ht)))
+        for name, t in outs:
+            out[f'{key} {name}'] = t.detach().cpu().clone()
+# every bf16 value as r_pre and u_pre (h reversed, h_tilde rolled by one), at 16-, 4-
+# and 2-byte accesses (each operand a channel slice at that offset) and one channel
+every = torch.arange(-32768, 32768, dtype=torch.int32, device=dev).to(torch.int16).view(
+    torch.bfloat16)
+for C, offset in ((64, 0), (64, 2), (64, 1), (1, 0)):
+    side = int((65536 // C) ** 0.5)
+
+    def operand(values):
+        t = torch.zeros((1, side, side, C + 2 * offset), dtype=torch.bfloat16, device=dev)
+        t[..., offset:offset + C] = values.view(1, side, side, C)
+        return t.movedim(-1, 1)[:, offset:offset + C]
+
+    z, h, ht, g = operand(every), operand(every.flip(0)), operand(every.roll(1)), \
+        operand(every.roll(7))
+    slot = operand(torch.zeros_like(every))
+    GRU.state_update(z, h, ht, slot)
+    key = f'gru every bf16 C={C} offset={offset}'
+    outs = (('cat', GRU.reset_concat(h, z, h)), ('h_new', slot))
+    outs += tuple(zip(('dr_pre', 'dh_reset'), GRU.reset_concat_backward(g, z, h)))
+    outs += tuple(zip(('du_pre', 'dh_update', 'dh_tilde'),
+                      GRU.state_update_backward(g, z, h, ht)))
+    for name, t in outs:
+        out[f'{key} {name}'] = t.cpu().clone()
 torch.cuda.synchronize()
 torch.save(out, sys.argv[1])
 print('saved', len(out), flush=True)
 '''
+
+
+# the outputs that must agree in every bit: K10's y and K11's forward outputs
+FORWARD = ('y', 'cat', 'h_new')
 
 
 def run(tree, path):
@@ -121,7 +178,7 @@ def main():
         print(json.dumps({'output': key, 'values': got[0][key].numel(), 'differing': n}))
     print(f'device {torch.cuda.get_device_name(0)}')
     print(json.dumps({'differing_values': totals, 'outputs': len(got[0])}), flush=True)
-    return 1 if totals.get('y') else 0
+    return 1 if any(totals.get(k) for k in FORWARD) else 0
 
 
 if __name__ == '__main__':

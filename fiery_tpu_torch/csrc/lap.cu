@@ -12,22 +12,48 @@
 // (SC), with col4row read before the augmentation:
 //     u[k] += minval (k == cur),  u[k] = (u[k] + minval) - spc[col4row[k]] (k != cur)
 //     v[c] = v[c] - (minval - spc[c])
-// and the augmentation along the predecessor path. Rows >= n_rows[b] get -1.
-// n_rows is read from device memory, so the caller never synchronises with the host.
+// and the augmentation along the predecessor path. A search whose least reduced
+// cost is not finite (only non-finite costs lead there) finds no augmenting path:
+// it stops and leaves row cur unassigned and the duals as they were. Rows >=
+// n_rows[b] get -1. n_rows is read from device memory, so the caller never
+// synchronises with the host.
 //
 // Bound on an H100: neither bytes nor operations. At the tracker's shape (101 x 101,
 // up to 101 rows) the kernel reads 41 KB and does a few hundred thousand f32
 // operations: both bounds are far below one launch. The algorithm is serial by
 // nature: each row's search depends on the previous rows' duals and assignment, and
 // each Dijkstra step on the previous step's column; only the O(n) work inside a step
-// is parallel. The latency is the number of steps times one block-wide argmin.
+// is parallel. Its latency bound is the number of Dijkstra steps times one
+// dependent warp-wide minimum (`fiery_lap_min_chain` measures one).
 //
-// Design: one block per problem, one thread per column (n <= 1024). u, v, spc, path,
-// row4col, col4row, SR and SC live in shared memory; the cost rows are read from
-// global memory (L1/L2 resident). Each step is a block-wide argmin of the key
-// (value, column taken, index) by warp shuffles; thread 0 walks the augmenting path.
+// Design (for the H100): one warp per problem, no block barrier in a Dijkstra step.
+// - Column j belongs to lane j / CPL, slot j % CPL (CPL consecutive columns a
+//   lane, a template constant: n <= 32 CPL); row k to lane k % 32, slot k / 32. A
+//   lane keeps its columns' v in registers and their SC and assigned flags as bit
+//   masks, and its rows' SR likewise.
+// - The cost matrix is staged once per solve into shared memory by the block's
+//   256 threads (cp.async, every copy in flight at once) when it fits (n <= 237:
+//   42 KB at n = 101), its rows padded to a multiple of CPL floats, so that a step
+//   reads a lane's columns with CPL / 4 16-byte loads; then all but the first warp
+//   leave. Larger matrices are read from global memory (L2).
+// - A step's minimum: two `redux.sync` minima give every lane the warp's least
+//   key: first over the values (the f32 value as order-preserving bits, -0 as +0),
+//   then over the tags of the columns that hold the least value (assigned << 21 |
+//   column << 10 | the column's row, so that ties go to an unassigned column, then
+//   the lowest index, and the next row needs no look-up). Each lane first reduces
+//   its own columns as a tree.
+// - u, row4col and col4row live in shared memory. spc, its key and the
+//   predecessors stay in registers during a search; a step updates them with
+//   selects, not branches (a branch let the compiler sink each column's load and
+//   arithmetic into it, and the columns then waited one after another). They are
+//   written to shared memory when the search ends, for the rows' dual update and
+//   for lane 0, which walks the augmenting path.
+// What holds it above its latency bound (chip_smoke.py `lap_breakdown` splits the
+// time into a launch, rows and steps): a step's two dependent redux.sync are a
+// quarter of it; the rest is the step's ~90 instructions, issued in order by one
+// warp, and each row's dual update and path walk.
 // Every f32 operation is an explicitly rounded intrinsic in lap.py's order, so the
-// result equals the JAX solver and the plain PyTorch version bit for bit.
+// result equals the JAX solver and the plain PyTorch version.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -35,132 +61,240 @@
 
 namespace {
 
-// lexicographic (val, tag) minimum; tag = taken * 2048 + column
-__device__ __forceinline__ bool key_less(float va, int ta, float vb, int tb) {
-  return va < vb || (va == vb && ta < tb);
+constexpr unsigned kFull = 0xffffffffu;
+constexpr int kStageThreads = 256;
+constexpr int kMaxSmem = 232448;     // the dynamic shared memory a block may have (H100)
+
+// the f32 value's bits in an order that unsigned comparison keeps; -0 as +0 (the
+// sum -0 + 0 is +0)
+__device__ __forceinline__ unsigned order_bits(float f) {
+  const unsigned u = __float_as_uint(__fadd_rn(f, 0.0f));
+  return u ^ ((unsigned)((int)u >> 31) | 0x80000000u);
+}
+__device__ __forceinline__ float from_order_bits(unsigned k) {
+  return __uint_as_float((k & 0x80000000u) ? (k & 0x7fffffffu) : ~k);
+}
+constexpr unsigned kInfKey = 0xff800000u;      // order_bits(+inf)
+constexpr unsigned kNegInfKey = 0x007fffffu;   // order_bits(-inf)
+
+// the least of a lane's CPL values, as a tree
+template <int CPL>
+__device__ __forceinline__ unsigned tree_min(const unsigned (&v)[CPL]) {
+  unsigned a[CPL];
+#pragma unroll
+  for (int k = 0; k < CPL; ++k) a[k] = v[k];
+#pragma unroll
+  for (int s = 1; s < CPL; s *= 2) {
+#pragma unroll
+    for (int k = 0; k + s < CPL; k += 2 * s) a[k] = min(a[k], a[k + s]);
+  }
+  return a[0];
 }
 
-__global__ void lap_kernel(const float* __restrict__ cost, const int* __restrict__ n_rows,
-                           int* __restrict__ col4row_out, int n) {
-  extern __shared__ unsigned char smem[];
-  float* u = reinterpret_cast<float*>(smem);
-  float* v = u + n;
-  float* spc = v + n;
-  int* path = reinterpret_cast<int*>(spc + n);
+// The staged matrix's row pitch in floats: a multiple of CPL (>= 4) so that a lane's
+// CPL columns of a row are one aligned run of 16-byte loads; n when not staged.
+template <int CPL, bool STAGED>
+__host__ __device__ constexpr int pitch_of(int n) {
+  return STAGED && CPL >= 4 ? (n + CPL - 1) / CPL * CPL : n;
+}
+
+template <int CPL, bool STAGED>
+__global__ void __launch_bounds__(kStageThreads)
+lap_kernel(const float* __restrict__ cost, const int* __restrict__ n_rows,
+           int* __restrict__ col4row_out, int n) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int P = pitch_of<CPL, STAGED>(n);
+  float* cs = reinterpret_cast<float*>(smem);
+  float* u = cs + (STAGED ? n * P : 0);
+  float* spc_s = u + n;
+  int* path = reinterpret_cast<int*>(spc_s + n);
   int* row4col = path + n;
   int* col4row = row4col + n;
-  unsigned char* SR = reinterpret_cast<unsigned char*>(col4row + n);
-  unsigned char* SC = SR + n;
-  __shared__ float red_val[32];
-  __shared__ int red_tag[32];
-  __shared__ int s_i, s_sink;
-  __shared__ float s_minval;
 
   const int b = blockIdx.x;
-  const int t = threadIdx.x;
-  const int lane = t & 31, warp = t >> 5, n_warps = blockDim.x >> 5;
   const float* C = cost + (int64_t)b * n * n;
+  if (STAGED) {               // warp w copies rows w, w + 8, ..., all copies in flight
+    for (int i = threadIdx.x / 32; i < n; i += kStageThreads / 32) {
+      for (int j = threadIdx.x % 32; j < n; j += 32) {
+        const unsigned dst = (unsigned)__cvta_generic_to_shared(cs + i * P + j);
+        asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(dst),
+                     "l"(C + (int64_t)i * n + j));
+      }
+    }
+    asm volatile("cp.async.wait_all;" ::: "memory");
+    __syncthreads();
+  }
+  if (threadIdx.x >= 32) return;
+  const int lane = threadIdx.x;
   const int nr = min(max(n_rows[b], 0), n);
+  // column j = lane * CPL + k is the lane's slot k (rows are dealt as k * 32 + lane)
+  const int j0 = lane * CPL;
+  // where the lane reads its columns of a staged row: j0, or for a lane without
+  // columns any place inside the row
+  const int base = min(j0, P - CPL);
 
-  for (int k = t; k < n; k += blockDim.x) {
+  for (int k = lane; k < n; k += 32) {
     u[k] = 0.0f;
-    v[k] = 0.0f;
     row4col[k] = -1;
     col4row[k] = -1;
   }
+  float v[CPL];
+  unsigned columns = 0;        // bit k: column j0 + k exists
+#pragma unroll
+  for (int k = 0; k < CPL; ++k) {
+    v[k] = 0.0f;
+    columns |= (j0 + k < n ? 1u : 0u) << k;
+  }
+  unsigned assigned = 0;       // bit k: column j0 + k has a row
+  __syncwarp();
+
   for (int cur = 0; cur < nr; ++cur) {
-    for (int k = t; k < n; k += blockDim.x) {
-      SR[k] = 0;
-      SC[k] = 0;
+    // the lane's columns: spc, its order bits, the predecessor row and the tag, in
+    // registers; the tag orders tied columns (unassigned first, then by index) and
+    // carries the column's row, so that a step needs no look-up of row4col
+    float spc[CPL];
+    unsigned key[CPL], tag[CPL];
+    int pred[CPL];
+#pragma unroll
+    for (int k = 0; k < CPL; ++k) {
+      const int j = min(j0 + k, n - 1);
       spc[k] = INFINITY;
-      path[k] = -1;
+      key[k] = kInfKey;
+      pred[k] = -1;
+      tag[k] = (((assigned >> k) & 1u) << 21) | ((unsigned)j << 10) | (row4col[j] & 1023u);
     }
-    if (t == 0) {
-      s_i = cur;
-      s_sink = -1;
-      s_minval = 0.0f;
-    }
-    __syncthreads();
+    unsigned open = columns;                                     // bit k: not in SC
+    unsigned sr = lane == (cur & 31) ? 1u << (cur >> 5) : 0u;    // bit k: row in SR
+    int i = cur, sink = -1;
+    float minval = 0.0f;
     for (int step = 0; step < n; ++step) {   // each step takes one column
-      const int i = s_i;
-      const float minval = s_minval;
       const float ui = u[i];
-      const float* Ci = C + (int64_t)i * n;
-      float best_v = INFINITY;
-      int best_t = 0x7fffffff;
-      for (int j = t; j < n; j += blockDim.x) {
-        if (SC[j]) continue;
-        const float r = __fsub_rn(__fsub_rn(__fadd_rn(minval, Ci[j]), ui), v[j]);
-        float s = spc[j];
-        if (r < s) {
-          s = r;
-          spc[j] = r;
-          path[j] = i;
+      float c[CPL];
+      if constexpr (STAGED && CPL >= 4) {
+        const float4* row = reinterpret_cast<const float4*>(cs + i * P + base);
+#pragma unroll
+        for (int q = 0; q < CPL / 4; ++q) {
+          const float4 t = row[q];
+          c[4 * q] = t.x;
+          c[4 * q + 1] = t.y;
+          c[4 * q + 2] = t.z;
+          c[4 * q + 3] = t.w;
         }
-        const int tag = (row4col[j] >= 0 ? 2048 : 0) + j;
-        if (key_less(s, tag, best_v, best_t)) {
-          best_v = s;
-          best_t = tag;
-        }
+      } else {
+        const float* row = (STAGED ? cs : C) + (int64_t)i * P;
+#pragma unroll
+        for (int k = 0; k < CPL; ++k) c[k] = row[min(j0 + k, n - 1)];
       }
-      for (int o = 16; o > 0; o >>= 1) {
-        const float ov = __shfl_down_sync(0xffffffffu, best_v, o);
-        const int ot = __shfl_down_sync(0xffffffffu, best_t, o);
-        if (key_less(ov, ot, best_v, best_t)) {
-          best_v = ov;
-          best_t = ot;
-        }
+      unsigned kv[CPL];
+      // selects, not branches: a branch lets the compiler sink each column's work
+      // into it, and the columns then wait one after another
+#pragma unroll
+      for (int k = 0; k < CPL; ++k) {
+        const bool in = (open >> k) & 1u;
+        const float r = __fsub_rn(__fsub_rn(__fadd_rn(minval, c[k]), ui), v[k]);
+        const bool better = in & (r < spc[k]);
+        spc[k] = better ? r : spc[k];
+        key[k] = better ? order_bits(r) : key[k];
+        pred[k] = better ? i : pred[k];
+        kv[k] = in ? key[k] : kFull;
       }
-      if (lane == 0) {
-        red_val[warp] = best_v;
-        red_tag[warp] = best_t;
+      const unsigned v_min = __reduce_min_sync(kFull, tree_min<CPL>(kv));
+#pragma unroll
+      for (int k = 0; k < CPL; ++k) kv[k] = kv[k] == v_min ? tag[k] : kFull;
+      const unsigned t_min = __reduce_min_sync(kFull, tree_min<CPL>(kv));
+      // no finite path (the least value +inf or -inf): the row stays unassigned
+      if (v_min >= kInfKey || v_min <= kNegInfKey) break;
+      minval = from_order_bits(v_min);
+      const int j = (int)((t_min >> 10) & 1023u);
+      if (lane == j / CPL) open &= ~(1u << (j % CPL));
+      if (!(t_min >> 21)) {
+        sink = j;
+        break;
       }
-      __syncthreads();
-      if (t == 0) {
-        for (int w = 1; w < n_warps; ++w) {
-          if (key_less(red_val[w], red_tag[w], best_v, best_t)) {
-            best_v = red_val[w];
-            best_t = red_tag[w];
-          }
-        }
-        const int j = best_t & 2047;
-        SR[i] = 1;
-        SC[j] = 1;
-        s_minval = best_v;
-        if (row4col[j] < 0) {
-          s_sink = j;
-        } else {
-          s_i = row4col[j];
-        }
-      }
-      __syncthreads();
-      if (s_sink >= 0) break;
+      i = (int)(t_min & 1023u);
+      if (lane == (i & 31)) sr |= 1u << (i >> 5);
     }
-    const int sink = s_sink;
-    if (sink < 0) continue;   // only with non-finite costs: the row stays unassigned
-    const float minval = s_minval;
-    for (int k = t; k < n; k += blockDim.x) {
-      if (SR[k]) {
-        u[k] = k == cur ? __fadd_rn(u[k], minval)
-                        : __fsub_rn(__fadd_rn(u[k], minval), spc[min(max(col4row[k], 0), n - 1)]);
+    if (sink < 0) continue;
+    const unsigned sc = columns & ~open;
+#pragma unroll
+    for (int k = 0; k < CPL; ++k) {
+      if ((columns >> k) & 1u) {
+        spc_s[j0 + k] = spc[k];
+        path[j0 + k] = pred[k];
       }
-      if (SC[k]) v[k] = __fsub_rn(v[k], __fsub_rn(minval, spc[k]));
     }
-    __syncthreads();
-    if (t == 0) {
+    __syncwarp();
+    float uk[CPL], sk[CPL];
+#pragma unroll
+    for (int k = 0; k < CPL; ++k) {
+      const int row = min(k * 32 + lane, n - 1);
+      uk[k] = u[row];
+      sk[k] = spc_s[min(max(col4row[row], 0), n - 1)];
+    }
+#pragma unroll
+    for (int k = 0; k < CPL; ++k) {
+      const int row = k * 32 + lane;
+      if ((sr >> k) & 1u) {
+        u[row] = row == cur ? __fadd_rn(uk[k], minval)
+                            : __fsub_rn(__fadd_rn(uk[k], minval), sk[k]);
+      }
+      if ((sc >> k) & 1u) v[k] = __fsub_rn(v[k], __fsub_rn(minval, spc[k]));
+    }
+    __syncwarp();
+    if (lane == 0) {
       int j = sink;
       for (int hop = 0; hop < n; ++hop) {
-        const int i = path[j];
-        row4col[j] = i;
-        const int nxt = col4row[i];
-        col4row[i] = j;
-        if (i == cur) break;
+        const int r = path[j];
+        row4col[j] = r;
+        const int nxt = col4row[r];
+        col4row[r] = j;
+        if (r == cur) break;
         j = nxt;
       }
     }
-    __syncthreads();
+    if (lane == sink / CPL) assigned |= 1u << (sink % CPL);
+    __syncwarp();
   }
-  for (int k = t; k < n; k += blockDim.x) col4row_out[(int64_t)b * n + k] = col4row[k];
+  for (int k = lane; k < n; k += 32) col4row_out[(int64_t)b * n + k] = col4row[k];
+}
+
+template <int CPL, bool STAGED>
+size_t shared_bytes(int n) {
+  return (size_t)5 * n * sizeof(float) + (STAGED ? (size_t)n * pitch_of<CPL, true>(n) * 4 : 0);
+}
+
+template <int CPL, bool STAGED>
+cudaError_t launch_as(const float* cost, const int* n_rows, int* col4row, int B, int n,
+                      cudaStream_t st) {
+  const size_t shared = shared_bytes<CPL, STAGED>(n);
+  if (shared > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        lap_kernel<CPL, STAGED>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)shared);
+    if (e != cudaSuccess) return e;
+  }
+  lap_kernel<CPL, STAGED><<<B, STAGED ? kStageThreads : 32, shared, st>>>(cost, n_rows,
+                                                                          col4row, n);
+  return cudaGetLastError();
+}
+
+// the matrix is staged into shared memory when it fits beside the per-column state
+template <int CPL>
+cudaError_t launch(const float* cost, const int* n_rows, int* col4row, int B, int n,
+                   cudaStream_t st) {
+  if constexpr (CPL <= 8) {
+    if (shared_bytes<CPL, true>(n) <= (size_t)kMaxSmem) {
+      return launch_as<CPL, true>(cost, n_rows, col4row, B, n, st);
+    }
+  }
+  return launch_as<CPL, false>(cost, n_rows, col4row, B, n, st);
+}
+
+// A chain of dependent warp-wide minima: each lane's next value depends on the
+// last minimum, so the loop takes iters times the latency of one redux.sync.
+__global__ void min_chain_kernel(int iters, unsigned* out) {
+  unsigned x = threadIdx.x * 2654435761u;
+  for (int k = 0; k < iters; ++k) x = __reduce_min_sync(kFull, x) + threadIdx.x + 1u;
+  if (threadIdx.x == 0) *out = x;
 }
 
 }  // namespace
@@ -172,9 +306,23 @@ extern "C" int fiery_lap(const void* cost, const void* n_rows, void* col4row, in
                          void* stream) {
   if (B == 0) return (int)cudaSuccess;
   if (n < 1 || n > 1024) return (int)cudaErrorInvalidValue;
-  const int threads = ((n + 31) / 32) * 32;
-  const size_t shared = (size_t)n * (3 * sizeof(float) + 3 * sizeof(int) + 2);
-  lap_kernel<<<B, threads, shared, (cudaStream_t)stream>>>(
-      (const float*)cost, (const int*)n_rows, (int*)col4row, n);
+  const float* c = (const float*)cost;
+  const int* r = (const int*)n_rows;
+  int* out = (int*)col4row;
+  cudaStream_t st = (cudaStream_t)stream;
+  cudaError_t e;
+  if (n <= 32) e = launch<1>(c, r, out, B, n, st);
+  else if (n <= 64) e = launch<2>(c, r, out, B, n, st);
+  else if (n <= 128) e = launch<4>(c, r, out, B, n, st);
+  else if (n <= 256) e = launch<8>(c, r, out, B, n, st);
+  else if (n <= 512) e = launch<16>(c, r, out, B, n, st);
+  else e = launch<32>(c, r, out, B, n, st);
+  return (int)e;
+}
+
+// One warp runs `iters` dependent warp-wide minima (redux.sync) and writes the
+// last into out (one unsigned int on the device). For timing only.
+extern "C" int fiery_lap_min_chain(int iters, void* out, void* stream) {
+  min_chain_kernel<<<1, 32, 0, (cudaStream_t)stream>>>(iters, (unsigned*)out);
   return (int)cudaGetLastError();
 }

@@ -2,7 +2,7 @@
 
 Counterpart of fiery_tpu/ops/lap.py. The instance tracker solves one small dense
 assignment per frame step; the ``lap`` kernel (csrc/lap.cu) solves a batch of them
-on the card, one block per problem, reading the number of rows to augment from
+on the card, one warp per problem, reading the number of rows to augment from
 device memory so that the tracker never waits on the host.
 
 Both versions follow the JAX solver's rules exactly:
@@ -11,10 +11,14 @@ Both versions follow the JAX solver's rules exactly:
   * duals updated over the visited rows and columns with ``col4row`` read before
     the augmentation;
   * rows ``>= n_rows`` are not augmented and get -1.
-Costs must be finite (pad invalid pairs with a large finite cost).
+Pad invalid pairs with a large finite cost, as the tracker does. Past the JAX
+solver, which takes finite costs only: a search whose least reduced cost is not
+finite (a row of infinite or NaN costs) finds no augmenting path, and its row
+stays unassigned (-1) with the duals unchanged.
 """
 
 import ctypes
+import functools
 
 import torch
 
@@ -48,6 +52,8 @@ def _solve_one(cost, n_rows):
             path = torch.where(upd, torch.full_like(path, i), path)
             cand = torch.where(SC, torch.full_like(spc, _INF), spc)
             lowest = cand.min()
+            if not bool(torch.isfinite(lowest)):
+                break               # no finite augmenting path: the row stays unassigned
             tie = cand == lowest
             free_tie = tie & (row4col < 0)
             pick = free_tie if bool(free_tie.any()) else tie
@@ -58,7 +64,7 @@ def _solve_one(cost, n_rows):
                 sink = j
                 break
             i = int(row4col[j])
-        if sink < 0:                # only reachable with non-finite costs
+        if sink < 0:
             continue
         on_row = torch.arange(n, device=dev) == cur_row
         spc_of_row = spc[col4row.clamp(0, n - 1)]
@@ -96,6 +102,15 @@ def linear_sum_assignment_plain(cost, n_rows=None):
 linear_sum_assignment_plain.steps = 0
 
 
+@functools.cache
+def _lap_fn():
+    """fiery_lap of the lap library, typed once."""
+    fn = _build.load('lap').fiery_lap
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
 def linear_sum_assignment(cost, n_rows=None):
     """col4row (B, n) int32: for each row the assigned column, minimising the total
     cost of each (n, n) problem of ``cost`` (B, n, n) float32 (kernel K9, csrc/lap.cu).
@@ -124,9 +139,7 @@ def linear_sum_assignment(cost, n_rows=None):
     if n_rows is None:
         n_rows = torch.full((B,), n, dtype=torch.int32, device=cost.device)
     n_rows = n_rows.contiguous()
-    fn = _build.load('lap').fiery_lap
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    fn = _lap_fn()
     col4row = torch.empty((B, n), dtype=torch.int32, device=cost.device)
     stream = torch.cuda.current_stream(cost.device).cuda_stream
     rc = fn(cost.data_ptr(), n_rows.data_ptr(), col4row.data_ptr(), B, n, stream)

@@ -11,17 +11,21 @@ One step t of the GRU, around its three convolutions (which stay cuDNN's):
 ``gru_output`` allocates (no torch.stack), and ``gru_stack`` ties the slots together
 for autograd. These are the autograd entries; ``reset_concat``, ``state_update`` and
 their ``*_backward`` are the kernels' wrappers, with the launch counters
-``spatial_gru`` and ``spatial_gru_backward``. Every operation rounds to the tensors' dtype, as the JAX package's
-bfloat16 operations round on XLA's CPU, with sigmoid(z) = 1 / (1 + exp(-z));
-the backward computes in f32 and rounds once.
+``spatial_gru`` and ``spatial_gru_backward``. Every operation rounds to the
+tensors' dtype, as the JAX package's bfloat16 operations round on XLA's CPU, with
+sigmoid(z) = 1 / (1 + exp(-z)); the backward computes in f32 and rounds once.
 
-Operands are channels-first views (B, C, H, W) whose channels are contiguous; the
-kernels take any other strides (a slot of the output, a frame of the input
-sequence, the latent broadcast over the map, a channel slice of a gradient). A
+Operands are channels-first views (B, C, H, W) whose channels are contiguous and
+whose pixels i W + j lie evenly spaced (``pixel_strides``): a slot of the output,
+a frame of the input sequence, the latent broadcast over the map, a channel slice
+of a gradient. A gradient laid out otherwise is copied; another operand raises.
+Each wrapper checks and plans a shape once (``_plan``): the access width (16
+bytes where the addresses, strides and channel counts allow it) and the grid. A
 CPU tensor takes the plain versions; a CUDA tensor launches the kernels.
 """
 
 import ctypes
+import functools
 import types
 
 import torch
@@ -67,54 +71,125 @@ def state_update_backward_plain(dout, u_pre, h, h_tilde):
 
 # ---- the card ----
 
-def _is_rows(t):
-    """Whether t is a (B, C, H, W) view whose channels are contiguous (its other
-    strides may be anything: a slot of a sequence, a channel slice of wider rows, a
-    map broadcast with zero strides)."""
-    return t.dim() == 4 and (t.stride(1) == 1 or t.shape[1] == 1)
+THREADS = 256          # a block's threads: G vectors a pixel x PIX = 256 // G pixels
+MAX_OPERANDS = 7
+# the kernels of csrc/spatial_gru.cu, by the index its plan's first field holds
+KINDS = ('gru_reset_concat', 'gru_state_update', 'gru_reset_concat_backward',
+         'gru_state_update_backward')
 
 
-def _strides(name, t):
-    """(batch, row, column) strides of a view with contiguous channels."""
-    if not _is_rows(t):
-        raise ValueError(f'{name}: {tuple(t.shape)} strides {t.stride()} does not keep '
-                         f'its channels contiguous')
-    return (ctypes.c_longlong * 3)(t.stride(0), t.stride(2), t.stride(3))
+def pixel_strides(t):
+    """(batch, pixel) strides in elements of a (B, C, H, W) view whose channels are
+    contiguous and whose pixels p = i W + j lie evenly spaced (a row stride of W
+    pixel strides), else None. The strides of a dimension of size 1 count as 0.
+    Slots of a (B, T, H, W, C) sequence, channel slices of wider rows and maps
+    broadcast over the pixels (stride 0) all qualify."""
+    if t.dim() != 4:
+        return None
+    B, C, H, W = t.shape
+    if C > 1 and t.stride(1) != 1:
+        return None
+    hs, ws = (t.stride(2) if H > 1 else 0), (t.stride(3) if W > 1 else 0)
+    if H > 1 and W > 1 and hs != W * ws:
+        return None
+    return (t.stride(0) if B > 1 else 0), (ws if W > 1 else hs)
+
+
+def vector_width(channels, strides, itemsize, align):
+    """V, the channels a thread moves with one access: the widest power of two with
+    V * itemsize <= 16 bytes that divides every channel count and every stride, and
+    whose bytes divide ``align`` (the OR of the operands' addresses, mod 16)."""
+    V = 16 // itemsize
+    while V > 1 and (align % (V * itemsize) or any(c % V for c in channels)
+                     or any(s % V for s in strides)):
+        V //= 2
+    return V
+
+
+def launch_grid(P, G):
+    """(PIX, tiles): a block of G x PIX threads covers PIX consecutive pixels, one
+    vector of G a thread; the grid's x covers the P pixels of a map in tiles."""
+    pix = max(1, THREADS // G)
+    return pix, -(-P // pix)
+
+
+_PLANS = {}
+
+
+def _plan(kind, operands, align):
+    """The launch plan of kernel ``kind`` on ``operands`` (tensors, in the kernel's
+    order), with ``align`` the OR of their addresses mod 16, checked and computed
+    at its first call: a ctypes array of csrc/spatial_gru.cu's ``Plan``. Every
+    later call of that key reuses it, so a call's host work is this lookup and the
+    launch."""
+    key = (kind, align) + tuple((t.shape, t.stride(), t.dtype, t.get_device())
+                                for t in operands)
+    plan = _PLANS.get(key)
+    if plan is None:
+        plan = _PLANS[key] = _make_plan(kind, operands, align)
+    return plan
+
+
+def _make_plan(kind, operands, align):
+    name = KINDS[kind]
+    ref = operands[2]            # h, in every kernel's operands
+    if ref.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f'{name}: float32 or bfloat16 only, got {ref.dtype}')
+    B, C, H, W = ref.shape
+    for t in operands:
+        if (t.dim() != 4 or t.device != ref.device or t.dtype != ref.dtype
+                or t.shape[0] != B or t.shape[2:] != ref.shape[2:]):
+            raise ValueError(f'{name}: every operand must be on {ref.device}, {ref.dtype}, '
+                             f'of batch {B} and map size {tuple(ref.shape[2:])}')
+    strides = []
+    for t in operands:
+        st = pixel_strides(t)
+        if st is None:
+            raise ValueError(f'{name}: {tuple(t.shape)} strides {t.stride()} does not keep '
+                             f'its channels contiguous and its pixels evenly spaced')
+        strides.append(st)
+    cx = operands[0].shape[1] if kind == 0 else 0
+    width = cx + C if kind == 0 else C
+    if kind == 0 and operands[3].shape[1] != width:
+        raise ValueError(f'{name}: the concat must have {width} channels')
+    if any(t.shape[1] != C for t in (operands[1:3] if kind == 0 else operands)):
+        raise ValueError(f'{name}: r_pre, u_pre, h and h_tilde must have {C} channels')
+    V = vector_width((cx, C), [s for st in strides for s in st], ref.element_size(), align)
+    G = width // V
+    if G > 1024 or B > 65535:
+        raise ValueError(f'{name}: {width} channels of {B} maps; the kernel takes at most '
+                         f'{1024 * V} channels and 65,535 maps')
+    pix, tiles = launch_grid(H * W, G)
+    fields = [kind, int(ref.dtype == torch.bfloat16), V, H * W, B, G, pix, tiles, cx]
+    for st in strides + [(0, 0)] * (MAX_OPERANDS - len(strides)):
+        fields += st
+    return (ctypes.c_longlong * len(fields))(*fields)
+
+
+@functools.cache
+def _fn():
+    """fiery_gru of the spatial_gru library, typed once."""
+    fn = _build.load('spatial_gru').fiery_gru
+    fn.argtypes = [ctypes.c_void_p] * (MAX_OPERANDS + 2)
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _launch(kind, operands):
+    """One launch of kernel ``kind`` (an index of KINDS) on ``operands``."""
+    ptrs = [t.data_ptr() for t in operands]
+    align = 0
+    for p in ptrs:
+        align |= p
+    plan = _plan(kind, operands, align & 15)
+    ptrs += [None] * (MAX_OPERANDS - len(ptrs))
+    rc = _fn()(plan, *ptrs, torch._C._cuda_getCurrentRawStream(operands[2].get_device()))
+    if rc != 0:
+        raise RuntimeError(f'{KINDS[kind]} kernel launch failed: CUDA error {rc}')
 
 
 def _empty_rows(B, C, H, W, like):
     return torch.empty((B, H, W, C), dtype=like.dtype, device=like.device).permute(0, 3, 1, 2)
-
-
-def _check_card(name, ref, *tensors):
-    if ref.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f'{name}: float32 or bfloat16 only, got {ref.dtype}')
-    for t in tensors:
-        if t.device != ref.device or t.dtype != ref.dtype or t.shape[2:] != ref.shape[2:] \
-                or t.shape[0] != ref.shape[0]:
-            raise ValueError(f'{name}: every operand must be on {ref.device}, '
-                             f'{ref.dtype}, of batch and map size {tuple(ref.shape[2:])}')
-
-
-_FNS = {}
-_P, _I = ctypes.c_void_p, ctypes.c_int
-
-
-def _launch(name, operands, *ints):
-    """Call fiery_<name> with each (label, tensor) operand as its pointer and
-    strides, then the ints (B, H, W, channels..., is_bf16), then the stream."""
-    fn = _FNS.get(name)
-    if fn is None:
-        fn = getattr(_build.load('spatial_gru'), 'fiery_' + name)
-        fn.argtypes = [_P, _P] * len(operands) + [_I] * len(ints) + [_P]
-        fn.restype = ctypes.c_int
-        _FNS[name] = fn
-    args = []
-    for label, t in operands:
-        args += [t.data_ptr(), _strides(f'{name} {label}', t)]
-    rc = fn(*args, *ints, torch._C._cuda_getCurrentRawStream(operands[0][1].get_device()))
-    if rc != 0:
-        raise RuntimeError(f'{name} kernel launch failed: CUDA error {rc}')
 
 
 def reset_concat(x_t, r_pre, h):
@@ -124,12 +199,9 @@ def reset_concat(x_t, r_pre, h):
     if h.device.type == 'cpu':
         spatial_gru.plain_calls += 1
         return reset_concat_plain(x_t, r_pre, h)
-    _check_card('gru_reset_concat', h, x_t, r_pre)
     B, C, H, W = h.shape
-    cx = x_t.shape[1]
-    cat = _empty_rows(B, cx + C, H, W, h)
-    _launch('gru_reset_concat', (('x_t', x_t), ('r_pre', r_pre), ('h', h), ('out', cat)),
-            B, H, W, cx, C, int(h.dtype == torch.bfloat16))
+    cat = _empty_rows(B, x_t.shape[1] + C, H, W, h)
+    _launch(0, (x_t, r_pre, h, cat))
     spatial_gru.launches += 1
     return cat
 
@@ -145,11 +217,7 @@ def state_update(u_pre, h, h_tilde, slot):
         # the buffer that autograd tracks
         slot.data.copy_(state_update_plain(u_pre, h, h_tilde))
         return slot
-    _check_card('gru_state_update', h, u_pre, h_tilde, slot)
-    B, C, H, W = h.shape
-    _launch('gru_state_update', (('u_pre', u_pre), ('h', h), ('h_tilde', h_tilde),
-                                 ('out', slot)),
-            B, H, W, C, int(h.dtype == torch.bfloat16))
+    _launch(1, (u_pre, h, h_tilde, slot))
     spatial_gru.launches += 1
     return slot
 
@@ -161,13 +229,9 @@ def reset_concat_backward(dstate, r_pre, h):
     if h.device.type == 'cpu':
         spatial_gru_backward.plain_calls += 1
         return reset_concat_backward_plain(dstate, r_pre, h)
-    dstate = _as_rows(dstate, h.dtype)
-    _check_card('gru_reset_concat_backward', h, dstate, r_pre)
     B, C, H, W = h.shape
     dr, dh = _empty_rows(B, C, H, W, h), _empty_rows(B, C, H, W, h)
-    _launch('gru_reset_concat_backward', (('dcat', dstate), ('r_pre', r_pre), ('h', h),
-                                          ('dr_pre', dr), ('dh', dh)),
-            B, H, W, C, int(h.dtype == torch.bfloat16))
+    _launch(2, (_as_rows(dstate, h.dtype), r_pre, h, dr, dh))
     spatial_gru_backward.launches += 1
     return dr, dh
 
@@ -178,21 +242,17 @@ def state_update_backward(dout, u_pre, h, h_tilde):
     if h.device.type == 'cpu':
         spatial_gru_backward.plain_calls += 1
         return state_update_backward_plain(dout, u_pre, h, h_tilde)
-    dout = _as_rows(dout, h.dtype)
-    _check_card('gru_state_update_backward', h, dout, u_pre, h_tilde)
     B, C, H, W = h.shape
     du, dh, dht = (_empty_rows(B, C, H, W, h) for _ in range(3))
-    _launch('gru_state_update_backward', (('dout', dout), ('u_pre', u_pre), ('h', h),
-                                          ('h_tilde', h_tilde), ('du_pre', du), ('dh', dh),
-                                          ('dh_tilde', dht)),
-            B, H, W, C, int(h.dtype == torch.bfloat16))
+    _launch(3, (_as_rows(dout, h.dtype), u_pre, h, h_tilde, du, dh, dht))
     spatial_gru_backward.launches += 1
     return du, dh, dht
 
 
 def _as_rows(g, dtype):
-    """A gradient as channels-last rows of ``dtype``: itself when it is one."""
-    if g.dtype == dtype and _is_rows(g):
+    """A gradient as the kernels read it (``pixel_strides``) in ``dtype``: itself
+    when it is one, else a channels-last copy."""
+    if g.dtype == dtype and pixel_strides(g) is not None:
         return g
     return g.to(dtype).contiguous(memory_format=torch.channels_last)
 

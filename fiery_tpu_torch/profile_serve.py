@@ -12,11 +12,12 @@ lines:
     tracking (K8, K9)), median over the same requests;
   * from torch.profiler over three requests: the device busy time per request, its
     share of the wall time, the kernels that take the most device time, and the
-    BatchNorm (K10) and GRU gate (K11) kernels' launches and device time;
+    BatchNorm (K10), GRU gate (K11) and assignment (K9) kernels' launches and
+    device time;
   * the host time of one call (µs, host clock over 3000 back-to-back calls at a
     small shape, so the card never holds the host back) of the eval BatchNorm
     with its ReLU (K10), of ``F.batch_norm`` + ``F.relu`` on the same tensors,
-    and of the GRU's reset-gated concat (K11) when serving.
+    and of the GRU's two gate calls (K11) when serving.
 Needs a CUDA card.
 """
 
@@ -33,7 +34,9 @@ from fiery_tpu_torch import evaluate as evaluate_module
 from fiery_tpu_torch.models import fiery as fiery_module
 from fiery_tpu_torch.models.layers import BatchNorm
 from fiery_tpu_torch.ops.batch_norm import batch_norm_forward
-from fiery_tpu_torch.ops.spatial_gru import gru_reset_concat, spatial_gru
+from fiery_tpu_torch.ops.lap import linear_sum_assignment
+from fiery_tpu_torch.ops.spatial_gru import (gru_output, gru_reset_concat, gru_state_update,
+                                             spatial_gru)
 from fiery_tpu_torch.serve import (BASELINE, build_fiery, calibrate_batchnorm, init_params,
                                    make_request, predict_instances)
 from fiery_tpu_torch.utils.config import get_cfg
@@ -122,7 +125,7 @@ def main():
                       'stage_device_ms_sum': sum(stage_ms.values())}), flush=True)
 
     activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    batch_norm_forward.launches = spatial_gru.launches = 0
+    batch_norm_forward.launches = spatial_gru.launches = linear_sum_assignment.launches = 0
     with torch.profiler.profile(activities=activities) as prof:
         t0 = time.perf_counter()
         for req in requests[:3]:
@@ -141,12 +144,13 @@ def main():
                       'device_busy_ms_per_request': busy_ms,
                       'device_busy_share': busy_ms / wall_ms if wall_ms else None,
                       'kernels_per_request': sum(r[1] for r in rows)}), flush=True)
-    # K10's kernels (stats, apply; eval runs apply only) and K11's (reset_concat,
-    # state_update), by their symbols
+    # K10's kernels (stats, apply; eval runs apply only), K11's (reset_concat,
+    # state_update) and K9's, by their symbols
     for name, symbols, fn in (('batch_norm', ('::stats_kernel<', '::apply_kernel<'),
                                batch_norm_forward),
                               ('spatial_gru', ('reset_concat_kernel', 'state_update_kernel'),
-                               spatial_gru)):
+                               spatial_gru),
+                              ('lap', ('::lap_kernel',), linear_sum_assignment)):
         print(json.dumps({'kernel': name, 'launches_per_request': fn.launches / 3,
                           'device_ms_per_request': sum(
                               r[0] for r in rows if any(s in r[2] for s in symbols))}),
@@ -165,11 +169,13 @@ def host_us_per_call(n=3000):
         memory_format=torch.channels_last)
     bn = init_params(BatchNorm(64, post='relu'), seed=0).cuda().eval()
     h = x.permute(0, 2, 3, 1).contiguous().permute(0, 3, 1, 2)
+    slot = gru_output(h, 1)
     calls = {'batch_norm_relu (K10)': lambda: bn(x),
              'F.batch_norm + F.relu': lambda: F.relu(F.batch_norm(
                  x, bn.running_mean, bn.running_var, bn.weight, bn.bias, False, 0.1,
                  bn.eps)),
-             'gru_reset_concat (K11)': lambda: gru_reset_concat(h, h, h)}
+             'gru_reset_concat (K11)': lambda: gru_reset_concat(h, h, h),
+             'gru_state_update (K11)': lambda: gru_state_update(h, h, h, slot, 0)}
     out = {}
     with torch.inference_mode():
         for name, fn in calls.items():

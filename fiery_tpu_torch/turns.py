@@ -15,9 +15,12 @@ training, the labels warped on the host outside the step):
     (K10's ``ops.batch_norm.batch_norm_forward``, where ``batch_norm`` calls it in
     either tree) summed per request: its ms and its share of the request's ms,
     and the launch plans its cache added (misses) over those requests;
-  * after the timed runs, one request and one step under torch.profiler: the
-    device busy ms, and the device ms and launches of the BatchNorm kernel (K10,
-    by its kernels' names in either tree).
+  * after the timed runs, one request, one request with instances
+    (``predict_instances``) and one step under torch.profiler: the device busy
+    ms, and the device ms and launches of the BatchNorm kernel (K10), the GRU's
+    gate kernels (K11) and the assignment kernel (K9), by their kernels' names in
+    either tree (keys ``<k10|k11|k9>_<request|instances|step>_ms_<kind>`` and
+    ``..._launches``).
 Each process prints one JSON line of its medians; the last line gathers them per
 checkout. Only entry points that both trees have are used. Needs a CUDA card.
 A step's stage times are ``chip_smoke.py``'s (``stage_times``).
@@ -38,20 +41,26 @@ from fiery_tpu_torch.ops import batch_norm as BN
 from fiery_tpu_torch.data.label_warp import make_prewarp_transform
 from fiery_tpu_torch.data.synthetic import SyntheticFutureDataset
 from fiery_tpu_torch.serve import (BASELINE, build_fiery, calibrate_batchnorm, init_params,
-                                   make_request, predict)
+                                   make_request, predict, predict_instances)
 from fiery_tpu_torch.training.trainer import Trainer
 from fiery_tpu_torch.utils.config import get_cfg
 
 requests, steps = int(sys.argv[1]), int(sys.argv[2])
 _build.build_all()
-# the K10 kernels' names, of either tree (three launches a pass, or two), in their
-# anonymous namespace (which keeps out Adam's multi_tensor_apply_kernel)
-K10 = ('::stats_kernel', '::stats_finalize_kernel', '::apply_kernel', '::backward_reduce_kernel',
-       '::backward_finalize_kernel', '::backward_apply_kernel')
+# the kernels' names, of either tree, in their anonymous namespace (which keeps out
+# Adam's multi_tensor_apply_kernel): K10 (three launches a pass, or two), K11 (the
+# GRU gates, forward and backward), K9 (the assignment)
+KERNELS = {'k10': ('::stats_kernel', '::stats_finalize_kernel', '::apply_kernel',
+                   '::backward_reduce_kernel', '::backward_finalize_kernel',
+                   '::backward_apply_kernel'),
+           'k11': ('::reset_concat', '::state_update'),
+           'k9': ('::lap_kernel',)}
 
 
-def profiled(fn):
-    """(device busy ms, K10 device ms, K10 launches) of fn() under torch.profiler."""
+def profiled(fn, out, key):
+    """fn() under torch.profiler: out['busy_<key>'] the device busy ms, and for
+    each kernel of KERNELS out['<kernel>_<key>'] its device ms and
+    out['<kernel>_<key>_launches'] its launches."""
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     torch.cuda.synchronize()
     with torch.profiler.profile(activities=acts) as prof:
@@ -59,9 +68,11 @@ def profiled(fn):
         torch.cuda.synchronize()
     ev = [e for e in prof.key_averages()
           if e.device_type == torch.autograd.DeviceType.CUDA and not e.is_user_annotation]
-    k10 = [e for e in ev if any(k in e.key for k in K10)]
-    return (sum(e.self_device_time_total for e in ev) / 1e3,
-            sum(e.self_device_time_total for e in k10) / 1e3, sum(e.count for e in k10))
+    out[f'busy_{key}'] = sum(e.self_device_time_total for e in ev) / 1e3
+    for name, symbols in KERNELS.items():
+        mine = [e for e in ev if any(k in e.key for k in symbols)]
+        out[f'{name}_{key}'] = sum(e.self_device_time_total for e in mine) / 1e3
+        out[f'{name}_{key}_launches'] = sum(e.count for e in mine)
 
 combo = ['LIFT.TOPK', '8', 'LIFT.WARP_FREE', 'True']
 out = {}
@@ -109,8 +120,8 @@ for kind, opts in (('dense', []), ('combo', combo)):
     out[f'k10_host_ms_{kind}'] = statistics.median(h[1] for h in host)
     out[f'k10_host_share_{kind}'] = statistics.median(h[1] / h[0] for h in host)
     out[f'k10_plan_misses_{kind}'] = sum(h[2] for h in host)
-    (out[f'busy_request_ms_{kind}'], out[f'k10_request_ms_{kind}'],
-     out[f'k10_request_launches_{kind}']) = profiled(lambda: predict(model, reqs[1]))
+    profiled(lambda: predict(model, reqs[1]), out, f'request_ms_{kind}')
+    profiled(lambda: predict_instances(model, reqs[1]), out, f'instances_ms_{kind}')
     del model
     topts = ['DATASET.NAME', 'synthetic'] + opts + (
         ['DATASET.PREWARP_LABELS', 'True'] if kind == 'combo' else [])
@@ -128,8 +139,7 @@ for kind, opts in (('dense', []), ('combo', combo)):
     ms = [timed(lambda x=x: trainer.train_step(x, gen)) for x in batches]
     out[f'step_ms_{kind}'] = statistics.median(ms[1:])
     out[f'step_ms_{kind}_all'] = ms[1:]
-    (out[f'busy_step_ms_{kind}'], out[f'k10_step_ms_{kind}'],
-     out[f'k10_step_launches_{kind}']) = profiled(lambda: trainer.train_step(batches[1], gen))
+    profiled(lambda: trainer.train_step(batches[1], gen), out, f'step_ms_{kind}')
     del trainer
     torch.cuda.empty_cache()
 print('TURNS ' + json.dumps(out), flush=True)

@@ -105,6 +105,39 @@ def test_lap_kernel_equals_plain(cuda, n_rows):
     assert torch.equal(got, want)
 
 
+def lap_problems(name):
+    """(costs (B, n, n) f32, n_rows) of one K9 problem set beyond the tracker's:
+    integer costs (ties in most steps), rows of non-finite costs, and the sizes
+    that take the kernel's other paths (one and two columns a lane, a staged
+    matrix above 48 KB, a matrix read from global memory, n = 1024)."""
+    rng = np.random.RandomState(len(name))
+    if name == 'integers':
+        return rng.randint(0, 5, (3, 101, 101)).astype(np.float32), [1, 8, 101]
+    if name == 'non-finite rows':
+        cost = np.stack([tracker_cost(rng, 101, 40, 60) for _ in range(2)])
+        cost[0, 3] = np.inf
+        cost[1, 7] = np.nan
+        cost[1, [9, 12]] = np.inf
+        cost[1, [9, 12], 5] = 1.0
+        return cost, [101, 101]
+    n = {'n=17': 17, 'n=40': 40, 'n=200': 200, 'n=238': 238, 'n=1024': 1024}[name]
+    return rng.rand(1, n, n).astype(np.float32), [n]
+
+
+@pytest.mark.parametrize('name', ['integers', 'non-finite rows', 'n=17', 'n=40', 'n=200',
+                                  'n=238', 'n=1024'])
+def test_lap_kernel_equals_plain_on_every_problem_set(cuda, name):
+    """K9's col4row equals the plain version's (on the CPU) exactly."""
+    cost, n_rows = lap_problems(name)
+    cost = torch.from_numpy(cost)
+    rows = torch.tensor(n_rows, dtype=torch.int32)
+    want = L.linear_sum_assignment_plain(cost, rows)
+    got = L.linear_sum_assignment(cost.to(cuda), rows.to(cuda)).cpu()
+    assert torch.equal(got, want)
+    if name == 'non-finite rows':
+        assert got[0, 3] == got[1, 7] == got[1, 12] == -1
+
+
 def test_device_tracking_never_waits_on_the_host(cuda):
     out = serve_shaped_outputs(13, cuda)
     torch.cuda.set_sync_debug_mode('error')

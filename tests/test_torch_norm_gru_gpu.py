@@ -259,6 +259,48 @@ def test_spatial_gru_kernels_match_plain(cuda, B, Cx, dtype):
         assert _rel_l2(a, c) <= tol, i
 
 
+def gru_sweep(cuda, C, offset=0):
+    """All 65,536 bf16 bit patterns as r_pre and as u_pre (C channels a pixel; with
+    ``offset``, each operand a channel slice at that offset of C + 2 offset
+    channel rows, so that the kernels take narrower accesses), h in reverse order,
+    h_tilde rolled by one, x_t seeded. For each forward output and each backward
+    output: the values whose bits differ from the plain version's."""
+    side = int((65536 // C) ** 0.5)          # one map of side x side pixels
+
+    def operand(values):
+        rows = torch.zeros((1, side, side, C + 2 * offset), dtype=torch.bfloat16,
+                           device=cuda)
+        rows[..., offset:offset + C] = values.view(1, side, side, C)
+        return rows.movedim(-1, 1)[:, offset:offset + C]
+
+    every = torch.arange(-32768, 32768, dtype=torch.int32, device=cuda).to(
+        torch.int16).view(torch.bfloat16)
+    z, h, ht = operand(every), operand(every.flip(0)), operand(every.roll(1))
+    gen = torch.Generator(device=cuda).manual_seed(C)
+    x_t = operand(torch.randn(65536, generator=gen, device=cuda).to(torch.bfloat16))
+    g = operand(torch.randn(65536, generator=gen, device=cuda).to(torch.bfloat16))
+    slot = operand(torch.zeros_like(every))
+    got = {'cat': GRU.reset_concat(x_t, z, h), 'h_new': GRU.state_update(z, h, ht, slot)}
+    want = {'cat': GRU.reset_concat_plain(x_t, z, h), 'h_new': GRU.state_update_plain(z, h, ht)}
+    for name, a, c in zip(('dr_pre', 'dh_reset', 'du_pre', 'dh_update', 'dh_tilde'),
+                          GRU.reset_concat_backward(g, z, h) + GRU.state_update_backward(
+                              g, z, h, ht),
+                          GRU.reset_concat_backward_plain(g, z, h)
+                          + GRU.state_update_backward_plain(g, z, h, ht)):
+        got[name], want[name] = a, c
+    return {k: int(_differing(got[k], want[k]).sum()) for k in got}
+
+
+@pytest.mark.parametrize('C,offset', [(64, 0), (64, 2), (64, 1), (1, 0)],
+                         ids=['16-byte', '4-byte', '2-byte', 'C1'])
+def test_spatial_gru_every_bf16_value(cuda, C, offset):
+    """gru_sweep: both forward launches equal to the plain version in every bit for
+    every bf16 input, at each access width; the backward (f32 in the plain
+    version's order, rounded once) too."""
+    assert gru_sweep(cuda, C, offset) == dict.fromkeys(
+        ('cat', 'h_new', 'dr_pre', 'dh_reset', 'du_pre', 'dh_update', 'dh_tilde'), 0)
+
+
 def test_tiny_model_runs_every_bn_and_gru_step_on_the_kernels(cuda):
     """The tiny config's request and training step on the card: one K10 launch per
     BatchNorm call and per BatchNorm backward, two K11 launches per GRU step each
