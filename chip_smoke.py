@@ -10,6 +10,11 @@ Builds the package's CUDA kernels from csrc/, then:
      are from the device tracker's; times the request with and without decoding;
   2. holds K1 and K2 against their plain PyTorch versions at the baseline serve
      shapes, in f32 and in bf16, and times kernel, plain version and library call;
+     K1's forward also at the training shape (9 samples), equal to the plain
+     version on the host bit for bit and in two runs, its order stage equal to
+     its plain version, every launch of a call timed by stage, beside two probes
+     (csrc/bev_pool_probes.cu): the atomic design it replaced, with vector
+     reductions, and the L2 gather of its feature rows (its floor);
   3. runs a tiny config on the card and on the CPU with the same seeded weights
      and request, and compares every output;
   4. holds the decode and tracking kernels (K6-K9) against their plain versions
@@ -30,7 +35,8 @@ Builds the package's CUDA kernels from csrc/, then:
      host clock with a synchronize between stages) and the top device kernels of a
      profiled step;
   7. holds the training kernels (K1 and K2 backward, K3 top-k select, K4 nearest
-     warp) against their plain versions at the training shapes, and times them;
+     warp) against their plain versions at the training shapes, and times them
+     (K1 backward beside the L2 gather of its gradient rows; two runs bit for bit);
   8. runs a tiny training step on the card and on the CPU from the same weights,
      batch and noise, and compares the losses and gradients;
   9. the levers: serves three full-width requests and trains three full-width
@@ -89,8 +95,9 @@ from fiery_tpu_torch.ops.spatial_gru import (gru_output, reset_concat, reset_con
                                              spatial_gru, spatial_gru_backward, state_update,
                                              state_update_backward,
                                              state_update_backward_plain, state_update_plain)
-from fiery_tpu_torch.ops.lift_splat import (bev_pool, bev_pool_backward,
-                                            bev_pool_backward_plain, bev_pool_plain,
+from fiery_tpu_torch.ops.lift_splat import (BEV_POOL_KERNELS, bev_pool, bev_pool_backward,
+                                            bev_pool_backward_plain, bev_pool_order,
+                                            bev_pool_order_plain, bev_pool_plain,
                                             create_frustum, get_geometry, topk_select,
                                             topk_select_backward,
                                             topk_select_backward_plain, topk_select_plain,
@@ -139,11 +146,11 @@ COMBO_OPTS = ('LIFT.TOPK', '8', 'LIFT.WARP_FREE', 'True')
 COMBO_TRAIN_OPTS = COMBO_OPTS + ('DATASET.PREWARP_LABELS', 'True')
 # launches per training step, by configuration
 TRAIN_PER_STEP = {
-    'dense': {'bev_pool': 1, 'bev_pool_backward': 1, 'bev_warp': 1, 'bev_warp_backward': 1,
-              'kth_largest': 1, 'bev_warp_nearest': 1, 'topk_select': 0,
+    'dense': {'bev_pool': BEV_POOL_KERNELS, 'bev_pool_backward': 1, 'bev_warp': 1,
+              'bev_warp_backward': 1, 'kth_largest': 1, 'bev_warp_nearest': 1, 'topk_select': 0,
               'topk_select_backward': 0},
-    'combo': {'bev_pool': 1, 'bev_pool_backward': 1, 'bev_warp': 0, 'bev_warp_backward': 0,
-              'kth_largest': 1, 'bev_warp_nearest': 0, 'topk_select': 1,
+    'combo': {'bev_pool': BEV_POOL_KERNELS, 'bev_pool_backward': 1, 'bev_warp': 0,
+              'bev_warp_backward': 0, 'kth_largest': 1, 'bev_warp_nearest': 0, 'topk_select': 1,
               'topk_select_backward': 1}}
 
 
@@ -284,9 +291,10 @@ def kernel_ms(fn, symbols, reps=REPS, warmup=3, attempts=3):
                    ('all',), reps, warmup, attempts)['all']
 
 
-def pass_ms(fn, classify, names, reps=REPS, warmup=3, attempts=3):
+def pass_ms(fn, classify, names, reps=REPS, warmup=3, attempts=3, optional=()):
     """kernel_ms by group, from one trace: {name: mean device ms per call} over
-    the kernels that ``classify(kernel name)`` puts in each of ``names``."""
+    the kernels that ``classify(kernel name)`` puts in each of ``names``; a group
+    in ``optional`` may be empty."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -301,7 +309,7 @@ def pass_ms(fn, classify, names, reps=REPS, warmup=3, attempts=3):
             group = classify(e.key) if e.device_type == torch.autograd.DeviceType.CUDA else None
             if group in out:
                 out[group] += e.self_device_time_total / 1e3 / reps
-        if all(v > 0 for v in out.values()):
+        if all(v > 0 for k, v in out.items() if k not in optional):
             return out
         log(f'  the profiler saw no device time for some of {names}; measuring again')
     raise AssertionError(f'the profiler saw no device time for {names} in {attempts} traces')
@@ -351,42 +359,153 @@ def bev_pool_inputs(device):
     return depth, feat, ids, num_bins, int(dim[2])
 
 
+K1_STAGES = ('memset', 'count', 'scan', 'fill', 'pool')
+
+
+def k1_stage(key):
+    """The stage of a K1 forward call that a device activity belongs to (the memset
+    of its counters, or one of its four kernels), or None."""
+    if key.startswith('Memset'):
+        return 'memset'
+    for stage in K1_STAGES[1:]:
+        if f'::splat_{stage}_kernel' in key:
+            return stage
+    return None
+
+
+def k1_ms(fn):
+    """(device ms of every launch of the K1 forward calls fn makes, the same by
+    stage); a trace may hold no memset."""
+    by_stage = pass_ms(fn, k1_stage, K1_STAGES, optional=('memset',))
+    return sum(by_stage.values()), by_stage
+
+
+def probe_fn(name, argtypes, restype=ctypes.c_int):
+    fn = getattr(_build.load('bev_pool_probes'), name)
+    fn.argtypes, fn.restype = argtypes, restype
+    return fn
+
+
+def gather_floor_ms(idx, src, row_bytes):
+    """Device ms of the L2 gather probe (csrc/bev_pool_probes.cu) over the rows idx
+    (int32, in the order a kernel gathers them) of src, row_bytes each: the least
+    time that gather takes at the card's L2 rate."""
+    size = probe_fn('fiery_gather_probe_sink', [ctypes.c_longlong, ctypes.c_int],
+                    ctypes.c_longlong)
+    sink = torch.empty(size(idx.numel(), row_bytes), dtype=torch.int32, device=src.device)
+    fn = probe_fn('fiery_gather_probe', [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
+                                         ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p])
+
+    def run():
+        rc = fn(idx.data_ptr(), idx.numel(), src.data_ptr(), row_bytes, sink.data_ptr(),
+                torch.cuda.current_stream().cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f'gather probe launch failed: CUDA error {rc}')
+
+    return kernel_ms(run, ['gather_probe_kernel'])
+
+
+def red_probe(depth, feat, ids, num_bins, z):
+    """The atomic design K1's forward replaced, with red.global.add.v4.f32
+    (csrc/bev_pool_probes.cu): (its output as a call would give it, the probe
+    kernel's device ms, a call's ms: the zeroed f32 grid, the probe, the cast)."""
+    S, N, h, w, D = depth.shape
+    C = feat.shape[-1]
+    fn = probe_fn('fiery_splat_red_probe', [ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 2
+                  + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+
+    def call():
+        out = torch.zeros((S, num_bins // z, C), dtype=torch.float32, device=depth.device)
+        rc = fn(depth.data_ptr(), feat.data_ptr(), ids.data_ptr(), out.data_ptr(),
+                S * N * h * w, N * h * w, D, C, num_bins, z,
+                int(depth.dtype == torch.bfloat16), torch.cuda.current_stream().cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f'red probe launch failed: CUDA error {rc}')
+        return out.to(depth.dtype)
+
+    return call(), kernel_ms(call, ['red_probe_kernel']), time_ms(call)
+
+
 def phase_bev_pool(device):
-    depth32, feat32, ids, num_bins, z = bev_pool_inputs(device)
-    S, C = depth32.shape[0], feat32.shape[-1]
-    valid = int((ids < num_bins).sum())
-    log(f'bev_pool: {ids.numel()} rows, {valid} in the grid, {num_bins} bins')
+    """K1's forward at the serve shapes (3 samples) and at the training shapes (9:
+    three clips of the serve rig), f32 and bf16: equal to the plain version on the
+    host bit for bit, and to itself in a second call; within tolerance of the plain
+    version on the card; its order stage equal to its plain version. Times every
+    launch of a call by stage, the call, the plain version, the library call (outer
+    product + index_add_), the L2 gather floor of its feature rows and the atomic
+    design's probe; prints the host µs of one call."""
+    depth_serve, feat_serve, ids_serve, num_bins, z = bev_pool_inputs(device)
+    host = host_us_per_call()
+    log('  host µs of one wrapper call (small shapes): ' + json.dumps(host))
     rec = {}
-    for dtype in (torch.float32, torch.bfloat16):
-        depth, feat = depth32.to(dtype), feat32.to(dtype)
-        got = bev_pool(depth, feat, ids, num_bins, z)
-        want = bev_pool_plain(depth, feat, ids, num_bins, z)
-        torch.cuda.synchronize()
-        err = check_close('bev_pool', got, want, dtype)
+    for shape_name, reps in (('serve', 1), ('train', 3)):
+        ids = ids_serve.repeat(reps, 1, 1, 1, 1).contiguous()
+        S, N, h, w, D = ids.shape
+        C = feat_serve.shape[-1]
+        if reps == 1:
+            depth32, feat32 = depth_serve, feat_serve
+        else:
+            gen = torch.Generator(device=device).manual_seed(3)
+            depth32 = torch.softmax(torch.randn(ids.shape, generator=gen, device=device), -1)
+            feat32 = torch.randn((S, N, h, w, C), generator=gen, device=device)
+        valid = int((ids < num_bins).sum())
+        log(f'bev_pool {shape_name}: {ids.numel()} rows, {valid} in the grid, {num_bins} bins')
+        order, offsets = bev_pool_order(ids, num_bins, z)
+        want_order, want_offsets = bev_pool_order_plain(ids.cpu(), num_bins, z)
+        if not (torch.equal(order.cpu(), want_order) and torch.equal(offsets.cpu(), want_offsets)):
+            raise AssertionError(f'bev_pool_order {shape_name}: differs from its plain version')
+        sizes = offsets[1:] - offsets[:-1]
+        log(f'  bev_pool_order {shape_name}: equal to plain; {int((sizes > 0).sum())} keys with '
+            f'rows, largest bucket {int(sizes.max())}, {int((sizes > 32).sum())} over 32 rows, '
+            f'{int((sizes > 512).sum())} over 512')
+        feat_rows = (order.long() // D).to(torch.int32)    # the pool's gather, in order
+        for dtype in (torch.float32, torch.bfloat16):
+            depth, feat = depth32.to(dtype), feat32.to(dtype)
+            got = bev_pool(depth, feat, ids, num_bins, z)
+            again = bev_pool(depth, feat, ids, num_bins, z)
+            want = bev_pool_plain(depth, feat, ids, num_bins, z)
+            torch.cuda.synchronize()
+            err = check_close(f'bev_pool {shape_name}', got, want, dtype)
+            on_host = bev_pool_plain(depth.cpu(), feat.cpu(), ids.cpu(), num_bins, z)
+            n_host, n_runs = bits_differ(got.cpu(), on_host), bits_differ(got, again)
+            log(f'  bev_pool {shape_name} {str(dtype)[6:]}: values whose bits differ from the '
+                f'plain version on the host {n_host}, from a second call {n_runs}')
+            if n_host or n_runs:
+                raise AssertionError(f'bev_pool {shape_name} {dtype}: {n_host} values differ '
+                                     f'from the host plain version, {n_runs} between two calls')
+            del want, on_host, again
+            flat_ids = (ids.view(S, -1).long()
+                        + torch.arange(S, device=device)[:, None] * (num_bins + 1)).view(-1)
 
-        flat_ids = (ids.view(S, -1).long()
-                    + torch.arange(S, device=device)[:, None] * (num_bins + 1)).view(-1)
+            def library(depth=depth, feat=feat, flat_ids=flat_ids):
+                vol = depth[..., :, None] * feat[..., None, :]
+                out = torch.zeros((S * (num_bins + 1), C), dtype=dtype, device=device)
+                out.index_add_(0, flat_ids, vol.view(-1, C))
+                return out
 
-        def library():
-            vol = depth[..., :, None] * feat[..., None, :]
-            out = torch.zeros((S * (num_bins + 1), C), dtype=dtype, device=device)
-            out.index_add_(0, flat_ids, vol.view(-1, C))
-            return out
-
-        es = depth.element_size()
-        nbytes = depth.numel() * es + feat.numel() * es + ids.numel() * 4 + S * (
-            num_bins // z) * C * es
-        flops = 2.0 * valid * C
-        bound_ms, bound_by = bound(nbytes, flops)
-        rec[dtype] = dict(
-            max_abs_err=err,
-            ms=kernel_ms(lambda: bev_pool(depth, feat, ids, num_bins, z), ['bev_pool_kernel']),
-            call_ms=time_ms(lambda: bev_pool(depth, feat, ids, num_bins, z)),
-            plain_ms=time_ms(lambda: bev_pool_plain(depth, feat, ids, num_bins, z)),
-            library_ms=time_ms(library), bound_ms=bound_ms, bound_by=bound_by,
-            bytes=nbytes, flops=flops)
-        log(f'  bev_pool {str(dtype)[6:]}: ' + json.dumps(
-            {k: v for k, v in rec[dtype].items() if k != 'max_abs_err'}))
+            es = depth.element_size()
+            nbytes = depth.numel() * es + feat.numel() * es + ids.numel() * 4 + S * (
+                num_bins // z) * C * es
+            flops = 2.0 * valid * C
+            bound_ms, bound_by = bound(nbytes, flops)
+            ms, by_stage = k1_ms(lambda: bev_pool(depth, feat, ids, num_bins, z))
+            probe_out, probe_ms, probe_call_ms = red_probe(depth, feat, ids, num_bins, z)
+            check_close(f'red probe {shape_name}', probe_out, got, dtype)
+            del probe_out
+            rec[(shape_name, dtype)] = dict(
+                max_abs_err=err, ms=ms, pass_ms=by_stage,
+                call_ms=time_ms(lambda: bev_pool(depth, feat, ids, num_bins, z)),
+                plain_ms=time_ms(lambda: bev_pool_plain(depth, feat, ids, num_bins, z),
+                                 reps=5, warmup=1),
+                library_ms=time_ms(library, reps=5, warmup=1), bound_ms=bound_ms,
+                bound_by=bound_by, bytes=nbytes, flops=flops,
+                l2_floor_ms=gather_floor_ms(feat_rows, feat, C * es),
+                red_probe_ms=probe_ms, red_probe_call_ms=probe_call_ms,
+                host_us=host['bev_pool (K1)'])
+            log(f'  bev_pool {shape_name} {str(dtype)[6:]}: ' + json.dumps(
+                {k: v for k, v in rec[(shape_name, dtype)].items() if k != 'max_abs_err'}))
+        del order, offsets, feat_rows
+    log(f'  bev_pool timings: {smi_line()}')
     return rec
 
 
@@ -540,12 +659,13 @@ def phase_serve(n_requests=3, opts=(), name='serve'):
                 or int(ids.max()) > T * 100):
             raise AssertionError(f'instance ids {ids.dtype} {tuple(ids.shape)} '
                                  f'in [{int(ids.min())}, {int(ids.max())}]')
-    # per request: one splat (after one top-k select under LIFT.TOPK), one warp
+    # per request: one splat of BEV_POOL_KERNELS launches (after one top-k select
+    # under LIFT.TOPK), one warp
     # (none warp-free), one decode (K7 launches twice), per tracking step two
     # centroid launches (previous, current) and one assignment, one BatchNorm
     # launch per (eval) BatchNorm call (counted by hooks in the warm-up request) and
     # two GRU launches per step of each GRU block
-    per_request = {'bev_pool': 1, 'bev_warp': 0 if mc.warp_free else 1,
+    per_request = {'bev_pool': BEV_POOL_KERNELS, 'bev_warp': 0 if mc.warp_free else 1,
                    'topk_select': 1 if mc.depth_topk else 0, 'instance_centers': 1,
                    'group_pixels': 2, 'segment_centroids': 2 * (T - 1), 'lap': T - 1,
                    'batch_norm': bn_launches, 'spatial_gru': 2 * mc.n_gru_blocks * mc.n_future,
@@ -1226,11 +1346,21 @@ def phase_topk_kernels(device, k=8):
                 plain_ms=time_ms(lambda: topk_select_plain(depth, ids, k)),
                 library_ms=time_ms(library), bytes=nbytes, flops=float(n_pix * D * D))
             if shape_name == 'serve':
-                # K1 on the selected bins, as the sparse splat runs it (D = k)
+                # K1 on the selected bins, as the sparse splat runs it (D = k): equal
+                # to the plain version on the host bit for bit, and timed
                 top_w, ids_k = got[0].contiguous(), got[1].contiguous()
                 feat = feat_serve.to(dtype)
-                rec[('topk_select', shape_name, dtype)]['k1_at_k_ms'] = kernel_ms(
-                    lambda: bev_pool(top_w, feat, ids_k, num_bins, z), ['bev_pool_kernel'])
+                splat = bev_pool(top_w, feat, ids_k, num_bins, z)
+                n_diff = bits_differ(splat.cpu(), bev_pool_plain(
+                    top_w.cpu(), feat.cpu(), ids_k.cpu(), num_bins, z))
+                log(f'  bev_pool at D = {k} {str(dtype)[6:]}: values whose bits differ from '
+                    f'the plain version on the host {n_diff}')
+                if n_diff:
+                    raise AssertionError(f'bev_pool at D = {k} {dtype}: {n_diff} values differ '
+                                         f'from the plain version on the host')
+                k1, k1_stages = k1_ms(lambda: bev_pool(top_w, feat, ids_k, num_bins, z))
+                rec[('topk_select', shape_name, dtype)].update(k1_at_k_ms=k1,
+                                                               k1_at_k_pass_ms=k1_stages)
                 continue
             idx = got[2]
             g = planted_topk_depth(n_pix, k, dtype, device, seed=8).view(idx.shape)
@@ -1280,14 +1410,22 @@ def phase_train_kernels(device):
     n_valid = int(valid.sum())
     rows = torch.where(valid, ids.long() // z + (torch.arange(S, device=device) * (
         num_bins // z)).view(S, 1, 1, 1, 1), S * (num_bins // z)).view(-1)
+    # the gradient rows in the order the kernel gathers them (pixel by pixel)
+    grad_rows = rows[rows < S * (num_bins // z)].to(torch.int32)
     for dtype in (torch.float32, torch.bfloat16):
         depth, feat, g = depth32.to(dtype), feat32.to(dtype), grad32.to(dtype)
         got = bev_pool_backward(depth, feat, ids, g, num_bins, z)
+        again = bev_pool_backward(depth, feat, ids, g, num_bins, z)
         want = bev_pool_backward_plain(depth, feat, ids, g, num_bins, z)
         torch.cuda.synchronize()
         err = max(check_close('bev_pool_backward d_depth', got[0], want[0], dtype),
                   check_close('bev_pool_backward d_feat', got[1], want[1], dtype))
-        del got, want
+        n_runs = bits_differ(got[0], again[0]) + bits_differ(got[1], again[1])
+        log(f'  bev_pool_backward {str(dtype)[6:]}: values whose bits differ between two '
+            f'calls {n_runs}')
+        if n_runs:
+            raise AssertionError(f'bev_pool_backward {dtype}: two calls differ in {n_runs} values')
+        del got, want, again
 
         def library(depth=depth, feat=feat, g=g):
             r = torch.cat([g.view(-1, C), g.new_zeros((1, C))]).index_select(0, rows)
@@ -1300,7 +1438,8 @@ def phase_train_kernels(device):
         rec[('bev_pool_backward', dtype)] = dict(
             max_abs_err=err,
             ms=kernel_ms(lambda: bev_pool_backward(depth, feat, ids, g, num_bins, z),
-                         ['pool_backward_kernel']),
+                         ['::splat_backward_kernel']),
+            l2_floor_ms=gather_floor_ms(grad_rows, g, C * g.element_size()),
             call_ms=time_ms(lambda: bev_pool_backward(depth, feat, ids, g, num_bins, z)),
             plain_ms=time_ms(lambda: bev_pool_backward_plain(depth, feat, ids, g, num_bins,
                                                              z), reps=5, warmup=1),
@@ -1865,7 +2004,8 @@ def main():
     log(f'tiny combination card vs cpu: ok ({time.perf_counter() - t0:.1f} s)')
 
     # bf16 is the dtype of the served and trained paths
-    records = {'bev_pool': pool[torch.bfloat16], 'bev_warp': warp[torch.bfloat16], **decode,
+    records = {'bev_pool': pool[('serve', torch.bfloat16)], 'bev_warp': warp[torch.bfloat16],
+               **decode,
                'bev_pool_backward': train_kernels[('bev_pool_backward', torch.bfloat16)],
                'bev_warp_backward': train_kernels[('bev_warp_backward', torch.bfloat16)],
                'kth_largest': train_kernels['kth_largest'],
@@ -1917,12 +2057,21 @@ def main():
                     'spatial_gru_backward'):
             entry['combo_launches'] = combo_launches[name]
             entry['combo_train_launches'] = combo_train_launches[name]
+        if name == 'bev_pool':
+            # the training shape's call (9 samples), and the D = k call of the
+            # combination (K5's output)
+            train_k1 = pool[('train', torch.bfloat16)]
+            entry.update({f'train_{k}': train_k1[k] for k in (
+                'ms', 'pass_ms', 'call_ms', 'plain_ms', 'library_ms', 'bound_ms', 'l2_floor_ms',
+                'red_probe_ms', 'red_probe_call_ms')})
+            entry['at_k_ms'] = topk[('topk_select', 'serve', torch.bfloat16)]['k1_at_k_ms']
         if name == 'batch_norm':
             entry.update({f'eval_{k}': norm_gru['batch_norm eval'][k]
                           for k in ('ms', 'call_ms', 'plain_ms', 'library_ms', 'bound_ms')})
         entry.update({k: r[k] for k in ('scipy_ms', 'steps', 'warp_min_ns', 'latency_bound_ms',
                                         'latency_share', 'launch_us', 'row_us', 'step_us',
-                                        'dh_sum_ms', 'host_us') if k in r})
+                                        'dh_sum_ms', 'host_us', 'pass_ms', 'l2_floor_ms',
+                                        'red_probe_ms', 'red_probe_call_ms') if k in r})
         kernels.append(entry)
     for label, r in (('', train), (' of the combination', combo_train)):
         log(f'train step{label} (batch 3, full width): median_step_ms={r["step_ms"]:.3f} '

@@ -3,9 +3,11 @@
 Counterpart of fiery_tpu/ops/lift_splat.py. Every frustum point keeps a fixed
 slot: out-of-bounds points are routed to a dump bin (id X*Y*Z) that is dropped.
 The main path (``lift_splat_depth``) never materialises the (P, C) lifted volume:
-the ``bev_pool`` kernel (csrc/bev_pool.cu) multiplies depth and features on the
-fly while it splats, and its backward kernel gathers the output gradient rows and
-contracts them with features and depth without building it either. ``lift_splat``
+the ``bev_pool`` kernels (csrc/bev_pool.cu) bucket the rows by voxel and let each
+output cell sum its rows' depth x feature products in ascending row order, as the
+plain version's ``index_add_`` does on the host (bit for bit at Z = 1); its
+backward kernel gathers the output gradient rows and contracts them with features
+and depth without building the volume either. ``lift_splat``
 keeps the JAX signature over a lifted volume and is the plain reference form.
 The sparse splat (``lift_splat_topk``, LIFT.TOPK) picks each pixel's k largest
 depth bins with the ``topk_select`` kernel (csrc/topk_select.cu) and splats them
@@ -116,6 +118,66 @@ def bev_pool_backward_plain(depth, feat, ids, g, num_bins, z_bins=1):
     return d_depth.to(depth.dtype), d_feat.to(depth.dtype)
 
 
+def bev_pool_order_plain(ids, num_bins, z_bins=1):
+    """Plain version of ``bev_pool_order``: a stable sort of the in-grid rows by key.
+
+    ids (S, ..., D) int32 voxel ids in [0, num_bins] (num_bins is the dump bin). Row
+    r is the flat index into ids; its key is s * num_bins + id, the voxel id itself
+    and not id // z_bins, so that the rows of each voxel keep ascending row order
+    (z_bins is checked only). Returns (order, offsets): order (n,) int32, the n
+    in-grid rows by ascending key and, within a key, ascending row; offsets
+    (S * num_bins + 1,) int32, key k's rows being order[offsets[k]:offsets[k + 1]]."""
+    if num_bins % z_bins:
+        raise ValueError(f'bev_pool_order: num_bins {num_bins} is not a multiple of {z_bins}')
+    S = ids.shape[0]
+    flat = ids.reshape(S, -1).long()
+    valid = (flat >= 0) & (flat < num_bins)
+    keys = (flat + torch.arange(S, device=ids.device)[:, None] * num_bins)[valid]
+    rows = torch.arange(flat.numel(), device=ids.device).view(S, -1)[valid]
+    order = rows[torch.sort(keys, stable=True).indices]
+    counts = torch.bincount(keys, minlength=S * num_bins)
+    offsets = torch.cat([counts.new_zeros(1), torch.cumsum(counts, 0)])
+    return order.to(torch.int32), offsets.to(torch.int32)
+
+
+# the kernels of one bev_pool call (count, scan, fill, pool), each launched once;
+# bev_pool_order launches as many (count, scan, fill, order)
+BEV_POOL_KERNELS = 4
+_SCAN_TILE = 2048      # keys a scan block (csrc/bev_pool.cu kScanTile)
+_FNS = {}
+_LAYOUTS = {}
+
+
+def _fn(lib, name, argtypes, restype=ctypes.c_int):
+    """The ctypes function ``name`` of kernel library ``lib``, its argument types set
+    once."""
+    fn = _FNS.get(name)
+    if fn is None:
+        fn = getattr(_build.load(lib), name)
+        fn.argtypes, fn.restype = argtypes, restype
+        _FNS[name] = fn
+    return fn
+
+
+_P, _LL, _I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+
+
+def _layout(S, pix_per_sample, D, num_bins, z_bins=1):
+    """Starts of the splat workspace's parts (counts, local offsets, tile bases, list,
+    order, cells) and its size, in int32 words: ``fiery_bev_pool_layout``, once a
+    shape."""
+    key = (S, pix_per_sample, D, num_bins, z_bins)
+    out = _LAYOUTS.get(key)
+    if out is None:
+        arr = (ctypes.c_longlong * 7)()
+        fn = _fn('bev_pool', 'fiery_bev_pool_layout', [_LL, _LL, _I, _I, _I, _P])
+        if fn(S, pix_per_sample, D, num_bins, z_bins, arr) != 0:
+            raise ValueError(f'bev_pool: {S} x {pix_per_sample} x {D} rows or {S} x '
+                             f'{num_bins} voxels do not fit in int32')
+        out = _LAYOUTS[key] = tuple(arr)
+    return out
+
+
 def _check_pool_inputs(name, depth, feat, ids, num_bins, z_bins):
     S, N, h, w, D = depth.shape
     C = feat.shape[-1]
@@ -139,6 +201,24 @@ def _check_pool_inputs(name, depth, feat, ids, num_bins, z_bins):
         raise ValueError(f'{name}: inputs must be on one device')
 
 
+def _bev_pool_forward(depth, feat, ids, num_bins, z_bins):
+    if depth.device.type == 'cpu':
+        return bev_pool_plain(depth, feat, ids, num_bins, z_bins)
+    S, N, h, w, D = depth.shape
+    C = feat.shape[-1]
+    ws = torch.empty(_layout(S, N * h * w, D, num_bins, z_bins)[6], dtype=torch.int32,
+                     device=depth.device)
+    out = torch.empty((S, num_bins // z_bins, C), dtype=depth.dtype, device=depth.device)
+    fn = _fn('bev_pool', 'fiery_bev_pool', [_P] * 5 + [_LL] * 2 + [_I] * 7 + [_P])
+    rc = fn(depth.data_ptr(), feat.data_ptr(), ids.data_ptr(), out.data_ptr(), ws.data_ptr(),
+            S, N * h * w, h, w, D, C, num_bins, z_bins, int(depth.dtype == torch.bfloat16),
+            torch.cuda.current_stream(depth.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f'bev_pool kernel launch failed: CUDA error {rc}')
+    bev_pool.launches += BEV_POOL_KERNELS
+    return out
+
+
 class _BevPool(torch.autograd.Function):
     """The fused splat with its backward kernel; the ids get no gradient."""
 
@@ -146,24 +226,7 @@ class _BevPool(torch.autograd.Function):
     def forward(ctx, depth, feat, ids, num_bins, z_bins):
         ctx.save_for_backward(depth, feat, ids)
         ctx.num_bins, ctx.z_bins = num_bins, z_bins
-        if depth.device.type == 'cpu':
-            return bev_pool_plain(depth, feat, ids, num_bins, z_bins)
-        S, N, h, w, D = depth.shape
-        C = feat.shape[-1]
-        fn = _build.load('bev_pool').fiery_bev_pool
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 2 + [ctypes.c_int] * 5 \
-            + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        out = torch.zeros((S, num_bins // z_bins, C), dtype=torch.float32,
-                          device=depth.device)
-        stream = torch.cuda.current_stream(depth.device).cuda_stream
-        rc = fn(depth.data_ptr(), feat.data_ptr(), ids.data_ptr(), out.data_ptr(),
-                S * N * h * w, N * h * w, D, C, num_bins, z_bins,
-                int(depth.dtype == torch.bfloat16), stream)
-        if rc != 0:
-            raise RuntimeError(f'bev_pool kernel launch failed: CUDA error {rc}')
-        bev_pool.launches += 1
-        return out if depth.dtype == torch.float32 else out.to(depth.dtype)
+        return _bev_pool_forward(depth, feat, ids, num_bins, z_bins)
 
     @staticmethod
     def backward(ctx, g):
@@ -180,22 +243,61 @@ def bev_pool(depth, feat, ids, num_bins, z_bins=1):
     depth (S, N, h, w, D) softmax weights; feat (S, N, h, w, C); ids (S, N, h, w, D)
     int32 flat voxel ids in [0, num_bins] (num_bins is the dump bin). Returns
     out (S, num_bins // z_bins, C) with out[s, id // z_bins] += depth * feat,
-    accumulated in f32 and cast to depth's dtype; its backward is
+    accumulated in f32 in ascending row order within each voxel, the z_bins voxels
+    of a cell added in order, and cast to depth's dtype; its backward is
     ``bev_pool_backward``. A CPU tensor takes the plain versions; a CUDA tensor
-    launches the kernels.
+    launches the kernels (``BEV_POOL_KERNELS`` of them, counted in
+    ``bev_pool.launches``), with no host sync.
     """
     _check_pool_inputs('bev_pool', depth, feat, ids, num_bins, z_bins)
-    return _BevPool.apply(depth, feat, ids, num_bins, z_bins)
+    if torch.is_grad_enabled() and (depth.requires_grad or feat.requires_grad):
+        return _BevPool.apply(depth, feat, ids, num_bins, z_bins)
+    return _bev_pool_forward(depth, feat, ids, num_bins, z_bins)   # no graph to record
 
 
 bev_pool.launches = 0
 
 
+def bev_pool_order(ids, num_bins, z_bins=1):
+    """The order stage of ``bev_pool`` on its own, for tests and measurements:
+    returns (order, offsets) as ``bev_pool_order_plain`` does. On the card it runs
+    the splat's count, scan and fill kernels and then one that writes every bucket
+    in the order the pool kernel sums it (with the pool's sorts), four launches
+    counted in ``bev_pool_order.launches``, and reads the number of in-grid rows
+    back to the host (a sync, which ``bev_pool`` never makes). A CPU tensor takes
+    the plain version."""
+    if ids.device.type == 'cpu':
+        return bev_pool_order_plain(ids, num_bins, z_bins)
+    if (ids.device.type != 'cuda' or ids.dtype != torch.int32 or not ids.is_contiguous()
+            or ids.dim() != 5):
+        raise ValueError(f'bev_pool_order: ids must be (S, N, h, w, D) contiguous int32 on a '
+                         f'CUDA device, got {ids.dtype} {tuple(ids.shape)} on {ids.device}')
+    if num_bins % z_bins:
+        raise ValueError(f'bev_pool_order: num_bins {num_bins} is not a multiple of {z_bins}')
+    S, N, h, w, D = ids.shape
+    lay = _layout(S, N * h * w, D, num_bins)
+    ws = torch.empty(lay[6], dtype=torch.int32, device=ids.device)
+    fn = _fn('bev_pool', 'fiery_bev_pool_order', [_P, _P, _LL, _LL] + [_I] * 4 + [_P])
+    rc = fn(ids.data_ptr(), ws.data_ptr(), S, N * h * w, h, w, D, num_bins,
+            torch.cuda.current_stream(ids.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f'bev_pool_order kernel launch failed: CUDA error {rc}')
+    bev_pool_order.launches += BEV_POOL_KERNELS
+    keys = S * num_bins
+    k = torch.arange(keys + 1, device=ids.device)
+    offsets = ws[lay[2]:lay[3]][k // _SCAN_TILE] + ws[lay[1]:lay[1] + keys + 1]
+    return ws[lay[4]:lay[4] + int(offsets[-1])].clone(), offsets
+
+
+bev_pool_order.launches = 0
+
+
 def bev_pool_backward(depth, feat, ids, g, num_bins, z_bins=1):
     """Gradients of ``bev_pool`` (kernel K1 backward, csrc/bev_pool.cu): g
     (S, num_bins // z_bins, C) in depth's dtype -> (d_depth, d_feat), shaped and
-    typed as depth and feat, summed in f32. For each frustum row p and bin d with
-    id = ids[p, d] not the dump bin, r = g[s, id // z_bins]:
+    typed as depth and feat, summed in f32 in a fixed order (the kernel fuses each
+    product into its sum). For each frustum row p and bin d with id = ids[p, d] not
+    the dump bin, r = g[s, id // z_bins]:
         d_feat[p, c] = sum_d depth[p, d] r[c],   d_depth[p, d] = sum_c feat[p, c] r[c].
     A CPU tensor takes the plain version; a CUDA tensor launches the kernel."""
     _check_pool_inputs('bev_pool_backward', depth, feat, ids, num_bins, z_bins)
@@ -211,16 +313,13 @@ def bev_pool_backward(depth, feat, ids, g, num_bins, z_bins=1):
                          f'{depth.device}, got {g.dtype} on {g.device}')
     if C > 256:
         raise ValueError(f'bev_pool_backward: C = {C} > 256 channels')
-    fn = _build.load('bev_pool').fiery_bev_pool_backward
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_longlong] * 2 + [ctypes.c_int] * 5 \
-        + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    fn = _fn('bev_pool', 'fiery_bev_pool_backward', [_P] * 6 + [_LL] * 2 + [_I] * 5 + [_P])
     d_depth = torch.empty_like(depth)
     d_feat = torch.empty_like(feat)
-    stream = torch.cuda.current_stream(depth.device).cuda_stream
     rc = fn(depth.data_ptr(), feat.data_ptr(), ids.data_ptr(), g.data_ptr(),
             d_depth.data_ptr(), d_feat.data_ptr(), S * N * h * w, N * h * w, D, C,
-            num_bins, z_bins, int(depth.dtype == torch.bfloat16), stream)
+            num_bins, z_bins, int(depth.dtype == torch.bfloat16),
+            torch.cuda.current_stream(depth.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f'bev_pool_backward kernel launch failed: CUDA error {rc}')
     bev_pool_backward.launches += 1

@@ -14,10 +14,12 @@ lines:
     share of the wall time, the kernels that take the most device time, and the
     BatchNorm (K10), GRU gate (K11) and assignment (K9) kernels' launches and
     device time;
-  * the host time of one call (µs, host clock over 3000 back-to-back calls at a
-    small shape, so the card never holds the host back) of the eval BatchNorm
-    with its ReLU (K10), of ``F.batch_norm`` + ``F.relu`` on the same tensors,
-    and of the GRU's two gate calls (K11) when serving.
+  * the host time of one call (µs, host clock over 3000 calls at a small shape,
+    in batches of 100 with a synchronize between batches outside the clock, so
+    the card never holds the host back) of the eval BatchNorm with its ReLU
+    (K10), of ``F.batch_norm`` + ``F.relu`` on the same tensors, of the GRU's two
+    gate calls (K11) when serving, and of the splat (K1: one memset and four
+    kernels a call).
 Needs a CUDA card.
 """
 
@@ -35,6 +37,7 @@ from fiery_tpu_torch.models import fiery as fiery_module
 from fiery_tpu_torch.models.layers import BatchNorm
 from fiery_tpu_torch.ops.batch_norm import batch_norm_forward
 from fiery_tpu_torch.ops.lap import linear_sum_assignment
+from fiery_tpu_torch.ops.lift_splat import bev_pool
 from fiery_tpu_torch.ops.spatial_gru import (gru_output, gru_reset_concat, gru_state_update,
                                              spatial_gru)
 from fiery_tpu_torch.serve import (BASELINE, build_fiery, calibrate_batchnorm, init_params,
@@ -162,11 +165,18 @@ def main():
     print(json.dumps({'device': torch.cuda.get_device_name(0)}), flush=True)
 
 
-def host_us_per_call(n=3000):
+def host_us_per_call(n=3000, batch=100):
     """Host µs of one call of each wrapper the request makes most often, against
-    the PyTorch calls it replaced, at a small bf16 shape (64 channels, 8 x 8)."""
+    the PyTorch calls it replaced, at a small bf16 shape (64 channels, 8 x 8; the
+    splat 4 x 4 pixels of 8 bins into 64 voxels): n calls in batches, the card
+    synchronized between batches outside the clock."""
     x = torch.randn(1, 64, 8, 8, device='cuda', dtype=torch.bfloat16).contiguous(
         memory_format=torch.channels_last)
+    gen = torch.Generator(device='cuda').manual_seed(0)
+    depth = torch.rand((1, 1, 4, 4, 8), generator=gen, device='cuda').to(torch.bfloat16)
+    feat = torch.randn((1, 1, 4, 4, 64), generator=gen, device='cuda').to(torch.bfloat16)
+    ids = torch.randint(0, 65, (1, 1, 4, 4, 8), generator=gen, device='cuda',
+                        dtype=torch.int32)
     bn = init_params(BatchNorm(64, post='relu'), seed=0).cuda().eval()
     h = x.permute(0, 2, 3, 1).contiguous().permute(0, 3, 1, 2)
     slot = gru_output(h, 1)
@@ -175,18 +185,22 @@ def host_us_per_call(n=3000):
                  x, bn.running_mean, bn.running_var, bn.weight, bn.bias, False, 0.1,
                  bn.eps)),
              'gru_reset_concat (K11)': lambda: gru_reset_concat(h, h, h),
-             'gru_state_update (K11)': lambda: gru_state_update(h, h, h, slot, 0)}
+             'gru_state_update (K11)': lambda: gru_state_update(h, h, h, slot, 0),
+             'bev_pool (K1)': lambda: bev_pool(depth, feat, ids, 64)}
     out = {}
     with torch.inference_mode():
         for name, fn in calls.items():
             for _ in range(50):
                 fn()
+            spent = 0.0
+            for _ in range(n // batch):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(batch):
+                    fn()
+                spent += time.perf_counter() - t0
             torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            for _ in range(n):
-                fn()
-            out[name] = 1e6 * (time.perf_counter() - t0) / n
-            torch.cuda.synchronize()
+            out[name] = 1e6 * spent / (n // batch * batch)
     return out
 
 

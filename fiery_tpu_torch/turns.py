@@ -18,9 +18,12 @@ training, the labels warped on the host outside the step):
   * after the timed runs, one request, one request with instances
     (``predict_instances``) and one step under torch.profiler: the device busy
     ms, and the device ms and launches of the BatchNorm kernel (K10), the GRU's
-    gate kernels (K11) and the assignment kernel (K9), by their kernels' names in
-    either tree (keys ``<k10|k11|k9>_<request|instances|step>_ms_<kind>`` and
-    ``..._launches``).
+    gate kernels (K11), the assignment kernel (K9) and the splat forward (K1, its
+    kernels; not the memset of its counters) and backward (K1b), by their
+    kernels' names in either tree (keys
+    ``<k10|k11|k9|k1|k1b>_<request|instances|step>_ms_<kind>`` and ``..._launches``);
+  * the host µs of one splat call (``bev_pool``, 4 x 4 pixels of 8 bins into 64
+    voxels, bf16; batches of 100 calls, synchronized outside the clock).
 Each process prints one JSON line of its medians; the last line gathers them per
 checkout. Only entry points that both trees have are used. Needs a CUDA card.
 A step's stage times are ``chip_smoke.py``'s (``stage_times``).
@@ -38,6 +41,7 @@ import argparse, json, statistics, sys, time
 import torch
 from fiery_tpu_torch.ops import _build
 from fiery_tpu_torch.ops import batch_norm as BN
+from fiery_tpu_torch.ops import lift_splat as LS
 from fiery_tpu_torch.data.label_warp import make_prewarp_transform
 from fiery_tpu_torch.data.synthetic import SyntheticFutureDataset
 from fiery_tpu_torch.serve import (BASELINE, build_fiery, calibrate_batchnorm, init_params,
@@ -49,12 +53,16 @@ requests, steps = int(sys.argv[1]), int(sys.argv[2])
 _build.build_all()
 # the kernels' names, of either tree, in their anonymous namespace (which keeps out
 # Adam's multi_tensor_apply_kernel): K10 (three launches a pass, or two), K11 (the
-# GRU gates, forward and backward), K9 (the assignment)
+# GRU gates, forward and backward), K9 (the assignment), K1 forward (one atomic
+# kernel, or four) and K1 backward
 KERNELS = {'k10': ('::stats_kernel', '::stats_finalize_kernel', '::apply_kernel',
                    '::backward_reduce_kernel', '::backward_finalize_kernel',
                    '::backward_apply_kernel'),
            'k11': ('::reset_concat', '::state_update'),
-           'k9': ('::lap_kernel',)}
+           'k9': ('::lap_kernel',),
+           'k1': ('::bev_pool_kernel', '::splat_count_kernel', '::splat_scan_kernel',
+                  '::splat_fill_kernel', '::splat_pool_kernel'),
+           'k1b': ('::pool_backward_kernel', '::splat_backward_kernel')}
 
 
 def profiled(fn, out, key):
@@ -76,6 +84,30 @@ def profiled(fn, out, key):
 
 combo = ['LIFT.TOPK', '8', 'LIFT.WARP_FREE', 'True']
 out = {}
+
+
+def k1_host_us(n=3000, batch=100):
+    """Host µs of one bev_pool call at a small bf16 shape."""
+    gen = torch.Generator(device='cuda').manual_seed(0)
+    depth = torch.rand((1, 1, 4, 4, 8), generator=gen, device='cuda').to(torch.bfloat16)
+    feat = torch.randn((1, 1, 4, 4, 64), generator=gen, device='cuda').to(torch.bfloat16)
+    ids = torch.randint(0, 65, (1, 1, 4, 4, 8), generator=gen, device='cuda',
+                        dtype=torch.int32)
+    spent = 0.0
+    with torch.inference_mode():
+        for _ in range(50):
+            LS.bev_pool(depth, feat, ids, 64)
+        for _ in range(n // batch):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(batch):
+                LS.bev_pool(depth, feat, ids, 64)
+            spent += time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return 1e6 * spent / (n // batch * batch)
+
+
+out['k1_host_us'] = k1_host_us()
 
 
 def timed(fn):

@@ -72,9 +72,9 @@ def test_topk_select_backward_kernel_equals_plain(cuda, dtype):
 
 
 def test_lift_splat_topk_autograd_launches_k5_and_k1(cuda):
-    """One forward and one backward of the sparse splat: K5 and K1 forward once each,
-    their backward kernels once each; the gradients equal the CPU's plain path within
-    the f32 atomics' reordering."""
+    """One forward and one backward of the sparse splat: K5 once, K1's forward kernels
+    once each, their backward kernels once each; the splat equals the CPU's plain
+    path bit for bit and the gradients within f32 reordering."""
     rng = np.random.RandomState(2)
     B, N, h, w, C = 2, 3, 8, 12, 16
     depth = torch.softmax(torch.from_numpy(rng.randn(B, N, h, w, D).astype(np.float32)), -1)
@@ -91,8 +91,12 @@ def test_lift_splat_topk_autograd_launches_k5_and_k1(cuda):
         grads = torch.autograd.grad(out, (d, f), g.to(dev))
         after = (LS.topk_select.launches, LS.bev_pool.launches,
                  LS.bev_pool_backward.launches, LS.topk_select_backward.launches)
-        assert [b - a for a, b in zip(counts, after)] == ([0] * 4 if dev == 'cpu' else [1] * 4)
+        assert [b - a for a, b in zip(counts, after)] == (
+            [0] * 4 if dev == 'cpu' else [1, LS.BEV_POOL_KERNELS, 1, 1])
         results[str(dev)] = [out.detach().cpu(), *(x.cpu() for x in grads)]
+    # the splat equals the host's bits (K1 sums in index_add_'s order); the
+    # gradients are within f32 reordering
+    assert torch.equal(results['cuda'][0], results['cpu'][0])
     for a, b in zip(results['cuda'], results['cpu']):
         torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
 

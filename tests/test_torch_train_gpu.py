@@ -1,8 +1,11 @@
 """On the card: the training path's kernels against their plain versions at the
 full-width training shapes of baseline.yml (batch 3): the splat's backward (K1),
 the warp's backward (K2), the k-th largest value of the top-k loss (K3) and the
-nearest warp of the label stack (K4). Every test needs a CUDA device and skips
-without one.
+nearest warp of the label stack (K4); and the splat's forward (K1) against the
+plain version on the host, bit for bit, on adversarial buckets (one row a voxel,
+33, 1000, every row in one voxel, every row dumped) at D = 48 and D = 8, its
+order stage exactly, and two runs of both directions bit for bit. Every test
+needs a CUDA device and skips without one.
 
 The file imports nothing of JAX, so that it runs where JAX is not installed:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_train_gpu.py
@@ -114,3 +117,97 @@ def test_bev_warp_nearest_kernel_equals_plain(cuda):
     got = W.bev_warp_nearest(x, pose, (50.0, 50.0))
     assert W.bev_warp_nearest.launches == launches + 1
     assert torch.equal(got, W.bev_warp_nearest_plain(x, pose, (50.0, 50.0)))
+
+
+def _bucket_ids(case, shape, num_bins, rng):
+    """(S, N, h, w, D) voxel ids whose in-grid buckets all hold ``case`` rows (1, 33,
+    1000; the rows of a bucket drawn from all over the sample, so that they reach
+    the kernel out of order, and the rows left over dumped), or where every row of a
+    sample falls in one voxel ('all'), or every row is dumped ('dumped')."""
+    S, rows = shape[0], int(np.prod(shape[1:]))
+    ids = np.full((S, rows), num_bins, np.int64)
+    for s in range(S):
+        if case == 'all':
+            ids[s] = rng.randint(num_bins)
+        elif case != 'dumped':
+            n = rows // case
+            perm = rng.permutation(rows)[:n * case]
+            ids[s, perm] = np.repeat(rng.permutation(num_bins)[:n], case)
+    return torch.from_numpy(ids.reshape(shape).astype(np.int32))
+
+
+def _bits(x):
+    return x.view(torch.int16 if x.element_size() == 2 else torch.int32)
+
+
+BUCKETS = [1, 33, 1000, 'all', 'dumped']
+
+
+@pytest.mark.parametrize('case', BUCKETS)
+@pytest.mark.parametrize('D', [48, 8])
+def test_bev_pool_order_stage_equals_plain(cuda, case, D):
+    rng = np.random.RandomState(10)
+    ids = _bucket_ids(case, (2, 6, 8, 16, D), 200 * 200, rng)
+    launches = LS.bev_pool_order.launches
+    got = LS.bev_pool_order(ids.to(cuda), 200 * 200)
+    assert LS.bev_pool_order.launches == launches + LS.BEV_POOL_KERNELS
+    want = LS.bev_pool_order_plain(ids, 200 * 200)
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype == torch.int32 and torch.equal(a.cpu(), b)
+
+
+@pytest.mark.parametrize('case', BUCKETS)
+@pytest.mark.parametrize('D', [48, 8])
+@pytest.mark.parametrize('C', [64, 20])
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+def test_bev_pool_equals_the_host_plain_version_bit_for_bit(cuda, case, D, C, dtype):
+    """C = 64 takes 16-byte accesses, C = 20 one value an access."""
+    rng = np.random.RandomState(11)
+    S, N, h, w, num_bins = 2, 6, 8, 16, 200 * 200
+    ids = _bucket_ids(case, (S, N, h, w, D), num_bins, rng)
+    depth = torch.softmax(torch.from_numpy(rng.randn(S, N, h, w, D).astype(np.float32)),
+                          -1).to(dtype)
+    feat = torch.from_numpy(rng.randn(S, N, h, w, C).astype(np.float32)).to(dtype)
+    launches = LS.bev_pool.launches
+    got = LS.bev_pool(depth.to(cuda), feat.to(cuda), ids.to(cuda), num_bins).cpu()
+    assert LS.bev_pool.launches == launches + LS.BEV_POOL_KERNELS
+    want = LS.bev_pool_plain(depth, feat, ids, num_bins)
+    assert got.dtype == dtype and torch.equal(_bits(got), _bits(want))
+
+
+@pytest.mark.parametrize('case', [33, 1000, 'all'])
+@pytest.mark.parametrize('C', [64, 20])
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+def test_bev_pool_backward_on_buckets_within_gates(cuda, case, C, dtype):
+    rng = np.random.RandomState(12)
+    S, N, h, w, D, num_bins = 2, 6, 8, 16, 48, 200 * 200
+    ids = _bucket_ids(case, (S, N, h, w, D), num_bins, rng)
+    depth = torch.softmax(torch.from_numpy(rng.randn(S, N, h, w, D).astype(np.float32)), -1)
+    feat = torch.from_numpy(rng.randn(S, N, h, w, C).astype(np.float32))
+    g = torch.from_numpy(rng.randn(S, num_bins, C).astype(np.float32))
+    args = [t.to(cuda) for t in (depth.to(dtype), feat.to(dtype), ids, g.to(dtype))]
+    got = LS.bev_pool_backward(*args, num_bins)
+    want = LS.bev_pool_backward_plain(*args, num_bins)
+    for a, b in zip(got, want):
+        assert a.dtype == dtype and _within(a, b, dtype)
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+def test_bev_pool_two_runs_give_the_same_bits(cuda, dtype):
+    """Forward and backward at the serve shapes (3 x 6 x 28 x 60, D = 48, C = 64)."""
+    rng = np.random.RandomState(13)
+    S, N, h, w, D, C, num_bins = 3, 6, 28, 60, 48, 64, 200 * 200
+    ids = torch.from_numpy(rng.randint(0, num_bins + 1, (S, N, h, w, D)).astype(np.int32))
+    ids[:, :, :, :20] = torch.from_numpy(rng.randint(0, 300, (S, N, h, 20, D)).astype(
+        np.int32))                    # crowded voxels, as near the cameras
+    depth = torch.softmax(torch.from_numpy(rng.randn(S, N, h, w, D).astype(np.float32)), -1)
+    feat = torch.from_numpy(rng.randn(S, N, h, w, C).astype(np.float32))
+    g = torch.from_numpy(rng.randn(S, num_bins, C).astype(np.float32))
+    args = [t.to(cuda) for t in (depth.to(dtype), feat.to(dtype), ids)]
+    gc = g.to(cuda, dtype)
+    first = [LS.bev_pool(*args, num_bins), *LS.bev_pool_backward(*args, gc, num_bins)]
+    second = [LS.bev_pool(*args, num_bins), *LS.bev_pool_backward(*args, gc, num_bins)]
+    for a, b in zip(first, second):
+        assert torch.equal(_bits(a), _bits(b))
+    assert torch.equal(_bits(first[0].cpu()), _bits(LS.bev_pool_plain(*(
+        t.cpu() for t in args), num_bins)))
