@@ -9,7 +9,9 @@ Builds the package's CUDA kernels from csrc/, then:
      tracker never waits on the host, and how far the host (scipy) tracker's ids
      are from the device tracker's; times the request with and without decoding;
   2. holds K1 and K2 against their plain PyTorch versions at the baseline serve
-     shapes, in f32 and in bf16, and times kernel, plain version and library call;
+     shapes, in f32 and in bf16 (K2 also equal to the plain version on the host,
+     given the card's theta, in every value), and times kernel, plain version and
+     library call;
      K1's forward also at the training shape (9 samples), equal to the plain
      version on the host bit for bit and in two runs, its order stage equal to
      its plain version, every launch of a call timed by stage, beside two probes
@@ -18,11 +20,14 @@ Builds the package's CUDA kernels from csrc/, then:
   3. runs a tiny config on the card and on the CPU with the same seeded weights
      and request, and compares every output;
   4. holds the decode and tracking kernels (K6-K9) against their plain versions
-     at the served shapes and on planted inputs (K6, K7 and K9 exactly, K8
-     within one f32 ulp), K9 also on tie-heavy, non-finite and n = 17 to 1024
-     problems, and times them: K9 against its latency bound (a chain of
-     dependent warp minima) and split into a launch, rows and Dijkstra steps;
-     K4's and K8's library calls compute the kernels' whole functions;
+     at the served shapes and on planted inputs (K6, K7 and K9 exactly; K8 over
+     the request's clip in one launch, its grid centres equal to the plain version
+     on the host and its flow centres within one f32 ulp, two calls with the same
+     bits), K9 also on tie-heavy, non-finite and n = 17 to 1024 problems, and
+     times them: K8 beside the launch floor (an empty kernel's device time), K9
+     against its latency bound (a chain of dependent warp minima) and split into a
+     launch, rows and Dijkstra steps; K4's and K8's library calls compute the
+     kernels' whole functions;
   5. decodes and tracks a planted full-width scene of 20 moving vehicles, which
      both trackers must follow exactly (vehicle PQ = 1);
   6. trains: three full-width baseline.yml training steps at batch 3 (PRECISION
@@ -36,7 +41,10 @@ Builds the package's CUDA kernels from csrc/, then:
      profiled step;
   7. holds the training kernels (K1 and K2 backward, K3 top-k select, K4 nearest
      warp) against their plain versions at the training shapes, and times them
-     (K1 backward beside the L2 gather of its gradient rows; two runs bit for bit);
+     (K1 backward beside the L2 gather of its gradient rows; two runs bit for bit;
+     K2 backward equal to the plain version on the host, given the card's theta,
+     bit for bit, also at wide poses on 400 x 200 and 320 x 193 grids, and to a
+     second call, and NaN for a map whose pose is not finite);
   8. runs a tiny training step on the card and on the CPU from the same weights,
      batch and noise, and compares the losses and gradients;
   9. the levers: serves three full-width requests and trains three full-width
@@ -105,12 +113,12 @@ from fiery_tpu_torch.ops.lift_splat import (BEV_POOL_KERNELS, bev_pool, bev_pool
 from fiery_tpu_torch.ops.warp import (_affine_grid, _warp_theta, bev_warp,
                                       bev_warp_backward, bev_warp_backward_plain,
                                       bev_warp_nearest, bev_warp_nearest_plain,
-                                      bev_warp_plain)
+                                      bev_warp_plain, card_theta)
 from fiery_tpu_torch.profile_serve import host_us_per_call
 from fiery_tpu_torch.postprocess.instance import (
     find_instance_centers, find_instance_centers_plain, instance_ids, instance_ids_plain,
     predict_instance_segmentation_and_trajectories, segment_centroids,
-    segment_centroids_plain)
+    segment_centroids_clip, segment_centroids_clip_plain, segment_centroids_plain)
 from fiery_tpu_torch.serve import (BASELINE, build_fiery, calibrate_batchnorm, init_params,
                                    make_request, predict, predict_instances)
 from fiery_tpu_torch.training.losses import (_top_k_sum_from_threshold, compute_losses,
@@ -524,6 +532,17 @@ def phase_bev_warp(device, spatial_extent=(50.0, 50.0)):
         want = bev_warp_plain(x, pose, spatial_extent)
         torch.cuda.synchronize()
         err = check_close('bev_warp', got, want, dtype)
+        # equal values to the plain version on the host given the kernel's theta (f32
+        # cos and sin on the card and on the host can differ in the last bit); the
+        # plain version's out-of-map outputs are x * 0, -0.0 where x is
+        # negative, the kernel's +0.0
+        on_host = bev_warp_plain(x.cpu(), pose.cpu(), spatial_extent,
+                                 theta=card_theta(pose, spatial_extent, dtype).cpu())
+        host = int((got.cpu() != on_host).sum())
+        log(f'  bev_warp {str(dtype)[6:]}: values that differ from the plain version on the '
+            f'host {host} ({bits_differ(got.cpu(), on_host)} differ in their bits: signed zeros)')
+        if host:
+            raise AssertionError(f'bev_warp {dtype}: {host} values differ from the host')
 
         def library():
             theta = torch.stack([torch.cos(pose[:, 5]), -torch.sin(pose[:, 5]),
@@ -660,14 +679,13 @@ def phase_serve(n_requests=3, opts=(), name='serve'):
             raise AssertionError(f'instance ids {ids.dtype} {tuple(ids.shape)} '
                                  f'in [{int(ids.min())}, {int(ids.max())}]')
     # per request: one splat of BEV_POOL_KERNELS launches (after one top-k select
-    # under LIFT.TOPK), one warp
-    # (none warp-free), one decode (K7 launches twice), per tracking step two
-    # centroid launches (previous, current) and one assignment, one BatchNorm
-    # launch per (eval) BatchNorm call (counted by hooks in the warm-up request) and
-    # two GRU launches per step of each GRU block
+    # under LIFT.TOPK), one warp (none warp-free), one decode (K7 launches twice),
+    # one centroid launch for the whole clip and one assignment per tracking step,
+    # one BatchNorm launch per (eval) BatchNorm call (counted by hooks in the warm-up
+    # request) and two GRU launches per step of each GRU block
     per_request = {'bev_pool': BEV_POOL_KERNELS, 'bev_warp': 0 if mc.warp_free else 1,
                    'topk_select': 1 if mc.depth_topk else 0, 'instance_centers': 1,
-                   'group_pixels': 2, 'segment_centroids': 2 * (T - 1), 'lap': T - 1,
+                   'group_pixels': 2, 'segment_centroids': 1 if T > 1 else 0, 'lap': T - 1,
                    'batch_norm': bn_launches, 'spatial_gru': 2 * mc.n_gru_blocks * mc.n_future,
                    'batch_norm_backward': 0, 'spatial_gru_backward': 0}
     for k, n in per_request.items():
@@ -852,60 +870,78 @@ def phase_decode_kernels(device, outputs):
         plain_ms=time_ms(lambda: instance_ids_plain(centers, valid, offset, seg)),
         library_ms=time_ms(argmin_library), bytes=nbytes, flops=pair_ops)
 
-    # K8: one tracking step's two calls, on the served ids and flow
-    prev = decoded[:1].contiguous()
-    flow = out['instance_flow'][:, 0].contiguous()
-    cur = decoded[1:2].contiguous()
-    calls = [(prev, T * 100 + 1, flow), (cur, 101, None)]
-    err, parts = 0.0, []
-    for labels, slots, f in calls:
+    # K8: the tracker's one launch for the clip (101 slots: every frame's ids), on
+    # the served ids and flow, against the plain version on the host: grid centres
+    # and valid equal, flow centres within one f32 ulp; two calls with the same bits
+    flow_all = out['instance_flow'].reshape(T, H, W, 2).contiguous()
+    K = 101
+    got = segment_centroids_clip(decoded, K, flow_all)
+    again = segment_centroids_clip(decoded, K, flow_all)
+    want = segment_centroids_clip_plain(decoded.cpu(), K, flow_all.cpu())
+    torch.cuda.synchronize()
+    grid_bits = bits_differ(got[0].cpu(), want[0])
+    diff = (got[1].cpu() - want[1]).abs()
+    twice = sum(bits_differ(a, b) for a, b in zip(got[:2], again[:2])) + int(
+        (got[2] != again[2]).sum())
+    if grid_bits or not torch.equal(got[2].cpu(), want[2]) or bool(
+            (diff > ulp32(want[1])).any()) or twice:
+        raise AssertionError(f'segment_centroids_clip: grid bits differ in {grid_bits}, flow '
+                             f'max err {float(diff.max())}, two calls differ in {twice}')
+    err = float(diff.max())
+    # the single-kind entry at 501 slots with flow and at 101 without (the two calls of
+    # a tracking step before the clip entry), within one f32 ulp
+    for labels, slots, f in ((decoded[:1].contiguous(), T * 100 + 1, flow_all[:1]),
+                             (decoded[1:2].contiguous(), 101, None)):
         ck, vk = segment_centroids(labels, slots, f)
-        cp, vp = segment_centroids_plain(labels, slots, f)
-        torch.cuda.synchronize()
-        diff = (ck - cp).abs()
-        if not torch.equal(vk, vp) or bool((diff > ulp32(cp)).any()):
+        cp, vp = segment_centroids_plain(labels.cpu(), slots, None if f is None else f.cpu())
+        dk = (ck.cpu() - cp).abs()
+        if not torch.equal(vk.cpu(), vp) or bool((dk > ulp32(cp)).any()):
             raise AssertionError(f'segment_centroids ({slots} slots): kernel differs from '
-                                 f'plain by more than one f32 ulp (max {float(diff.max())})')
-        err = max(err, float(diff.max()))
+                                 f'plain by more than one f32 ulp (max {float(dk.max())})')
+        err = max(err, float(dk.max()))
 
-        def library(labels=labels, slots=slots, f=f):
-            """The same function in PyTorch calls: the ids outside [0, slots) to a
-            spare slot, the pixel grid (plus the flow) as f64 values, their counts
-            and coordinate sums by index_add_, the means."""
-            _, h, w = labels.shape
-            ids = labels.reshape(-1).long()
-            ids = torch.where((ids >= 0) & (ids < slots), ids, slots)
-            gx = torch.arange(h, dtype=torch.float32, device=device)[:, None].expand(h, w)
-            gy = torch.arange(w, dtype=torch.float32, device=device)[None, :].expand(h, w)
-            if f is not None:
-                gx, gy = gx + f[0, ..., 0], gy + f[0, ..., 1]
-            counts = torch.zeros(slots + 1, dtype=torch.float64, device=device).index_add_(
-                0, ids, torch.ones(ids.numel(), dtype=torch.float64, device=device))
-            sums = torch.zeros((slots + 1, 2), dtype=torch.float64, device=device)
-            sums.index_add_(0, ids, torch.stack([gx, gy], -1).reshape(-1, 2).double())
-            mean = (sums[:slots] / counts[:slots, None].clamp_min(1.0)).float()
-            return mean, counts[:slots] > 0
+    def centroid_library():
+        """The same function in PyTorch calls: ids outside [0, K) to a spare slot per
+        frame, the counts and the grid and advected coordinate sums by index_add_ in
+        f64, the means."""
+        ids = decoded.reshape(T, -1).long()
+        ids = torch.where((ids >= 0) & (ids < K), ids, K)
+        ids = (ids + torch.arange(T, device=device)[:, None] * (K + 1)).reshape(-1)
+        gx = torch.arange(H, dtype=torch.float32, device=device)[:, None].expand(T, H, W)
+        gy = torch.arange(W, dtype=torch.float32, device=device)[None, :].expand(T, H, W)
+        counts = torch.zeros(T * (K + 1), dtype=torch.float64, device=device).index_add_(
+            0, ids, torch.ones(ids.numel(), dtype=torch.float64, device=device))
+        sums = torch.zeros((T * (K + 1), 4), dtype=torch.float64, device=device).index_add_(
+            0, ids, torch.stack([gx, gy, gx + flow_all[..., 0], gy + flow_all[..., 1]],
+                                -1).reshape(-1, 4).double())
+        mean = (sums / counts[:, None].clamp_min(1.0)).float().view(T, K + 1, 4)[:, :K]
+        return mean[..., :2], mean[..., 2:], counts.view(T, K + 1)[:, :K] > 0
 
-        cl, vl = library()
-        if not torch.equal(vl, vp[0]) or bool(((cl - cp[0]).abs() > ulp32(cp[0])).any()):
-            raise AssertionError(f'segment_centroids ({slots} slots): the library calls do '
-                                 f'not compute the kernel\'s function')
+    lib = centroid_library()
+    if (bits_differ(lib[0].cpu(), want[0]) or not torch.equal(lib[2].cpu(), want[2])
+            or bool(((lib[1].cpu() - want[1]).abs() > ulp32(want[1])).any())):
+        raise AssertionError('segment_centroids_clip: the library calls do not compute the '
+                             'kernel\'s function')
+    fn = _build.load('segment_centroids').fiery_empty_launch
+    fn.argtypes, fn.restype = [ctypes.c_void_p], ctypes.c_int
 
-        nb = labels.numel() * 4 + (0 if f is None else f.numel() * 4) + slots * 9
-        parts.append(dict(
-            ms=kernel_ms(lambda: segment_centroids(labels, slots, f), ['centroid_kernel']),
-            call_ms=time_ms(lambda: segment_centroids(labels, slots, f)),
-            plain_ms=time_ms(lambda: segment_centroids_plain(labels, slots, f)),
-            library_ms=time_ms(library),
-            bound=bound(nb, labels.numel() * (3.0 + (2.0 if f is not None else 0.0)),
-                        F64_FLOPS_PER_S)))
-    log(f'  segment_centroids: within one f32 ulp of plain (max abs err {err:.3e}); '
-        f'previous frame (501 slots, flow) {parts[0]}, current (101 slots) {parts[1]}')
-    # the tracker launches it as often for each kind: report the mean of the two
+    def empty():
+        if fn(torch.cuda.current_stream().cuda_stream) != 0:
+            raise RuntimeError('empty kernel launch failed')
+
+    nbytes = decoded.numel() * 4 + flow_all.numel() * 4 + T * K * (8 + 8 + 1)
     rec['segment_centroids'] = dict(
-        max_abs_err=err, **{k: (parts[0][k] + parts[1][k]) / 2
-                            for k in ('ms', 'call_ms', 'plain_ms', 'library_ms')},
-        bound_pair=(parts[0]['bound'], parts[1]['bound']))
+        max_abs_err=err, ms=kernel_ms(lambda: segment_centroids_clip(decoded, K, flow_all),
+                                      ['::centroid_clip_kernel']),
+        call_ms=time_ms(lambda: segment_centroids_clip(decoded, K, flow_all)),
+        plain_ms=time_ms(lambda: segment_centroids_clip_plain(decoded, K, flow_all)),
+        library_ms=time_ms(centroid_library), bytes=nbytes, flops=5.0 * decoded.numel(),
+        launch_floor_ms=kernel_ms(empty, ['::empty_kernel']),
+        ms_501_slots=kernel_ms(lambda: segment_centroids(decoded[:1].contiguous(), T * 100 + 1,
+                                                         flow_all[:1]),
+                               ['::centroid_clip_kernel']))
+    log(f'  segment_centroids_clip: grid centres and valid equal to plain on the host, flow '
+        f'centres within one f32 ulp (max abs err {err:.3e}); two calls the same bits')
 
     # K9
     n_rows = [1, 8, 101]
@@ -952,11 +988,8 @@ def phase_decode_kernels(device, outputs):
         latency_bound_ms=steps * min_ns * 1e-6, **breakdown)
     rec['lap']['latency_share'] = rec['lap']['latency_bound_ms'] / rec['lap']['ms']
     for name, r in rec.items():
-        if 'bound_pair' in r:
-            (b0, by0), (b1, by1) = r.pop('bound_pair')
-            r['bound_ms'], r['bound_by'] = (b0 + b1) / 2, by0 if b0 >= b1 else by1
-        else:
-            r['bound_ms'], r['bound_by'] = bound(r['bytes'], r['flops'])
+        r['bound_ms'], r['bound_by'] = bound(r['bytes'], r['flops'], F64_FLOPS_PER_S if
+                                             name == 'segment_centroids' else F32_FLOPS_PER_S)
         log(f'  {name}: ' + json.dumps({k: v for k, v in r.items() if k != 'max_abs_err'}))
     return rec
 
@@ -1392,10 +1425,13 @@ def phase_topk_kernels(device, k=8):
 
 def phase_train_kernels(device):
     """K1 and K2 backward, K3 and K4 against their plain versions at the full-width
-    training shapes (batch 3): K1/K2 backward in f32 (1e-5 + 1e-5 |x|) and bf16 (one
-    bf16 ulp), K3's k-th value equal and its top-k mean within 1e-6 relative, K4
-    equal. Times kernel, call, plain version and library call; bounds from the
-    shapes of this run."""
+    training shapes (batch 3): K1 backward in f32 (1e-5 + 1e-5 |x|) and bf16 (one
+    bf16 ulp), two calls bit for bit; K2 backward equal to the plain version on the
+    host (given the card's theta) bit for bit, f32 and bf16, also at wide poses on
+    200 x 200, 400 x 200 and 320 x 193 grids, and to a second call, NaN in every
+    value of a map with a NaN or infinite pose; K3's k-th value equal and its top-k mean
+    within 1e-6 relative, K4 equal. Times kernel, call, plain version and library
+    call; bounds from the shapes of this run."""
     rec = {}
     # K1 backward: 3 clips x 3 frames = 9 splat samples, each clip with the serve rig
     _, _, ids, num_bins, z = bev_pool_inputs(device)
@@ -1446,7 +1482,10 @@ def phase_train_kernels(device):
             library_ms=time_ms(library, reps=5, warmup=1), bytes=nbytes,
             flops=4.0 * n_valid * C)
 
-    # K2 backward: the 6 past frames (3 clips x 2) of 200 x 200 x 64
+    # K2 backward: the 6 past frames (3 clips x 2) of 200 x 200 x 64, equal to the
+    # plain version on the host bit for bit and to a second call; then wide poses
+    # (angles over [-pi, pi], a map half out and one wholly out) on 200 x 200,
+    # 400 x 200 and 320 x 193 grids, bit for bit too
     B, H, W = 6, 200, 200
     extent = (50.0, 50.0)
     pose = torch.zeros((B, 6), device=device)
@@ -1454,12 +1493,40 @@ def phase_train_kernels(device):
     pose[:, 1] = torch.rand(B, generator=g_, device=device) * 2.0 - 1.0
     pose[:, 5] = torch.rand(B, generator=g_, device=device) * 0.2 - 0.1
     gw32 = torch.randn((B, H, W, C), generator=g_, device=device)
+    g_wide = torch.Generator(device=device).manual_seed(10)
+    wide = torch.zeros((B, 6), device=device)
+    wide[:, 5] = torch.linspace(-np.pi, np.pi, B, device=device)
+    wide[:, :2] = torch.rand((B, 2), generator=g_wide, device=device) * 4.0 - 2.0
+    wide[1, :2] = torch.tensor([27.0, -13.0], device=device)
+    wide[2, :2] = torch.tensor([-130.0, 0.0], device=device)
     for dtype in (torch.float32, torch.bfloat16):
         g = gw32.to(dtype)
-        got = bev_warp_backward(g, pose, extent)
-        want = bev_warp_backward_plain(g, pose, extent)
-        torch.cuda.synchronize()
-        err = check_close('bev_warp_backward', got, want, dtype)
+        cases = [('training shape', g, pose)] + [
+            (f'wide poses {h2} x {w2}', torch.randn((B, h2, w2, C), generator=g_wide,
+                                                    device=device).to(dtype), wide)
+            for h2, w2 in ((200, 200), (400, 200), (320, 193))]
+        for name, gc_, pc in cases:
+            got = bev_warp_backward(gc_, pc, extent)
+            again = bev_warp_backward(gc_, pc, extent)
+            want = bev_warp_backward_plain(gc_.cpu(), pc.cpu(), extent,
+                                           theta=card_theta(pc, extent, dtype).cpu())
+            host, twice = bits_differ(got.cpu(), want), bits_differ(got, again)
+            log(f'  bev_warp_backward {str(dtype)[6:]} {name}: values whose bits differ from '
+                f'the plain version on the host {host}, between two calls {twice}')
+            if host or twice:
+                raise AssertionError(f'bev_warp_backward {dtype} {name}: {host} values differ '
+                                     f'from the host, {twice} between two calls')
+            del got, again, want
+        # a NaN angle and an infinite translation: those maps NaN, the others as before
+        bad = pose.clone()
+        bad[1, 5], bad[2, 0] = float('nan'), float('inf')
+        got, ref = bev_warp_backward(g, bad, extent), bev_warp_backward(g, pose, extent)
+        keep = [0, 3, 4, 5]
+        if not bool(got[1:3].float().isnan().all()) or bits_differ(got[keep], ref[keep]):
+            raise AssertionError(f'bev_warp_backward {dtype}: a non-finite pose gave finite '
+                                 'values or changed the other maps')
+        log(f'  bev_warp_backward {str(dtype)[6:]}: NaN and infinite poses give NaN maps')
+        del got, ref
         grid = _affine_grid(_warp_theta(pose, extent, dtype), H, W).to(dtype)
         gc, xc = g.permute(0, 3, 1, 2), torch.zeros_like(g).permute(0, 3, 1, 2)
 
@@ -1468,8 +1535,8 @@ def phase_train_kernels(device):
                                                            [True, False])
 
         rec[('bev_warp_backward', dtype)] = dict(
-            max_abs_err=err,
-            ms=kernel_ms(lambda: bev_warp_backward(g, pose, extent), ['warp_scatter_kernel']),
+            max_abs_err=0.0,
+            ms=kernel_ms(lambda: bev_warp_backward(g, pose, extent), ['::warp_gather_kernel']),
             call_ms=time_ms(lambda: bev_warp_backward(g, pose, extent)),
             plain_ms=time_ms(lambda: bev_warp_backward_plain(g, pose, extent)),
             library_ms=time_ms(library), bytes=2 * g.numel() * g.element_size() + pose.numel() * 4,
@@ -2018,6 +2085,9 @@ def main():
                'spatial_gru_backward': norm_gru[('spatial_gru_backward', 3)]}
     for name, err in norm_gru_errs.items():
         records[name]['max_abs_err'] = err
+    host = host_us_per_call()
+    records['segment_centroids']['host_us'] = host['segment_centroids (K8)']
+    records['bev_warp_backward']['host_us'] = host['bev_warp_backward (K2)']
     kernels = []
     for name, source, replaces in [
             ('bev_pool', 'bev_pool.cu', 'fiery_tpu/ops/lift_splat.py:104'),
@@ -2071,7 +2141,8 @@ def main():
         entry.update({k: r[k] for k in ('scipy_ms', 'steps', 'warp_min_ns', 'latency_bound_ms',
                                         'latency_share', 'launch_us', 'row_us', 'step_us',
                                         'dh_sum_ms', 'host_us', 'pass_ms', 'l2_floor_ms',
-                                        'red_probe_ms', 'red_probe_call_ms') if k in r})
+                                        'red_probe_ms', 'red_probe_call_ms', 'launch_floor_ms',
+                                        'ms_501_slots') if k in r})
         kernels.append(entry)
     for label, r in (('', train), (' of the combination', combo_train)):
         log(f'train step{label} (batch 3, full width): median_step_ms={r["step_ms"]:.3f} '

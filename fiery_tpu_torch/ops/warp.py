@@ -3,15 +3,19 @@
 torch ``grid_sample`` parity: align_corners=False, zero padding, the reference's
 forward-axis sign flip and (tx, ty) swap. Three kernels of csrc/bev_warp.cu run the
 warps on the card: ``bev_warp`` (bilinear, the features), ``bev_warp_backward``
-(its gradient with respect to the features) and ``bev_warp_nearest`` (the label
-maps). Their plain versions below are the same arithmetic in the same order, with
-every division a multiplication by a reciprocal (as PyTorch's CUDA division by a
-scalar computes it), so that the two agree on CPU and card alike. theta and the
-sampling grid are rounded to the feature dtype (as the JAX package computes them
-in x.dtype); the 4-tap blend is f32, rounded once.
+(its gradient with respect to the features, a gather: each input pixel sums the
+output pixels whose taps land on it) and ``bev_warp_nearest`` (the label maps).
+Their plain versions below are the same arithmetic in the same order, with every
+division a multiplication by a reciprocal (as PyTorch's CUDA division by a scalar
+computes it), so that the two agree on CPU and card alike. theta and the sampling
+grid are rounded to the feature dtype (as the JAX package computes them in x.dtype);
+the 4-tap blend is f32, rounded once. The kernels' f32 cos and sin can differ from
+the host's in the last bit; ``card_theta`` gives theta as the kernels compute it,
+and the plain versions on the host, given that theta, compute what the kernels do.
 """
 
 import ctypes
+import functools
 
 import torch
 
@@ -43,11 +47,13 @@ def _affine_grid(theta, H, W):
     return torch.stack([gx, gy], dim=-1)
 
 
-def _sample_coords(pose, shape, dtype, spatial_extent):
+def _sample_coords(pose, shape, dtype, spatial_extent, theta=None):
     """(ix, iy), each (B, H, W) f32: where each output pixel samples the input, in
-    input pixels. theta and the grid are rounded to ``dtype``."""
+    input pixels. theta and the grid are rounded to ``dtype``; theta is computed from
+    the pose unless given."""
     _, H, W = shape[:3]
-    theta = _warp_theta(pose.float(), spatial_extent, dtype)
+    if theta is None:
+        theta = _warp_theta(pose.float(), spatial_extent, dtype)
     grid = _affine_grid(theta, H, W).to(dtype).float()
     ix = ((grid[..., 0] + 1.0) * W - 1.0) * 0.5
     iy = ((grid[..., 1] + 1.0) * H - 1.0) * 0.5
@@ -76,10 +82,13 @@ def _gather(image, flat):
     return image.reshape(B, -1, C)[bi, flat]
 
 
-def bev_warp_plain(x, pose, spatial_extent):
-    """Plain version of ``bev_warp``: four gathers blended in f32, rounded once."""
+def bev_warp_plain(x, pose, spatial_extent, theta=None):
+    """Plain version of ``bev_warp``: four gathers blended in f32, rounded once.
+    theta (B, 2, 3) in x's dtype replaces the one computed from the pose, as in
+    ``bev_warp_backward_plain``."""
     B, H, W, _ = x.shape
-    ix, iy = _sample_coords(pose, x.shape, x.dtype, spatial_extent)
+    ix, iy = _sample_coords(pose, x.shape, x.dtype, spatial_extent,
+                            None if theta is None else theta.to(x.device))
     xf = x.float()
     out = None
     for flat, w in _bilinear_taps(ix, iy, H, W):
@@ -88,12 +97,15 @@ def bev_warp_plain(x, pose, spatial_extent):
     return out.to(x.dtype)
 
 
-def bev_warp_backward_plain(g, pose, spatial_extent):
+def bev_warp_backward_plain(g, pose, spatial_extent, theta=None):
     """Plain version of ``bev_warp_backward``: the gradient of ``bev_warp`` with
     respect to x, each output value's g scattered into its four taps with f32
-    ``index_add_``, rounded once to g's dtype (the forward's x dtype)."""
+    ``index_add_``, rounded once to g's dtype (the forward's x dtype). theta (B, 2, 3)
+    in g's dtype replaces the one computed from the pose: ``card_theta``'s, to hold
+    the kernel to this version on the host."""
     B, H, W, C = g.shape
-    ix, iy = _sample_coords(pose, g.shape, g.dtype, spatial_extent)
+    ix, iy = _sample_coords(pose, g.shape, g.dtype, spatial_extent,
+                            None if theta is None else theta.to(g.device))
     gf = g.float()
     dx = torch.zeros((B * H * W, C), dtype=torch.float32, device=g.device)
     base = (torch.arange(B, device=g.device) * (H * W)).view(B, 1, 1)
@@ -137,19 +149,59 @@ def _scalars(x, spatial_extent):
             int(x.dtype == torch.bfloat16))
 
 
+_ARGTYPES = {
+    'fiery_bev_warp': [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_float] * 4
+    + [ctypes.c_int] * 2 + [ctypes.c_void_p],
+    'fiery_bev_warp_backward': [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4
+    + [ctypes.c_float] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p],
+    'fiery_bev_warp_theta': [ctypes.c_void_p] * 2 + [ctypes.c_int] + [ctypes.c_float] * 2
+    + [ctypes.c_int, ctypes.c_void_p],
+    'fiery_bev_warp_gather_entries': [ctypes.c_int] * 3,
+}
+
+
+@functools.lru_cache(maxsize=None)
+def _kernel(name):
+    """A ctypes entry of csrc/bev_warp.cu, its argument types set once."""
+    fn = getattr(_build.load('bev_warp'), name)
+    fn.argtypes = _ARGTYPES[name]
+    fn.restype = ctypes.c_int
+    return fn
+
+
 def _launch_warp(x, pose, spatial_extent, nearest):
     """fiery_bev_warp on the card (bilinear or nearest)."""
-    fn = _build.load('bev_warp').fiery_bev_warp
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_float] * 4 \
-        + [ctypes.c_int] * 2 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
     out = torch.empty_like(x)
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    rc = fn(x.data_ptr(), pose.data_ptr(), out.data_ptr(), *x.shape,
-            *_scalars(x, spatial_extent), int(nearest), stream)
+    rc = _kernel('fiery_bev_warp')(x.data_ptr(), pose.data_ptr(), out.data_ptr(), *x.shape,
+                                   *_scalars(x, spatial_extent), int(nearest), stream)
     if rc != 0:
         raise RuntimeError(f'bev_warp kernel launch failed: CUDA error {rc}')
     return out
+
+
+def card_theta(pose, spatial_extent, dtype):
+    """theta (B, 2, 3) in ``dtype`` as the kernels compute it from pose (B, 6), a
+    float32 CUDA tensor (csrc/bev_warp.cu ``make_theta``): what ``_warp_theta``
+    computes, with the card's f32 cos and sin. Given it, the plain versions on the
+    host compute what the kernels compute."""
+    if pose.device.type != 'cuda' or pose.dtype != torch.float32 or not pose.is_contiguous():
+        raise ValueError('card_theta: pose must be a contiguous float32 CUDA tensor')
+    theta = torch.empty((pose.shape[0], 2, 3), dtype=dtype, device=pose.device)
+    rc = _kernel('fiery_bev_warp_theta')(
+        pose.data_ptr(), theta.data_ptr(), pose.shape[0], 1.0 / spatial_extent[0],
+        1.0 / spatial_extent[1], int(dtype == torch.bfloat16),
+        torch.cuda.current_stream(pose.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f'bev_warp theta kernel launch failed: CUDA error {rc}')
+    return theta
+
+
+@functools.lru_cache(maxsize=None)
+def _gather_entries(H, W, dtype):
+    """Output pixels a K2 backward block stages for an H x W map; 0 beyond the
+    kernel's staging."""
+    return _kernel('fiery_bev_warp_gather_entries')(H, W, int(dtype == torch.bfloat16))
 
 
 class _BevWarp(torch.autograd.Function):
@@ -191,24 +243,28 @@ bev_warp.launches = 0
 def bev_warp_backward(g, pose, spatial_extent):
     """Gradient of ``bev_warp`` with respect to x (kernel K2 backward,
     csrc/bev_warp.cu): g (B, H, W, C) in the forward's dtype -> dx, same shape and
-    dtype, summed in f32. A CPU tensor takes the plain version; a CUDA tensor
-    launches the kernel."""
+    dtype, summed in f32 in the plain version's order and rounded once; one launch
+    writes dx whole, NaN in every value of a map whose pose is not finite. A CPU tensor takes the plain version; a
+    CUDA tensor launches the kernel."""
     _check_shapes('bev_warp_backward', g, pose)
     if g.device.type == 'cpu':
         return bev_warp_backward_plain(g, pose, spatial_extent)
     _check_card('bev_warp_backward', g, pose)
-    fn = _build.load('bev_warp').fiery_bev_warp_backward
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_float] * 4 \
-        + [ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    dx = torch.zeros(g.shape, dtype=torch.float32, device=g.device)
+    B, H, W, C = g.shape
+    cap = _gather_entries(H, W, g.dtype)
+    if not cap:
+        raise ValueError(f'bev_warp_backward: a {H} x {W} map needs more staged output '
+                         'pixels a block than the kernel holds')
+    dx = torch.empty_like(g)
+    vec = C % 8 == 0 and g.data_ptr() % 16 == 0 and dx.data_ptr() % 16 == 0
     stream = torch.cuda.current_stream(g.device).cuda_stream
-    rc = fn(g.data_ptr(), pose.data_ptr(), dx.data_ptr(), *g.shape,
-            *_scalars(g, spatial_extent), stream)
+    rc = _kernel('fiery_bev_warp_backward')(
+        g.data_ptr(), pose.data_ptr(), dx.data_ptr(), B, H, W, C,
+        *_scalars(g, spatial_extent), int(vec), cap, stream)
     if rc != 0:
         raise RuntimeError(f'bev_warp_backward kernel launch failed: CUDA error {rc}')
     bev_warp_backward.launches += 1
-    return dx if g.dtype == torch.float32 else dx.to(g.dtype)
+    return dx
 
 
 bev_warp_backward.launches = 0

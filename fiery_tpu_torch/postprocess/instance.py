@@ -14,6 +14,7 @@ package.
 """
 
 import ctypes
+import functools
 from typing import Dict
 
 import numpy as np
@@ -244,40 +245,100 @@ def segment_centroids_plain(labels, num_slots, flow=None):
     return centers, counts[..., 0] > 0
 
 
+def segment_centroids_clip_plain(labels, num_slots, flow):
+    """Plain version of ``segment_centroids_clip``: the counts, the grid coordinates
+    and the flow-advected ones of every frame summed by one f64 index_add_ (rows in
+    index order), as ``segment_centroids_plain`` sums each kind."""
+    N, h, w = labels.shape
+    dev = labels.device
+    gx = torch.arange(h, dtype=torch.float32, device=dev)[:, None].expand(N, h, w)
+    gy = torch.arange(w, dtype=torch.float32, device=dev)[None, :].expand(N, h, w)
+    lab = labels.reshape(N, -1).long()
+    lab = torch.where((lab >= 0) & (lab < num_slots), lab, num_slots)
+    rows = (lab + torch.arange(N, device=dev)[:, None] * (num_slots + 1)).reshape(-1)
+    vals = torch.stack([torch.ones_like(gx), gx, gy, gx + flow[..., 0], gy + flow[..., 1]],
+                       dim=-1).double().reshape(-1, 5)
+    acc = torch.zeros((N * (num_slots + 1), 5), dtype=torch.float64, device=dev)
+    acc.index_add_(0, rows, vals)
+    acc = acc.view(N, num_slots + 1, 5)[:, :num_slots]
+    denom = acc[..., :1].clamp_min(1.0)
+    return ((acc[..., 1:3] / denom).float(), (acc[..., 3:5] / denom).float(),
+            acc[..., 0] > 0)
+
+
+@functools.lru_cache(maxsize=None)
+def _centroid_kernel():
+    """K8's entry with its argument types set once, and the most slots a call takes
+    without and with flow."""
+    lib = _build.load('segment_centroids')
+    fn = lib.fiery_segment_centroids_clip
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    limit = lib.fiery_segment_centroids_max_slots
+    limit.argtypes = [ctypes.c_int]
+    limit.restype = ctypes.c_int
+    return fn, limit(0), limit(1)
+
+
+def _launch_centroids(name, labels, num_slots, flow, with_grid):
+    """One K8 launch over every frame of labels (N, h, w): (grid centres or None,
+    flow centres or None, valid), allocated here and written whole by the kernel."""
+    _launch_checks(name, [labels] + ([] if flow is None else [flow]),
+                   [torch.int32, torch.float32])
+    N, h, w = labels.shape
+    fn, max_grid, max_flow = _centroid_kernel()
+    limit = max_grid if flow is None else max_flow
+    if not 1 <= num_slots <= limit or N > 65535:
+        raise ValueError(f'{name}: {num_slots} slots over {N} frames; the kernel takes 1 to '
+                         f'{limit} slots and at most 65535 frames')
+    dev = labels.device
+    grid = torch.empty((N, num_slots, 2), dtype=torch.float32, device=dev) if with_grid else None
+    adv = None if flow is None else torch.empty((N, num_slots, 2), dtype=torch.float32,
+                                                device=dev)
+    valid = torch.empty((N, num_slots), dtype=torch.bool, device=dev)
+    vec = (h * w) % 8 == 0 and labels.data_ptr() % 16 == 0 and (
+        flow is None or flow.data_ptr() % 16 == 0)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    _check_rc(name, fn(labels.data_ptr(), None if flow is None else flow.data_ptr(),
+                       None if grid is None else grid.data_ptr(),
+                       None if adv is None else adv.data_ptr(), valid.data_ptr(), N, h, w,
+                       num_slots, int(vec), stream))
+    segment_centroids.launches += 1
+    return grid, adv, valid
+
+
 def segment_centroids(labels, num_slots, flow=None):
     """Count and mean coordinate of ids 0..num_slots-1 in each (h, w) frame of labels
     (B, h, w) int32, over the pixel grid (row, column), or over the grid plus flow
     (B, h, w, 2) float32 (kernel K8). Returns centres (B, num_slots, 2) float32 and
     valid (B, num_slots) bool (count > 0); ids outside [0, num_slots) are dropped.
-    Sums are f64. A CPU tensor takes the plain version."""
+    Sums are f64. A CPU tensor takes the plain version. ``segment_centroids.launches``
+    counts every K8 launch, this entry's and ``segment_centroids_clip``'s."""
     if labels.dim() != 3 or (flow is not None and flow.shape != labels.shape + (2,)):
         raise ValueError(f'segment_centroids: labels {tuple(labels.shape)} must be '
                          f'(B, h, w) and flow (B, h, w, 2)')
     if labels.device.type == 'cpu':
         return segment_centroids_plain(labels, num_slots, flow)
-    _launch_checks('segment_centroids', [labels] + ([] if flow is None else [flow]),
-                   [torch.int32, torch.float32])
-    if num_slots * 20 > 48 * 1024:
-        raise ValueError(f'segment_centroids: {num_slots} slots, the kernel takes at most '
-                         f'{48 * 1024 // 20}')
-    B, h, w = labels.shape
-    dev = labels.device
-    fn = _build.load('segment_centroids').fiery_segment_centroids
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    acc = torch.zeros((B, num_slots, 3), dtype=torch.float64, device=dev)
-    done = torch.zeros((B,), dtype=torch.int32, device=dev)
-    centers = torch.empty((B, num_slots, 2), dtype=torch.float32, device=dev)
-    valid = torch.empty((B, num_slots), dtype=torch.bool, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    _check_rc('segment_centroids', fn(
-        labels.data_ptr(), None if flow is None else flow.data_ptr(), acc.data_ptr(),
-        done.data_ptr(), centers.data_ptr(), valid.data_ptr(), B, h, w, num_slots, stream))
-    segment_centroids.launches += 1
-    return centers, valid
+    grid, adv, valid = _launch_centroids('segment_centroids', labels, num_slots, flow,
+                                         with_grid=flow is None)
+    return (grid if flow is None else adv), valid
 
 
 segment_centroids.launches = 0
+
+
+def segment_centroids_clip(labels, num_slots, flow):
+    """Both kinds of centroid of every frame in one K8 launch: labels (N, h, w) int32,
+    flow (N, h, w, 2) float32 -> (grid centres (N, num_slots, 2), flow-advected
+    centres (N, num_slots, 2), valid (N, num_slots)), each kind as
+    ``segment_centroids`` computes it. A CPU tensor takes the plain version."""
+    if labels.dim() != 3 or flow.shape != labels.shape + (2,):
+        raise ValueError(f'segment_centroids_clip: labels {tuple(labels.shape)} must be '
+                         f'(N, h, w) and flow {tuple(flow.shape)} (N, h, w, 2)')
+    if labels.device.type == 'cpu':
+        return segment_centroids_clip_plain(labels, num_slots, flow)
+    return _launch_centroids('segment_centroids_clip', labels, num_slots, flow,
+                             with_grid=True)
 
 
 # ---------------------------------------------------------------------------
@@ -287,41 +348,58 @@ segment_centroids.launches = 0
 def make_instance_id_temporally_consistent_device(pred_inst, future_flow,
                                                   matching_threshold=3.0,
                                                   max_instances=MAX_INSTANCES):
-    """pred_inst (b, s, h, w) int consecutive per-frame ids, future_flow
-    (b, s, h, w, 2) -> (b, s, h, w) int32 ids consistent across time.
+    """pred_inst (b, s, h, w) int consecutive per-frame ids in [0, max_instances],
+    future_flow (b, s, h, w, 2) -> (b, s, h, w) int32 ids consistent across time.
 
     The JAX package's device tracker, vmapped over b: each frame's centroids are
     matched to the previous frame's flow-advected centroids by an exact assignment
     on a (max_instances + 1)^2 padded cost (distances clipped at 10x the threshold,
     invalid pairs at 1e4, only the live previous tracks augmented); a match is
     accepted under ``matching_threshold`` and every other instance takes a fresh id.
-    Cumulative ids live in s * max_instances + 1 slots. Every step stays on the
-    device: 2 K8 and 1 K9 launches, and tensor ops that never read a value on the
-    host. Centroid sums are f64 (the JAX device path sums in f32), so centroids
-    differ from it by f32 rounding only.
+    Cumulative ids live in s * max_instances + 1 slots.
+
+    Each frame's consistent ids are an injective relabelling of its per-frame ids
+    (frame 0 as it is, then each step's ``lut``), so a track's pixels are the pixels
+    of one per-frame id. One K8 launch therefore gives every frame's per-id counts,
+    grid centroids and advected centroids, and each step scatters the previous
+    frame's advected centroids through its ``lut`` into the track slots. A step is
+    then one K9 launch and tensor ops that never read a value on the host.
+    Centroid sums are f64 (the JAX device path sums in f32), so centroids differ
+    from it by f32 rounding only.
     """
     b, s, h, w = pred_inst.shape
     dev = pred_inst.device
     K = max_instances + 1
     K_total = s * max_instances + 1
     pred_inst = pred_inst.to(torch.int32)
-    future_flow = future_flow.float()
+    frames = [pred_inst[:, 0]]
     slot_ids = torch.arange(K, device=dev)
+    if s > 1:
+        grid_c, adv_c, valid = segment_centroids_clip(
+            pred_inst.reshape(b * s, h, w).contiguous(), K,
+            future_flow.float().reshape(b * s, h, w, 2).contiguous())
+        grid_c, valid = grid_c.view(b, s, K, 2), valid.view(b, s, K)
+        # each id's advected centroid and whether it is a track (not background,
+        # not empty), and the track slots they scatter into, one frame a step
+        live_ids = valid & (slot_ids > 0)
+        tracked = torch.cat([adv_c.view(b, s, K, 2), live_ids[..., None].float()], dim=-1)
+        tracks = torch.zeros((b, s, K_total + 1, 3), dtype=torch.float32, device=dev)
     track_ids = torch.arange(K_total, device=dev).expand(b, K_total)
-    prev = pred_inst[:, 0].contiguous()
-    next_free = prev.reshape(b, -1).amax(dim=1).long() + 1
-    frames = [prev]
+    lut = slot_ids.expand(b, K)        # frame 0's ids are its track ids
+    next_free = pred_inst[:, 0].reshape(b, -1).amax(dim=1).long() + 1
     for t in range(1, s):
-        cur = pred_inst[:, t].contiguous()
-        prev_centers_all, prev_valid_all = segment_centroids(
-            prev, K_total, future_flow[:, t - 1].contiguous())
-        cur_centers, cur_valid = segment_centroids(cur, K)
+        cur = pred_inst[:, t]
+        # the previous frame's tracks: its ids' advected centroids through its lut;
+        # background and ids without pixels go to the dropped column K_total
+        cols = torch.where(live_ids[:, t - 1], lut, K_total)
+        prev = tracks[:, t - 1].scatter_(1, cols[..., None].expand(b, K, 3),
+                                         tracked[:, t - 1])[:, :K_total]
+        prev_centers_all, prev_valid_all = prev[..., :2], prev[..., 2] > 0
+        cur_centers, cur_valid = grid_c[:, t], valid[:, t]
 
         # compact the live previous ids into slots 1..K-1; slot 0 stays background
-        live = prev_valid_all.clone()
-        live[:, 0] = False
-        rank = live.long().cumsum(dim=1) - 1
-        slot = torch.where(live & (rank < K - 1), rank + 1, K)
+        rank = prev_valid_all.long().cumsum(dim=1) - 1
+        slot = torch.where(prev_valid_all & (rank < K - 1), rank + 1, K)
         prev_slot_ids = torch.zeros((b, K + 1), dtype=torch.int64, device=dev).scatter_(
             1, slot, track_ids)[:, :K]
         prev_centers = prev_centers_all.gather(1, prev_slot_ids[..., None].expand(b, K, 2))
@@ -349,9 +427,8 @@ def make_instance_id_temporally_consistent_device(pred_inst, future_flow,
         lut = torch.where(matched, best_prev, next_free[:, None] + new_rank)
         lut[:, 0] = 0
         lut = torch.where(cur_valid | (slot_ids == 0), lut, 0)
-        prev = lut.gather(1, cur.reshape(b, -1).long()).view(b, h, w).to(torch.int32)
+        frames.append(lut.gather(1, cur.reshape(b, -1).long()).view(b, h, w).to(torch.int32))
         next_free = next_free + unmatched.sum(dim=1)
-        frames.append(prev)
     return torch.stack(frames, dim=1)
 
 

@@ -12,14 +12,16 @@ lines:
     tracking (K8, K9)), median over the same requests;
   * from torch.profiler over three requests: the device busy time per request, its
     share of the wall time, the kernels that take the most device time, and the
-    BatchNorm (K10), GRU gate (K11) and assignment (K9) kernels' launches and
-    device time;
+    BatchNorm (K10), GRU gate (K11), centroid (K8, by its kernel's name in this
+    tree or the one before it) and assignment (K9) kernels' launches and device
+    time;
   * the host time of one call (µs, host clock over 3000 calls at a small shape,
     in batches of 100 with a synchronize between batches outside the clock, so
     the card never holds the host back) of the eval BatchNorm with its ReLU
     (K10), of ``F.batch_norm`` + ``F.relu`` on the same tensors, of the GRU's two
-    gate calls (K11) when serving, and of the splat (K1: one memset and four
-    kernels a call).
+    gate calls (K11) when serving, of the splat (K1: one memset and four kernels
+    a call), of the centroids (K8: 8 x 8 ids, 101 slots, with flow) and of the
+    warp's backward (K2: 8 x 8 x 64 bf16).
 Needs a CUDA card.
 """
 
@@ -38,6 +40,8 @@ from fiery_tpu_torch.models.layers import BatchNorm
 from fiery_tpu_torch.ops.batch_norm import batch_norm_forward
 from fiery_tpu_torch.ops.lap import linear_sum_assignment
 from fiery_tpu_torch.ops.lift_splat import bev_pool
+from fiery_tpu_torch.ops.warp import bev_warp_backward
+from fiery_tpu_torch.postprocess.instance import segment_centroids
 from fiery_tpu_torch.ops.spatial_gru import (gru_output, gru_reset_concat, gru_state_update,
                                              spatial_gru)
 from fiery_tpu_torch.serve import (BASELINE, build_fiery, calibrate_batchnorm, init_params,
@@ -129,6 +133,7 @@ def main():
 
     activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     batch_norm_forward.launches = spatial_gru.launches = linear_sum_assignment.launches = 0
+    segment_centroids.launches = 0
     with torch.profiler.profile(activities=activities) as prof:
         t0 = time.perf_counter()
         for req in requests[:3]:
@@ -148,11 +153,14 @@ def main():
                       'device_busy_share': busy_ms / wall_ms if wall_ms else None,
                       'kernels_per_request': sum(r[1] for r in rows)}), flush=True)
     # K10's kernels (stats, apply; eval runs apply only), K11's (reset_concat,
-    # state_update) and K9's, by their symbols
+    # state_update), K8's and K9's, by their symbols
     for name, symbols, fn in (('batch_norm', ('::stats_kernel<', '::apply_kernel<'),
                                batch_norm_forward),
                               ('spatial_gru', ('reset_concat_kernel', 'state_update_kernel'),
                                spatial_gru),
+                              ('segment_centroids', ('::centroid_kernel',
+                                                     '::centroid_clip_kernel'),
+                               segment_centroids),
                               ('lap', ('::lap_kernel',), linear_sum_assignment)):
         print(json.dumps({'kernel': name, 'launches_per_request': fn.launches / 3,
                           'device_ms_per_request': sum(
@@ -166,10 +174,11 @@ def main():
 
 
 def host_us_per_call(n=3000, batch=100):
-    """Host µs of one call of each wrapper the request makes most often, against
-    the PyTorch calls it replaced, at a small bf16 shape (64 channels, 8 x 8; the
-    splat 4 x 4 pixels of 8 bins into 64 voxels): n calls in batches, the card
-    synchronized between batches outside the clock."""
+    """Host µs of one call of each wrapper the request (or step) makes, against the
+    PyTorch calls it replaced, at a small bf16 shape (64 channels, 8 x 8; the splat
+    4 x 4 pixels of 8 bins into 64 voxels; the centroids 8 x 8 ids in 101 slots with
+    flow): n calls in batches, the card synchronized between batches outside the
+    clock."""
     x = torch.randn(1, 64, 8, 8, device='cuda', dtype=torch.bfloat16).contiguous(
         memory_format=torch.channels_last)
     gen = torch.Generator(device='cuda').manual_seed(0)
@@ -177,6 +186,11 @@ def host_us_per_call(n=3000, batch=100):
     feat = torch.randn((1, 1, 4, 4, 64), generator=gen, device='cuda').to(torch.bfloat16)
     ids = torch.randint(0, 65, (1, 1, 4, 4, 8), generator=gen, device='cuda',
                         dtype=torch.int32)
+    labels = torch.randint(0, 101, (1, 8, 8), generator=gen, device='cuda',
+                           dtype=torch.int32)
+    flow = torch.randn((1, 8, 8, 2), generator=gen, device='cuda')
+    g = torch.randn((1, 8, 8, 64), generator=gen, device='cuda').to(torch.bfloat16)
+    pose = torch.zeros((1, 6), device='cuda')
     bn = init_params(BatchNorm(64, post='relu'), seed=0).cuda().eval()
     h = x.permute(0, 2, 3, 1).contiguous().permute(0, 3, 1, 2)
     slot = gru_output(h, 1)
@@ -186,7 +200,9 @@ def host_us_per_call(n=3000, batch=100):
                  bn.eps)),
              'gru_reset_concat (K11)': lambda: gru_reset_concat(h, h, h),
              'gru_state_update (K11)': lambda: gru_state_update(h, h, h, slot, 0),
-             'bev_pool (K1)': lambda: bev_pool(depth, feat, ids, 64)}
+             'bev_pool (K1)': lambda: bev_pool(depth, feat, ids, 64),
+             'segment_centroids (K8)': lambda: segment_centroids(labels, 101, flow),
+             'bev_warp_backward (K2)': lambda: bev_warp_backward(g, pose, (50.0, 50.0))}
     out = {}
     with torch.inference_mode():
         for name, fn in calls.items():

@@ -17,13 +17,19 @@ training, the labels warped on the host outside the step):
     and the launch plans its cache added (misses) over those requests;
   * after the timed runs, one request, one request with instances
     (``predict_instances``) and one step under torch.profiler: the device busy
-    ms, and the device ms and launches of the BatchNorm kernel (K10), the GRU's
-    gate kernels (K11), the assignment kernel (K9) and the splat forward (K1, its
-    kernels; not the memset of its counters) and backward (K1b), by their
-    kernels' names in either tree (keys
-    ``<k10|k11|k9|k1|k1b>_<request|instances|step>_ms_<kind>`` and ``..._launches``);
-  * the host µs of one splat call (``bev_pool``, 4 x 4 pixels of 8 bins into 64
-    voxels, bf16; batches of 100 calls, synchronized outside the clock).
+    ms and the device-side kernels and copies (``kernels_<key>``), and the device
+    ms and launches of the BatchNorm kernel (K10), the GRU's gate kernels (K11),
+    the assignment kernel (K9), the centroid kernel (K8), the splat forward (K1,
+    its kernels; not the memset of its counters) and backward (K1b), the warp's
+    kernel (K2; in a step also its nearest mode, K4) and the warp's backward
+    (K2b), by their kernels' names in either tree (keys
+    ``<k10|k11|k9|k8|k1|k1b|k2|k2b>_<request|instances|step>_ms_<kind>`` and
+    ``..._launches``);
+  * the host µs of one call (batches of 100 calls, synchronized outside the
+    clock) of the splat (``bev_pool``, 4 x 4 pixels of 8 bins into 64 voxels,
+    bf16: ``k1_host_us``), of the centroids (``segment_centroids``, 8 x 8 ids in
+    101 slots with flow: ``k8_host_us``) and of the warp's backward
+    (``bev_warp_backward``, 8 x 8 x 64 bf16: ``k2b_host_us``).
 Each process prints one JSON line of its medians; the last line gathers them per
 checkout. Only entry points that both trees have are used. Needs a CUDA card.
 A step's stage times are ``chip_smoke.py``'s (``stage_times``).
@@ -42,6 +48,8 @@ import torch
 from fiery_tpu_torch.ops import _build
 from fiery_tpu_torch.ops import batch_norm as BN
 from fiery_tpu_torch.ops import lift_splat as LS
+from fiery_tpu_torch.ops import warp as WP
+from fiery_tpu_torch.postprocess import instance as PI
 from fiery_tpu_torch.data.label_warp import make_prewarp_transform
 from fiery_tpu_torch.data.synthetic import SyntheticFutureDataset
 from fiery_tpu_torch.serve import (BASELINE, build_fiery, calibrate_batchnorm, init_params,
@@ -53,13 +61,18 @@ requests, steps = int(sys.argv[1]), int(sys.argv[2])
 _build.build_all()
 # the kernels' names, of either tree, in their anonymous namespace (which keeps out
 # Adam's multi_tensor_apply_kernel): K10 (three launches a pass, or two), K11 (the
-# GRU gates, forward and backward), K9 (the assignment), K1 forward (one atomic
-# kernel, or four) and K1 backward
+# GRU gates, forward and backward), K9 (the assignment), K8 (the centroids: two
+# launches a tracking step, or one a request), K1 forward (one atomic kernel, or
+# four), K1 backward, K2 (the warp, and in a step its nearest mode K4) and K2
+# backward (an atomic scatter, or a gather)
 KERNELS = {'k10': ('::stats_kernel', '::stats_finalize_kernel', '::apply_kernel',
                    '::backward_reduce_kernel', '::backward_finalize_kernel',
                    '::backward_apply_kernel'),
            'k11': ('::reset_concat', '::state_update'),
            'k9': ('::lap_kernel',),
+           'k8': ('::centroid_kernel', '::centroid_clip_kernel'),
+           'k2': ('::bev_warp_kernel',),
+           'k2b': ('::warp_scatter_kernel', '::warp_gather_kernel'),
            'k1': ('::bev_pool_kernel', '::splat_count_kernel', '::splat_scan_kernel',
                   '::splat_fill_kernel', '::splat_pool_kernel'),
            'k1b': ('::pool_backward_kernel', '::splat_backward_kernel')}
@@ -77,6 +90,7 @@ def profiled(fn, out, key):
     ev = [e for e in prof.key_averages()
           if e.device_type == torch.autograd.DeviceType.CUDA and not e.is_user_annotation]
     out[f'busy_{key}'] = sum(e.self_device_time_total for e in ev) / 1e3
+    out[f'kernels_{key}'] = sum(e.count for e in ev)
     for name, symbols in KERNELS.items():
         mine = [e for e in ev if any(k in e.key for k in symbols)]
         out[f'{name}_{key}'] = sum(e.self_device_time_total for e in mine) / 1e3
@@ -86,28 +100,33 @@ combo = ['LIFT.TOPK', '8', 'LIFT.WARP_FREE', 'True']
 out = {}
 
 
-def k1_host_us(n=3000, batch=100):
-    """Host µs of one bev_pool call at a small bf16 shape."""
-    gen = torch.Generator(device='cuda').manual_seed(0)
-    depth = torch.rand((1, 1, 4, 4, 8), generator=gen, device='cuda').to(torch.bfloat16)
-    feat = torch.randn((1, 1, 4, 4, 64), generator=gen, device='cuda').to(torch.bfloat16)
-    ids = torch.randint(0, 65, (1, 1, 4, 4, 8), generator=gen, device='cuda',
-                        dtype=torch.int32)
+def host_us(fn, n=3000, batch=100):
+    """Host µs of one call of fn."""
     spent = 0.0
     with torch.inference_mode():
         for _ in range(50):
-            LS.bev_pool(depth, feat, ids, 64)
+            fn()
         for _ in range(n // batch):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             for _ in range(batch):
-                LS.bev_pool(depth, feat, ids, 64)
+                fn()
             spent += time.perf_counter() - t0
     torch.cuda.synchronize()
     return 1e6 * spent / (n // batch * batch)
 
 
-out['k1_host_us'] = k1_host_us()
+gen = torch.Generator(device='cuda').manual_seed(0)
+depth = torch.rand((1, 1, 4, 4, 8), generator=gen, device='cuda').to(torch.bfloat16)
+feat = torch.randn((1, 1, 4, 4, 64), generator=gen, device='cuda').to(torch.bfloat16)
+ids = torch.randint(0, 65, (1, 1, 4, 4, 8), generator=gen, device='cuda', dtype=torch.int32)
+labels = torch.randint(0, 101, (1, 8, 8), generator=gen, device='cuda', dtype=torch.int32)
+flow = torch.randn((1, 8, 8, 2), generator=gen, device='cuda')
+grad = torch.randn((1, 8, 8, 64), generator=gen, device='cuda').to(torch.bfloat16)
+pose = torch.zeros((1, 6), device='cuda')
+out['k1_host_us'] = host_us(lambda: LS.bev_pool(depth, feat, ids, 64))
+out['k8_host_us'] = host_us(lambda: PI.segment_centroids(labels, 101, flow))
+out['k2b_host_us'] = host_us(lambda: WP.bev_warp_backward(grad, pose, (50.0, 50.0)))
 
 
 def timed(fn):

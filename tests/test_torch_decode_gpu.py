@@ -1,6 +1,7 @@
 """On the card: the decode and tracking kernels (K6-K9) against their plain versions
-at the served shapes, and the device tracker without a host synchronisation. Every
-test needs a CUDA device and skips without one.
+at the served shapes (K8 also over a whole clip, two calls with the same bits), the
+device tracker's one K8 launch a request, and the tracker without a host
+synchronisation. Every test needs a CUDA device and skips without one.
 
 The file imports nothing of JAX, so that it runs where JAX is not installed:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_decode_gpu.py
@@ -75,19 +76,71 @@ def test_centers_and_ids_kernels_equal_plain(cuda, sparse):
     assert torch.equal(ids_k, I.instance_ids_plain(c_p, v_p, offset, seg))
 
 
+def _bits(x):
+    return x.view(torch.int32) if x.dtype == torch.float32 else x
+
+
+def _within_one_ulp(got, want):
+    spacing = torch.nextafter(want.abs(), torch.full_like(want, float('inf'))) - want.abs()
+    return bool(((got - want).abs() <= spacing).all())
+
+
 @pytest.mark.parametrize('num_slots', [101, 501])
 def test_segment_centroids_kernel_within_one_ulp(cuda, num_slots):
-    """K8 within one f32 ulp of its plain version (f64 sums in another order)."""
+    """K8 within one f32 ulp of its plain version (f64 sums in another, fixed order),
+    with and without flow; the grid centres (integer sums) and valid equal; two calls
+    give the same bits; one launch a call."""
     rng = np.random.RandomState(num_slots)
     labels = torch.from_numpy(rng.randint(0, num_slots, size=(2, 200, 200)).astype(
         np.int32)).to(cuda)
     flow = torch.from_numpy((rng.randn(2, 200, 200, 2) * 3).astype(np.float32)).to(cuda)
     for f in (None, flow):
+        launches = I.segment_centroids.launches
         c_k, v_k = I.segment_centroids(labels, num_slots, f)
+        assert I.segment_centroids.launches == launches + 1
+        c_again, v_again = I.segment_centroids(labels, num_slots, f)
         c_p, v_p = I.segment_centroids_plain(labels, num_slots, f)
-        assert torch.equal(v_k, v_p)
-        spacing = torch.nextafter(c_p.abs(), torch.full_like(c_p, float('inf'))) - c_p.abs()
-        assert bool(((c_k - c_p).abs() <= spacing).all())
+        assert torch.equal(v_k, v_p) and torch.equal(v_again, v_k)
+        assert torch.equal(_bits(c_again), _bits(c_k))
+        assert _within_one_ulp(c_k, c_p)
+        if f is None:
+            assert torch.equal(_bits(c_k), _bits(c_p))
+
+
+@pytest.mark.parametrize('hw', [(200, 200), (33, 41)], ids=['200x200', '33x41'])
+def test_segment_centroids_clip_kernel(cuda, hw):
+    """The clip entry on decoded-like ids (runs of equal ids in rows, background, ids
+    outside the slots): grid centres and valid equal to the plain version, flow
+    centres within one f32 ulp, two calls the same bits, one launch for all frames.
+    33 x 41 frames take the kernel's unaligned path."""
+    h, w = hw
+    rng = np.random.RandomState(h)
+    ids = np.zeros((5, h, w), np.int32)
+    for f in range(5):
+        for k in range(1, 101):
+            r, c = rng.randint(0, h - 3), rng.randint(0, w - 5)
+            ids[f, r:r + 3, c:c + rng.randint(1, 6)] = k
+    ids[:, 0, :3] = 150
+    labels = torch.from_numpy(ids).to(cuda)
+    flow = torch.from_numpy((rng.randn(5, h, w, 2) * 4).astype(np.float32)).to(cuda)
+    launches = I.segment_centroids.launches
+    grid, adv, valid = I.segment_centroids_clip(labels, 101, flow)
+    assert I.segment_centroids.launches == launches + 1
+    again = I.segment_centroids_clip(labels, 101, flow)
+    want = I.segment_centroids_clip_plain(labels.cpu(), 101, flow.cpu())
+    assert torch.equal(_bits(grid.cpu()), _bits(want[0]))
+    assert _within_one_ulp(adv.cpu(), want[1])
+    assert torch.equal(valid.cpu(), want[2])
+    for a, b in zip(again, (grid, adv, valid)):
+        assert torch.equal(_bits(a), _bits(b))
+
+
+def test_tracker_launches_k8_once_a_request(cuda):
+    """The device tracker takes every frame's centroids from one K8 launch."""
+    out = serve_shaped_outputs(14, cuda)
+    launches = I.segment_centroids.launches
+    device_consistent(out)
+    assert I.segment_centroids.launches == launches + 1
 
 
 @pytest.mark.parametrize('n_rows', [1, 8, 101])

@@ -1,6 +1,8 @@
 """On the card: the training path's kernels against their plain versions at the
 full-width training shapes of baseline.yml (batch 3): the splat's backward (K1),
-the warp's backward (K2), the k-th largest value of the top-k loss (K3) and the
+the warp's backward (K2; bit for bit against the host given the card's theta, also
+at large angles and on non-square grids, and two calls; NaN for a non-finite pose;
+its staging bound equal to the CPU copy), the k-th largest value of the top-k loss (K3) and the
 nearest warp of the label stack (K4); and the splat's forward (K1) against the
 plain version on the host, bit for bit, on adversarial buckets (one row a voxel,
 33, 1000, every row in one voxel, every row dumped) at D = 48 and D = 8, its
@@ -64,16 +66,106 @@ def test_bev_pool_backward_kernel_matches_plain(cuda, dtype):
         assert a.dtype == dtype and _within(a, b, dtype)
 
 
+def _same_bits(a, b):
+    view = torch.int16 if a.dtype == torch.bfloat16 else torch.int32
+    return a.dtype == b.dtype and torch.equal(a.view(view), b.view(view))
+
+
+def _host_plain(g, pose, cuda, extent=(50.0, 50.0)):
+    """K2 backward's plain version on the host, given the kernel's theta."""
+    theta = W.card_theta(pose.to(cuda), extent, g.dtype).cpu()
+    return W.bev_warp_backward_plain(g, pose, extent, theta=theta)
+
+
 @pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
 def test_bev_warp_backward_kernel_matches_plain(cuda, dtype):
+    """K2 backward at the training shape equals the plain version on the host (given
+    the card's theta) bit for bit, in one launch, and two calls give the same bits."""
     rng = np.random.RandomState(2)
-    g = torch.from_numpy(rng.randn(6, 200, 200, 64).astype(np.float32)).to(cuda, dtype)
-    pose = torch.from_numpy(_poses(rng, 6)).to(cuda)
+    g = torch.from_numpy(rng.randn(6, 200, 200, 64).astype(np.float32)).to(dtype)
+    pose = torch.from_numpy(_poses(rng, 6))
     launches = W.bev_warp_backward.launches
-    got = W.bev_warp_backward(g, pose, (50.0, 50.0))
+    got = W.bev_warp_backward(g.to(cuda), pose.to(cuda), (50.0, 50.0))
     assert W.bev_warp_backward.launches == launches + 1
+    again = W.bev_warp_backward(g.to(cuda), pose.to(cuda), (50.0, 50.0))
     assert got.dtype == dtype
-    assert _within(got, W.bev_warp_backward_plain(g, pose, (50.0, 50.0)), dtype)
+    assert _same_bits(got.cpu(), _host_plain(g, pose, cuda))
+    assert _same_bits(again, got)
+
+
+def _wide_poses(n=6):
+    """Angles over [-pi, pi] with both ends, one pose half out of the map and one
+    wholly out."""
+    rng = np.random.RandomState(n)
+    flow = np.zeros((n, 6), np.float32)
+    flow[:, 5] = np.linspace(-np.pi, np.pi, n)
+    flow[:, :2] = rng.uniform(-2, 2, (n, 2))
+    flow[1, :2] = (27.0, -13.0)
+    flow[2, :2] = (-130.0, 0.0)
+    return torch.from_numpy(flow)
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('hw,C', [((200, 200), 64), ((400, 200), 64), ((320, 193), 64),
+                                  ((200, 200), 20)], ids=['200x200', '400x200', '320x193',
+                                                          'C20'])
+def test_bev_warp_backward_equals_the_host_on_wide_poses(cuda, hw, C, dtype):
+    """Large angles and translations, non-square grids and a channel count off the
+    16-byte path: bit for bit against the host plain version, two calls equal."""
+    H, Wd = hw
+    g = torch.from_numpy(np.random.RandomState(H + C).randn(6, H, Wd, C).astype(
+        np.float32)).to(dtype)
+    pose = _wide_poses()
+    got = W.bev_warp_backward(g.to(cuda), pose.to(cuda), (50.0, 50.0))
+    again = W.bev_warp_backward(g.to(cuda), pose.to(cuda), (50.0, 50.0))
+    assert _same_bits(got.cpu(), _host_plain(g, pose, cuda))
+    assert _same_bits(again, got)
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+def test_bev_warp_equals_the_host_given_the_kernels_theta(cuda, dtype):
+    """K2 forward at wide poses equals its plain version on the host given
+    ``card_theta``, in every value (the plain version's out-of-map outputs are
+    x * 0, -0.0 for negative x, the kernel's +0.0)."""
+    x = torch.from_numpy(np.random.RandomState(7).randn(6, 200, 200, 16).astype(
+        np.float32)).to(dtype)
+    pose = _wide_poses()
+    got = W.bev_warp(x.to(cuda), pose.to(cuda), (50.0, 50.0)).cpu()
+    theta = W.card_theta(pose.to(cuda), (50.0, 50.0), dtype).cpu()
+    assert theta.dtype == dtype and theta.shape == (6, 2, 3)
+    assert torch.equal(got, W.bev_warp_plain(x, pose, (50.0, 50.0), theta=theta))
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+def test_bev_warp_backward_non_finite_pose_gives_nan(cuda, dtype):
+    """A NaN angle or an infinite translation: NaN in every value of that map, the
+    other maps bit for bit as the host computes them, and the card still works."""
+    g = torch.from_numpy(np.random.RandomState(5).randn(4, 200, 200, 64).astype(
+        np.float32)).to(dtype)
+    pose = torch.from_numpy(_poses(np.random.RandomState(5), 4))
+    pose[1, 5] = float('nan')
+    pose[2, 0] = float('inf')
+    pose[3, 1] = -float('inf')
+    got = W.bev_warp_backward(g.to(cuda), pose.to(cuda), (50.0, 50.0))
+    torch.cuda.synchronize()
+    assert bool(got[1:].float().isnan().all())
+    assert _same_bits(got[:1].cpu(), _host_plain(g[:1], pose[:1], cuda))
+    again = W.bev_warp_backward(g[:1].to(cuda), pose[:1].to(cuda), (50.0, 50.0))
+    assert _same_bits(again, got[:1])
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+def test_bev_warp_backward_staging_bound_equals_the_cpu_copy(cuda, dtype):
+    """The kernel's staging bound (fiery_bev_warp_gather_entries) is the one the CPU
+    proof checks the regions against (tests/test_torch_warp_gather.py)."""
+    from test_torch_warp_gather import GATHER_MAX_ENTRIES, gather_region_entries
+    for H, Wd in ((200, 200), (400, 200), (320, 193), (193, 320), (16, 16)):
+        assert W._gather_entries(H, Wd, dtype) == gather_region_entries(H, Wd, dtype)
+    assert gather_region_entries(2000, 100, dtype) > GATHER_MAX_ENTRIES
+    assert W._gather_entries(2000, 100, dtype) == 0
+    with pytest.raises(ValueError, match='staged'):
+        W.bev_warp_backward(torch.zeros((1, 2000, 100, 8), device=cuda, dtype=dtype),
+                            torch.zeros((1, 6), device=cuda), (50.0, 50.0))
 
 
 def test_bev_warp_autograd_launches_both_kernels(cuda):
