@@ -9,9 +9,9 @@ Builds the package's CUDA kernels from csrc/, then:
      tracker never waits on the host, and how far the host (scipy) tracker's ids
      are from the device tracker's; times the request with and without decoding;
   2. holds K1 and K2 against their plain PyTorch versions at the baseline serve
-     shapes, in f32 and in bf16 (K2 also equal to the plain version on the host,
-     given the card's theta, in every value), and times kernel, plain version and
-     library call;
+     shapes, in f32 and in bf16 (K2 also at the training step's 6 maps, and equal
+     to the plain version on the host, given the card's theta, in every value), and
+     times kernel, plain version and library call;
      K1's forward also at the training shape (9 samples), equal to the plain
      version on the host bit for bit and in two runs, its order stage equal to
      its plain version, every launch of a call timed by stage, beside two probes
@@ -20,7 +20,8 @@ Builds the package's CUDA kernels from csrc/, then:
   3. runs a tiny config on the card and on the CPU with the same seeded weights
      and request, and compares every output;
   4. holds the decode and tracking kernels (K6-K9) against their plain versions
-     at the served shapes and on planted inputs (K6, K7 and K9 exactly; K8 over
+     at the served shapes and on planted inputs (K6, K7 and K9 exactly, K6 also on
+     frames with no peak, a flat plateau and 400 x 200 and 320 x 193 grids; K8 over
      the request's clip in one launch, its grid centres equal to the plain version
      on the host and its flow centres within one f32 ulp, two calls with the same
      bits), K9 also on tie-heavy, non-finite and n = 17 to 1024 problems, and
@@ -518,56 +519,67 @@ def phase_bev_pool(device):
 
 
 def phase_bev_warp(device, spatial_extent=(50.0, 50.0)):
+    """K2 forward against its plain version, f32 and bf16, at the serve shape (2 maps
+    of 200 x 200 x 64, the request's past frames) and at the training shape (6 maps:
+    3 clips x 2 past frames): within tolerance on the card and equal in every value
+    to the plain version on the host given the kernels' theta; times the kernel,
+    the call, the plain version and the library call, with the bound, at both."""
     g = torch.Generator(device=device).manual_seed(2)
-    B, H, W, C = 2, 200, 200, 64
-    x32 = torch.randn((B, H, W, C), generator=g, device=device)
-    pose = torch.zeros((B, 6), device=device)
-    pose[:, 0] = torch.rand(B, generator=g, device=device) * 4.0 - 2.0   # metres
-    pose[:, 1] = torch.rand(B, generator=g, device=device) * 2.0 - 1.0
-    pose[:, 5] = torch.rand(B, generator=g, device=device) * 0.2 - 0.1   # radians
+    H, W, C = 200, 200, 64
     rec = {}
-    for dtype in (torch.float32, torch.bfloat16):
-        x = x32.to(dtype)
-        got = bev_warp(x, pose, spatial_extent)
-        want = bev_warp_plain(x, pose, spatial_extent)
-        torch.cuda.synchronize()
-        err = check_close('bev_warp', got, want, dtype)
-        # equal values to the plain version on the host given the kernel's theta (f32
-        # cos and sin on the card and on the host can differ in the last bit); the
-        # plain version's out-of-map outputs are x * 0, -0.0 where x is
-        # negative, the kernel's +0.0
-        on_host = bev_warp_plain(x.cpu(), pose.cpu(), spatial_extent,
-                                 theta=card_theta(pose, spatial_extent, dtype).cpu())
-        host = int((got.cpu() != on_host).sum())
-        log(f'  bev_warp {str(dtype)[6:]}: values that differ from the plain version on the '
-            f'host {host} ({bits_differ(got.cpu(), on_host)} differ in their bits: signed zeros)')
-        if host:
-            raise AssertionError(f'bev_warp {dtype}: {host} values differ from the host')
+    for shape_name, B in (('serve', 2), ('train', 6)):
+        x32 = torch.randn((B, H, W, C), generator=g, device=device)
+        pose = torch.zeros((B, 6), device=device)
+        pose[:, 0] = torch.rand(B, generator=g, device=device) * 4.0 - 2.0   # metres
+        pose[:, 1] = torch.rand(B, generator=g, device=device) * 2.0 - 1.0
+        pose[:, 5] = torch.rand(B, generator=g, device=device) * 0.2 - 0.1   # radians
+        for dtype in (torch.float32, torch.bfloat16):
+            x = x32.to(dtype)
+            got = bev_warp(x, pose, spatial_extent)
+            want = bev_warp_plain(x, pose, spatial_extent)
+            torch.cuda.synchronize()
+            err = check_close(f'bev_warp {shape_name}', got, want, dtype)
+            # equal values to the plain version on the host given the kernel's theta
+            # (f32 cos and sin on the card and on the host can differ in the last
+            # bit); the plain version's out-of-map outputs are x * 0, -0.0 where x is
+            # negative, the kernel's +0.0
+            on_host = bev_warp_plain(x.cpu(), pose.cpu(), spatial_extent,
+                                     theta=card_theta(pose, spatial_extent, dtype).cpu())
+            host = int((got.cpu() != on_host).sum())
+            log(f'  bev_warp {shape_name} {str(dtype)[6:]}: values that differ from the plain '
+                f'version on the host {host} ({bits_differ(got.cpu(), on_host)} differ in '
+                f'their bits: signed zeros)')
+            if host:
+                raise AssertionError(f'bev_warp {shape_name} {dtype}: {host} values differ '
+                                     'from the host')
+            del got, want, on_host
 
-        def library():
-            theta = torch.stack([torch.cos(pose[:, 5]), -torch.sin(pose[:, 5]),
-                                 pose[:, 1] / spatial_extent[1], torch.sin(pose[:, 5]),
-                                 torch.cos(pose[:, 5]), -pose[:, 0] / spatial_extent[0]],
-                                -1).view(B, 2, 3).to(dtype)
-            xc = x.permute(0, 3, 1, 2)
-            grid = torch.nn.functional.affine_grid(theta, list(xc.shape),
-                                                   align_corners=False)
-            return torch.nn.functional.grid_sample(xc, grid, mode='bilinear',
-                                                   padding_mode='zeros',
-                                                   align_corners=False)
+            def library(x=x, pose=pose, B=B, dtype=dtype):
+                theta = torch.stack([torch.cos(pose[:, 5]), -torch.sin(pose[:, 5]),
+                                     pose[:, 1] / spatial_extent[1], torch.sin(pose[:, 5]),
+                                     torch.cos(pose[:, 5]), -pose[:, 0] / spatial_extent[0]],
+                                    -1).view(B, 2, 3).to(dtype)
+                xc = x.permute(0, 3, 1, 2)
+                grid = torch.nn.functional.affine_grid(theta, list(xc.shape),
+                                                       align_corners=False)
+                return torch.nn.functional.grid_sample(xc, grid, mode='bilinear',
+                                                       padding_mode='zeros',
+                                                       align_corners=False)
 
-        nbytes = 2 * x.numel() * x.element_size() + pose.numel() * 4
-        flops = 7.0 * x.numel() + 30.0 * B * H * W
-        bound_ms, bound_by = bound(nbytes, flops)
-        rec[dtype] = dict(
-            max_abs_err=err,
-            ms=kernel_ms(lambda: bev_warp(x, pose, spatial_extent), ['bev_warp_kernel']),
-            call_ms=time_ms(lambda: bev_warp(x, pose, spatial_extent)),
-            plain_ms=time_ms(lambda: bev_warp_plain(x, pose, spatial_extent)),
-            library_ms=time_ms(library), bound_ms=bound_ms, bound_by=bound_by,
-            bytes=nbytes, flops=flops)
-        log(f'  bev_warp {str(dtype)[6:]}: ' + json.dumps(
-            {k: v for k, v in rec[dtype].items() if k != 'max_abs_err'}))
+            nbytes = 2 * x.numel() * x.element_size() + pose.numel() * 4
+            flops = 7.0 * x.numel() + 30.0 * B * H * W
+            bound_ms, bound_by = bound(nbytes, flops)
+            rec[(shape_name, dtype)] = dict(
+                max_abs_err=err,
+                ms=kernel_ms(lambda: bev_warp(x, pose, spatial_extent),
+                             ['::bev_warp_tile_kernel']),
+                call_ms=time_ms(lambda: bev_warp(x, pose, spatial_extent)),
+                plain_ms=time_ms(lambda: bev_warp_plain(x, pose, spatial_extent)),
+                library_ms=time_ms(library), bound_ms=bound_ms, bound_by=bound_by,
+                bytes=nbytes, flops=flops)
+            log(f'  bev_warp {shape_name} {str(dtype)[6:]}: ' + json.dumps(
+                {k: v for k, v in rec[(shape_name, dtype)].items() if k != 'max_abs_err'}))
+    log(f'  bev_warp timings: {smi_line()}')
     return rec
 
 
@@ -771,8 +783,8 @@ def planted_heatmaps(device, T=5, H=200, W=200):
     """Seeded heatmaps of 8 x 8 plateaus quantised to 3 levels: every frame has
     hundreds of equal top-level peaks, so the 100th slot falls inside a tie."""
     g = torch.Generator().manual_seed(4)
-    coarse = torch.rand((T, H // 8, W // 8), generator=g)
-    smooth = coarse.repeat_interleave(8, 1).repeat_interleave(8, 2)
+    coarse = torch.rand((T, -(-H // 8), -(-W // 8)), generator=g)
+    smooth = coarse.repeat_interleave(8, 1).repeat_interleave(8, 2)[:, :H, :W]
     return (torch.floor(smooth * 3) / 3 + 0.05).to(device)
 
 
@@ -838,6 +850,24 @@ def phase_decode_kernels(device, outputs):
             f'per frame {vp.sum(1).tolist()}, ids per frame {ip.reshape(T, -1).amax(1).tolist()}')
         if name == 'served':
             centers, valid, decoded = cp, vp, ip
+    # K6 alone, exactly: a request's frames with no peak (every score -inf: the
+    # centres are pixels 0..99, all invalid), one flat plateau above the threshold
+    # (every pixel a peak, all tied), and the literature families' grids (400 x 200,
+    # 320 x 193) on the served heads' values and on 3-level plateaus
+    gk = torch.Generator(device=device).manual_seed(11)
+    grids = [(f'{name} {h2} x {w2}', c) for h2, w2 in ((400, 200), (320, 193))
+             for name, c in (('served values', center.flatten()[torch.randint(
+                 0, center.numel(), (T, h2, w2), generator=gk, device=device)]),
+                             ('plateaus', planted_heatmaps(device, T, h2, w2)))]
+    for name, c in [('no peak', torch.full((T, H, W), 0.05, device=device)),
+                    ('flat plateau', torch.full((T, H, W), 0.5, device=device))] + grids:
+        ck, vk = find_instance_centers(c)
+        cp, vp = find_instance_centers_plain(c)
+        torch.cuda.synchronize()
+        if not (torch.equal(ck, cp) and torch.equal(vk, vp)):
+            raise AssertionError(f'instance_centers {name}: kernel != plain')
+        log(f'  instance_centers {name}: equal to plain; valid centres per frame '
+            f'{vp.sum(1).tolist()}')
 
     def topk_library():
         x = torch.where(center >= 0.1, center, -1.0)
@@ -847,10 +877,17 @@ def phase_decode_kernels(device, outputs):
 
     nbytes = center.numel() * 4 + T * 100 * 9
     rec['instance_centers'] = dict(
-        max_abs_err=0.0, ms=kernel_ms(lambda: find_instance_centers(center), ['centers_kernel']),
+        max_abs_err=0.0, ms=kernel_ms(lambda: find_instance_centers(center),
+                                      ['::centers_cluster_kernel']),
         call_ms=time_ms(lambda: find_instance_centers(center)),
         plain_ms=time_ms(lambda: find_instance_centers_plain(center)),
         library_ms=time_ms(topk_library), bytes=nbytes, flops=10.0 * center.numel())
+    # the selection's share: no peak (no radix select, no sort) and every pixel a
+    # tied peak
+    for key, value in (('no_peak', 0.05), ('flat_plateau', 0.5)):
+        c = torch.full((T, H, W), value, device=device)
+        rec['instance_centers'][f'ms_{key}'] = kernel_ms(lambda: find_instance_centers(c),
+                                                         ['::centers_cluster_kernel'])
 
     def argmin_library():
         px = torch.arange(H, device=device, dtype=torch.float32)[:, None] + offset[..., 0]
@@ -1594,7 +1631,8 @@ def phase_train_kernels(device):
                              align_corners=False)
     rec['bev_warp_nearest'] = dict(
         max_abs_err=0.0,
-        ms=kernel_ms(lambda: bev_warp_nearest(labels, lpose, extent), ['bev_warp_kernel']),
+        ms=kernel_ms(lambda: bev_warp_nearest(labels, lpose, extent),
+                     ['::nearest_warp_tile_kernel']),
         call_ms=time_ms(lambda: bev_warp_nearest(labels, lpose, extent)),
         plain_ms=time_ms(lambda: bev_warp_nearest_plain(labels, lpose, extent)),
         library_ms=time_ms(nearest_library),
@@ -2071,7 +2109,8 @@ def main():
     log(f'tiny combination card vs cpu: ok ({time.perf_counter() - t0:.1f} s)')
 
     # bf16 is the dtype of the served and trained paths
-    records = {'bev_pool': pool[('serve', torch.bfloat16)], 'bev_warp': warp[torch.bfloat16],
+    records = {'bev_pool': pool[('serve', torch.bfloat16)],
+               'bev_warp': warp[('serve', torch.bfloat16)],
                **decode,
                'bev_pool_backward': train_kernels[('bev_pool_backward', torch.bfloat16)],
                'bev_warp_backward': train_kernels[('bev_warp_backward', torch.bfloat16)],
@@ -2088,6 +2127,8 @@ def main():
     host = host_us_per_call()
     records['segment_centroids']['host_us'] = host['segment_centroids (K8)']
     records['bev_warp_backward']['host_us'] = host['bev_warp_backward (K2)']
+    records['bev_warp']['host_us'] = host['bev_warp (K2)']
+    records['instance_centers']['host_us'] = host['find_instance_centers (K6)']
     kernels = []
     for name, source, replaces in [
             ('bev_pool', 'bev_pool.cu', 'fiery_tpu/ops/lift_splat.py:104'),
@@ -2135,6 +2176,10 @@ def main():
                 'ms', 'pass_ms', 'call_ms', 'plain_ms', 'library_ms', 'bound_ms', 'l2_floor_ms',
                 'red_probe_ms', 'red_probe_call_ms')})
             entry['at_k_ms'] = topk[('topk_select', 'serve', torch.bfloat16)]['k1_at_k_ms']
+        if name == 'bev_warp':
+            # the training shape's call (6 maps), launched once a dense step
+            entry.update({f'train_{k}': warp[('train', torch.bfloat16)][k] for k in (
+                'ms', 'call_ms', 'plain_ms', 'library_ms', 'bound_ms')})
         if name == 'batch_norm':
             entry.update({f'eval_{k}': norm_gru['batch_norm eval'][k]
                           for k in ('ms', 'call_ms', 'plain_ms', 'library_ms', 'bound_ms')})
@@ -2142,7 +2187,8 @@ def main():
                                         'latency_share', 'launch_us', 'row_us', 'step_us',
                                         'dh_sum_ms', 'host_us', 'pass_ms', 'l2_floor_ms',
                                         'red_probe_ms', 'red_probe_call_ms', 'launch_floor_ms',
-                                        'ms_501_slots') if k in r})
+                                        'ms_501_slots', 'ms_no_peak', 'ms_flat_plateau')
+                      if k in r})
         kernels.append(entry)
     for label, r in (('', train), (' of the combination', combo_train)):
         log(f'train step{label} (batch 3, full width): median_step_ms={r["step_ms"]:.3f} '

@@ -35,12 +35,17 @@
 //   - nearest, the label stack (12 frames of 200 x 200 x 7 f32): read 13.4 MB,
 //     write 13.4 MB.
 //
-// Forward and nearest: one thread per (output pixel, channel), channel fastest, so
-// the C threads of a pixel load each tap's C contiguous values coalesced; each
-// thread recomputes theta and its pixel's coordinates from the 6-float pose. Every
-// f32 operation is an explicitly rounded intrinsic (__fmul_rn, __fadd_rn: no FMA
-// contraction) in the same order as the plain PyTorch version, so both agree with
-// it bit for bit in f32 up to the cos/sin implementations.
+// Forward and nearest: a block owns a tile of 8 x tile_h output pixels of one map
+// and computes the map's theta once, into shared memory; a group of lanes (8 for
+// 64 bf16 channels) takes an output pixel, each lane moving 16 bytes of channels
+// an access when C and the pointers allow it (the plan, ops/warp.py
+// ``warp_plan``), so a pixel's 4 taps are 4 vector loads in flight a lane and the
+// taps of a tile's neighbouring pixels share cache lines in L1. Index math is
+// 32-bit inside a map. Every f32 operation is an explicitly rounded intrinsic
+// (__fmul_rn, __fadd_rn: no FMA contraction) in the same order as the plain
+// PyTorch version, so both agree with it bit for bit in f32 up to the cos/sin
+// implementations (and in every value given the kernels' theta: out-of-map
+// outputs are +0.0 here, x * 0 there).
 //
 // Backward (owner computes): a block owns a 16 x 16 tile of input pixels. It stages,
 // once per output pixel, the sample cell and fractional weights of every output
@@ -124,9 +129,10 @@ __device__ __forceinline__ void sample_point(const Theta& th, int i, int j, floa
   *iy = __fmul_rn(__fadd_rn(__fmul_rn(__fadd_rn(gy, 1.0f), (float)H), -1.0f), 0.5f);
 }
 
-// The four bilinear taps of (ix, iy): flat pixel offsets (valid taps only) and weights.
+// The four bilinear taps of (ix, iy): pixel offsets in the map (valid taps only)
+// and weights.
 struct Taps {
-  int64_t off[4];
+  int off[4];
   float w[4];
   bool valid[4];
 };
@@ -143,46 +149,180 @@ __device__ __forceinline__ Taps bilinear_taps(float ix, float iy, int H, int W) 
   const int x0 = vx0 ? (int)x0f : 0, x1 = vx1 ? (int)x0f + 1 : 0;
   const int y0 = vy0 ? (int)y0f : 0, y1 = vy1 ? (int)y0f + 1 : 0;
   Taps t;
-  t.off[0] = (int64_t)y0 * W + x0; t.w[0] = __fmul_rn(wy0, wx0); t.valid[0] = vy0 && vx0;
-  t.off[1] = (int64_t)y0 * W + x1; t.w[1] = __fmul_rn(wy0, wx1); t.valid[1] = vy0 && vx1;
-  t.off[2] = (int64_t)y1 * W + x0; t.w[2] = __fmul_rn(wy1, wx0); t.valid[2] = vy1 && vx0;
-  t.off[3] = (int64_t)y1 * W + x1; t.w[3] = __fmul_rn(wy1, wx1); t.valid[3] = vy1 && vx1;
+  t.off[0] = y0 * W + x0; t.w[0] = __fmul_rn(wy0, wx0); t.valid[0] = vy0 && vx0;
+  t.off[1] = y0 * W + x1; t.w[1] = __fmul_rn(wy0, wx1); t.valid[1] = vy0 && vx1;
+  t.off[2] = y1 * W + x0; t.w[2] = __fmul_rn(wy1, wx0); t.valid[2] = vy1 && vx0;
+  t.off[3] = y1 * W + x1; t.w[3] = __fmul_rn(wy1, wx1); t.valid[3] = vy1 && vx1;
   return t;
 }
 
-template <typename T>
-__global__ void bev_warp_kernel(const T* __restrict__ x, const float* __restrict__ pose,
-                                T* __restrict__ out, int B, int H, int W, int C,
-                                float inv_extent_x, float inv_extent_y, float inv_w,
-                                float inv_h, int nearest) {
-  const int64_t t = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  const int64_t total = (int64_t)B * H * W * C;
-  if (t >= total) return;
-  const int c = (int)(t % C);
-  const int64_t pix = t / C;
-  const int j = (int)(pix % W);
-  const int i = (int)((pix / W) % H);
-  const int b = (int)(pix / ((int64_t)W * H));
-  float ix, iy;
-  sample_point<T>(make_theta<T>(pose, b, inv_extent_x, inv_extent_y), i, j, inv_w, inv_h,
-                  H, W, &ix, &iy);
-  const T* xb = x + (int64_t)b * H * W * C + c;
+// One access of V values of T: 16, 8, 4 or 2 bytes, as its raw words.
+template <int BYTES> struct RawOf;
+template <> struct RawOf<16> { using type = uint4; };
+template <> struct RawOf<8> { using type = uint2; };
+template <> struct RawOf<4> { using type = unsigned; };
+template <> struct RawOf<2> { using type = unsigned short; };
 
-  if (nearest) {
-    // round half to even, as torch.round and jnp.round
-    const float xr = rintf(ix), yr = rintf(iy);
-    const bool valid = xr >= 0.0f && xr < (float)W && yr >= 0.0f && yr < (float)H;
-    out[t] = valid ? xb[((int64_t)yr * W + (int64_t)xr) * C] : from_float<T>(0.0f);
-    return;
+__device__ __forceinline__ void to_words(uint4 r, unsigned* w) {
+  w[0] = r.x; w[1] = r.y; w[2] = r.z; w[3] = r.w;
+}
+__device__ __forceinline__ void to_words(uint2 r, unsigned* w) { w[0] = r.x; w[1] = r.y; }
+__device__ __forceinline__ void to_words(unsigned r, unsigned* w) { w[0] = r; }
+__device__ __forceinline__ void to_words(unsigned short r, unsigned* w) { w[0] = r; }
+__device__ __forceinline__ void from_words(const unsigned* w, uint4* r) {
+  *r = make_uint4(w[0], w[1], w[2], w[3]);
+}
+__device__ __forceinline__ void from_words(const unsigned* w, uint2* r) {
+  *r = make_uint2(w[0], w[1]);
+}
+__device__ __forceinline__ void from_words(const unsigned* w, unsigned* r) { *r = w[0]; }
+__device__ __forceinline__ void from_words(const unsigned* w, unsigned short* r) {
+  *r = (unsigned short)w[0];
+}
+
+template <typename T, int V>
+struct Access {
+  using Raw = typename RawOf<V * sizeof(T)>::type;
+  static __device__ __forceinline__ Raw load(const T* p) {
+    return __ldg(reinterpret_cast<const Raw*>(p));
   }
-  const Taps tp = bilinear_taps(ix, iy, H, W);
-  float acc = 0.0f;
+  static __device__ __forceinline__ void store(T* p, Raw r) { *reinterpret_cast<Raw*>(p) = r; }
+  // the V values as f32 (bf16 widened exactly)
+  static __device__ __forceinline__ void unpack(Raw r, float* v) {
+    unsigned w[4];
+    to_words(r, w);
 #pragma unroll
-  for (int k = 0; k < 4; ++k) {
-    const float v = tp.valid[k] ? to_float(xb[tp.off[k] * C]) : 0.0f;
-    acc = k == 0 ? __fmul_rn(v, tp.w[k]) : __fadd_rn(acc, __fmul_rn(v, tp.w[k]));
+    for (int q = 0; q < V; ++q) {
+      if constexpr (sizeof(T) == 4) {
+        v[q] = __uint_as_float(w[q]);
+      } else {
+        const unsigned u = w[q >> 1];
+        v[q] = __uint_as_float((q & 1) ? (u & 0xffff0000u) : (u << 16));
+      }
+    }
   }
-  out[t] = from_float<T>(acc);
+  // V f32 values rounded once to T
+  static __device__ __forceinline__ Raw pack(const float* v) {
+    unsigned w[4] = {0u, 0u, 0u, 0u};
+#pragma unroll
+    for (int q = 0; q < V; ++q) {
+      if constexpr (sizeof(T) == 4) {
+        w[q] = __float_as_uint(v[q]);
+      } else {
+        w[q >> 1] |= (unsigned)__bfloat16_as_ushort(__float2bfloat16_rn(v[q])) << (16 * (q & 1));
+      }
+    }
+    Raw r;
+    from_words(w, &r);
+    return r;
+  }
+};
+
+constexpr int FWD_THREADS = 256;
+constexpr int TILE_W = 8;  // output columns a tile; its rows come from the plan
+
+// Forward and nearest: a block owns a tile of TILE_W x tile_h output pixels of map
+// b; theta once a block, in shared memory. A group of 2^log2g lanes an output
+// pixel, V channels an access: lane l moves accesses l, l + G, ... of the pixel's
+// C / V. Bilinear: the 4 taps' accesses loaded together (zero for an invalid tap),
+// then per value, in tap order 0..3, acc = x * w (+ acc), each f32 product and sum
+// rounded, rounded once to T on store; +0.0 outside the map. Nearest: the raw bits
+// of the rounded sample point's access, or zero. Offsets are 32-bit inside a map
+// (H W C < 2^31, checked by the entry), the map's in 64 bits.
+template <typename T, int V, bool NEAREST>
+__device__ __forceinline__ void warp_tile(const T* __restrict__ x, const float* __restrict__ pose,
+                                          T* __restrict__ out, int H, int W, int C,
+                                          float inv_extent_x, float inv_extent_y, float inv_w,
+                                          float inv_h, int log2g, int tile_h, int tiles_w,
+                                          int tiles_per_map) {
+  using A = Access<T, V>;
+  using Raw = typename A::Raw;
+  __shared__ Theta s_th;
+  const int b = blockIdx.x / tiles_per_map;
+  const int tile = blockIdx.x - b * tiles_per_map;
+  const int tr = tile / tiles_w;
+  const int i0 = tr * tile_h, j0 = (tile - tr * tiles_w) * TILE_W;
+  if (threadIdx.x == 0) s_th = make_theta<T>(pose, b, inv_extent_x, inv_extent_y);
+  __syncthreads();
+  const Theta th = s_th;
+  const int G = 1 << log2g;
+  const int lane = threadIdx.x & (G - 1);
+  const int nv = C / V;
+  const int64_t map0 = (int64_t)b * H * W * C;
+  const T* __restrict__ xb = x + map0;
+  T* __restrict__ ob = out + map0;
+  const int npix = tile_h * TILE_W;
+  for (int m = threadIdx.x >> log2g; m < npix; m += FWD_THREADS >> log2g) {
+    const int i = i0 + m / TILE_W, j = j0 + m % TILE_W;
+    if (i >= H || j >= W) continue;
+    float ix, iy;
+    sample_point<T>(th, i, j, inv_w, inv_h, H, W, &ix, &iy);
+    T* __restrict__ op = ob + (i * W + j) * C;
+    if constexpr (NEAREST) {
+      // round half to even, as torch.round and jnp.round
+      const float xr = rintf(ix), yr = rintf(iy);
+      const bool valid = xr >= 0.0f && xr < (float)W && yr >= 0.0f && yr < (float)H;
+      const T* __restrict__ src = xb + (valid ? ((int)yr * W + (int)xr) * C : 0);
+      for (int q = lane; q < nv; q += G) {
+        Raw r{};
+        if (valid) r = A::load(src + q * V);
+        A::store(op + q * V, r);
+      }
+    } else {
+      const Taps tp = bilinear_taps(ix, iy, H, W);
+      for (int q = lane; q < nv; q += G) {
+        Raw r[4];
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          r[k] = Raw{};
+          if (tp.valid[k]) r[k] = A::load(xb + tp.off[k] * C + q * V);
+        }
+        float acc[V];
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          float v[V];
+          A::unpack(r[k], v);
+#pragma unroll
+          for (int u = 0; u < V; ++u) {
+            const float p = __fmul_rn(v[u], tp.w[k]);
+            acc[u] = k == 0 ? p : __fadd_rn(acc[u], p);
+          }
+        }
+        A::store(op + q * V, A::pack(acc));
+      }
+    }
+  }
+}
+
+template <typename T, int V>
+__global__ void __launch_bounds__(FWD_THREADS)
+bev_warp_tile_kernel(const T* __restrict__ x, const float* __restrict__ pose,
+                     T* __restrict__ out, int H, int W, int C, float iex, float iey,
+                     float inv_w, float inv_h, int log2g, int tile_h, int tiles_w,
+                     int tiles_per_map) {
+  warp_tile<T, V, false>(x, pose, out, H, W, C, iex, iey, inv_w, inv_h, log2g, tile_h,
+                         tiles_w, tiles_per_map);
+}
+
+template <typename T, int V>
+__global__ void __launch_bounds__(FWD_THREADS)
+nearest_warp_tile_kernel(const T* __restrict__ x, const float* __restrict__ pose,
+                         T* __restrict__ out, int H, int W, int C, float iex, float iey,
+                         float inv_w, float inv_h, int log2g, int tile_h, int tiles_w,
+                         int tiles_per_map) {
+  warp_tile<T, V, true>(x, pose, out, H, W, C, iex, iey, inv_w, inv_h, log2g, tile_h,
+                        tiles_w, tiles_per_map);
+}
+
+template <typename T, int V>
+int launch_tile(const void* x, const void* pose, void* out, int H, int W, int C, float iex,
+                float iey, float inv_w, float inv_h, int nearest, int log2g, int tile_h,
+                int tiles_w, int tiles_per_map, long long blocks, cudaStream_t st) {
+  auto kernel = nearest ? &nearest_warp_tile_kernel<T, V> : &bev_warp_tile_kernel<T, V>;
+  kernel<<<(unsigned)blocks, FWD_THREADS, 0, st>>>((const T*)x, (const float*)pose, (T*)out,
+                                                    H, W, C, iex, iey, inv_w, inv_h, log2g,
+                                                    tile_h, tiles_w, tiles_per_map);
+  return (int)cudaGetLastError();
 }
 
 // ---------------------------------------------------------------------------
@@ -531,27 +671,45 @@ int launch_gather(const void* g, const void* pose, void* dx, int B, int H, int W
 }  // namespace
 
 // x, out: (B, H, W, C) contiguous, float32 or bfloat16; pose: (B, 6) float32;
-// inv_*: f32 reciprocals of the extents and of W and H; nearest: 0 bilinear, 1 nearest.
-// Returns cudaGetLastError() after the launch.
+// inv_*: f32 reciprocals of the extents and of W and H; nearest: 0 bilinear, 1
+// nearest. The plan (ops/warp.py ``warp_plan``): vec, the values an access moves
+// (16, 8, 4 or 2 bytes; x and out aligned to it, C a multiple of it); 2^log2g lanes
+// an output pixel (at most 32); tiles of 8 x tile_h output pixels, tiles_w across
+// a map's width, blocks = B tiles_w ceil(H / tile_h). H W C < 2^31. Returns
+// cudaErrorInvalidValue for a plan it does not take, else cudaGetLastError()
+// after the launch.
 extern "C" int fiery_bev_warp(const void* x, const void* pose, void* out, int B, int H,
                               int W, int C, float inv_extent_x, float inv_extent_y,
-                              float inv_w, float inv_h, int is_bf16, int nearest,
+                              float inv_w, float inv_h, int is_bf16, int nearest, int vec,
+                              int log2g, int tile_h, int tiles_w, long long blocks,
                               void* stream) {
-  const int threads = 256;
-  const long long total = (long long)B * H * W * C;
-  if (total == 0) return (int)cudaSuccess;
-  const unsigned blocks = (unsigned)((total + threads - 1) / threads);
+  if ((long long)B * H * W * C == 0) return (int)cudaSuccess;
+  const int tiles_h = tile_h > 0 ? (H + tile_h - 1) / tile_h : 0;
+  if (vec < 1 || C % vec != 0 || log2g < 0 || log2g > 5 || tile_h < 1 ||
+      tiles_w != (W + TILE_W - 1) / TILE_W || blocks != (long long)B * tiles_w * tiles_h ||
+      blocks > 0x7fffffffLL || (long long)H * W * C >= 0x80000000LL)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
+  const int tpm = tiles_w * tiles_h;
+#define FIERY_TILE(T, V)                                                                  \
+  launch_tile<T, V>(x, pose, out, H, W, C, inv_extent_x, inv_extent_y, inv_w, inv_h,      \
+                    nearest, log2g, tile_h, tiles_w, tpm, blocks, st)
   if (is_bf16) {
-    bev_warp_kernel<__nv_bfloat16><<<blocks, threads, 0, st>>>(
-        (const __nv_bfloat16*)x, (const float*)pose, (__nv_bfloat16*)out, B, H, W, C,
-        inv_extent_x, inv_extent_y, inv_w, inv_h, nearest);
+    switch (vec) {
+      case 8: return FIERY_TILE(__nv_bfloat16, 8);
+      case 4: return FIERY_TILE(__nv_bfloat16, 4);
+      case 2: return FIERY_TILE(__nv_bfloat16, 2);
+      case 1: return FIERY_TILE(__nv_bfloat16, 1);
+    }
   } else {
-    bev_warp_kernel<float><<<blocks, threads, 0, st>>>(
-        (const float*)x, (const float*)pose, (float*)out, B, H, W, C, inv_extent_x,
-        inv_extent_y, inv_w, inv_h, nearest);
+    switch (vec) {
+      case 4: return FIERY_TILE(float, 4);
+      case 2: return FIERY_TILE(float, 2);
+      case 1: return FIERY_TILE(float, 1);
+    }
   }
-  return (int)cudaGetLastError();
+#undef FIERY_TILE
+  return (int)cudaErrorInvalidValue;
 }
 
 // pose: (B, 6) float32; theta: (B, 2, 3) float32 or bfloat16 (is_bf16), written with

@@ -149,9 +149,51 @@ def _scalars(x, spatial_extent):
             int(x.dtype == torch.bfloat16))
 
 
+# the forward kernels' launch (csrc/bev_warp.cu ``warp_tile``): 256 threads a block,
+# tiles of TILE_W output columns
+FWD_THREADS = 256
+TILE_W = 8
+
+
+def access_width(C, itemsize, align):
+    """V, the channels a lane of the forward kernels moves with one access: the
+    widest power of two with V * itemsize <= 16 bytes that divides C and whose bytes
+    divide ``align`` (the OR of the input's and output's addresses, mod 16). 16
+    bytes for 64 channels of bf16 or f32. Raises where no access the kernels take
+    (16, 8, 4 or 2 bytes, one or more whole values) fits the addresses."""
+    if align % itemsize:
+        raise ValueError(f'bev_warp: addresses aligned to {align & -align} bytes; the '
+                         f'kernels take accesses of whole {itemsize}-byte values')
+    V = 16 // itemsize
+    while V > 1 and (C % V or align % (V * itemsize)):
+        V //= 2
+    return V
+
+
+@functools.lru_cache(maxsize=None)
+def warp_plan(B, H, W, C, itemsize, align):
+    """The forward kernels' launch plan (vec, log2g, tile_h, tiles_w, blocks): vec
+    channels an access (``access_width``); 2^log2g lanes an output pixel, the
+    accesses of a pixel rounded up to a power of two, at most 32 (a lane loops over
+    the rest); tiles of TILE_W x tile_h output pixels, tile_h enough for one pass of
+    the block's lane groups and at least 8; blocks, B maps of tiles. Raises for a
+    map the kernels do not take (H W C >= 2^31: their offsets inside a map are
+    32-bit)."""
+    if H * W * C >= 2 ** 31:
+        raise ValueError(f'bev_warp: a {H} x {W} x {C} map has 2^31 values or more')
+    V = access_width(C, itemsize, align)
+    log2g = min(5, (C // V - 1).bit_length())
+    tile_h = max(8, (FWD_THREADS >> log2g) // TILE_W)
+    tiles_w = -(-W // TILE_W)
+    blocks = B * tiles_w * -(-H // tile_h)
+    if blocks >= 2 ** 31:
+        raise ValueError(f'bev_warp: {B} maps of {H} x {W} need {blocks} blocks')
+    return V, log2g, tile_h, tiles_w, blocks
+
+
 _ARGTYPES = {
     'fiery_bev_warp': [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_float] * 4
-    + [ctypes.c_int] * 2 + [ctypes.c_void_p],
+    + [ctypes.c_int] * 6 + [ctypes.c_longlong, ctypes.c_void_p],
     'fiery_bev_warp_backward': [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4
     + [ctypes.c_float] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p],
     'fiery_bev_warp_theta': [ctypes.c_void_p] * 2 + [ctypes.c_int] + [ctypes.c_float] * 2
@@ -170,11 +212,13 @@ def _kernel(name):
 
 
 def _launch_warp(x, pose, spatial_extent, nearest):
-    """fiery_bev_warp on the card (bilinear or nearest)."""
+    """fiery_bev_warp on the card (bilinear or nearest), planned by ``warp_plan``."""
     out = torch.empty_like(x)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    rc = _kernel('fiery_bev_warp')(x.data_ptr(), pose.data_ptr(), out.data_ptr(), *x.shape,
-                                   *_scalars(x, spatial_extent), int(nearest), stream)
+    xp, op = x.data_ptr(), out.data_ptr()
+    plan = warp_plan(*x.shape, x.element_size(), (xp | op) & 15)
+    rc = _kernel('fiery_bev_warp')(xp, pose.data_ptr(), op, *x.shape,
+                                   *_scalars(x, spatial_extent), int(nearest), *plan,
+                                   torch._C._cuda_getCurrentRawStream(x.get_device()))
     if rc != 0:
         raise RuntimeError(f'bev_warp kernel launch failed: CUDA error {rc}')
     return out

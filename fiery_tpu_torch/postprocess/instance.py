@@ -67,6 +67,26 @@ def find_instance_centers_plain(center, conf_threshold=0.1, nms_kernel_size=3,
     return centers, top_scores > 0
 
 
+@functools.cache
+def _centers_kernel():
+    """fiery_instance_centers of csrc/instance_centers.cu, its argument types set
+    once."""
+    fn = _build.load('instance_centers').fiery_instance_centers
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_float] \
+        + [ctypes.c_int] * 2 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+@functools.lru_cache(maxsize=None)
+def _centers_shared_bytes(h, w, pad):
+    """Shared memory a K6 block takes for (h, w) frames and a (2 pad + 1)^2 window;
+    0 beyond what it holds."""
+    fn = _build.load('instance_centers').fiery_instance_centers_shared_bytes
+    fn.argtypes, fn.restype = [ctypes.c_int] * 3, ctypes.c_int
+    return fn(h, w, pad)
+
+
 def find_instance_centers(center, conf_threshold=0.1, nms_kernel_size=3,
                           max_instances=MAX_INSTANCES):
     """(B, h, w) float32 heatmaps -> centres (B, max_instances, 2) int32 (row, column)
@@ -90,17 +110,16 @@ def find_instance_centers(center, conf_threshold=0.1, nms_kernel_size=3,
     if not 1 <= max_instances <= min(1024, h * w):
         raise ValueError(f'find_instance_centers: max_instances {max_instances} must be '
                          f'in [1, min(1024, {h * w})]')
-    fn = _build.load('instance_centers').fiery_instance_centers
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_float] \
-        + [ctypes.c_int] * 2 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    keys = torch.empty((B, h, w), dtype=torch.int32, device=center.device)
+    pad = (nms_kernel_size - 1) // 2
+    if not _centers_shared_bytes(h, w, pad):
+        raise ValueError(f'find_instance_centers: a {h} x {w} frame is more than the '
+                         'kernel holds in shared memory')
     centers = torch.empty((B, max_instances, 2), dtype=torch.int32, device=center.device)
     valid = torch.empty((B, max_instances), dtype=torch.bool, device=center.device)
-    stream = torch.cuda.current_stream(center.device).cuda_stream
-    _check_rc('instance_centers', fn(
-        center.data_ptr(), keys.data_ptr(), centers.data_ptr(), valid.data_ptr(), B, h, w,
-        conf_threshold, (nms_kernel_size - 1) // 2, max_instances, stream))
+    _check_rc('instance_centers', _centers_kernel()(
+        center.data_ptr(), centers.data_ptr(), valid.data_ptr(), B, h, w, conf_threshold,
+        pad, max_instances,
+        torch._C._cuda_getCurrentRawStream(center.get_device())))
     find_instance_centers.launches += 1
     return centers, valid
 

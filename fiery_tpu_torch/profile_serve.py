@@ -40,8 +40,8 @@ from fiery_tpu_torch.models.layers import BatchNorm
 from fiery_tpu_torch.ops.batch_norm import batch_norm_forward
 from fiery_tpu_torch.ops.lap import linear_sum_assignment
 from fiery_tpu_torch.ops.lift_splat import bev_pool
-from fiery_tpu_torch.ops.warp import bev_warp_backward
-from fiery_tpu_torch.postprocess.instance import segment_centroids
+from fiery_tpu_torch.ops.warp import bev_warp, bev_warp_backward
+from fiery_tpu_torch.postprocess.instance import find_instance_centers, segment_centroids
 from fiery_tpu_torch.ops.spatial_gru import (gru_output, gru_reset_concat, gru_state_update,
                                              spatial_gru)
 from fiery_tpu_torch.serve import (BASELINE, build_fiery, calibrate_batchnorm, init_params,
@@ -177,8 +177,8 @@ def host_us_per_call(n=3000, batch=100):
     """Host µs of one call of each wrapper the request (or step) makes, against the
     PyTorch calls it replaced, at a small bf16 shape (64 channels, 8 x 8; the splat
     4 x 4 pixels of 8 bins into 64 voxels; the centroids 8 x 8 ids in 101 slots with
-    flow): n calls in batches, the card synchronized between batches outside the
-    clock."""
+    flow; the warp 8 x 8 x 64; the centres one 16 x 16 frame): n calls in batches,
+    the card synchronized between batches outside the clock."""
     x = torch.randn(1, 64, 8, 8, device='cuda', dtype=torch.bfloat16).contiguous(
         memory_format=torch.channels_last)
     gen = torch.Generator(device='cuda').manual_seed(0)
@@ -191,6 +191,7 @@ def host_us_per_call(n=3000, batch=100):
     flow = torch.randn((1, 8, 8, 2), generator=gen, device='cuda')
     g = torch.randn((1, 8, 8, 64), generator=gen, device='cuda').to(torch.bfloat16)
     pose = torch.zeros((1, 6), device='cuda')
+    heat = torch.rand((1, 16, 16), generator=gen, device='cuda')
     bn = init_params(BatchNorm(64, post='relu'), seed=0).cuda().eval()
     h = x.permute(0, 2, 3, 1).contiguous().permute(0, 3, 1, 2)
     slot = gru_output(h, 1)
@@ -202,7 +203,9 @@ def host_us_per_call(n=3000, batch=100):
              'gru_state_update (K11)': lambda: gru_state_update(h, h, h, slot, 0),
              'bev_pool (K1)': lambda: bev_pool(depth, feat, ids, 64),
              'segment_centroids (K8)': lambda: segment_centroids(labels, 101, flow),
-             'bev_warp_backward (K2)': lambda: bev_warp_backward(g, pose, (50.0, 50.0))}
+             'bev_warp_backward (K2)': lambda: bev_warp_backward(g, pose, (50.0, 50.0)),
+             'bev_warp (K2)': lambda: bev_warp(g, pose, (50.0, 50.0)),
+             'find_instance_centers (K6)': lambda: find_instance_centers(heat)}
     out = {}
     with torch.inference_mode():
         for name, fn in calls.items():

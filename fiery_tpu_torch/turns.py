@@ -21,15 +21,23 @@ training, the labels warped on the host outside the step):
     ms and launches of the BatchNorm kernel (K10), the GRU's gate kernels (K11),
     the assignment kernel (K9), the centroid kernel (K8), the splat forward (K1,
     its kernels; not the memset of its counters) and backward (K1b), the warp's
-    kernel (K2; in a step also its nearest mode, K4) and the warp's backward
-    (K2b), by their kernels' names in either tree (keys
-    ``<k10|k11|k9|k8|k1|k1b|k2|k2b>_<request|instances|step>_ms_<kind>`` and
-    ``..._launches``);
+    forward (K2), its nearest mode (K4) and both together (K2K4: older trees ran
+    them as one kernel, so only this key reads them there), the warp's backward
+    (K2b) and the instance centres (K6), by their kernels' names in either tree
+    (keys ``<k10|k11|k9|k8|k6|k1|k1b|k2|k4|k2k4|k2b>_<request|instances|step>_ms_<kind>``
+    and ``..._launches``);
   * the host µs of one call (batches of 100 calls, synchronized outside the
     clock) of the splat (``bev_pool``, 4 x 4 pixels of 8 bins into 64 voxels,
     bf16: ``k1_host_us``), of the centroids (``segment_centroids``, 8 x 8 ids in
-    101 slots with flow: ``k8_host_us``) and of the warp's backward
-    (``bev_warp_backward``, 8 x 8 x 64 bf16: ``k2b_host_us``).
+    101 slots with flow: ``k8_host_us``), of the warp and its backward
+    (``bev_warp``, ``bev_warp_backward``, 8 x 8 x 64 bf16: ``k2_host_us``,
+    ``k2b_host_us``) and of the centres (``find_instance_centers``, one 16 x 16
+    frame: ``k6_host_us``);
+  * last, each of those kernels alone, the same calls in either tree: K2 forward
+    at the serve and training shapes (2 and 6 maps of 200 x 200 x 64 bf16), K4 on
+    a label stack (12 maps of 200 x 200 x 7 f32) and K6 on a request's 5 frames of
+    200 x 200, device ms a call (``k2_serve_kernel_ms``, ``k2_train_kernel_ms``,
+    ``k4_kernel_ms``, ``k6_kernel_ms``).
 Each process prints one JSON line of its medians; the last line gathers them per
 checkout. Only entry points that both trees have are used. Needs a CUDA card.
 A step's stage times are ``chip_smoke.py``'s (``stage_times``).
@@ -63,15 +71,19 @@ _build.build_all()
 # Adam's multi_tensor_apply_kernel): K10 (three launches a pass, or two), K11 (the
 # GRU gates, forward and backward), K9 (the assignment), K8 (the centroids: two
 # launches a tracking step, or one a request), K1 forward (one atomic kernel, or
-# four), K1 backward, K2 (the warp, and in a step its nearest mode K4) and K2
-# backward (an atomic scatter, or a gather)
+# four), K1 backward, K2 forward and K4 (its nearest mode; one kernel for both
+# in older trees, so there only 'k2k4' reads them), K2 backward (an atomic
+# scatter, or a gather) and K6 (the instance centres)
 KERNELS = {'k10': ('::stats_kernel', '::stats_finalize_kernel', '::apply_kernel',
                    '::backward_reduce_kernel', '::backward_finalize_kernel',
                    '::backward_apply_kernel'),
            'k11': ('::reset_concat', '::state_update'),
            'k9': ('::lap_kernel',),
            'k8': ('::centroid_kernel', '::centroid_clip_kernel'),
-           'k2': ('::bev_warp_kernel',),
+           'k2': ('::bev_warp_tile_kernel',),
+           'k4': ('::nearest_warp_tile_kernel',),
+           'k2k4': ('::bev_warp_kernel', '::bev_warp_tile_kernel', '::nearest_warp_tile_kernel'),
+           'k6': ('::centers_kernel', '::centers_cluster_kernel'),
            'k2b': ('::warp_scatter_kernel', '::warp_gather_kernel'),
            'k1': ('::bev_pool_kernel', '::splat_count_kernel', '::splat_scan_kernel',
                   '::splat_fill_kernel', '::splat_pool_kernel'),
@@ -127,6 +139,10 @@ pose = torch.zeros((1, 6), device='cuda')
 out['k1_host_us'] = host_us(lambda: LS.bev_pool(depth, feat, ids, 64))
 out['k8_host_us'] = host_us(lambda: PI.segment_centroids(labels, 101, flow))
 out['k2b_host_us'] = host_us(lambda: WP.bev_warp_backward(grad, pose, (50.0, 50.0)))
+out['k2_host_us'] = host_us(lambda: WP.bev_warp(grad, pose, (50.0, 50.0)))
+heat = torch.rand((1, 16, 16), generator=gen, device='cuda')
+out['k6_host_us'] = host_us(lambda: PI.find_instance_centers(heat))
+
 
 
 def timed(fn):
@@ -193,6 +209,32 @@ for kind, opts in (('dense', []), ('combo', combo)):
     profiled(lambda: trainer.train_step(batches[1], gen), out, f'step_ms_{kind}')
     del trainer
     torch.cuda.empty_cache()
+
+
+def kernel_alone(fn, key, name, reps=20):
+    """Device ms a call of fn's kernels (KERNELS[name]), profiled over reps calls
+    after a warm-up: out['<key>_kernel_ms']."""
+    for _ in range(3):
+        fn()
+    got = {}
+    profiled(lambda: [fn() for _ in range(reps)], got, key)
+    out[f'{key}_kernel_ms'] = got[f'{name}_{key}'] / reps
+
+
+# after the timed runs: K2 forward at the serve and training shapes (2 and 6 maps
+# of 200 x 200 x 64 bf16), K4 on the label stack (12 maps of 200 x 200 x 7 f32),
+# K6 on a request's 5 frames: the same calls in either tree
+x2 = torch.randn((6, 200, 200, 64), generator=gen, device='cuda').to(torch.bfloat16)
+p6 = torch.zeros((6, 6), device='cuda')
+p6[:, 0], p6[:, 1], p6[:, 5] = 1.3, -0.4, 0.07
+kernel_alone(lambda: WP.bev_warp(x2[:2], p6[:2], (50.0, 50.0)), 'k2_serve', 'k2k4')
+kernel_alone(lambda: WP.bev_warp(x2, p6, (50.0, 50.0)), 'k2_train', 'k2k4')
+lab = torch.randn((12, 200, 200, 7), generator=gen, device='cuda')
+p12 = p6.repeat(2, 1)
+kernel_alone(lambda: WP.bev_warp_nearest(lab, p12, (50.0, 50.0)), 'k4', 'k2k4')
+heat5 = torch.rand((5, 200, 200), generator=gen, device='cuda')
+kernel_alone(lambda: PI.find_instance_centers(heat5), 'k6', 'k6')
+del x2, lab
 print('TURNS ' + json.dumps(out), flush=True)
 '''
 
