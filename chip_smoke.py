@@ -39,9 +39,10 @@ Builds the package's CUDA kernels from csrc/, then:
      step, from the batch on the card, under set_sync_debug_mode('error'); prints
      the median step time, the peak memory, per-stage times (CUDA events, and the
      host clock with a synchronize between stages) and the top device kernels of a
-     profiled step;
+     profiled step, with K3's, K5's and K5 backward's device ms in it;
   7. holds the training kernels (K1 and K2 backward, K3 top-k select, K4 nearest
-     warp) against their plain versions at the training shapes, and times them
+     warp) against their plain versions at the training shapes, and times them (K3
+     on random rows and on rows with ties at the k-th value)
      (K1 backward beside the L2 gather of its gradient rows; two runs bit for bit;
      K2 backward equal to the plain version on the host, given the card's theta,
      bit for bit, also at wide poses on 400 x 200 and 320 x 193 grids, and to a
@@ -123,7 +124,8 @@ from fiery_tpu_torch.postprocess.instance import (
 from fiery_tpu_torch.serve import (BASELINE, build_fiery, calibrate_batchnorm, init_params,
                                    make_request, predict, predict_instances)
 from fiery_tpu_torch.training.losses import (_top_k_sum_from_threshold, compute_losses,
-                                             kth_largest, kth_largest_plain)
+                                             kth_largest, kth_largest_plain,
+                                             kth_largest_plan)
 from fiery_tpu_torch.training.metrics import PanopticMetric
 from fiery_tpu_torch.training.trainer import INPUTS, Trainer
 from fiery_tpu_torch.utils.config import get_cfg
@@ -1353,6 +1355,16 @@ def phase_train(n_steps=3, kind='dense', opts=()):
             f'({json.dumps({k: round(v, 4) for k, v in k10.items()})}) against its summed '
             f'bound {fwd_census[2] + bwd_census[2]:.4f} ms (forward {fwd_census[2]:.4f}, '
             f'backward {bwd_census[2]:.4f}); {smi_line()}')
+        # the selects' device ms and launches in this step: K3 (both configurations),
+        # K5 and its backward (the combination)
+        for key, symbol in (('k3', '::kth_largest_kernel<'), ('k5', '::topk_select_kernel<'),
+                            ('k5b', '::topk_select_backward_kernel<')):
+            mine = [e for e in events if symbol in e.key]
+            rec[f'{key}_ms'] = sum(e.self_device_time_total for e in mine) / 1e3
+            rec[f'{key}_launches'] = sum(e.count for e in mine)
+        log(f'{name} profiled step: K3 {rec["k3_ms"]:.4f} ms ({rec["k3_launches"]} launches), '
+            f'K5 {rec["k5_ms"]:.4f} ms ({rec["k5_launches"]}), K5 backward '
+            f'{rec["k5b_ms"]:.4f} ms ({rec["k5b_launches"]})')
         for e in sorted(events, key=lambda e: -e.self_device_time_total)[:15]:
             log(f'  {e.self_device_time_total / 1e3:9.3f} ms {e.count:5d}x  {e.key[:110]}')
 
@@ -1409,12 +1421,13 @@ def phase_topk_kernels(device, k=8):
                 return top.values, ids.gather(-1, top.indices)
 
             nbytes = n_pix * (D * (es + 4) + k * (es + 4 + 1))
+            # integer compares: D a bit of the key (16 bits bf16, 32 f32), a pixel
             rec[('topk_select', shape_name, dtype)] = dict(
                 max_abs_err=0.0,
                 ms=kernel_ms(lambda: topk_select(depth, ids, k), ['topk_select_kernel']),
                 call_ms=time_ms(lambda: topk_select(depth, ids, k)),
                 plain_ms=time_ms(lambda: topk_select_plain(depth, ids, k)),
-                library_ms=time_ms(library), bytes=nbytes, flops=float(n_pix * D * D))
+                library_ms=time_ms(library), bytes=nbytes, flops=float(n_pix * D * 8 * es))
             if shape_name == 'serve':
                 # K1 on the selected bins, as the sparse splat runs it (D = k): equal
                 # to the plain version on the host bit for bit, and timed
@@ -1580,12 +1593,14 @@ def phase_train_kernels(device):
             flops=8.0 * g.numel() + 30.0 * B * H * W)
 
     # K3: the segmentation loss's 15 rows (3 clips x 5 frames) of 200 x 200, k = 10,000:
-    # random rows, and rows whose k-th value sits in ties (exact zeros, a repeated value)
+    # random rows, and rows whose k-th value sits in ties (exact zeros, a repeated
+    # value); both timed
     k = 10000
     x_rand = torch.rand((15, H * W), generator=g_, device=device) * 3.0
     x_ties = x_rand.clone()
     x_ties[::2, :30000] = 0.0
     x_ties[1::2, ::2] = 1.5
+    k3 = {}
     for name, x in (('random', x_rand), ('ties', x_ties)):
         got, want = kth_largest(x, k), kth_largest_plain(x, k)
         torch.cuda.synchronize()
@@ -1597,13 +1612,44 @@ def phase_train_kernels(device):
         if abs(mean - ref) > 1e-6 * abs(ref):
             raise AssertionError(f'top-k mean {name}: {mean} vs {ref}')
         log(f'  kth_largest {name}: equal to plain; top-k mean {mean:.7f} vs topk {ref:.7f}')
-    x = x_ties
+        k3[name] = dict(ms=kernel_ms(lambda x=x: kth_largest(x, k), ['kth_largest_kernel']),
+                        call_ms=time_ms(lambda x=x: kth_largest(x, k)),
+                        plain_ms=time_ms(lambda x=x: kth_largest_plain(x, k)),
+                        library_ms=time_ms(lambda x=x: torch.topk(x, k)))
+    # the ties rows are the record's (the kernels' first record timed only those); the
+    # random rows beside; the launch on 8 blocks a row instead of the plan's; and the
+    # kernel's latency floor, its chain of barriers alone (4 passes), and the launch
+    # alone (0 passes)
+    lib = _build.load('kth_largest')
+    k3_fn, chain = lib.fiery_kth_largest, lib.fiery_kth_largest_barrier_chain
+    k3_fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
+                                              ctypes.c_int, ctypes.c_void_p]
+    chain.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    k3_fn.restype = chain.restype = ctypes.c_int
+    plan = kth_largest_plan(H * W)
+    out8 = torch.empty((15, 1), device=device)
+
+    def launch(fn, *args):
+        rc = fn(*args, torch.cuda.current_stream().cuda_stream)
+        if rc:
+            raise RuntimeError(f'{fn.__name__}: CUDA error {rc}')
+
+    launch(k3_fn, x_ties.data_ptr(), out8.data_ptr(), 15, H * W, k, 8)
+    torch.cuda.synchronize()
+    if not torch.equal(out8, kth_largest_plain(x_ties, k)):
+        raise AssertionError('kth_largest on 8 blocks a row != plain')
     rec['kth_largest'] = dict(
-        max_abs_err=0.0, ms=kernel_ms(lambda: kth_largest(x, k), ['kth_largest_kernel']),
-        call_ms=time_ms(lambda: kth_largest(x, k)),
-        plain_ms=time_ms(lambda: kth_largest_plain(x, k)),
-        library_ms=time_ms(lambda: torch.topk(x, k)), bytes=x.numel() * 4 + 15 * 4,
-        flops=4 * 4.0 * x.numel())
+        max_abs_err=0.0, **k3['ties'],
+        **{f'random_{key}': v for key, v in k3['random'].items()},
+        blocks_a_row=plan,
+        ms_8_blocks_a_row=kernel_ms(lambda: launch(k3_fn, x_ties.data_ptr(), out8.data_ptr(),
+                                                   15, H * W, k, 8), ['kth_largest_kernel']),
+        barrier_floor_ms=kernel_ms(lambda: launch(chain, 15, plan, 4), ['barrier_chain_kernel']),
+        launch_floor_ms=kernel_ms(lambda: launch(chain, 15, plan, 0), ['barrier_chain_kernel']),
+        bytes=x_ties.numel() * 4 + 15 * 4, flops=24.0 * x_ties.numel())
+    log('  kth_largest: ' + json.dumps({key: rec['kth_largest'][key] for key in (
+        'ms', 'random_ms', 'blocks_a_row', 'ms_8_blocks_a_row', 'barrier_floor_ms',
+        'launch_floor_ms')}))
 
     # K4: the label stack, 12 future frames (3 clips x 4) of 200 x 200 x 7 f32
     labels = torch.randn((12, H, W, 7), generator=g_, device=device)
@@ -2180,6 +2226,18 @@ def main():
             # the training shape's call (6 maps), launched once a dense step
             entry.update({f'train_{k}': warp[('train', torch.bfloat16)][k] for k in (
                 'ms', 'call_ms', 'plain_ms', 'library_ms', 'bound_ms')})
+        if name == 'topk_select':
+            # f32 at the serve shape, and the training shape (9 samples) in both
+            for label, key in (('f32_', ('serve', torch.float32)),
+                               ('train_', ('train', torch.bfloat16)),
+                               ('train_f32_', ('train', torch.float32))):
+                entry.update({label + k: topk[('topk_select',) + key][k] for k in (
+                    'ms', 'call_ms', 'plain_ms', 'library_ms', 'bound_ms')})
+            entry['step_ms_combo'] = combo_train['k5_ms']
+        if name == 'kth_largest':
+            entry.update({k: r[k] for k in r if k.startswith('random_') or k in (
+                'blocks_a_row', 'ms_8_blocks_a_row', 'barrier_floor_ms', 'launch_floor_ms')})
+            entry.update(step_ms_dense=train['k3_ms'], step_ms_combo=combo_train['k3_ms'])
         if name == 'batch_norm':
             entry.update({f'eval_{k}': norm_gru['batch_norm eval'][k]
                           for k in ('ms', 'call_ms', 'plain_ms', 'library_ms', 'bound_ms')})
@@ -2193,7 +2251,8 @@ def main():
     for label, r in (('', train), (' of the combination', combo_train)):
         log(f'train step{label} (batch 3, full width): median_step_ms={r["step_ms"]:.3f} '
             f'peak_mem_bytes={r["peak_bytes"]} held_by_earlier_phases={r["held_bytes"]} '
-            f'device_busy_ms={r["busy_ms"]:.3f} host_prewarp_ms={r["prewarp_ms"]}')
+            f'device_busy_ms={r["busy_ms"]:.3f} host_prewarp_ms={r["prewarp_ms"]} '
+            f'k3_device_ms={r["k3_ms"]:.4f} k5_device_ms={r["k5_ms"]:.4f}')
     log(json.dumps({'kernels': kernels}))
     log(smi_line())
     print(json.dumps({'ok': True, 'device': {

@@ -14,22 +14,36 @@
 //     top_w[p, j] = depth[p, d_j],  ids_k[p, j] = ids[p, d_j],  idx[p, j] = d_j.
 // Weights are ordered by the JAX package's order key: the float's bits with the
 // sign bit set for values >= 0 and all bits flipped for negative ones (so -0.0 and
-// +0.0 are distinct keys). A bf16 weight takes the key of its f32 upcast, whose
-// order and ties are those of its 16-bit key.
+// +0.0 are distinct keys), 16 bits wide for bf16 and 32 for f32.
 // Bin d is selected iff its position in the order (key descending, bin index
 // ascending), pos_d = #{e : key_e > key_d} + #{e < d : key_e == key_d}, is below k;
 // that is the set `_topk_select_nosort` forms from the exact k-th key.
 //
 // Bound on an H100: bytes. At the combo's serve shapes (3 samples x 6 cameras x
 // 28 x 60 = 30,240 pixels, D = 48, k = 8, bf16) it reads 96 B of depth and 192 B
-// of ids per pixel and writes 16 + 32 + 8 B: ~10.4 MB, 3.1 us at 3.35 TB/s; the
-// ~D^2 = 2,304 key comparisons per pixel (70 M, integer) are far below the rate.
+// of ids per pixel and writes 16 + 32 + 8 B: ~10.4 MB, 3.1 us at 3.35 TB/s. The
+// selection below costs D x (key bits) integer compares a pixel (768 in bf16, 1,536
+// in f32; 23 M and 46 M at the serve shape), far below the card's rate.
 //
-// Design: one warp per pixel; lane l holds the keys of bins l and l + 32 (D <= 64).
-// Each lane counts pos for its two bins over all D keys, which it receives by
-// warp shuffles (D shuffles a pixel, no shared memory, no atomics); a ballot of the
-// selected bins and a popcount of the lanes below give each selected bin its slot.
-// Values are copied as raw bits, so the selection and the outputs are exact.
+// Design. The first design spent a warp on a pixel and walked all D keys by
+// shuffles, O(D^2) compares, and was issue-bound at 10x its byte bound. Here one
+// thread takes a pixel, kPixels = 64 pixels a block, with no shared memory.
+//   1. A thread reads its pixel's D weights into registers as order keys, by 16-byte
+//      loads where the rows allow it (D x 2 or D x 4 bytes a multiple of 16), all
+//      issued at once; registers past D hold key 0. Thread 0 first asks L2 for the
+//      block's voxel ids (one bulk prefetch), which are read only after step 3.
+//   2. The k-th largest key, bit by bit from the top: cand = kth | bit is kept when
+//      #{key >= cand} >= k (16 steps in bf16, whose keys are 16 bits wide as
+//      `_order_bits` makes them, 32 in f32). cand >= 1, so the padding's key 0 is
+//      never counted.
+//   3. The selected set as a 64-bit mask over the bins: every bin above the key,
+//      and the lowest k - #{above} bins at the key (bins < D only).
+//   4. The slots in ascending bin order, by peeling the mask's lowest bit: the
+//      weight read again at the selected bin (from L1), the voxel id gathered there
+//      (from L2), written 8 slots at a time as 16-, 32- and 8-byte vector stores
+//      (scalar stores when k is not a multiple of 8).
+// The register loops are unrolled to MAXD (D rounded up to 16, 32, 48 or 64), so D
+// is a runtime argument (fishing_setting.yml has D = 28).
 //
 // Backward (fiery_topk_select_backward). Replaces the transpose of the selection in
 // the JAX gradient of `lift_splat_topk` (the one-hot sum's VJP):
@@ -44,55 +58,128 @@
 
 namespace {
 
-constexpr int kThreads = 256;   // 8 warps, one pixel each
-constexpr int kMaxBins = 64;    // two bins a lane
+constexpr int kThreads = 256;   // backward: a thread a (pixel, bin)
+constexpr int kPixels = 64;     // forward: a thread a pixel
+constexpr int kMaxBins = 64;
 
-__device__ __forceinline__ unsigned bits32(uint32_t raw) { return raw; }
-__device__ __forceinline__ unsigned bits32(uint16_t raw) { return (unsigned)raw << 16; }
-
-__device__ __forceinline__ unsigned order_key(unsigned bits) {
-  return (bits >> 31) == 0 ? (bits | 0x80000000u) : ~bits;
+// The JAX package's order key in the weight's native width (`_order_bits`): the
+// sign bit set for values >= 0, every bit flipped for negative ones.
+__device__ __forceinline__ unsigned order_key(uint16_t raw) {
+  return (raw >> 15) == 0 ? (raw | 0x8000u) : (~(unsigned)raw & 0xFFFFu);
+}
+__device__ __forceinline__ unsigned order_key(uint32_t raw) {
+  return (raw >> 31) == 0 ? (raw | 0x80000000u) : ~raw;
 }
 
-// T: the raw storage of the weights (uint16_t for bf16, uint32_t for f32)
+// Weight d of a row held as 32-bit words.
 template <typename T>
-__global__ void topk_select_kernel(const T* __restrict__ depth, const int32_t* __restrict__ ids,
-                                   T* __restrict__ top_w, int32_t* __restrict__ ids_k,
-                                   uint8_t* __restrict__ idx, int64_t n_pix, int D, int k) {
-  const int64_t p = ((int64_t)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
-  const int lane = threadIdx.x & 31;
-  if (p >= n_pix) return;   // the whole warp leaves together
-  const T* dp = depth + p * D;
-  const int d_lo = lane, d_hi = lane + 32;
-  const bool has_lo = d_lo < D, has_hi = d_hi < D;
-  const T raw_lo = has_lo ? dp[d_lo] : T(0);
-  const T raw_hi = has_hi ? dp[d_hi] : T(0);
-  const unsigned key_lo = order_key(bits32(raw_lo));
-  const unsigned key_hi = order_key(bits32(raw_hi));
-  int pos_lo = 0, pos_hi = 0;
-  for (int e = 0; e < D; ++e) {
-    // e is the same in every lane, so every lane sends the same register
-    const unsigned key_e = __shfl_sync(0xffffffffu, e < 32 ? key_lo : key_hi, e & 31);
-    pos_lo += (key_e > key_lo) | ((key_e == key_lo) & (e < d_lo));
-    pos_hi += (key_e > key_hi) | ((key_e == key_hi) & (e < d_hi));
+__device__ __forceinline__ T weight(const unsigned* words, int d) {
+  if constexpr (sizeof(T) == 4) {
+    return words[d];
+  } else {
+    return (T)(words[d >> 1] >> (16 * (d & 1)));
   }
-  const bool sel_lo = has_lo && pos_lo < k;
-  const bool sel_hi = has_hi && pos_hi < k;
-  const unsigned ballot_lo = __ballot_sync(0xffffffffu, sel_lo);
-  const unsigned ballot_hi = __ballot_sync(0xffffffffu, sel_hi);
-  const unsigned below = (1u << lane) - 1u;
-  const int64_t out = p * k;
-  if (sel_lo) {
-    const int slot = __popc(ballot_lo & below);
-    top_w[out + slot] = raw_lo;
-    ids_k[out + slot] = ids[p * D + d_lo];
-    idx[out + slot] = (uint8_t)d_lo;
+}
+
+// T: the raw storage of the weights (uint16_t for bf16, uint32_t for f32); MAXD: D
+// rounded up to a multiple of 16; VEC: rows of whole 16-byte words at 16-byte
+// alignment, read as such (else a weight at a time); vec_out: k % 8 == 0 and the
+// outputs 16-byte aligned.
+template <typename T, int MAXD, bool VEC>
+__global__ void __launch_bounds__(kPixels)
+topk_select_kernel(const T* __restrict__ depth, const int32_t* __restrict__ ids,
+                   T* __restrict__ top_w, int32_t* __restrict__ ids_k, uint8_t* __restrict__ idx,
+                   int64_t n_pix, int D, int k, bool vec_out) {
+  const int64_t p0 = (int64_t)blockIdx.x * kPixels;
+  if (threadIdx.x == 0) {
+    // the block's voxel ids are read at the selected bins only, after the selection:
+    // start them on their way to L2 now (a hint; whole 16-byte words)
+    const int64_t bytes = (n_pix - p0 < kPixels ? n_pix - p0 : kPixels) * D * 4;
+    const int32_t* start = ids + p0 * D;
+    if ((((uintptr_t)start) & 15) == 0 && bytes >= 16)
+      asm volatile("cp.async.bulk.prefetch.L2.global [%0], %1;" ::"l"(start),
+                   "r"((unsigned)(bytes & ~15LL))
+                   : "memory");
   }
-  if (sel_hi) {
-    const int slot = __popc(ballot_lo) + __popc(ballot_hi & below);
-    top_w[out + slot] = raw_hi;
-    ids_k[out + slot] = ids[p * D + d_hi];
-    idx[out + slot] = (uint8_t)d_hi;
+  const int64_t p = p0 + threadIdx.x;
+  if (p >= n_pix) return;
+  const T* row = depth + p * D;
+  unsigned key[MAXD];
+  if constexpr (VEC) {
+    constexpr int WORDS = MAXD * (int)sizeof(T) / 4;
+    unsigned words[WORDS];
+    const int live = D * (int)sizeof(T) / 16;
+#pragma unroll
+    for (int i = 0; i < WORDS / 4; ++i) {
+      const uint4 q = i < live ? reinterpret_cast<const uint4*>(row)[i] : make_uint4(0, 0, 0, 0);
+      words[4 * i] = q.x, words[4 * i + 1] = q.y, words[4 * i + 2] = q.z, words[4 * i + 3] = q.w;
+    }
+#pragma unroll
+    for (int d = 0; d < MAXD; ++d) key[d] = d < D ? order_key(weight<T>(words, d)) : 0u;
+  } else {
+#pragma unroll
+    for (int d = 0; d < MAXD; ++d) key[d] = d < D ? order_key(row[d]) : 0u;
+  }
+
+  unsigned kth = 0;
+#pragma unroll 1
+  for (int bit = 8 * (int)sizeof(T) - 1; bit >= 0; --bit) {
+    const unsigned cand = kth | (1u << bit);
+    int c0 = 0, c1 = 0, c2 = 0, c3 = 0;
+#pragma unroll
+    for (int d = 0; d < MAXD; d += 4) {
+      c0 += key[d] >= cand;
+      c1 += key[d + 1] >= cand;
+      c2 += key[d + 2] >= cand;
+      c3 += key[d + 3] >= cand;
+    }
+    if (c0 + c1 + c2 + c3 >= k) kth = cand;
+  }
+
+  unsigned long long gt = 0, eq = 0;
+#pragma unroll
+  for (int d = 0; d < MAXD; ++d) {
+    gt |= (unsigned long long)(key[d] > kth) << d;
+    eq |= (unsigned long long)(key[d] == kth) << d;
+  }
+  eq &= D == 64 ? ~0ull : (1ull << D) - 1ull;   // the padding's key 0 may equal kth
+  unsigned long long sel = gt;
+  for (int t = k - __popcll(gt); t > 0; --t) {   // the lowest ties
+    sel |= eq & (0ull - eq);
+    eq &= eq - 1ull;
+  }
+
+  const int32_t* id_row = ids + p * D;
+  for (int j0 = 0; j0 < k; j0 += 8) {
+    alignas(16) T w[8];
+    alignas(16) int32_t id[8];
+    alignas(8) uint8_t ix[8];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      w[j] = T(0), id[j] = 0, ix[j] = 0;
+      if (j0 + j < k) {   // past the k-th slot the mask is empty
+        const int d = __ffsll((long long)sel) - 1;
+        sel &= sel - 1ull;
+        w[j] = row[d];   // read above: from L1
+        id[j] = id_row[d];
+        ix[j] = (uint8_t)d;
+      }
+    }
+    const int64_t o = p * k + j0;
+    if (vec_out) {
+#pragma unroll
+      for (int v = 0; v < (int)sizeof(w) / 16; ++v)
+        reinterpret_cast<uint4*>(top_w + o)[v] = reinterpret_cast<const uint4*>(w)[v];
+      reinterpret_cast<int4*>(ids_k + o)[0] = reinterpret_cast<const int4*>(id)[0];
+      reinterpret_cast<int4*>(ids_k + o)[1] = reinterpret_cast<const int4*>(id)[1];
+      *reinterpret_cast<uint2*>(idx + o) = *reinterpret_cast<const uint2*>(ix);
+    } else {
+      for (int j = 0; j < 8 && j0 + j < k; ++j) {
+        top_w[o + j] = w[j];
+        ids_k[o + j] = id[j];
+        idx[o + j] = ix[j];
+      }
+    }
   }
 }
 
@@ -124,17 +211,36 @@ extern "C" int fiery_topk_select(const void* depth, const void* ids, void* top_w
                                  void* stream) {
   if (D < 1 || D > kMaxBins || k < 1 || k > D) return (int)cudaErrorInvalidValue;
   if (n_pix == 0) return (int)cudaSuccess;
-  const unsigned blocks = (unsigned)((n_pix * 32 + kThreads - 1) / kThreads);
+  const long long blocks = (n_pix + kPixels - 1) / kPixels;
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  const bool vec_out =
+      k % 8 == 0 && (((uintptr_t)top_w | (uintptr_t)ids_k | (uintptr_t)idx) & 15) == 0;
+  const int es = is_bf16 ? 2 : 4;
+  const bool vec_in = (D * es) % 16 == 0 && ((uintptr_t)depth & 15) == 0;
   cudaStream_t st = (cudaStream_t)stream;
-  if (is_bf16) {
-    topk_select_kernel<uint16_t><<<blocks, kThreads, 0, st>>>(
-        (const uint16_t*)depth, (const int32_t*)ids, (uint16_t*)top_w, (int32_t*)ids_k,
-        (uint8_t*)idx, n_pix, D, k);
-  } else {
-    topk_select_kernel<uint32_t><<<blocks, kThreads, 0, st>>>(
-        (const uint32_t*)depth, (const int32_t*)ids, (uint32_t*)top_w, (int32_t*)ids_k,
-        (uint8_t*)idx, n_pix, D, k);
+  const int maxd = (D + 15) / 16 * 16;
+#define FIERY_TOPK_LAUNCH(T, M, V)                                                           \
+  topk_select_kernel<T, M, V><<<(unsigned)blocks, kPixels, 0, st>>>(                          \
+      (const T*)depth, (const int32_t*)ids, (T*)top_w, (int32_t*)ids_k, (uint8_t*)idx, n_pix, \
+      D, k, vec_out)
+#define FIERY_TOPK_WIDTHS(T, V)                  \
+  switch (maxd) {                                \
+    case 16: FIERY_TOPK_LAUNCH(T, 16, V); break; \
+    case 32: FIERY_TOPK_LAUNCH(T, 32, V); break; \
+    case 48: FIERY_TOPK_LAUNCH(T, 48, V); break; \
+    default: FIERY_TOPK_LAUNCH(T, 64, V); break; \
   }
+  if (is_bf16 && vec_in) {
+    FIERY_TOPK_WIDTHS(uint16_t, true)
+  } else if (is_bf16) {
+    FIERY_TOPK_WIDTHS(uint16_t, false)
+  } else if (vec_in) {
+    FIERY_TOPK_WIDTHS(uint32_t, true)
+  } else {
+    FIERY_TOPK_WIDTHS(uint32_t, false)
+  }
+#undef FIERY_TOPK_WIDTHS
+#undef FIERY_TOPK_LAUNCH
   return (int)cudaGetLastError();
 }
 

@@ -23,6 +23,17 @@ def kth_largest_plain(x, k):
     return torch.topk(x, k, dim=-1).values[..., -1:]
 
 
+# K3's launch (csrc/kth_largest.cu): a row is split over a cluster of blocks, each of
+# which holds 16,384 keys in registers and reads any more from memory in every pass
+KTH_KEYS_PER_BLOCK = 16384
+
+
+def kth_largest_plan(n):
+    """The blocks a row of n keys of K3's launch: 4, or 8 when 4 would not hold the
+    row in registers (``chip_smoke.py`` times the loss's rows on 8 beside 4)."""
+    return 4 if n <= 4 * KTH_KEYS_PER_BLOCK else 8
+
+
 def kth_largest(x, k):
     """Exact k-th largest value along the last axis (kernel K3,
     csrc/kth_largest.cu): x (..., n) float32 -> (..., 1), ties counted with
@@ -36,13 +47,17 @@ def kth_largest(x, k):
     if x.device.type != 'cuda' or x.dtype != torch.float32 or not x.is_contiguous():
         raise ValueError(f'kth_largest: x must be a contiguous float32 CUDA tensor, got '
                          f'{x.dtype} on {x.device}')
+    rows = x.numel() // n
+    cluster = kth_largest_plan(n)
+    if rows * cluster >= 2 ** 31:
+        raise ValueError(f'kth_largest: {rows} rows of {n} need more than 2^31 blocks')
     fn = _build.load('kth_largest').fiery_kth_largest
     fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
-                                           ctypes.c_void_p]
+                                           ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     out = torch.empty(x.shape[:-1] + (1,), dtype=torch.float32, device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    rc = fn(x.data_ptr(), out.data_ptr(), x.numel() // n, n, k, stream)
+    rc = fn(x.data_ptr(), out.data_ptr(), rows, n, k, cluster, stream)
     if rc != 0:
         raise RuntimeError(f'kth_largest kernel launch failed: CUDA error {rc}')
     kth_largest.launches += 1

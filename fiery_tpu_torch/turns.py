@@ -23,9 +23,10 @@ training, the labels warped on the host outside the step):
     its kernels; not the memset of its counters) and backward (K1b), the warp's
     forward (K2), its nearest mode (K4) and both together (K2K4: older trees ran
     them as one kernel, so only this key reads them there), the warp's backward
-    (K2b) and the instance centres (K6), by their kernels' names in either tree
-    (keys ``<k10|k11|k9|k8|k6|k1|k1b|k2|k4|k2k4|k2b>_<request|instances|step>_ms_<kind>``
-    and ``..._launches``);
+    (K2b), the instance centres (K6), the top-k depth select (K5) and its backward
+    (K5b) and the top-k loss's k-th value (K3), by their kernels' names in either
+    tree (keys ``<k10|k11|k9|k8|k6|k1|k1b|k2|k4|k2k4|k2b|k5|k5b|k3>_<request|
+    instances|step>_ms_<kind>`` and ``..._launches``);
   * the host µs of one call (batches of 100 calls, synchronized outside the
     clock) of the splat (``bev_pool``, 4 x 4 pixels of 8 bins into 64 voxels,
     bf16: ``k1_host_us``), of the centroids (``segment_centroids``, 8 x 8 ids in
@@ -36,8 +37,12 @@ training, the labels warped on the host outside the step):
   * last, each of those kernels alone, the same calls in either tree: K2 forward
     at the serve and training shapes (2 and 6 maps of 200 x 200 x 64 bf16), K4 on
     a label stack (12 maps of 200 x 200 x 7 f32) and K6 on a request's 5 frames of
-    200 x 200, device ms a call (``k2_serve_kernel_ms``, ``k2_train_kernel_ms``,
-    ``k4_kernel_ms``, ``k6_kernel_ms``).
+    200 x 200, K5 at the serve and training shapes (3 and 9 samples of 6 x 28 x 60
+    pixels, 48 bins, k = 8, bf16, planted ties) and K3 on 15 rows of 40,000 (k =
+    10,000, random and with ties), device ms a call (``k2_serve_kernel_ms``,
+    ``k2_train_kernel_ms``, ``k4_kernel_ms``, ``k6_kernel_ms``,
+    ``k5_serve_kernel_ms``, ``k5_train_kernel_ms``, ``k3_random_kernel_ms``,
+    ``k3_ties_kernel_ms``).
 Each process prints one JSON line of its medians; the last line gathers them per
 checkout. Only entry points that both trees have are used. Needs a CUDA card.
 A step's stage times are ``chip_smoke.py``'s (``stage_times``).
@@ -60,6 +65,7 @@ from fiery_tpu_torch.ops import warp as WP
 from fiery_tpu_torch.postprocess import instance as PI
 from fiery_tpu_torch.data.label_warp import make_prewarp_transform
 from fiery_tpu_torch.data.synthetic import SyntheticFutureDataset
+from fiery_tpu_torch.training import losses as L
 from fiery_tpu_torch.serve import (BASELINE, build_fiery, calibrate_batchnorm, init_params,
                                    make_request, predict, predict_instances)
 from fiery_tpu_torch.training.trainer import Trainer
@@ -73,7 +79,8 @@ _build.build_all()
 # launches a tracking step, or one a request), K1 forward (one atomic kernel, or
 # four), K1 backward, K2 forward and K4 (its nearest mode; one kernel for both
 # in older trees, so there only 'k2k4' reads them), K2 backward (an atomic
-# scatter, or a gather) and K6 (the instance centres)
+# scatter, or a gather), K6 (the instance centres), K5 (the top-k depth select) and
+# its backward (K5b), and K3 (the top-k loss's k-th value)
 KERNELS = {'k10': ('::stats_kernel', '::stats_finalize_kernel', '::apply_kernel',
                    '::backward_reduce_kernel', '::backward_finalize_kernel',
                    '::backward_apply_kernel'),
@@ -87,7 +94,10 @@ KERNELS = {'k10': ('::stats_kernel', '::stats_finalize_kernel', '::apply_kernel'
            'k2b': ('::warp_scatter_kernel', '::warp_gather_kernel'),
            'k1': ('::bev_pool_kernel', '::splat_count_kernel', '::splat_scan_kernel',
                   '::splat_fill_kernel', '::splat_pool_kernel'),
-           'k1b': ('::pool_backward_kernel', '::splat_backward_kernel')}
+           'k1b': ('::pool_backward_kernel', '::splat_backward_kernel'),
+           'k5': ('::topk_select_kernel',),
+           'k5b': ('::topk_select_backward_kernel',),
+           'k3': ('::kth_largest_kernel',)}
 
 
 def profiled(fn, out, key):
@@ -234,7 +244,23 @@ p12 = p6.repeat(2, 1)
 kernel_alone(lambda: WP.bev_warp_nearest(lab, p12, (50.0, 50.0)), 'k4', 'k2k4')
 heat5 = torch.rand((5, 200, 200), generator=gen, device='cuda')
 kernel_alone(lambda: PI.find_instance_centers(heat5), 'k6', 'k6')
-del x2, lab
+# K5 at the serve and training shapes (3 and 9 samples x 6 cameras x 28 x 60 pixels, 48
+# bins, k = 8, bf16 softmax weights, every fourth pixel planted with ties) and K3 on the
+# segmentation loss's 15 rows of 40,000 (k = 10,000), random and with ties
+for key, samples in (('k5_serve', 3), ('k5_train', 9)):
+    d5 = torch.softmax(torch.randn((samples * 10080, 48), generator=gen, device='cuda'), -1)
+    d5[0::16] = torch.randint(0, 3, (samples * 10080, 48), generator=gen,
+                              device='cuda')[0::16] / 4.0
+    d5[4::16], d5[8::16] = 0.0, 1.0
+    d5 = d5.to(torch.bfloat16).view(samples, 6, 28, 60, 48)
+    i5 = torch.randint(0, 40001, d5.shape, generator=gen, device='cuda', dtype=torch.int32)
+    kernel_alone(lambda: LS.topk_select(d5, i5, 8), key, 'k5')
+x3 = torch.rand((15, 40000), generator=gen, device='cuda') * 3.0
+kernel_alone(lambda: L.kth_largest(x3, 10000), 'k3_random', 'k3')
+x3[::2, :30000] = 0.0
+x3[1::2, ::2] = 1.5
+kernel_alone(lambda: L.kth_largest(x3, 10000), 'k3_ties', 'k3')
+del x2, lab, d5, i5, x3
 print('TURNS ' + json.dumps(out), flush=True)
 '''
 
