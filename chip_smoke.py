@@ -21,7 +21,9 @@ Builds the package's CUDA kernels from csrc/, then:
      and request, and compares every output;
   4. holds the decode and tracking kernels (K6-K9) against their plain versions
      at the served shapes and on planted inputs (K6, K7 and K9 exactly, K6 also on
-     frames with no peak, a flat plateau and 400 x 200 and 320 x 193 grids; K8 over
+     frames with no peak, a flat plateau and 400 x 200 and 320 x 193 grids, K7 on
+     K = 1, 100 and 1,024 centres, planted near-ties, frames with no valid centre
+     or no foreground, non-finite inputs, those grids and C = 2 and 3; K8 over
      the request's clip in one launch, its grid centres equal to the plain version
      on the host and its flow centres within one f32 ulp, two calls with the same
      bits), K9 also on tie-heavy, non-finite and n = 17 to 1024 problems, and
@@ -54,8 +56,10 @@ Builds the package's CUDA kernels from csrc/, then:
      DATASET.PREWARP_LABELS and host-warped labels in training), with the launch
      counts of that path (the top-k select K5 and its backward, K1 at D = 8, no
      K2, no K4); holds K5 and its backward against their plain versions at those
-     shapes, bf16 and f32, with planted ties, exactly, and times them; and runs
-     the tiny combination card vs CPU, forward and training step;
+     shapes, bf16 and f32, with planted ties, exactly (the backward also bit for
+     bit at D = 28, 48, 64, k = 1, 8, D, on 1 to 90,720 pixels, and on 56-byte
+     bf16 rows), and times them; and runs the tiny combination card vs CPU,
+     forward and training step;
  10. holds the BatchNorm kernel (K10: every epilogue, eval and training, forward
      and backward, 4-D and 5-D, f32 and bf16; y bit for bit) and the GRU's gate
      kernels (K11, forward and backward, batch 1 and 3) against their plain
@@ -68,6 +72,10 @@ Builds the package's CUDA kernels from csrc/, then:
 The request and the step also print K10's census (each BatchNorm call's shape
 and epilogue, from hooks) with its summed bound, and K10's device time in one
 profiled request and step.
+Each kernel timing is told the launches a call makes, and a profiler trace that
+holds another count is taken again (five tries, then the run fails); each trace
+starts with a few spin kernels and a pause, as its first launches can go
+unrecorded.
 Prints a "kernels" JSON line, the card's name and power limit, and as its last
 line {"ok": true, "device": {...}}. Any failure raises and exits non-zero.
 Without a CUDA card, or without the package beside it, it fails.
@@ -292,38 +300,56 @@ def bound(nbytes, flops, flops_per_s=F32_FLOPS_PER_S):
     return 1e3 * max(t_bytes, t_ops), 'bytes' if t_bytes >= t_ops else 'operations'
 
 
-def kernel_ms(fn, symbols, reps=REPS, warmup=3, attempts=3):
+def trace_lead_in():
+    """The first launches of a profiler trace can go unrecorded (seen on the H100:
+    the first of a window's 25, more after many traces in one process): a few spin
+    kernels, of no measured group, and a pause go first."""
+    for _ in range(8):
+        torch.cuda._sleep(10000)
+    torch.cuda.synchronize()
+    time.sleep(0.002)
+
+
+def kernel_ms(fn, symbols, launches, reps=REPS, warmup=3, attempts=5):
     """Mean device time per call of the kernels whose names contain one of
     ``symbols`` (torch.profiler's CUPTI trace over reps calls, after warm-up): the
-    kernel's own time, without the host's launch gaps. A trace that holds none of
-    them (CUPTI now and then drops a window's kernels) is taken again, up to
-    ``attempts`` times, before it fails."""
+    kernel's own time, without the host's launch gaps. A call launches them
+    ``launches`` times; a trace that holds another count (CUPTI now and then drops
+    a window's kernels) is taken again, up to ``attempts`` times, before it fails.
+    Each trace starts with ``trace_lead_in``."""
     return pass_ms(fn, lambda key: 'all' if any(s in key for s in symbols) else None,
-                   ('all',), reps, warmup, attempts)['all']
+                   {'all': launches}, reps, warmup, attempts)['all']
 
 
-def pass_ms(fn, classify, names, reps=REPS, warmup=3, attempts=3, optional=()):
+def pass_ms(fn, classify, launches, reps=REPS, warmup=3, attempts=5, optional=()):
     """kernel_ms by group, from one trace: {name: mean device ms per call} over
-    the kernels that ``classify(kernel name)`` puts in each of ``names``; a group
-    in ``optional`` may be empty."""
+    the kernels that ``classify(kernel name)`` puts in each group of ``launches``
+    ({name: launches a call}). The trace must hold reps x launches of each group's
+    kernels (a group in ``optional`` may also be absent), else it is taken again, up
+    to ``attempts`` times, and then the call fails."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    want = {name: reps * n for name, n in launches.items()}
     for _ in range(attempts):
         with torch.profiler.profile(activities=activities) as prof:
+            trace_lead_in()
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        out = dict.fromkeys(names, 0.0)
+        out = dict.fromkeys(launches, 0.0)
+        seen = dict.fromkeys(launches, 0)
         for e in prof.key_averages():
             group = classify(e.key) if e.device_type == torch.autograd.DeviceType.CUDA else None
             if group in out:
                 out[group] += e.self_device_time_total / 1e3 / reps
-        if all(v > 0 for k, v in out.items() if k not in optional):
+                seen[group] += e.count
+        if all(seen[k] == n or (k in optional and seen[k] == 0) for k, n in want.items()) \
+                and all(v > 0 for k, v in out.items() if seen[k]):
             return out
-        log(f'  the profiler saw no device time for some of {names}; measuring again')
-    raise AssertionError(f'the profiler saw no device time for {names} in {attempts} traces')
+        log(f'  the trace held {seen} launches, expected {want}; measuring again')
+    raise AssertionError(f'the profiler did not see {want} launches in {attempts} traces')
 
 
 def bf16_ulp(x):
@@ -387,7 +413,7 @@ def k1_stage(key):
 def k1_ms(fn):
     """(device ms of every launch of the K1 forward calls fn makes, the same by
     stage); a trace may hold no memset."""
-    by_stage = pass_ms(fn, k1_stage, K1_STAGES, optional=('memset',))
+    by_stage = pass_ms(fn, k1_stage, dict.fromkeys(K1_STAGES, 1), optional=('memset',))
     return sum(by_stage.values()), by_stage
 
 
@@ -413,7 +439,7 @@ def gather_floor_ms(idx, src, row_bytes):
         if rc != 0:
             raise RuntimeError(f'gather probe launch failed: CUDA error {rc}')
 
-    return kernel_ms(run, ['gather_probe_kernel'])
+    return kernel_ms(run, ['gather_probe_kernel'], 1)
 
 
 def red_probe(depth, feat, ids, num_bins, z):
@@ -434,7 +460,7 @@ def red_probe(depth, feat, ids, num_bins, z):
             raise RuntimeError(f'red probe launch failed: CUDA error {rc}')
         return out.to(depth.dtype)
 
-    return call(), kernel_ms(call, ['red_probe_kernel']), time_ms(call)
+    return call(), kernel_ms(call, ['red_probe_kernel'], 1), time_ms(call)
 
 
 def phase_bev_pool(device):
@@ -574,7 +600,7 @@ def phase_bev_warp(device, spatial_extent=(50.0, 50.0)):
             rec[(shape_name, dtype)] = dict(
                 max_abs_err=err,
                 ms=kernel_ms(lambda: bev_warp(x, pose, spatial_extent),
-                             ['::bev_warp_tile_kernel']),
+                             ['::bev_warp_tile_kernel'], 1),
                 call_ms=time_ms(lambda: bev_warp(x, pose, spatial_extent)),
                 plain_ms=time_ms(lambda: bev_warp_plain(x, pose, spatial_extent)),
                 library_ms=time_ms(library), bound_ms=bound_ms, bound_by=bound_by,
@@ -693,13 +719,13 @@ def phase_serve(n_requests=3, opts=(), name='serve'):
             raise AssertionError(f'instance ids {ids.dtype} {tuple(ids.shape)} '
                                  f'in [{int(ids.min())}, {int(ids.max())}]')
     # per request: one splat of BEV_POOL_KERNELS launches (after one top-k select
-    # under LIFT.TOPK), one warp (none warp-free), one decode (K7 launches twice),
+    # under LIFT.TOPK), one warp (none warp-free), one decode (K6 and K7 once each),
     # one centroid launch for the whole clip and one assignment per tracking step,
     # one BatchNorm launch per (eval) BatchNorm call (counted by hooks in the warm-up
     # request) and two GRU launches per step of each GRU block
     per_request = {'bev_pool': BEV_POOL_KERNELS, 'bev_warp': 0 if mc.warp_free else 1,
                    'topk_select': 1 if mc.depth_topk else 0, 'instance_centers': 1,
-                   'group_pixels': 2, 'segment_centroids': 1 if T > 1 else 0, 'lap': T - 1,
+                   'group_pixels': 1, 'segment_centroids': 1 if T > 1 else 0, 'lap': T - 1,
                    'batch_norm': bn_launches, 'spatial_gru': 2 * mc.n_gru_blocks * mc.n_future,
                    'batch_norm_backward': 0, 'spatial_gru_backward': 0}
     for k, n in per_request.items():
@@ -815,9 +841,80 @@ def ulp32(x):
     return torch.nextafter(a, torch.full_like(a, float('inf'))) - a
 
 
+def group_frames(rng, B, h, w, K, C, device):
+    """B frames of K centres at random pixels (80 % valid), offsets of 4 pixels'
+    spread and C-class logits."""
+    centers = np.stack([rng.randint(0, h, (B, K)), rng.randint(0, w, (B, K))], -1)
+    return (torch.from_numpy(centers.astype(np.int32)).to(device),
+            torch.from_numpy(rng.rand(B, K) < 0.8).to(device),
+            torch.from_numpy((rng.randn(B, h, w, 2) * 4.0).astype(np.float32)).to(device),
+            torch.from_numpy(rng.randn(B, h, w, C).astype(np.float32)).to(device))
+
+
+def group_near_ties(rng, B, h, w, K, C, device):
+    """group_frames with each pixel moved onto the bisector of its two nearest valid
+    centres: a third to their midpoint (equal distances), a third to the bisector's
+    nearest point (a few f32 ulps apart), a third there and one ulp along a row."""
+    centers, valid, offset, logits = group_frames(rng, B, h, w, K, C, device)
+    grid = torch.stack(torch.meshgrid(torch.arange(h, device=device),
+                                      torch.arange(w, device=device), indexing='ij'), -1)
+    p = grid[None].double() + offset.double()
+    c = centers.double()
+    d = ((c[:, :, None, None] - p[:, None]) ** 2).sum(-1)
+    d[~valid] = float('inf')
+    two = torch.sort(d, dim=1, stable=True).indices[:, :2]
+    del d
+    frames = torch.arange(B, device=device)[:, None, None]
+    a, b = c[frames, two[:, 0]], c[frames, two[:, 1]]
+    mid = (a + b) / 2
+    u = b - a
+    u = u / u.norm(dim=-1, keepdim=True).clamp_min(1e-12)
+    onto = p - ((p - mid) * u).sum(-1, keepdim=True) * u
+    kind = torch.from_numpy(rng.randint(0, 3, (B, h, w))).to(device)
+    q = torch.where((kind == 0)[..., None], mid, onto).float()
+    step = torch.where(torch.from_numpy(rng.rand(B, h, w) < 0.5).to(device),
+                       float('inf'), float('-inf'))
+    q[..., 0] = torch.where(kind == 2, torch.nextafter(q[..., 0], step), q[..., 0])
+    return centers, valid, (q - grid.float()).contiguous(), logits
+
+
+def group_pixels_cases(device):
+    """(name, K7's arguments) of the cases tests/test_torch_group_gpu.py holds, 5
+    frames each."""
+    for case, K, (h, w), C in [
+            ('random', 100, (200, 200), 2), ('random', 1, (200, 200), 2),
+            ('random', 1024, (200, 200), 3), ('random', 100, (400, 200), 3),
+            ('random', 100, (320, 193), 2), ('random', 1024, (320, 193), 2),
+            ('near ties', 100, (200, 200), 2), ('near ties', 1024, (200, 200), 2),
+            ('near ties', 100, (320, 193), 3), ('no valid centre', 100, (200, 200), 2),
+            ('no foreground', 100, (200, 200), 3), ('non-finite', 100, (200, 200), 2),
+            ('band of rows', 100, (200, 200), 2), ('band of columns', 100, (320, 193), 2)]:
+        rng = np.random.RandomState(K + h + C + len(case))
+        make = group_near_ties if case == 'near ties' else group_frames
+        centers, valid, offset, logits = make(rng, 5, h, w, K, C, device)
+        if case == 'band of rows':
+            centers[..., 0] = torch.from_numpy(rng.randint(0, 3, (5, K))).to(device)
+        if case == 'band of columns':
+            centers[..., 1] = torch.from_numpy(rng.randint(190, 193, (5, K))).to(device)
+        if case == 'no valid centre':
+            valid[0] = False
+        if case == 'no foreground':
+            logits[0, ..., 1] = logits[0].min() - 1.0
+        if case == 'non-finite':
+            offset[0, 3, :10, 0] = float('nan')
+            offset[0, 4, :10, 1] = float('inf')
+            offset[1, 5, :10, 0] = float('-inf')
+            offset[1, 6, :5] = 3e38
+            logits[0, 7, :10, 0] = float('nan')
+            logits[1, 8, :10, 1] = float('nan')
+            valid[1, 0] = False
+        yield f'{case} K = {K} {h} x {w} C = {C}', (centers, valid, offset, logits)
+
+
 def phase_decode_kernels(device, outputs):
     """K6-K9 against their plain versions at the shapes of the served request:
-    K6 and K7 on the served heads and on planted inputs (exactly), K8 on the served
+    K6 and K7 on the served heads and on planted inputs (exactly; K7 also on
+    ``group_pixels_cases``), K8 on the served
     ids and flow (within one f32 ulp), K9 on seeded tracker costs (exactly, and its
     total within 1e-3 of scipy's optimum) and on ``lap_problem_sets``. Times each,
     K9 also against its latency bound (``warp_min_ns``) and by ``lap_breakdown``."""
@@ -871,6 +968,20 @@ def phase_decode_kernels(device, outputs):
         log(f'  instance_centers {name}: equal to plain; valid centres per frame '
             f'{vp.sum(1).tolist()}')
 
+    # K7 alone, exactly: random centres at K = 1, 100 and 1,024, planted near-ties, a
+    # frame with no valid centre and one with no foreground, non-finite offsets and
+    # logits, 400 x 200 and 320 x 193 grids, C = 2 and 3
+    for name, args in group_pixels_cases(device):
+        got, want = instance_ids(*args), instance_ids_plain(*args)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError(f'group_pixels {name}: kernel != plain at '
+                                 f'{int((got != want).sum())} pixels')
+        log(f'  group_pixels {name}: equal to plain; ids per frame '
+            f'{want.reshape(want.shape[0], -1).amax(1).tolist()}')
+        del got, want, args
+    torch.cuda.empty_cache()
+
     def topk_library():
         x = torch.where(center >= 0.1, center, -1.0)
         pooled = F.max_pool2d(x[:, None], 3, stride=1, padding=1)[:, 0]
@@ -880,7 +991,7 @@ def phase_decode_kernels(device, outputs):
     nbytes = center.numel() * 4 + T * 100 * 9
     rec['instance_centers'] = dict(
         max_abs_err=0.0, ms=kernel_ms(lambda: find_instance_centers(center),
-                                      ['::centers_cluster_kernel']),
+                                      ['::centers_cluster_kernel'], 1),
         call_ms=time_ms(lambda: find_instance_centers(center)),
         plain_ms=time_ms(lambda: find_instance_centers_plain(center)),
         library_ms=time_ms(topk_library), bytes=nbytes, flops=10.0 * center.numel())
@@ -889,7 +1000,7 @@ def phase_decode_kernels(device, outputs):
     for key, value in (('no_peak', 0.05), ('flat_plateau', 0.5)):
         c = torch.full((T, H, W), value, device=device)
         rec['instance_centers'][f'ms_{key}'] = kernel_ms(lambda: find_instance_centers(c),
-                                                         ['::centers_cluster_kernel'])
+                                                         ['::centers_cluster_kernel'], 1)
 
     def argmin_library():
         px = torch.arange(H, device=device, dtype=torch.float32)[:, None] + offset[..., 0]
@@ -904,7 +1015,7 @@ def phase_decode_kernels(device, outputs):
         + T * H * W * 4
     rec['group_pixels'] = dict(
         max_abs_err=0.0, ms=kernel_ms(lambda: instance_ids(centers, valid, offset, seg),
-                                      ['assign_kernel', 'relabel_kernel']),
+                                      ['::group_cluster_kernel'], 1),
         call_ms=time_ms(lambda: instance_ids(centers, valid, offset, seg)),
         plain_ms=time_ms(lambda: instance_ids_plain(centers, valid, offset, seg)),
         library_ms=time_ms(argmin_library), bytes=nbytes, flops=pair_ops)
@@ -971,14 +1082,14 @@ def phase_decode_kernels(device, outputs):
     nbytes = decoded.numel() * 4 + flow_all.numel() * 4 + T * K * (8 + 8 + 1)
     rec['segment_centroids'] = dict(
         max_abs_err=err, ms=kernel_ms(lambda: segment_centroids_clip(decoded, K, flow_all),
-                                      ['::centroid_clip_kernel']),
+                                      ['::centroid_clip_kernel'], 1),
         call_ms=time_ms(lambda: segment_centroids_clip(decoded, K, flow_all)),
         plain_ms=time_ms(lambda: segment_centroids_clip_plain(decoded, K, flow_all)),
         library_ms=time_ms(centroid_library), bytes=nbytes, flops=5.0 * decoded.numel(),
-        launch_floor_ms=kernel_ms(empty, ['::empty_kernel']),
+        launch_floor_ms=kernel_ms(empty, ['::empty_kernel'], 1),
         ms_501_slots=kernel_ms(lambda: segment_centroids(decoded[:1].contiguous(), T * 100 + 1,
                                                          flow_all[:1]),
-                               ['::centroid_clip_kernel']))
+                               ['::centroid_clip_kernel'], 1))
     log(f'  segment_centroids_clip: grid centres and valid equal to plain on the host, flow '
         f'centres within one f32 ulp (max abs err {err:.3e}); two calls the same bits')
 
@@ -1018,7 +1129,7 @@ def phase_decode_kernels(device, outputs):
     breakdown = lap_breakdown(cost[2:3])
     rec['lap'] = dict(
         max_abs_err=0.0, ms=kernel_ms(lambda: linear_sum_assignment(full, full_rows),
-                                      ['lap_kernel']),
+                                      ['lap_kernel'], 1),
         call_ms=time_ms(lambda: linear_sum_assignment(full, full_rows)),
         plain_ms=time_ms(lambda: linear_sum_assignment_plain(full, full_rows), reps=3,
                          warmup=1),
@@ -1076,7 +1187,7 @@ def lap_breakdown(cost, n_rows=(0, 1, 8, 30, 60, 101)):
         rows_t = torch.tensor([nr], dtype=torch.int32, device=cost.device)
         linear_sum_assignment_plain(cost.cpu(), rows_t.cpu())
         fit.append((nr, linear_sum_assignment_plain.steps, kernel_ms(
-            lambda: linear_sum_assignment(cost, rows_t), ['lap_kernel'])))
+            lambda: linear_sum_assignment(cost, rows_t), ['lap_kernel'], 1)))
     A = np.array([[1.0, nr, steps] for nr, steps, _ in fit])
     coef = np.linalg.lstsq(A, np.array([ms for _, _, ms in fit]), rcond=None)[0] * 1e3
     log('  lap device ms by rows (Dijkstra steps): '
@@ -1397,8 +1508,10 @@ def phase_topk_kernels(device, k=8):
     the combination's shapes: the select on the served request's 3 x 6 x 28 x 60
     pixels and on the training batch's 9 x 6 x 28 x 60, its backward at the training
     shape; bf16 (the path's dtype) and f32; the voxel ids of the seeded rig; planted
-    ties. Both must equal their plain versions exactly. Times kernel, call, plain
-    version and the library call (torch.topk and a gather of the ids)."""
+    ties. Both must equal their plain versions exactly, the backward also bit for
+    bit at D = 28, 48 and 64, k = 1, 8 and D, on 1, 30,240 and 90,720 pixels and on
+    56-byte bf16 rows. Times kernel, call, plain version and the library call
+    (torch.topk and a gather of the ids; the backward's scatter_)."""
     _, feat_serve, ids_serve, num_bins, z = bev_pool_inputs(device)
     rec = {}
     for shape_name, reps in (('serve', 1), ('train', 3)):
@@ -1424,7 +1537,7 @@ def phase_topk_kernels(device, k=8):
             # integer compares: D a bit of the key (16 bits bf16, 32 f32), a pixel
             rec[('topk_select', shape_name, dtype)] = dict(
                 max_abs_err=0.0,
-                ms=kernel_ms(lambda: topk_select(depth, ids, k), ['topk_select_kernel']),
+                ms=kernel_ms(lambda: topk_select(depth, ids, k), ['topk_select_kernel'], 1),
                 call_ms=time_ms(lambda: topk_select(depth, ids, k)),
                 plain_ms=time_ms(lambda: topk_select_plain(depth, ids, k)),
                 library_ms=time_ms(library), bytes=nbytes, flops=float(n_pix * D * 8 * es))
@@ -1461,11 +1574,30 @@ def phase_topk_kernels(device, k=8):
             rec[('topk_select_backward', shape_name, dtype)] = dict(
                 max_abs_err=0.0,
                 ms=kernel_ms(lambda: topk_select_backward(g, idx, D),
-                             ['topk_select_backward_kernel']),
+                             ['topk_select_backward_kernel'], 1),
                 call_ms=time_ms(lambda: topk_select_backward(g, idx, D)),
                 plain_ms=time_ms(lambda: topk_select_backward_plain(g, idx, D)),
                 library_ms=time_ms(library_b), bytes=n_pix * (k * (es + 1) + D * es),
                 flops=0.0)
+    # K5 backward alone, exactly: D = 28, 48, 64, k = 1, 8, D, f32 and bf16, on 1,
+    # 30,240 and 90,720 pixels, and bf16 rows of 56 bytes (D = 28, k = 3); the idx
+    # from K5 forward on planted ties
+    cases = [(D, k_, dtype, n) for D in (28, 48, 64) for k_ in sorted({1, 8, D})
+             for dtype in (torch.float32, torch.bfloat16) for n in (1, 30240, 90720)]
+    cases += [(28, 3, torch.bfloat16, n) for n in (1, 129, 30240)]
+    for D, k_, dtype, n in cases:
+        depth = planted_topk_depth(n, D, dtype, device, seed=D + k_ + n)
+        gen = torch.Generator(device=device).manual_seed(n)
+        ids = torch.randint(0, 40001, (n, D), generator=gen, device=device, dtype=torch.int32)
+        idx = topk_select(depth, ids, k_)[2]
+        g = planted_topk_depth(n, k_, dtype, device, seed=n + 1)
+        got, want = topk_select_backward(g, idx, D), topk_select_backward_plain(g, idx, D)
+        torch.cuda.synchronize()
+        if bits_differ(got, want):
+            raise AssertionError(f'topk_select_backward D = {D} k = {k_} {dtype} {n} pixels: '
+                                 f'kernel != plain in {bits_differ(got, want)} values')
+    log(f'  topk_select_backward: equal to plain bit for bit in {len(cases)} cases (D = 28, '
+        '48, 64; k = 1, 8, D; f32, bf16; 1, 30,240, 90,720 pixels; bf16 D = 28, k = 3)')
     for key, r in rec.items():
         r['bound_ms'], r['bound_by'] = bound(r['bytes'], r['flops'])
         log(f'  {key[0]} {key[1]} {str(key[2])[6:]}: equal to plain; '
@@ -1524,7 +1656,7 @@ def phase_train_kernels(device):
         rec[('bev_pool_backward', dtype)] = dict(
             max_abs_err=err,
             ms=kernel_ms(lambda: bev_pool_backward(depth, feat, ids, g, num_bins, z),
-                         ['::splat_backward_kernel']),
+                         ['::splat_backward_kernel'], 1),
             l2_floor_ms=gather_floor_ms(grad_rows, g, C * g.element_size()),
             call_ms=time_ms(lambda: bev_pool_backward(depth, feat, ids, g, num_bins, z)),
             plain_ms=time_ms(lambda: bev_pool_backward_plain(depth, feat, ids, g, num_bins,
@@ -1586,7 +1718,8 @@ def phase_train_kernels(device):
 
         rec[('bev_warp_backward', dtype)] = dict(
             max_abs_err=0.0,
-            ms=kernel_ms(lambda: bev_warp_backward(g, pose, extent), ['::warp_gather_kernel']),
+            ms=kernel_ms(lambda: bev_warp_backward(g, pose, extent), ['::warp_gather_kernel'],
+                         1),
             call_ms=time_ms(lambda: bev_warp_backward(g, pose, extent)),
             plain_ms=time_ms(lambda: bev_warp_backward_plain(g, pose, extent)),
             library_ms=time_ms(library), bytes=2 * g.numel() * g.element_size() + pose.numel() * 4,
@@ -1612,7 +1745,7 @@ def phase_train_kernels(device):
         if abs(mean - ref) > 1e-6 * abs(ref):
             raise AssertionError(f'top-k mean {name}: {mean} vs {ref}')
         log(f'  kth_largest {name}: equal to plain; top-k mean {mean:.7f} vs topk {ref:.7f}')
-        k3[name] = dict(ms=kernel_ms(lambda x=x: kth_largest(x, k), ['kth_largest_kernel']),
+        k3[name] = dict(ms=kernel_ms(lambda x=x: kth_largest(x, k), ['kth_largest_kernel'], 1),
                         call_ms=time_ms(lambda x=x: kth_largest(x, k)),
                         plain_ms=time_ms(lambda x=x: kth_largest_plain(x, k)),
                         library_ms=time_ms(lambda x=x: torch.topk(x, k)))
@@ -1643,9 +1776,11 @@ def phase_train_kernels(device):
         **{f'random_{key}': v for key, v in k3['random'].items()},
         blocks_a_row=plan,
         ms_8_blocks_a_row=kernel_ms(lambda: launch(k3_fn, x_ties.data_ptr(), out8.data_ptr(),
-                                                   15, H * W, k, 8), ['kth_largest_kernel']),
-        barrier_floor_ms=kernel_ms(lambda: launch(chain, 15, plan, 4), ['barrier_chain_kernel']),
-        launch_floor_ms=kernel_ms(lambda: launch(chain, 15, plan, 0), ['barrier_chain_kernel']),
+                                                   15, H * W, k, 8), ['kth_largest_kernel'], 1),
+        barrier_floor_ms=kernel_ms(lambda: launch(chain, 15, plan, 4), ['barrier_chain_kernel'],
+                                   1),
+        launch_floor_ms=kernel_ms(lambda: launch(chain, 15, plan, 0), ['barrier_chain_kernel'],
+                                  1),
         bytes=x_ties.numel() * 4 + 15 * 4, flops=24.0 * x_ties.numel())
     log('  kth_largest: ' + json.dumps({key: rec['kth_largest'][key] for key in (
         'ms', 'random_ms', 'blocks_a_row', 'ms_8_blocks_a_row', 'barrier_floor_ms',
@@ -1678,7 +1813,7 @@ def phase_train_kernels(device):
     rec['bev_warp_nearest'] = dict(
         max_abs_err=0.0,
         ms=kernel_ms(lambda: bev_warp_nearest(labels, lpose, extent),
-                     ['::nearest_warp_tile_kernel']),
+                     ['::nearest_warp_tile_kernel'], 1),
         call_ms=time_ms(lambda: bev_warp_nearest(labels, lpose, extent)),
         plain_ms=time_ms(lambda: bev_warp_nearest_plain(labels, lpose, extent)),
         library_ms=time_ms(nearest_library),
@@ -1892,7 +2027,7 @@ def bn_timings(device):
                 args = (x, w, b, rm, rv, training, 0.1, BN_EPS, post)
                 lib_stats = (rm.clone(), rv.clone())
                 by_pass = pass_ms(lambda: batch_norm_forward(*args), k10_pass,
-                                  ('stats', 'apply') if training else ('apply',))
+                                  {'stats': 1, 'apply': 1} if training else {'apply': 1})
                 r = dict(ms=sum(by_pass.values()), pass_ms=by_pass,
                          call_ms=time_ms(lambda: batch_norm_forward(*args)),
                          library_ms=time_ms(lambda: lib_post(F.batch_norm(
@@ -1909,7 +2044,7 @@ def bn_timings(device):
                     xl, wl, bl = (t.detach().clone().requires_grad_() for t in (x, w, b))
                     yl = lib_post(F.batch_norm(xl, *lib_stats, wl, bl, True, 0.1, BN_EPS))
                     by_pass = pass_ms(lambda: batch_norm_backward(*bargs), k10_pass,
-                                      ('backward_reduce', 'backward_apply'))
+                                      {'backward_reduce': 1, 'backward_apply': 1})
                     r = dict(ms=sum(by_pass.values()), pass_ms=by_pass,
                              call_ms=time_ms(lambda: batch_norm_backward(*bargs)),
                              library_ms=time_ms(lambda: torch.autograd.grad(
@@ -1984,7 +2119,7 @@ def phase_norm_gru_kernels(device):
         rec[('spatial_gru', B)] = dict(
             ms=kernel_ms(lambda: (reset_concat(x_t, r_pre, h),
                                   state_update(u_pre, h, ht, slot)),
-                         ['reset_concat_kernel', 'state_update_kernel']),
+                         ['reset_concat_kernel', 'state_update_kernel'], 2),
             call_ms=time_ms(lambda: (reset_concat(x_t, r_pre, h),
                                      state_update(u_pre, h, ht, slot))),
             plain_ms=time_ms(lambda: (reset_concat_plain(x_t, r_pre, h),
@@ -1994,7 +2129,7 @@ def phase_norm_gru_kernels(device):
         rec[('spatial_gru_backward', B)] = dict(
             ms=kernel_ms(lambda: (reset_concat_backward(dcat[:, Cx:], r_pre, h),
                                   state_update_backward(dout, u_pre, h, ht)),
-                         ['reset_concat_backward_kernel', 'state_update_backward_kernel']),
+                         ['reset_concat_backward_kernel', 'state_update_backward_kernel'], 2),
             call_ms=time_ms(lambda: (reset_concat_backward(dcat[:, Cx:], r_pre, h),
                                      state_update_backward(dout, u_pre, h, ht))),
             plain_ms=time_ms(lambda: (reset_concat_backward_plain(dcat[:, Cx:], r_pre, h),
@@ -2010,7 +2145,7 @@ def phase_norm_gru_kernels(device):
         dh_a, dh_b = reset_concat_backward(dcat[:, Cx:], r_pre, h)[1], state_update_backward(
             dout, u_pre, h, ht)[1]
         rec[('spatial_gru_backward', B)]['dh_sum_ms'] = kernel_ms(lambda: dh_a + dh_b,
-                                                                 ['add'])
+                                                                 ['add'], 1)
         del t, leaves, cat_l, new_l, u_s
     host = host_us_per_call()
     log('  host µs of one wrapper call (bf16, 64 channels, 8 x 8): ' + json.dumps(host))

@@ -50,16 +50,25 @@
 //     d_depth[p, idx[p, j]] = g[p, j], and 0 at the unselected bins.
 // Bound: bytes, ~120 B a pixel at the training shape (90,720 pixels, bf16): read g
 // (16 B) and idx (8 B), write d_depth (96 B); 10.9 MB, 3.2 us.
-// Design: one thread per (pixel, bin), which looks its bin up among the pixel's k
-// slots (broadcast reads) and writes its d_depth value, coalesced.
+// Design: a block takes kBwdPixels = 128 consecutive pixels, whose d_depth rows are
+// one contiguous span of 128 x D values. It zeroes a shared tile of that span, reads
+// the pixels' k slots once (the block's g and idx are contiguous spans too, read a
+// value a thread, coalesced), writes each g value into the tile at its bin, and
+// copies the tile out with 16-byte stores (whole 16-byte words of the span; the
+// values past the last whole word, and every value when d_depth is not 16-byte
+// aligned, one at a time). A slot's pixel within the block is e / k, taken as a
+// multiply-high by ceil(2^32 / k), exact for e < 2^32 / k; no division per value.
+// The idx of a pixel are distinct (K5 forward writes them in ascending bin order),
+// so the writes into the tile never collide.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kThreads = 256;   // backward: a thread a (pixel, bin)
-constexpr int kPixels = 64;     // forward: a thread a pixel
+constexpr int kPixels = 64;      // forward: a thread a pixel
+constexpr int kBwdPixels = 128;  // backward: pixels a block
+constexpr int kBwdThreads = 256;
 constexpr int kMaxBins = 64;
 
 // The JAX package's order key in the weight's native width (`_order_bits`): the
@@ -183,21 +192,37 @@ topk_select_kernel(const T* __restrict__ depth, const int32_t* __restrict__ ids,
   }
 }
 
+// T: the raw storage of g and d_depth (uint16_t for bf16, uint32_t for f32); k_inv:
+// ceil(2^32 / k) (k > 1); vec: d_depth is 16-byte aligned, so every block's span is.
 template <typename T>
-__global__ void topk_select_backward_kernel(const T* __restrict__ g,
-                                            const uint8_t* __restrict__ idx,
-                                            T* __restrict__ d_depth, int64_t n_pix, int D,
-                                            int k) {
-  const int64_t t = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= n_pix * D) return;
-  const int64_t p = t / D;
-  const int d = (int)(t - p * D);
-  const uint8_t* ip = idx + p * k;
-  T v = T(0);
-  for (int j = 0; j < k; ++j) {
-    if (ip[j] == d) v = g[p * k + j];
+__global__ void __launch_bounds__(kBwdThreads)
+topk_select_backward_kernel(const T* __restrict__ g, const uint8_t* __restrict__ idx,
+                            T* __restrict__ d_depth, int64_t n_pix, int D, int k,
+                            unsigned k_inv, bool vec) {
+  __shared__ uint4 tile_words[kBwdPixels * kMaxBins * sizeof(T) / 16];
+  T* tile = reinterpret_cast<T*>(tile_words);
+  const int64_t p0 = (int64_t)blockIdx.x * kBwdPixels;
+  const int np = n_pix - p0 < kBwdPixels ? (int)(n_pix - p0) : kBwdPixels;
+  const int values = np * D;
+  const int bytes = values * (int)sizeof(T);
+  for (int i = threadIdx.x; i < (bytes + 15) / 16; i += kBwdThreads)
+    tile_words[i] = make_uint4(0, 0, 0, 0);
+  __syncthreads();
+  const T* gp = g + p0 * k;
+  const uint8_t* ip = idx + p0 * k;
+#pragma unroll 4
+  for (int e = threadIdx.x; e < np * k; e += kBwdThreads) {
+    const int p = k == 1 ? e : (int)__umulhi((unsigned)e, k_inv);
+    const int d = ip[e];
+    if (d < D) tile[p * D + d] = gp[e];
   }
-  d_depth[t] = v;
+  __syncthreads();
+  T* out = d_depth + p0 * D;
+  const int words = vec ? bytes / 16 : 0;
+  for (int i = threadIdx.x; i < words; i += kBwdThreads)
+    reinterpret_cast<uint4*>(out)[i] = tile_words[i];
+  for (int v = words * (16 / (int)sizeof(T)) + threadIdx.x; v < values; v += kBwdThreads)
+    out[v] = tile[v];
 }
 
 }  // namespace
@@ -246,21 +271,23 @@ extern "C" int fiery_topk_select(const void* depth, const void* ids, void* top_w
 
 // g: (n_pix, k) contiguous float32 or bfloat16; idx: (n_pix, k) uint8 from
 // fiery_topk_select; d_depth: (n_pix, D) of g's dtype (every value is written).
-// Returns cudaGetLastError() after the launch.
+// 1 <= k <= D <= 64. Returns cudaGetLastError() after the launch.
 extern "C" int fiery_topk_select_backward(const void* g, const void* idx, void* d_depth,
                                           long long n_pix, int D, int k, int is_bf16,
                                           void* stream) {
-  if (D < 1 || D > kMaxBins || k < 1 || k > D) return (int)cudaErrorInvalidValue;
-  const long long total = n_pix * (long long)D;
-  if (total == 0) return (int)cudaSuccess;
-  const unsigned blocks = (unsigned)((total + kThreads - 1) / kThreads);
+  if (D < 1 || D > kMaxBins || k < 1 || k > D || n_pix < 0) return (int)cudaErrorInvalidValue;
+  if (n_pix == 0) return (int)cudaSuccess;
+  const long long blocks = (n_pix + kBwdPixels - 1) / kBwdPixels;
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  const unsigned k_inv = k == 1 ? 0u : (unsigned)(((1ull << 32) + k - 1) / k);
+  const bool vec = ((uintptr_t)d_depth & 15) == 0;
   cudaStream_t st = (cudaStream_t)stream;
   if (is_bf16) {
-    topk_select_backward_kernel<uint16_t><<<blocks, kThreads, 0, st>>>(
-        (const uint16_t*)g, (const uint8_t*)idx, (uint16_t*)d_depth, n_pix, D, k);
+    topk_select_backward_kernel<uint16_t><<<(unsigned)blocks, kBwdThreads, 0, st>>>(
+        (const uint16_t*)g, (const uint8_t*)idx, (uint16_t*)d_depth, n_pix, D, k, k_inv, vec);
   } else {
-    topk_select_backward_kernel<uint32_t><<<blocks, kThreads, 0, st>>>(
-        (const uint32_t*)g, (const uint8_t*)idx, (uint32_t*)d_depth, n_pix, D, k);
+    topk_select_backward_kernel<uint32_t><<<(unsigned)blocks, kBwdThreads, 0, st>>>(
+        (const uint32_t*)g, (const uint8_t*)idx, (uint32_t*)d_depth, n_pix, D, k, k_inv, vec);
   }
   return (int)cudaGetLastError();
 }

@@ -501,13 +501,13 @@ def topk_select_backward(g, idx, D):
                          f'{tuple(g.shape)}, got {idx.dtype} {tuple(idx.shape)}')
     if g.device.type == 'cpu':
         return topk_select_backward_plain(g, idx, D)
+    k = g.shape[-1]
     if (g.device.type != 'cuda' or idx.device != g.device
             or g.dtype not in (torch.float32, torch.bfloat16)
-            or not (g.is_contiguous() and idx.is_contiguous()) or D > 64):
+            or not (g.is_contiguous() and idx.is_contiguous()) or not 1 <= k <= D <= 64):
         raise ValueError(f'topk_select_backward: g must be contiguous float32 or bfloat16 '
-                         f'on the device of idx with D <= 64, got {g.dtype} on {g.device}, '
-                         f'D = {D}')
-    k = g.shape[-1]
+                         f'on the device of idx with 1 <= k <= D <= 64, got {g.dtype} on '
+                         f'{g.device}, k = {k}, D = {D}')
     fn = _build.load('topk_select').fiery_topk_select_backward
     fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_longlong] + [ctypes.c_int] * 3 \
         + [ctypes.c_void_p]

@@ -4,7 +4,8 @@ the JAX package's vmap.
 
 The decode of each frame is centre NMS and an exact top-100 (kernel K6,
 csrc/instance_centers.cu), then pixel grouping, the vehicle foreground and the
-consecutive relabel (kernel K7, csrc/group_pixels.cu). The device tracker matches each
+consecutive relabel (kernel K7, csrc/group_pixels.cu); each kernel takes every
+frame of a call in one launch. The device tracker matches each
 frame's instances to the previous frame's flow-advected ones: centroids by kernel K8
 (csrc/segment_centroids.cu), the assignment by kernel K9 (ops/lap.py, csrc/lap.cu),
 and plain tensor ops in between that never wait on the host. Each kernel wrapper
@@ -167,9 +168,26 @@ def instance_ids_plain(centers, valid, offset, segmentation, vehicles_id=1):
     return make_instance_seg_consecutive(ids, centers.shape[1] + 1)
 
 
+@functools.cache
+def _group_kernel():
+    """fiery_group_pixels of csrc/group_pixels.cu, its argument types set once."""
+    fn = _build.load('group_pixels').fiery_group_pixels
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+@functools.lru_cache(maxsize=None)
+def _group_shared_bytes(h, w):
+    """Shared memory a K7 block takes for (h, w) frames; 0 beyond what it holds."""
+    fn = _build.load('group_pixels').fiery_group_pixels_shared_bytes
+    fn.argtypes, fn.restype = [ctypes.c_int] * 2, ctypes.c_int
+    return fn(h, w)
+
+
 def instance_ids(centers, valid, offset, segmentation, vehicles_id=1):
-    """Consecutive instance ids (B, h, w) int32 of decoded frames (kernel K7, two
-    launches).
+    """Consecutive instance ids (B, h, w) int32 of decoded frames (kernel K7, one
+    launch for every frame).
 
     centres (B, K, 2) int32 and valid (B, K) bool from ``find_instance_centers``;
     offset (B, h, w, 2) float32; segmentation (B, h, w, C) float32 logits. A pixel
@@ -188,20 +206,17 @@ def instance_ids(centers, valid, offset, segmentation, vehicles_id=1):
         return instance_ids_plain(centers, valid, offset, segmentation, vehicles_id)
     _launch_checks('instance_ids', [centers, valid, offset, segmentation],
                    [torch.int32, torch.bool, torch.float32, torch.float32])
-    if K > 1024:
-        raise ValueError(f'instance_ids: {K} centres, the kernel takes at most 1024')
-    fn = _build.load('group_pixels').fiery_group_pixels
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    if not 1 <= K <= 1024:
+        raise ValueError(f'instance_ids: {K} centres, the kernel takes 1 to 1024')
+    if h * w and not _group_shared_bytes(h, w):
+        raise ValueError(f'instance_ids: a {h} x {w} frame is more than the kernel holds '
+                         'in shared memory')
     ids = torch.empty((B, h, w), dtype=torch.int32, device=offset.device)
-    present = torch.zeros((B, K + 1), dtype=torch.int32, device=offset.device)
-    stream = torch.cuda.current_stream(offset.device).cuda_stream
-    for relabel in (0, 1):
-        _check_rc('group_pixels', fn(
-            centers.data_ptr(), valid.data_ptr(), offset.data_ptr(), segmentation.data_ptr(),
-            ids.data_ptr(), present.data_ptr(), B, h, w, K, segmentation.shape[-1],
-            vehicles_id, relabel, stream))
-        instance_ids.launches += 1
+    _check_rc('group_pixels', _group_kernel()(
+        centers.data_ptr(), valid.data_ptr(), offset.data_ptr(), segmentation.data_ptr(),
+        ids.data_ptr(), B, h, w, K, segmentation.shape[-1], vehicles_id,
+        torch._C._cuda_getCurrentRawStream(offset.get_device())))
+    instance_ids.launches += 1
     return ids
 
 

@@ -23,10 +23,11 @@ training, the labels warped on the host outside the step):
     its kernels; not the memset of its counters) and backward (K1b), the warp's
     forward (K2), its nearest mode (K4) and both together (K2K4: older trees ran
     them as one kernel, so only this key reads them there), the warp's backward
-    (K2b), the instance centres (K6), the top-k depth select (K5) and its backward
-    (K5b) and the top-k loss's k-th value (K3), by their kernels' names in either
-    tree (keys ``<k10|k11|k9|k8|k6|k1|k1b|k2|k4|k2k4|k2b|k5|k5b|k3>_<request|
-    instances|step>_ms_<kind>`` and ``..._launches``);
+    (K2b), the instance centres (K6), the pixel grouping (K7), the top-k depth
+    select (K5) and its backward (K5b) and the top-k loss's k-th value (K3), by their
+    kernels' names in either tree (keys ``<k10|k11|k9|k8|k6|k7|k1|k1b|k2|k4|k2k4|k2b|
+    k5|k5b|k3>_<request|instances|step>_ms_<kind>`` and ``..._launches``), and the
+    memsets among the kernels and copies (``memsets_<key>``);
   * the host µs of one call (batches of 100 calls, synchronized outside the
     clock) of the splat (``bev_pool``, 4 x 4 pixels of 8 bins into 64 voxels,
     bf16: ``k1_host_us``), of the centroids (``segment_centroids``, 8 x 8 ids in
@@ -38,11 +39,16 @@ training, the labels warped on the host outside the step):
     at the serve and training shapes (2 and 6 maps of 200 x 200 x 64 bf16), K4 on
     a label stack (12 maps of 200 x 200 x 7 f32) and K6 on a request's 5 frames of
     200 x 200, K5 at the serve and training shapes (3 and 9 samples of 6 x 28 x 60
-    pixels, 48 bins, k = 8, bf16, planted ties) and K3 on 15 rows of 40,000 (k =
-    10,000, random and with ties), device ms a call (``k2_serve_kernel_ms``,
-    ``k2_train_kernel_ms``, ``k4_kernel_ms``, ``k6_kernel_ms``,
-    ``k5_serve_kernel_ms``, ``k5_train_kernel_ms``, ``k3_random_kernel_ms``,
-    ``k3_ties_kernel_ms``).
+    pixels, 48 bins, k = 8, bf16, planted ties), K5's backward at the training shape
+    (its idx, a bf16 gradient), K7 on the 5 frames of K6 (its 100 centres, offsets
+    and 2-class logits) and K3 on 15 rows of 40,000 (k = 10,000, random and with
+    ties), device ms a call (``k2_serve_kernel_ms``, ``k2_train_kernel_ms``,
+    ``k4_kernel_ms``, ``k6_kernel_ms``, ``k5_serve_kernel_ms``,
+    ``k5_train_kernel_ms``, ``k5b_train_kernel_ms``, ``k7_kernel_ms``,
+    ``k3_random_kernel_ms``, ``k3_ties_kernel_ms``) and launches a call
+    (``..._kernel_launches``, from the wrappers' launch counters; a trace that
+    holds fewer is taken again, up to 5 times, else its ms is scaled from the
+    launches it holds and ``..._kernel_trace_whole`` is false).
 Each process prints one JSON line of its medians; the last line gathers them per
 checkout. Only entry points that both trees have are used. Needs a CUDA card.
 A step's stage times are ``chip_smoke.py``'s (``stage_times``).
@@ -79,8 +85,9 @@ _build.build_all()
 # launches a tracking step, or one a request), K1 forward (one atomic kernel, or
 # four), K1 backward, K2 forward and K4 (its nearest mode; one kernel for both
 # in older trees, so there only 'k2k4' reads them), K2 backward (an atomic
-# scatter, or a gather), K6 (the instance centres), K5 (the top-k depth select) and
-# its backward (K5b), and K3 (the top-k loss's k-th value)
+# scatter, or a gather), K6 (the instance centres), K7 (the pixel grouping: an
+# assign and a relabel launch, or one cluster launch), K5 (the top-k depth select)
+# and its backward (K5b), and K3 (the top-k loss's k-th value)
 KERNELS = {'k10': ('::stats_kernel', '::stats_finalize_kernel', '::apply_kernel',
                    '::backward_reduce_kernel', '::backward_finalize_kernel',
                    '::backward_apply_kernel'),
@@ -91,6 +98,7 @@ KERNELS = {'k10': ('::stats_kernel', '::stats_finalize_kernel', '::apply_kernel'
            'k4': ('::nearest_warp_tile_kernel',),
            'k2k4': ('::bev_warp_kernel', '::bev_warp_tile_kernel', '::nearest_warp_tile_kernel'),
            'k6': ('::centers_kernel', '::centers_cluster_kernel'),
+           'k7': ('::assign_kernel', '::relabel_kernel', '::group_cluster_kernel'),
            'k2b': ('::warp_scatter_kernel', '::warp_gather_kernel'),
            'k1': ('::bev_pool_kernel', '::splat_count_kernel', '::splat_scan_kernel',
                   '::splat_fill_kernel', '::splat_pool_kernel'),
@@ -113,6 +121,7 @@ def profiled(fn, out, key):
           if e.device_type == torch.autograd.DeviceType.CUDA and not e.is_user_annotation]
     out[f'busy_{key}'] = sum(e.self_device_time_total for e in ev) / 1e3
     out[f'kernels_{key}'] = sum(e.count for e in ev)
+    out[f'memsets_{key}'] = sum(e.count for e in ev if e.key.startswith('Memset'))
     for name, symbols in KERNELS.items():
         mine = [e for e in ev if any(k in e.key for k in symbols)]
         out[f'{name}_{key}'] = sum(e.self_device_time_total for e in mine) / 1e3
@@ -221,14 +230,35 @@ for kind, opts in (('dense', []), ('combo', combo)):
     torch.cuda.empty_cache()
 
 
-def kernel_alone(fn, key, name, reps=20):
+def kernel_alone(fn, key, name, counter, reps=20, attempts=5):
     """Device ms a call of fn's kernels (KERNELS[name]), profiled over reps calls
-    after a warm-up: out['<key>_kernel_ms']."""
+    after a warm-up: out['<key>_kernel_ms'], and the launches a call makes,
+    out['<key>_kernel_launches'], from the launch counter of the wrapper
+    ``counter`` (as each tree counts them). A trace that holds fewer of those
+    launches (CUPTI drops some) is taken again, up to ``attempts`` times; if none
+    is whole, the ms is scaled from the launches it saw, and
+    out['<key>_kernel_trace_whole'] is False."""
+    def window():
+        # a trace's first launches can go unrecorded: spin kernels and a pause first
+        for _ in range(8):
+            torch.cuda._sleep(10000)
+        torch.cuda.synchronize()
+        time.sleep(0.002)
+        for _ in range(reps):
+            fn()
+
     for _ in range(3):
         fn()
-    got = {}
-    profiled(lambda: [fn() for _ in range(reps)], got, key)
-    out[f'{key}_kernel_ms'] = got[f'{name}_{key}'] / reps
+    for _ in range(attempts):
+        got, made = {}, counter.launches
+        profiled(window, got, key)
+        made = counter.launches - made
+        seen = got[f'{name}_{key}_launches']
+        if seen == made:
+            break
+    out[f'{key}_kernel_ms'] = got[f'{name}_{key}'] * made / max(seen, 1) / reps
+    out[f'{key}_kernel_launches'] = made / reps
+    out[f'{key}_kernel_trace_whole'] = seen == made
 
 
 # after the timed runs: K2 forward at the serve and training shapes (2 and 6 maps
@@ -237,13 +267,15 @@ def kernel_alone(fn, key, name, reps=20):
 x2 = torch.randn((6, 200, 200, 64), generator=gen, device='cuda').to(torch.bfloat16)
 p6 = torch.zeros((6, 6), device='cuda')
 p6[:, 0], p6[:, 1], p6[:, 5] = 1.3, -0.4, 0.07
-kernel_alone(lambda: WP.bev_warp(x2[:2], p6[:2], (50.0, 50.0)), 'k2_serve', 'k2k4')
-kernel_alone(lambda: WP.bev_warp(x2, p6, (50.0, 50.0)), 'k2_train', 'k2k4')
+kernel_alone(lambda: WP.bev_warp(x2[:2], p6[:2], (50.0, 50.0)), 'k2_serve', 'k2k4',
+             WP.bev_warp)
+kernel_alone(lambda: WP.bev_warp(x2, p6, (50.0, 50.0)), 'k2_train', 'k2k4', WP.bev_warp)
 lab = torch.randn((12, 200, 200, 7), generator=gen, device='cuda')
 p12 = p6.repeat(2, 1)
-kernel_alone(lambda: WP.bev_warp_nearest(lab, p12, (50.0, 50.0)), 'k4', 'k2k4')
+kernel_alone(lambda: WP.bev_warp_nearest(lab, p12, (50.0, 50.0)), 'k4', 'k2k4',
+             WP.bev_warp_nearest)
 heat5 = torch.rand((5, 200, 200), generator=gen, device='cuda')
-kernel_alone(lambda: PI.find_instance_centers(heat5), 'k6', 'k6')
+kernel_alone(lambda: PI.find_instance_centers(heat5), 'k6', 'k6', PI.find_instance_centers)
 # K5 at the serve and training shapes (3 and 9 samples x 6 cameras x 28 x 60 pixels, 48
 # bins, k = 8, bf16 softmax weights, every fourth pixel planted with ties) and K3 on the
 # segmentation loss's 15 rows of 40,000 (k = 10,000), random and with ties
@@ -254,13 +286,24 @@ for key, samples in (('k5_serve', 3), ('k5_train', 9)):
     d5[4::16], d5[8::16] = 0.0, 1.0
     d5 = d5.to(torch.bfloat16).view(samples, 6, 28, 60, 48)
     i5 = torch.randint(0, 40001, d5.shape, generator=gen, device='cuda', dtype=torch.int32)
-    kernel_alone(lambda: LS.topk_select(d5, i5, 8), key, 'k5')
+    kernel_alone(lambda: LS.topk_select(d5, i5, 8), key, 'k5', LS.topk_select)
+# K5 backward at the training shape (the idx of the select above, a bf16 gradient) and
+# K7 on a request's 5 frames (K6's 100 centres of heat5, offsets of 4 pixels' spread,
+# 2-class logits)
+idx5 = LS.topk_select(d5, i5, 8)[2]
+g5 = torch.randn(idx5.shape, generator=gen, device='cuda').to(torch.bfloat16)
+kernel_alone(lambda: LS.topk_select_backward(g5, idx5, 48), 'k5b_train', 'k5b',
+             LS.topk_select_backward)
+c7, v7 = PI.find_instance_centers(heat5)
+off7 = torch.randn((5, 200, 200, 2), generator=gen, device='cuda') * 4.0
+seg7 = torch.randn((5, 200, 200, 2), generator=gen, device='cuda')
+kernel_alone(lambda: PI.instance_ids(c7, v7, off7, seg7), 'k7', 'k7', PI.instance_ids)
 x3 = torch.rand((15, 40000), generator=gen, device='cuda') * 3.0
-kernel_alone(lambda: L.kth_largest(x3, 10000), 'k3_random', 'k3')
+kernel_alone(lambda: L.kth_largest(x3, 10000), 'k3_random', 'k3', L.kth_largest)
 x3[::2, :30000] = 0.0
 x3[1::2, ::2] = 1.5
-kernel_alone(lambda: L.kth_largest(x3, 10000), 'k3_ties', 'k3')
-del x2, lab, d5, i5, x3
+kernel_alone(lambda: L.kth_largest(x3, 10000), 'k3_ties', 'k3', L.kth_largest)
+del x2, lab, d5, i5, x3, idx5, g5, off7, seg7
 print('TURNS ' + json.dumps(out), flush=True)
 '''
 
