@@ -69,6 +69,18 @@ Builds the package's CUDA kernels from csrc/, then:
      four kernels at each access width, bit for bit); times each K10 pass at the
      largest training and served calls, bf16 and f32, post none and swish, and
      K11 (with autograd's sum of its two dh parts, and the host µs of a call).
+ 11. drives the training and evaluation entry points at full width (PRECISION 16,
+     batch 3, seeded weights, the synthetic set; phase_train_loop): two epochs of
+     python -m fiery_tpu_torch.train (3 steps each, a validation and a checkpoint
+     each, batches pinned by the loader), a --resume auto after the second epoch's
+     checkpoints are deleted, one epoch of the combination with the label prewarp
+     in the loader, and python -m fiery_tpu_torch.evaluate on the final checkpoint
+     with either tracker, each path with its launches counted; checks
+     metrics.jsonl, the checkpoints' steps and that the final one equals the
+     trainer bit for bit; prints the H2D copy of a batch pinned and pageable, the
+     copies of a profiled step, the loop's step walls with the loader's wait, the
+     loader's rate alone, the checkpoint's cost and VPQ from both trackers; then
+     requires every launch of four profiled K10 windows after it.
 The request and the step also print K10's census (each BatchNorm call's shape
 and epilogue, from hooks) with its summed bound, and K10's device time in one
 profiled request and step.
@@ -301,10 +313,13 @@ def bound(nbytes, flops, flops_per_s=F32_FLOPS_PER_S):
 
 
 def trace_lead_in():
-    """The first launches of a profiler trace can go unrecorded (seen on the H100:
-    the first of a window's 25, more after many traces in one process): a few spin
-    kernels, of no measured group, and a pause go first."""
-    for _ in range(8):
+    """The first launches of a profiler trace can go unrecorded on the H100: none in
+    a fresh process, more as the process runs the model (``python -m
+    fiery_tpu_torch.trace_probe``: 2 after three training steps, 4-5 after the
+    training loop and evaluation; more after this script's phases), whatever the
+    time since the trace began. Spin kernels, of no measured group, go first to
+    absorb them: 64, then a pause."""
+    for _ in range(64):
         torch.cuda._sleep(10000)
     torch.cuda.synchronize()
     time.sleep(0.002)
@@ -1489,6 +1504,247 @@ def phase_train(n_steps=3, kind='dense', opts=()):
     return launches, rec, types.SimpleNamespace(step=step, profile=profile)
 
 
+LOOP_DENSE = ('bev_pool', 'bev_pool_backward', 'bev_warp', 'bev_warp_backward', 'kth_largest',
+              'bev_warp_nearest', 'batch_norm', 'batch_norm_backward', 'spatial_gru',
+              'spatial_gru_backward', 'instance_centers', 'group_pixels')
+LOOP_COMBO = ('bev_pool', 'bev_pool_backward', 'kth_largest', 'topk_select',
+              'topk_select_backward', 'batch_norm', 'batch_norm_backward', 'spatial_gru',
+              'spatial_gru_backward', 'instance_centers', 'group_pixels')
+EVAL_KERNELS = ('bev_pool', 'bev_warp', 'bev_warp_nearest', 'batch_norm', 'spatial_gru',
+                'instance_centers', 'group_pixels')
+
+
+def path_launches(name, run, expected, absent=()):
+    """Reset the counters, run a path, and require a launch of each expected kernel
+    and none of the absent ones; returns the counts."""
+    reset_counters()
+    result = run()
+    launches = {k: COUNTERS[k].launches for k in COUNTERS}
+    layout_report()
+    missing = [k for k in expected if not launches[k]]
+    present = [k for k in absent if launches[k]]
+    if missing or present:
+        raise AssertionError(f'{name}: kernels not launched {missing}, launched but '
+                             f'not on the path {present}: {launches}')
+    log(f'{name} (main path) launches: {json.dumps({k: v for k, v in launches.items() if v})}')
+    return result, launches
+
+
+def loop_walls(name, run):
+    """The loop's steps by the host clock: the wait on the loader, and the rest of
+    each step (LOGGING_INTERVAL 1: every step ends in a synchronising read)."""
+    waits = [r['loader_wait_ms'] for r in run.steps]
+    steps = [r['step_ms'] for r in run.steps]
+    walls = [a + b for a, b in zip(waits, steps)]
+    log(f'{name}: steps {[r["step"] for r in run.steps]} loader_wait_ms='
+        f'{[round(x, 3) for x in waits]} step_ms={[round(x, 3) for x in steps]} '
+        f'wall_ms={[round(x, 3) for x in walls]}; after the first step of each epoch: '
+        f'median wait {statistics.median(waits[1:]):.3f}, step {statistics.median(steps[1:]):.3f}, '
+        f'wall {statistics.median(walls[1:]):.3f}')
+    return {'loader_wait_ms': waits, 'step_ms': steps}
+
+
+def read_metrics(run_dir):
+    with open(os.path.join(run_dir, 'metrics.jsonl')) as f:
+        return [json.loads(line) for line in f]
+
+
+def phase_train_loop():
+    """The training and evaluation entry points in this process at the full width of
+    baseline.yml (PRECISION 16, batch 3, seeded weights, the synthetic set) in a
+    temporary LOG_DIR: two epochs of 3 steps (9 clips) with a validation and a
+    checkpoint each; a resume after the second epoch's checkpoints are deleted; one
+    epoch of the combination with the label prewarp in the loader; the evaluation
+    CLI on the final checkpoint with the host and the device tracker. Each path's
+    launches are counted. Prints the H2D copy of a batch, pinned and pageable, and
+    the copies of one profiled step; the loop's step walls with the loader's wait;
+    the loader's batches a second; the checkpoint's cost; VPQ of both trackers."""
+    import shutil
+    import tempfile
+    from fiery_tpu_torch import evaluate as evaluate_cli
+    from fiery_tpu_torch import train as train_cli
+    from fiery_tpu_torch.data.dataset import prepare_dataloaders
+    from fiery_tpu_torch.training.trainer import step_generator
+    from fiery_tpu_torch.utils.checkpoint import (host_copy, load_checkpoint, save_checkpoint,
+                                                  save_checkpoint_async, serialise,
+                                                  wait_for_async_save)
+    log_dir = tempfile.mkdtemp(prefix='fiery_train_loop_')
+    opts = ['DATASET.NAME', 'synthetic', 'DATASET.N_SYNTHETIC_SAMPLES', '9',
+            'LOGGING_INTERVAL', '1', 'LOG_DIR', log_dir]
+    try:
+        # 1. two epochs, each with its validation and checkpoint
+        run, _ = path_launches('train loop', lambda: train_cli.main(
+            ['--config', BASELINE, *opts, 'EPOCHS', '2']), LOOP_DENSE)
+        trainer = run.trainer
+        records = read_metrics(run.save_dir)
+        keys = {k for r in records for k in r}
+        needed = {'total_loss', 'segmentation', 'probabilistic', 'val_iou_dynamic',
+                  'val_vpq_vehicles', 'segmentation_weight'}
+        if not needed <= keys or not all(np.isfinite(v) for r in records for v in r.values()):
+            raise AssertionError(f'train loop: metrics.jsonl keys {sorted(keys)}')
+        saved = {}
+        for name, step in (('checkpoint_epoch0', 3), ('checkpoint_epoch1', 6),
+                           ('checkpoint_final', 6)):
+            saved[name], _ = load_checkpoint(os.path.join(run.save_dir, name))
+            if saved[name]['step'] != step:
+                raise AssertionError(f'{name}: step {saved[name]["step"]}, expected {step}')
+        live = trainer.state()
+        n_tensors = 0
+        for part in ('model', 'uncertainty'):
+            for k, v in live[part].items():
+                n_tensors += 1
+                if not torch.equal(saved['checkpoint_final'][part][k], v.cpu()):
+                    raise AssertionError(f'checkpoint_final: {part} {k} differs')
+        for i, st in live['optimizer']['state'].items():
+            for k, v in st.items():
+                n_tensors += 1
+                if not torch.equal(saved['checkpoint_final']['optimizer']['state'][i][k],
+                                   v.cpu()):
+                    raise AssertionError(f'checkpoint_final: Adam state {i} {k} differs')
+        log(f'train loop: metrics.jsonl holds {len(records)} scalars; checkpoints at steps '
+            f'3, 6, 6; checkpoint_final equals the trainer bit for bit ({n_tensors} tensors)')
+        val = [r for r in records if 'val_vpq_vehicles' in r or 'val_iou_dynamic' in r]
+        log(f'train loop validation: {json.dumps(val)}')
+        dense_walls = loop_walls('train loop steps', run)
+
+        # 2. resume after a preemption that lost the second epoch's checkpoints
+        shutil.rmtree(os.path.join(run.save_dir, 'checkpoint_epoch1'))
+        shutil.rmtree(os.path.join(run.save_dir, 'checkpoint_final'))
+        resumed, _ = path_launches('train loop resumed', lambda: train_cli.main(
+            ['--config', BASELINE, '--resume', 'auto', *opts, 'EPOCHS', '2']), LOOP_DENSE)
+        if [r['step'] for r in resumed.steps] != [4, 5, 6] or resumed.trainer.step != 6:
+            raise AssertionError(f'resume: steps {[r["step"] for r in resumed.steps]}')
+        losses = [r['total_loss'] for r in read_metrics(resumed.save_dir) if 'total_loss' in r]
+        if len(losses) != 3 or not all(np.isfinite(losses)):
+            raise AssertionError(f'resume: total losses {losses}')
+        log(f'train loop resumed at step 3 from checkpoint_epoch0, ended at step 6; total '
+            f'losses {[round(x, 4) for x in losses]}')
+        final = os.path.join(resumed.save_dir, 'checkpoint_final')
+        del resumed
+
+        # 3. one epoch of the combination, the label prewarp in the loader
+        combo, _ = path_launches('train loop combination', lambda: train_cli.main(
+            ['--config', BASELINE, *opts, 'EPOCHS', '1', *COMBO_TRAIN_OPTS]), LOOP_COMBO,
+            absent=('bev_warp', 'bev_warp_backward', 'bev_warp_nearest'))
+        combo_walls = loop_walls('train loop combination steps', combo)
+        del combo
+
+        # 4. the evaluation CLI on the final checkpoint, both trackers
+        results = {}
+        for matching, extra in ((False, []), (True, ['--device-matching'])):
+            results[matching], _ = path_launches(
+                f'evaluate{" --device-matching" if matching else ""}',
+                lambda: evaluate_cli.main(['--checkpoint', final, '--max-batches', '2',
+                                           *extra]),
+                EVAL_KERNELS + (('segment_centroids', 'lap') if matching else ()),
+                absent=() if matching else ('segment_centroids', 'lap'))
+            if not all(np.isfinite(v) for v in results[matching].values()):
+                raise AssertionError(f'evaluate: {results[matching]}')
+        log('evaluate VPQ, device tracker against host tracker (2 val batches): '
+            + json.dumps({k: [float(results[True][k]), float(results[False][k])]
+                          for k in results[True]}))
+
+        # the H2D copy of a batch: pinned (the loader's) against pageable, synchronised
+        cfg = trainer.cfg
+        train_loader, _ = prepare_dataloaders(cfg, device='cuda')
+        pinned = train_loader.peek()
+        pageable = {k: v.numpy().copy() for k, v in pinned.items()}
+        nbytes = sum(v.numel() * v.element_size() for v in pinned.values())
+        copy_ms = {}
+        for label, batch in (('pinned', pinned), ('pageable', pageable), ('pinned', pinned),
+                             ('pageable', pageable)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            on_card = trainer.to_device(batch)
+            torch.cuda.synchronize()
+            copy_ms.setdefault(label, []).append(1e3 * (time.perf_counter() - t0))
+            del on_card
+        log(f'H2D copy of a batch of 3 ({nbytes} bytes), synchronised host clock, ms: '
+            f'{json.dumps({k: [round(x, 3) for x in v] for k, v in copy_ms.items()})}; '
+            f'{nbytes / 1e6 / min(copy_ms["pinned"]):.1f} GB/s pinned')
+        gen = step_generator(0, trainer.step, 'cuda')
+        stages, _ = stage_times(trainer, pinned, gen, sync=True)
+        log('train loop step stages from a pinned batch (host clock, synchronized between '
+            'stages, ms): ' + json.dumps({k: round(v, 3) for k, v in stages.items()}))
+
+        # the loader alone: batches a second at full width, without and with the prewarp
+        for label, extra in (('dense', []), ('prewarp', ['DATASET.PREWARP_LABELS', 'True'])):
+            lcfg = get_cfg(argparse.Namespace(config_file=BASELINE, opts=opts + extra))
+            loader, _ = prepare_dataloaders(lcfg, device='cuda')
+            t0 = time.perf_counter()
+            n = sum(1 for _ in loader)
+            dt = time.perf_counter() - t0
+            log(f'loader alone ({label}): {n} batches of 3 in {dt:.3f} s, '
+                f'{n / dt:.3f} batches/s, {1e3 * dt / n:.1f} ms a batch (one prefetch thread)')
+
+        # the checkpoint's cost: sync, and async with a step while the write runs
+        def timed_step(batch):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            trainer.train_step(batch, step_generator(0, trainer.step, 'cuda'))
+            torch.cuda.synchronize()
+            return 1e3 * (time.perf_counter() - t0)
+
+        plain_steps = [timed_step(pinned) for _ in range(2)]
+        t0 = time.perf_counter()
+        save_checkpoint(os.path.join(log_dir, 'cost_sync'), trainer, cfg)
+        sync_ms = 1e3 * (time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        state_host = host_copy(trainer.state())
+        t1 = time.perf_counter()
+        serialise(state_host)
+        copy_ms, serialise_ms = 1e3 * (t1 - t0), 1e3 * (time.perf_counter() - t1)
+        del state_host
+        t0 = time.perf_counter()
+        save_checkpoint_async(os.path.join(log_dir, 'cost_async'), trainer, cfg)
+        call_ms = 1e3 * (time.perf_counter() - t0)
+        during = timed_step(pinned)
+        t0 = time.perf_counter()
+        wait_for_async_save()
+        rest_ms = 1e3 * (time.perf_counter() - t0)
+        size = os.path.getsize(os.path.join(log_dir, 'cost_sync', 'state', 'state.pt'))
+        log(f'checkpoint ({size} bytes): sync save {sync_ms:.3f} ms; async call (host copy '
+            f'and serialisation) '
+            f'{call_ms:.3f} ms, a step during the write {during:.3f} ms against '
+            f'{[round(x, 3) for x in plain_steps]} without, then {rest_ms:.3f} ms left to wait; '
+            f'apart: host copy {copy_ms:.3f} ms, serialisation {serialise_ms:.3f} ms')
+
+        # one profiled loop step from the pinned batch: its host-to-device copies
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            trace_lead_in()         # the copies open the step, where a trace can lose them
+            trainer.train_step(pinned, step_generator(0, trainer.step, 'cuda'))
+            torch.cuda.synchronize()
+        copies = [e for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA and 'HtoD' in e.key]
+        log('train loop profiled step, host-to-device copies: ' + json.dumps(
+            {e.key: [e.count, round(e.self_device_time_total / 1e3, 4)] for e in copies})
+            + f'; {smi_line()}')
+        return {'dense': dense_walls, 'combo': combo_walls, 'copy_ms': copy_ms,
+                'evaluate': results}
+    finally:
+        shutil.rmtree(log_dir, ignore_errors=True)
+
+
+def check_trace_whole(name, windows=4):
+    """Profiled windows of REPS eval calls of K10 (one apply_kernel launch each),
+    each opened by ``trace_lead_in``: every window must hold every launch."""
+    dev = torch.device('cuda')
+    x = torch.randn((3, 64, 50, 50), device=dev, dtype=torch.bfloat16).to(
+        memory_format=torch.channels_last)
+    w, b = torch.ones(64, device=dev), torch.zeros(64, device=dev)
+    rm, rv = torch.zeros(64, device=dev), torch.ones(64, device=dev)
+    by_window = []
+    for _ in range(windows):
+        ms = pass_ms(lambda: batch_norm_forward(x, w, b, rm, rv, False, 0.1, BN_EPS),
+                     lambda key: 'apply' if 'apply_kernel' in key else None, {'apply': 1},
+                     warmup=1, attempts=1)
+        by_window.append(ms['apply'])
+    log(f'{name}: {windows} profiled windows of {REPS} K10 launches each, every launch '
+        f'recorded after the lead-in; device ms a call {[round(v, 5) for v in by_window]}')
+
+
 def planted_topk_depth(n_pix, D, dtype, device, seed):
     """(n_pix, D) softmax weights of seeded logits, with every fourth row planted with
     ties at the k-th value: three repeated levels, all +0.0, all ones, or -0.0
@@ -2288,6 +2544,11 @@ def main():
                                  name='tiny combo train',
                                  leaves_only=('future_prediction', 'decoder'))
     log(f'tiny combination card vs cpu: ok ({time.perf_counter() - t0:.1f} s)')
+    t0 = time.perf_counter()
+    phase_train_loop()
+    check_trace_whole('trace after the loop')
+    log(f'train loop, resume, combination loop and evaluate: ok '
+        f'({time.perf_counter() - t0:.1f} s)')
 
     # bf16 is the dtype of the served and trained paths
     records = {'bev_pool': pool[('serve', torch.bfloat16)],

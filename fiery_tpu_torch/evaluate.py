@@ -1,12 +1,21 @@
-"""Evaluation pieces that need no dataset: IoU and temporally consistent VPQ at two BEV
-crops (counterpart of evaluate.py at the repository root).
+"""Evaluation: IoU and temporally consistent VPQ at two BEV crops (counterpart of
+evaluate.py at the repository root).
+
+    python -m fiery_tpu_torch.evaluate --checkpoint RUN/checkpoint_final \
+        [--torch-checkpoint FILE.ckpt] [--dataroot D] [--version V] \
+        [--max-batches N] [--device-matching] [--device cpu]
 
 Protocol: batch 1, zero-noise mean prediction, metrics at the 30x30 m ([70:130]) and
 100x100 m ([0:200]) crops of the 200x200 BEV grid, scaled per axis to the grid.
-``update_metrics`` is one batch of the validation loop: IoU accumulated on the device
-per crop, then VPQ on the host ids, from the device tracker or from the host scipy
-tracker. The loop over a dataset waits for the port of the data pipeline.
+``eval_checkpoint`` loads a checkpoint (a directory of ``utils/checkpoint.py``, or a
+reference ``.ckpt``), runs the val loader through ``Trainer.eval_step`` and
+``update_metrics`` (IoU accumulated on the device per crop, then VPQ on the host
+from int16 ids, from the device tracker (K8, K9) under --device-matching, else
+from the host scipy tracker) and ``summarise``. It runs on the CUDA card unless
+given --device cpu.
 """
+
+import argparse
 
 import numpy as np
 import torch
@@ -16,7 +25,10 @@ from fiery_tpu_torch.postprocess.instance import (
     make_instance_id_temporally_consistent_device,
     predict_instance_segmentation_and_trajectories,
 )
-from fiery_tpu_torch.training.metrics import IntersectionOverUnion, iou_update
+from fiery_tpu_torch.data.dataset import numeric_batch, prepare_dataloaders
+from fiery_tpu_torch.training.metrics import IntersectionOverUnion, PanopticMetric, iou_update
+from fiery_tpu_torch.training.trainer import Trainer
+from fiery_tpu_torch.utils.checkpoint import load_checkpoint, load_torch_full_checkpoint
 
 EVALUATION_RANGES = {'30x30': (70, 130), '100x100': (0, 200)}
 
@@ -85,3 +97,73 @@ def summarise(iou_states, panoptic_metrics, n_classes):
             if metric_key != 'denominator':
                 results[f'{metric_key}_{key}'] = value[1]
     return results
+
+
+def eval_checkpoint(checkpoint_path, dataroot=None, version=None, max_batches=None,
+                    device_matching=False, state_cfg=None, device=None):
+    """IoU, PQ, SQ and RQ of the vehicles at both crops over the val split:
+    ``{'iou_30x30': ..., 'pq_30x30': ..., ...}``. ``state_cfg`` (state, cfg)
+    stands in for a checkpoint. The model's weights load strictly."""
+    if state_cfg is not None:
+        state, cfg = state_cfg
+    elif checkpoint_path.endswith(('.ckpt', '.pth', '.pt')):
+        state, cfg = load_torch_full_checkpoint(checkpoint_path)
+    else:
+        state, cfg = load_checkpoint(checkpoint_path)
+    cfg = cfg.clone()
+    cfg.defrost()
+    cfg.BATCHSIZE = 1
+    if dataroot is not None:
+        cfg.DATASET.DATAROOT = dataroot
+    if version is not None:
+        cfg.DATASET.VERSION = version
+    cfg.freeze()
+
+    trainer = Trainer(cfg, device=device)
+    trainer.load_state({**state, 'optimizer': None}, strict=True)
+    _, valloader = prepare_dataloaders(cfg, device=trainer.device)
+    n_classes = trainer.model.cfg.n_classes
+    ranges = _scaled_ranges(trainer.model.cfg.bev_size)
+    panoptic_metrics = {key: PanopticMetric(n_classes) for key in ranges}
+    iou_states = torch.zeros((len(ranges), 4, n_classes), dtype=torch.float32,
+                             device=trainer.device)
+    batches = iter(valloader)
+    for i, batch in enumerate(batches):
+        if max_batches is not None and i >= max_batches:
+            batches.close()
+            break
+        output, labels, _ = trainer.eval_step(numeric_batch(batch))
+        iou_states = update_metrics(output, labels, iou_states, panoptic_metrics, ranges,
+                                    n_classes, device_matching=device_matching)
+    valloader.shutdown()
+    return summarise(iou_states, panoptic_metrics, n_classes)
+
+
+def main(argv=None):
+    parser = argparse.ArgumentParser(description='fiery_tpu_torch evaluation')
+    parser.add_argument('--checkpoint', default='', type=str,
+                        help='a checkpoint dir, or a reference torch .ckpt/.pth')
+    parser.add_argument('--torch-checkpoint', default='', type=str,
+                        help='a reference torch checkpoint (alias)')
+    parser.add_argument('--dataroot', default=None, type=str)
+    parser.add_argument('--version', default=None, type=str)
+    parser.add_argument('--max-batches', default=None, type=int)
+    parser.add_argument('--device-matching', action='store_true',
+                        help='track on the device (K8, K9) instead of the host scipy '
+                             'tracker')
+    parser.add_argument('--device', default=None, help='cuda (the default) or cpu')
+    args = parser.parse_args(argv)
+    checkpoint = args.torch_checkpoint or args.checkpoint
+    if not checkpoint:
+        parser.error('--checkpoint (or --torch-checkpoint) is required')
+    results = eval_checkpoint(checkpoint, args.dataroot, args.version, args.max_batches,
+                              device_matching=args.device_matching, device=args.device)
+    for panoptic_key in ['iou', 'pq', 'sq', 'rq']:
+        print(panoptic_key)
+        print('    '.join([f'{k}: {v:.4f}' for k, v in results.items()
+                           if k.startswith(panoptic_key)]))
+    return results
+
+
+if __name__ == '__main__':
+    main()

@@ -26,6 +26,7 @@ import torch
 from fiery_tpu_torch.evaluate import device_consistent
 from fiery_tpu_torch.models.fiery import Fiery, FieryConfig
 from fiery_tpu_torch.postprocess.instance import predict_instance_segmentation_and_trajectories
+from fiery_tpu_torch.utils.device import resolve_device
 
 BASELINE = os.path.join(os.path.dirname(os.path.abspath(__file__)), 'configs',
                         'baseline.yml')
@@ -35,10 +36,7 @@ def build_fiery(cfg, device=None):
     """Eval-mode Fiery for a CfgNode on ``device`` (default: cuda, which must then
     exist). With PRECISION 16 the convolution weights are bf16; BatchNorm and the
     buffers stay f32."""
-    device = torch.device('cuda' if device is None else device)
-    if device.type == 'cuda' and not torch.cuda.is_available():
-        raise RuntimeError('fiery_tpu_torch serves on a CUDA device and none is '
-                           'available; pass device="cpu" to run on the CPU')
+    device = resolve_device(device)
     model = Fiery(FieryConfig.from_cfg(cfg)).eval().to(device)
     dtype = model.cfg.compute_dtype
     with torch.no_grad():

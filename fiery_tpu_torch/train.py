@@ -1,86 +1,103 @@
-"""Train FIERY for a number of steps on the synthetic dataset and print the losses.
+"""Training entry point (counterpart of train.py at the repository root).
 
     python -m fiery_tpu_torch.train --config fiery_tpu_torch/configs/baseline.yml \
-        --steps 5 DATASET.NAME synthetic
+        DATASET.NAME synthetic EPOCHS 1 [--resume auto] [--steps N] [--device cpu]
 
 Trailing KEY VALUE pairs override the config, the levers included, e.g. the
 sparse, warp-free combination with host-warped labels:
 
     python -m fiery_tpu_torch.train --config fiery_tpu_torch/configs/baseline.yml \
-        --steps 5 DATASET.NAME synthetic LIFT.TOPK 8 LIFT.WARP_FREE True \
-        DATASET.PREWARP_LABELS True
+        DATASET.NAME synthetic LIFT.TOPK 8 LIFT.WARP_FREE True DATASET.PREWARP_LABELS True
 
-The weights are seeded random (He normal); batches of BATCHSIZE clips come from the
-synthetic dataset in order. Under LIFT.DEPTH_CULL the kept depth planes are
-computed from the first batch's calibrations; under DATASET.PREWARP_LABELS each
-batch's label stack is warped on the host before its step (outside the step's
-time). It runs on the CUDA card unless given --device cpu. Checkpoints,
-validation and several cards are not supported yet.
+The loop of the JAX package's: epochs of the train loader (``data/dataset.py``:
+shuffled, drop_last, batches pinned for the card and made, with the label prewarp
+of DATASET.PREWARP_LABELS, off the thread that runs the steps); every
+LOGGING_INTERVAL steps (and at step 1) the losses as scalars; after each epoch a
+validation (IoU accumulated on the device, VPQ from the host tracker, the
+uncertainty weights) and an asynchronous checkpoint ``checkpoint_epochN``; at the
+end ``checkpoint_final``. Scalars go to ``<run>/metrics.jsonl`` (one
+``{"step": s, key: value}`` a line, the JAX loop's keys) and to TensorBoard when
+``torch.utils.tensorboard`` imports. The run directory is
+``LOG_DIR/<date>_<host>_<TAG>``.
+
+``--resume DIR|auto`` continues from a checkpoint (``auto``: the newest complete
+one under LOG_DIR, or a fresh start when there is none) at epoch step // (steps
+an epoch). PRETRAINED.LOAD_WEIGHTS with PRETRAINED.PATH warm-starts a fresh run.
+Weights start seeded random (He normal, ``--seed``). Each step draws its noise
+and drop-connect masks from a generator seeded by (seed, step), so that k steps,
+a checkpoint and a resume draw what an uninterrupted run does. Under
+LIFT.DEPTH_CULL the kept depth planes come from a first look at the train loader.
+``--steps N`` ends the run after global step N (then only ``checkpoint_final``).
+It runs on the CUDA card unless given --device cpu. Not yet ported: the
+VIS_INTERVAL videos (visualisation) and several cards.
 """
 
 import argparse
 import json
+import os
+import socket
 import time
+import types
 
 import numpy as np
 import torch
 
-from fiery_tpu_torch.data.label_warp import make_prewarp_transform
-from fiery_tpu_torch.data.synthetic import SyntheticFutureDataset
+from fiery_tpu_torch.data.dataset import numeric_batch, prepare_dataloaders
+from fiery_tpu_torch.evaluate import update_metrics
 from fiery_tpu_torch.ops.lift_splat import compute_depth_plane_keep, create_frustum
 from fiery_tpu_torch.serve import init_params
-from fiery_tpu_torch.training.trainer import Trainer
+from fiery_tpu_torch.training.metrics import IntersectionOverUnion, PanopticMetric
+from fiery_tpu_torch.training.trainer import Trainer, step_generator
+from fiery_tpu_torch.utils.checkpoint import (find_latest_checkpoint, load_checkpoint,
+                                              load_pretrained_params, save_checkpoint,
+                                              save_checkpoint_async, wait_for_async_save)
 from fiery_tpu_torch.utils.config import get_cfg
+from fiery_tpu_torch.utils.device import resolve_device
 from fiery_tpu_torch.utils.geometry import calculate_birds_eye_view_parameters
 
 
 def parse_args(argv=None):
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument('--config', dest='config_file', required=True)
-    p.add_argument('--steps', type=int, default=5)
-    p.add_argument('--seed', type=int, default=0)
+    p.add_argument('--resume', default='',
+                   help="a checkpoint dir, a run dir (its latest checkpoint), or 'auto' "
+                        '(the newest complete checkpoint under LOG_DIR)')
+    p.add_argument('--steps', type=int, default=None,
+                   help='end the run after this global step')
+    p.add_argument('--seed', type=int, default=0,
+                   help="the seeded weights and the steps' random stream")
     p.add_argument('--device', default=None, help='cuda (the default) or cpu')
     p.add_argument('opts', nargs=argparse.REMAINDER, help='KEY VALUE config overrides')
     return p.parse_args(argv)
 
 
-def main(argv=None):
-    args = parse_args(argv)
-    cfg = get_cfg(args)
-    if cfg.DATASET.NAME != 'synthetic':
-        raise NotImplementedError(f'DATASET.NAME {cfg.DATASET.NAME!r}: only the synthetic '
-                                  f'dataset is ported')
-    dataset = SyntheticFutureDataset(cfg, n_samples=max(cfg.DATASET.N_SYNTHETIC_SAMPLES,
-                                                        cfg.BATCHSIZE), seed=args.seed)
+class MetricLogger:
+    """Scalars as a JSONL mirror, and to TensorBoard when it imports."""
 
-    def batch_at(step):
-        start = step * cfg.BATCHSIZE
-        return dataset.get_batch([(start + i) % len(dataset) for i in range(cfg.BATCHSIZE)])
+    def __init__(self, log_dir):
+        os.makedirs(log_dir, exist_ok=True)
+        self.jsonl = open(os.path.join(log_dir, 'metrics.jsonl'), 'a')
+        try:
+            from torch.utils.tensorboard import SummaryWriter
+            self.tb = SummaryWriter(log_dir)
+        except ImportError:
+            self.tb = None
 
-    depth_keep = None
-    if cfg.LIFT.DEPTH_CULL:
-        depth_keep = depth_plane_keep(cfg, batch_at(0))
-        print(json.dumps({'depth_keep': [int(k) for k in depth_keep]}), flush=True)
-    prewarp = make_prewarp_transform(cfg) if cfg.DATASET.PREWARP_LABELS else None
-    trainer = Trainer(cfg, depth_keep=depth_keep, device=args.device)
-    init_params(trainer.model, seed=args.seed)
-    generator = torch.Generator(device=trainer.device).manual_seed(args.seed)
-    for step in range(args.steps):
-        batch = batch_at(step)
-        if prewarp is not None:
-            batch = prewarp(batch)
-        t0 = time.perf_counter()
-        losses, total = trainer.train_step(batch, generator)
-        record = {'step': step, 'total_loss': float(total),
-                  **{k: float(v) for k, v in losses.items()},
-                  'seconds': round(time.perf_counter() - t0, 3)}
-        print(json.dumps(record), flush=True)
-    return trainer
+    def scalar(self, key, value, step):
+        self.jsonl.write(json.dumps({'step': int(step), key: float(value)}) + '\n')
+        self.jsonl.flush()
+        if self.tb is not None:
+            self.tb.add_scalar(key, float(value), step)
+
+    def close(self):
+        self.jsonl.close()
+        if self.tb is not None:
+            self.tb.close()
 
 
 def depth_plane_keep(cfg, batch):
     """The per-camera kept depth-plane counts of LIFT.DEPTH_CULL, from the
-    calibrations of a batch (numpy)."""
+    calibrations of a batch."""
     frustum = create_frustum(cfg.IMAGE.FINAL_DIM, cfg.MODEL.ENCODER.DOWNSAMPLE,
                              cfg.LIFT.D_BOUND)
     res, start, dim = calculate_birds_eye_view_parameters(
@@ -89,6 +106,132 @@ def depth_plane_keep(cfg, batch):
         frustum, np.asarray(batch['intrinsics']), np.asarray(batch['extrinsics']),
         res, start, dim, t_margin=cfg.LIFT.CULL_T_MARGIN,
         rot_margin_deg=cfg.LIFT.CULL_ROT_MARGIN)
+
+
+def new_run_dir(cfg):
+    base = os.path.join(cfg.LOG_DIR, time.strftime('%d%B%Y_%H%M%S') + '_'
+                        + socket.gethostname() + '_' + cfg.TAG)
+    path, n = base, 0
+    while os.path.exists(path):
+        n += 1
+        path = f'{base}_{n}'
+    return path
+
+
+def validate(trainer, valloader):
+    """One pass over the val loader: IoU of each class over the whole grid
+    (accumulated on the device) and the vehicles' VPQ from the host tracker."""
+    n_classes = trainer.model.cfg.n_classes
+    X, Y = trainer.model.cfg.bev_size
+    whole = {'whole': ((0, X), (0, Y))}
+    panoptic = {'whole': PanopticMetric(n_classes)}
+    iou_states = torch.zeros((1, 4, n_classes), dtype=torch.float32, device=trainer.device)
+    for batch in valloader:
+        output, labels, _ = trainer.eval_step(numeric_batch(batch))
+        iou_states = update_metrics(output, labels, iou_states, panoptic, whole, n_classes,
+                                    device_matching=False)
+    iou = IntersectionOverUnion(n_classes)
+    iou.load_state(iou_states[0].cpu().numpy().astype(np.float64))
+    return iou.compute(), panoptic['whole'].compute()['pq'][1]
+
+
+def main(argv=None):
+    """Train; returns the run: ``trainer``, ``save_dir``, and ``steps``, a record
+    per step of this run (step, ms waiting on the loader, ms from the batch to the
+    next wait, host clock)."""
+    args = parse_args(argv)
+    cfg = get_cfg(args)
+    device = resolve_device(args.device)
+    trainloader, valloader = prepare_dataloaders(cfg, device=device)
+
+    depth_keep = None
+    if cfg.LIFT.DEPTH_CULL:
+        peek = trainloader.peek()
+        if peek is None:
+            raise ValueError('empty training dataset')
+        depth_keep = depth_plane_keep(cfg, peek)
+        print(json.dumps({'depth_keep': [int(k) for k in depth_keep]}), flush=True)
+    trainer = Trainer(cfg, depth_keep=depth_keep, device=device)
+    init_params(trainer.model, seed=args.seed)
+
+    save_dir = new_run_dir(cfg)
+    logger = MetricLogger(save_dir)
+    print(f'Logging to {save_dir}; device {device}, batch {cfg.BATCHSIZE}, '
+          f'{len(trainloader)} steps an epoch', flush=True)
+    # the JAX loop takes a first batch here to initialise its state; the look
+    # advances the loader's epoch counter, so that the epochs below shuffle as its do
+    trainloader.peek()
+
+    start_epoch = 0
+    if args.resume:
+        target = cfg.LOG_DIR if args.resume == 'auto' else args.resume
+        resolved = find_latest_checkpoint(target)
+        if resolved is None:
+            if args.resume != 'auto':
+                raise SystemExit(f'--resume: no complete checkpoint at {target}')
+            print(f'--resume auto: no checkpoint under {target}, starting fresh', flush=True)
+        else:
+            print(f'Resuming from {resolved}', flush=True)
+            state, _ = load_checkpoint(resolved)
+            trainer.load_state(state, strict=True)
+            start_epoch = trainer.step // max(1, len(trainloader))
+    elif cfg.PRETRAINED.LOAD_WEIGHTS and cfg.PRETRAINED.PATH:
+        print(f'Warm-starting from {cfg.PRETRAINED.PATH}', flush=True)
+        load_pretrained_params(cfg.PRETRAINED.PATH, trainer)
+
+    run = types.SimpleNamespace(trainer=trainer, save_dir=save_dir, steps=[])
+    capped = False
+    for epoch in range(start_epoch, cfg.EPOCHS):
+        epoch_start = time.perf_counter()
+        batches = iter(trainloader)
+        while not capped:
+            if args.steps is not None and trainer.step >= args.steps:
+                capped = True
+                break
+            t0 = time.perf_counter()
+            batch = next(batches, None)
+            if batch is None:
+                break
+            t1 = time.perf_counter()
+            losses, total = trainer.train_step(
+                numeric_batch(batch), step_generator(args.seed, trainer.step, device))
+            step = trainer.step
+            if step % cfg.LOGGING_INTERVAL == 0 or step == 1:
+                scalars = {'total_loss': float(total),
+                           **{k: float(v) for k, v in losses.items()}}
+                print(json.dumps({'epoch': epoch, 'step': step, **scalars}), flush=True)
+                for k, v in scalars.items():
+                    logger.scalar(k, v, step)
+            run.steps.append({'step': step, 'loader_wait_ms': 1e3 * (t1 - t0),
+                              'step_ms': 1e3 * (time.perf_counter() - t1)})
+        if capped:
+            batches.close()
+            break
+
+        iou, vpq = validate(trainer, valloader)
+        step = trainer.step
+        uw = {k: float(v.detach()) for k, v in trainer.uncertainty.items()}
+        logger.scalar('segmentation_weight', 1.0 / np.exp(uw['segmentation_weight']), step)
+        for k in ('centerness_weight', 'offset_weight', 'flow_weight'):
+            if k in uw:
+                logger.scalar(k, 1.0 / (2 * np.exp(uw[k])), step)
+        for name, score in zip(['background', 'dynamic'], iou):
+            logger.scalar(f'val_iou_{name}', score, step)
+        logger.scalar('val_vpq_vehicles', vpq, step)
+        print(json.dumps({'epoch': epoch, 'step': step,
+                          'seconds': round(time.perf_counter() - epoch_start, 3),
+                          'val_iou_background': float(iou[0]),
+                          'val_iou_dynamic': float(iou[1]),
+                          'val_vpq_vehicles': float(vpq)}), flush=True)
+        save_checkpoint_async(os.path.join(save_dir, f'checkpoint_epoch{epoch}'), trainer, cfg)
+
+    wait_for_async_save()
+    save_checkpoint(os.path.join(save_dir, 'checkpoint_final'), trainer, cfg)
+    trainloader.shutdown()
+    valloader.shutdown()
+    logger.close()
+    print(f'Training complete; checkpoints in {save_dir}', flush=True)
+    return run
 
 
 if __name__ == '__main__':

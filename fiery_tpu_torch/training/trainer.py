@@ -22,7 +22,10 @@ parameters too and take part in the clip and in Adam.
     losses, total = trainer.train_step(batch, generator)
 
 The generator lives on the trainer's device, so that drawing the drop-connect
-masks and the latent noise never waits on the host.
+masks and the latent noise never waits on the host; the training loop seeds one a
+step (``step_generator``). ``Trainer.state()`` and ``Trainer.load_state()`` are what
+a checkpoint holds (``utils/checkpoint.py``): the weights, the uncertainty weights,
+the Adam state and the step.
 """
 
 import dataclasses
@@ -32,7 +35,7 @@ import torch
 from fiery_tpu_torch.models.fiery import Fiery, FieryConfig
 from fiery_tpu_torch.ops.warp import cumulative_warp_features_reverse
 from fiery_tpu_torch.training.losses import compute_losses, init_uncertainty_weights
-from fiery_tpu_torch.utils.device import device_constant
+from fiery_tpu_torch.utils.device import device_constant, resolve_device
 
 INPUTS = ('image', 'intrinsics', 'extrinsics', 'future_egomotion')
 
@@ -57,16 +60,20 @@ def clip_by_global_norm_(grads, max_norm):
     return norm
 
 
+def step_generator(seed, step, device):
+    """The random stream of one training step: a generator on ``device`` seeded
+    from (seed, step), as the JAX package folds the step into its key. A resumed
+    run draws what an uninterrupted one draws, with no generator state saved."""
+    return torch.Generator(device=device).manual_seed((int(seed) << 32) + int(step))
+
+
 class Trainer:
     """Owns the model, the uncertainty weights and the optimizer."""
 
     def __init__(self, cfg, depth_keep=None, device=None):
         """depth_keep: the per-camera kept depth-plane counts of LIFT.DEPTH_CULL
         (``ops.lift_splat.compute_depth_plane_keep``), or None."""
-        device = torch.device('cuda' if device is None else device)
-        if device.type == 'cuda' and not torch.cuda.is_available():
-            raise RuntimeError('fiery_tpu_torch trains on a CUDA device and none is '
-                               'available; pass device="cpu" to run on the CPU')
+        device = resolve_device(device)
         self.cfg = cfg
         self.device = device
         model_cfg = FieryConfig.from_cfg(cfg)
@@ -82,6 +89,44 @@ class Trainer:
         self.optimizer = torch.optim.Adam(self.params, lr=cfg.OPTIMIZER.LR,
                                           weight_decay=cfg.OPTIMIZER.WEIGHT_DECAY,
                                           fused=device.type == 'cuda')
+        self.step = 0              # optimizer steps taken, the JAX TrainState's step
+
+    def state(self):
+        """What a checkpoint holds: the model's state_dict, the uncertainty weights,
+        the Adam state and the step (tensors on the trainer's device)."""
+        return {'model': self.model.state_dict(),
+                'uncertainty': {k: p.detach() for k, p in self.uncertainty.items()},
+                'optimizer': self.optimizer.state_dict(), 'step': self.step}
+
+    def load_state(self, state, strict=True):
+        """Load a ``state()`` (from any device). Under strict, every model entry
+        and uncertainty weight must be there with its shape, and nothing else; a
+        state without Adam state (``'optimizer'`` None, as a weight import gives)
+        leaves the optimizer as it is. The optimizer keeps its own hyperparameters
+        (the config's) and takes the per-parameter state."""
+        self.model.load_state_dict(state['model'], strict=strict)
+        uncertainty = state['uncertainty']
+        if strict and sorted(uncertainty) != sorted(self.uncertainty):
+            raise KeyError(f'uncertainty weights {sorted(uncertainty)} do not match the '
+                           f'model\'s {sorted(self.uncertainty)}')
+        with torch.no_grad():
+            for k, p in self.uncertainty.items():
+                if k in uncertainty:
+                    p.copy_(torch.as_tensor(uncertainty[k]).reshape(p.shape))
+        if state.get('optimizer') is not None:
+            saved = state['optimizer']['state']
+            if strict:
+                for i, p in enumerate(self.params):
+                    if i in saved and saved[i]['exp_avg'].shape != p.shape:
+                        raise ValueError(f'Adam state {i}: shape {tuple(saved[i]["exp_avg"].shape)} '
+                                         f'!= parameter {tuple(p.shape)}')
+                if set(saved) - set(range(len(self.params))):
+                    raise KeyError(f'Adam state for {len(saved)} parameters, the model has '
+                                   f'{len(self.params)}')
+            own = self.optimizer.state_dict()
+            own['state'] = saved
+            self.optimizer.load_state_dict(own)
+        self.step = int(state['step'])
 
     def to_device(self, batch):
         return {k: torch.as_tensor(v).to(self.device, non_blocking=True)
@@ -143,6 +188,7 @@ class Trainer:
         clip_by_global_norm_([p.grad for p in self.params if p.grad is not None],
                              self.cfg.GRAD_NORM_CLIP)
         self.optimizer.step()
+        self.step += 1
 
     def train_step(self, batch, generator=None, noise=None):
         """One optimisation step on a batch (numpy arrays or tensors). The generator,

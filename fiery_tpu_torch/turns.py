@@ -239,8 +239,9 @@ def kernel_alone(fn, key, name, counter, reps=20, attempts=5):
     is whole, the ms is scaled from the launches it saw, and
     out['<key>_kernel_trace_whole'] is False."""
     def window():
-        # a trace's first launches can go unrecorded: spin kernels and a pause first
-        for _ in range(8):
+        # a trace's first launches can go unrecorded, more as the process runs the
+        # model (python -m fiery_tpu_torch.trace_probe): spin kernels and a pause first
+        for _ in range(64):
             torch.cuda._sleep(10000)
         torch.cuda.synchronize()
         time.sleep(0.002)

@@ -23,3 +23,13 @@ def device_constant(values, dtype, device):
     these values and reused after; callers must not modify it."""
     return _constant(tuple(v.item() if hasattr(v, 'item') else v for v in values), dtype,
                      torch.device(device))
+
+
+def resolve_device(device=None):
+    """torch.device(device), the CUDA card when None; raises when that is a CUDA
+    device and none is available, rather than running on the CPU unasked."""
+    device = torch.device('cuda' if device is None else device)
+    if device.type == 'cuda' and not torch.cuda.is_available():
+        raise RuntimeError('fiery_tpu_torch runs on a CUDA device and none is available; '
+                           'pass device="cpu" (--device cpu) to run on the CPU')
+    return device

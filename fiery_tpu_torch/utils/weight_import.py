@@ -274,3 +274,51 @@ def train_state_from_jax(params_np: Dict, batch_stats_np: Dict, model_cfg):
     uncertainty = {k: torch.tensor(np.asarray(v, np.float32))
                    for k, v in params_np['uncertainty'].items()}
     return state_dict, uncertainty
+
+
+def _adam_state(opt_state):
+    """The scale_by_adam entry (count, mu, nu) of an optax chain's state, as a
+    tuple of namedtuples or as the dicts and lists a restore gives."""
+    if hasattr(opt_state, 'mu') and hasattr(opt_state, 'nu'):
+        return opt_state.count, opt_state.mu, opt_state.nu
+    if isinstance(opt_state, dict):
+        if {'mu', 'nu', 'count'} <= set(opt_state):
+            return opt_state['count'], opt_state['mu'], opt_state['nu']
+        opt_state = list(opt_state.values())
+    if isinstance(opt_state, (list, tuple)):
+        for entry in opt_state:
+            found = _adam_state(entry)
+            if found is not None:
+                return found
+    return None
+
+
+def checkpoint_state_from_jax(state_np, trainer):
+    """A JAX ``TrainState`` in numpy -> this package's checkpoint state for
+    ``trainer`` (``Trainer.load_state``; its ``params`` give the order of the Adam
+    state: the model's parameters, then the uncertainty weights).
+
+    state_np: ``{'step', 'params', 'batch_stats', 'opt_state'}`` (the TrainState's
+    fields, e.g. ``jax.tree.map(np.asarray, dataclasses.asdict(state))``). The optax
+    chain's ``scale_by_adam`` state (mu, nu, count) becomes torch.optim.Adam's
+    exp_avg, exp_avg_sq and step for every parameter and uncertainty weight: Adam
+    with coupled weight decay keeps the same moments of the same clipped, decayed
+    gradients as that chain, so the next port step is the next JAX step."""
+    cfg = trainer.model.cfg
+    state_dict, uncertainty = train_state_from_jax(state_np['params'],
+                                                   state_np['batch_stats'], cfg)
+    state = {'model': state_dict, 'uncertainty': uncertainty, 'optimizer': None,
+             'step': int(np.asarray(state_np['step']))}
+    adam = _adam_state(state_np['opt_state'])
+    if adam is None:
+        return state
+    count, mu, nu = adam
+    mu_sd, mu_uw = train_state_from_jax(mu, state_np['batch_stats'], cfg)
+    nu_sd, nu_uw = train_state_from_jax(nu, state_np['batch_stats'], cfg)
+    moments = [(mu_sd[n], nu_sd[n]) for n, _ in trainer.model.named_parameters()]
+    moments += [(mu_uw[k], nu_uw[k]) for k in trainer.uncertainty]
+    step = torch.tensor(float(np.asarray(count)), dtype=torch.float32)
+    state['optimizer'] = {'state': {
+        i: {'step': step.clone(), 'exp_avg': m.clone(), 'exp_avg_sq': v.clone()}
+        for i, (m, v) in enumerate(moments)}}
+    return state

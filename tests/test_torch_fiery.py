@@ -158,7 +158,8 @@ def test_port_imports_nothing_of_jax():
             'fiery_tpu_torch.training.metrics', 'fiery_tpu_torch.evaluate',
             'fiery_tpu_torch.training.losses', 'fiery_tpu_torch.training.trainer',
             'fiery_tpu_torch.train', 'fiery_tpu_torch.data.synthetic',
-            'fiery_tpu_torch.data.labels', 'fiery_tpu_torch.data.label_warp'} <= modules
+            'fiery_tpu_torch.data.labels', 'fiery_tpu_torch.data.label_warp',
+            'fiery_tpu_torch.data.dataset', 'fiery_tpu_torch.utils.checkpoint'} <= modules
 
 
 def test_entry_points_refuse_the_cpu_unless_asked(monkeypatch):

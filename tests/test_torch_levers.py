@@ -9,6 +9,8 @@ relative L2 errors 1e-2 per module and 1e-1 per leaf). Both JAX computations go
 through one jit. Inputs are made with numpy from fixed seeds and handed to both.
 """
 
+import sys
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -288,7 +290,7 @@ def test_combo_train_step_matches_jax(combo):
                                    err_msg=k)
 
 
-def test_train_cli_culls_depth_planes_and_prewarps_labels(capsys):
+def test_train_cli_culls_depth_planes_and_prewarps_labels(capsys, monkeypatch, tmp_path):
     """The train CLI computes DEPTH_CULL's keep counts from the first batch's
     calibrations, and under PREWARP_LABELS trains on host-warped label stacks."""
     from fiery_tpu_torch import train
@@ -301,9 +303,14 @@ def test_train_cli_culls_depth_planes_and_prewarps_labels(capsys):
             'MODEL.ENCODER.NAME', 'efficientnet-b0', 'MODEL.ENCODER.OUT_CHANNELS', '16',
             'MODEL.TEMPORAL_MODEL.START_OUT_CHANNELS', '16',
             'MODEL.DISTRIBUTION.LATENT_DIM', '4', 'MODEL.FUTURE_PRED.N_GRU_BLOCKS', '1',
-            'MODEL.FUTURE_PRED.N_RES_LAYERS', '1', 'DATASET.N_SYNTHETIC_SAMPLES', '1']
-    trainer = train.main(['--config', BASELINE, '--device', 'cpu', '--steps', '1', *opts])
-    lines = capsys.readouterr().out.strip().splitlines()
+            'MODEL.FUTURE_PRED.N_RES_LAYERS', '1', 'DATASET.N_SYNTHETIC_SAMPLES', '1',
+            'LOG_DIR', str(tmp_path)]
+    # TensorBoard stays out of the run (its import pulls in TensorFlow where installed)
+    monkeypatch.setitem(sys.modules, 'torch.utils.tensorboard', None)
+    trainer = train.main(['--config', BASELINE, '--device', 'cpu', '--steps', '1',
+                          *opts]).trainer
+    lines = [line for line in capsys.readouterr().out.strip().splitlines()
+             if line.startswith('{')]
     keep = trainer.model.cfg.depth_keep
     assert lines[0] == '{"depth_keep": %s}' % list(keep)
     cfg = get_cfg(cfg_dict={'IMAGE': {'FINAL_DIM': (64, 96), 'NAMES': ['CAM_A', 'CAM_B']},

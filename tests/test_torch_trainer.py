@@ -17,6 +17,8 @@ order. A wrong gradient formula (the splat's or the warp's backward, say) gives
 errors of order 1 on every leaf upstream of it.
 """
 
+import sys
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -186,7 +188,7 @@ def test_optimizer_update_matches_optax(step):
                                    float(upd_uw[k]), rtol=0, atol=1e-6, err_msg=k)
 
 
-def test_trainer_and_train_cli_refuse_the_cpu_unless_asked(monkeypatch, capsys):
+def test_trainer_and_train_cli_refuse_the_cpu_unless_asked(monkeypatch, capsys, tmp_path):
     from fiery_tpu_torch import train
     from fiery_tpu_torch.serve import BASELINE
     monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
@@ -199,15 +201,19 @@ def test_trainer_and_train_cli_refuse_the_cpu_unless_asked(monkeypatch, capsys):
                  'MODEL.ENCODER.NAME', 'efficientnet-b0', 'MODEL.ENCODER.OUT_CHANNELS', '16',
                  'MODEL.TEMPORAL_MODEL.START_OUT_CHANNELS', '16',
                  'MODEL.DISTRIBUTION.LATENT_DIM', '4', 'MODEL.FUTURE_PRED.N_GRU_BLOCKS', '1',
-                 'MODEL.FUTURE_PRED.N_RES_LAYERS', '1', 'DATASET.N_SYNTHETIC_SAMPLES', '2']
+                 'MODEL.FUTURE_PRED.N_RES_LAYERS', '1', 'DATASET.N_SYNTHETIC_SAMPLES', '2',
+                 'LOGGING_INTERVAL', '1', 'LOG_DIR', str(tmp_path)]
+    # TensorBoard stays out of the run (its import pulls in TensorFlow where installed)
+    monkeypatch.setitem(sys.modules, 'torch.utils.tensorboard', None)
     with pytest.raises(RuntimeError, match='CUDA'):
         train.main(['--config', BASELINE, '--steps', '1', *tiny_opts])
     with pytest.raises(NotImplementedError, match='synthetic'):
         train.main(['--config', BASELINE, '--device', 'cpu', '--steps', '1'])
     trainer = train.main(['--config', BASELINE, '--device', 'cpu', '--steps', '2',
-                          *tiny_opts])
-    lines = capsys.readouterr().out.strip().splitlines()
-    assert len(lines) == 2 and '"total_loss"' in lines[0] and '"step": 1' in lines[1]
+                          *tiny_opts]).trainer
+    lines = [line for line in capsys.readouterr().out.strip().splitlines()
+             if line.startswith('{')]
+    assert len(lines) == 2 and '"total_loss"' in lines[0] and '"step": 2' in lines[1]
     assert next(trainer.model.parameters()).device.type == 'cpu'
 
 
