@@ -8,6 +8,15 @@ Builds the package's CUDA kernels from csrc/, then:
      launches per rollout step), that no plain version ran, that the device
      tracker never waits on the host, and how far the host (scipy) tracker's ids
      are from the device tracker's; times the request with and without decoding;
+     then the served form (phase_served_graph, dense and combined): the seeded
+     weights folded in f32, cast and captured as CUDA graphs (serve.build_served),
+     the launches of the warm-ups and captures counted, none in a replay; three
+     requests through both graphs equal to the eager folded model bit for bit, ids
+     too; folded vs unfolded within relative L2 2e-2 at PRECISION 32 (TF32 off;
+     the bf16 distances printed); eager and replayed requests timed in turns, the
+     host's part of a replay, the peak memory; after the timed
+     phases, a profiled replay holds the same kernels by name and count as an
+     eager request, with device busy and K10's ms of each;
   2. holds K1 and K2 against their plain PyTorch versions at the baseline serve
      shapes, in f32 and in bf16 (K2 also at the training step's 6 maps, and equal
      to the plain version on the host, given the card's theta, in every value), and
@@ -103,6 +112,7 @@ import subprocess
 import sys
 import time
 import types
+from collections import Counter
 
 import numpy as np
 import scipy.optimize
@@ -136,13 +146,15 @@ from fiery_tpu_torch.ops.warp import (_affine_grid, _warp_theta, bev_warp,
                                       bev_warp_backward, bev_warp_backward_plain,
                                       bev_warp_nearest, bev_warp_nearest_plain,
                                       bev_warp_plain, card_theta)
+from fiery_tpu_torch import serve_graph
 from fiery_tpu_torch.profile_serve import host_us_per_call
 from fiery_tpu_torch.postprocess.instance import (
     find_instance_centers, find_instance_centers_plain, instance_ids, instance_ids_plain,
     predict_instance_segmentation_and_trajectories, segment_centroids,
     segment_centroids_clip, segment_centroids_clip_plain, segment_centroids_plain)
-from fiery_tpu_torch.serve import (BASELINE, build_fiery, calibrate_batchnorm, init_params,
-                                   make_request, predict, predict_instances)
+from fiery_tpu_torch.serve import (BASELINE, build_fiery, build_served, calibrate_batchnorm,
+                                   init_params, make_request, predict, predict_instances,
+                                   seeded_state_dict)
 from fiery_tpu_torch.training.losses import (_top_k_sum_from_threshold, compute_losses,
                                              kth_largest, kth_largest_plain,
                                              kth_largest_plan)
@@ -809,6 +821,207 @@ def phase_serve(n_requests=3, opts=(), name='serve'):
             f'bound {bound_ms:.4f} ms ({n_calls} calls, {gb:.4f} GB); {smi_line()}')
 
     return launches, outputs, profile
+
+
+DECODE_KERNELS = ('instance_centers', 'group_pixels', 'segment_centroids', 'lap')
+
+
+def window_kernels(fn, k10_launches, attempts=5):
+    """(Counter of the CUDA kernels fn() launches by name, Counter of its memsets and
+    memcpys by name, device busy ms, K10's device ms by pass) from one profiled
+    window after ``trace_lead_in``, the lead-in's spin kernels left out. A CUDA
+    graph's memset and memcpy nodes run as the driver's kernels (``memset32``,
+    ``memcpy128``, ...): they count as memsets and memcpys. A window whose K10
+    launches differ from ``k10_launches`` lost launches: it is taken again, up to
+    ``attempts`` times, and then the call fails."""
+    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    for _ in range(attempts):
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=activities) as prof:
+            trace_lead_in()
+            fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA
+                  and not e.is_user_annotation and 'spin_kernel' not in e.key]
+        is_copy = [e.key.lower().startswith(('memset', 'memcpy')) for e in events]
+        copies = Counter({e.key: e.count for e, c in zip(events, is_copy) if c})
+        kernels = Counter({e.key: e.count for e, c in zip(events, is_copy) if not c})
+        k10 = sum(n for key, n in kernels.items() if k10_pass(key) == 'apply')
+        if k10 == k10_launches:
+            busy = sum(e.self_device_time_total for e in events) / 1e3
+            return kernels, copies, busy, k10_device_ms(events)
+        log(f'  the window held {k10} K10 launches, expected {k10_launches}; '
+            f'profiling again')
+    raise AssertionError(f'no window held the {k10_launches} K10 launches in {attempts} '
+                         f'tries')
+
+
+def phase_served_graph(opts=(), name='served graph'):
+    """The served form at full width (baseline.yml, PRECISION 16, batch 1, the seeded
+    weights): ``build_served`` folds every BatchNorm in f32, casts and captures
+    predict and predict_instances as CUDA graphs. Checks the launches made while
+    capturing (the warm-ups and the capture, each wrapper counted where it
+    launches), that a replay calls no wrapper, that three seeded requests (none the
+    captured one) give the eager folded model's outputs and ids bit for bit through
+    both graphs, and that the folded outputs are finite and, at PRECISION 32 (TF32
+    off) on the same weights, within relative L2 2e-2 of the unfolded model's (the
+    bf16 distances printed); times predict and predict_instances eager (folded) and
+    replayed, 20 each in turns, the host's part of a replay and the peak memory. Returns a
+    closure that profiles a replay against an eager request (called after the
+    timed phases): the same kernels by name and count, device busy, K10's ms."""
+    cfg = get_cfg(argparse.Namespace(config_file=BASELINE, opts=list(opts)))
+    state_dict = seeded_state_dict(cfg, seed=0)
+    unfolded = build_fiery(cfg, state_dict=state_dict)
+    eager = build_fiery(cfg, state_dict=state_dict, fold_bn=True)
+    requests = [make_request(cfg, seed=10 + i) for i in range(3)]
+    for model in (unfolded, eager):
+        predict_instances(model, requests[0])
+    torch.cuda.synchronize()
+    reset_counters()
+    predict_instances(eager, requests[0])
+    per_request = {k: fn.launches for k, fn in COUNTERS.items()}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    reset_counters()
+    t0 = time.perf_counter()
+    served = build_served(cfg, state_dict)
+    build_s = time.perf_counter() - t0
+    captured = {k: fn.launches for k, fn in COUNTERS.items()}
+    # the warm-ups and the capture of each graph: the forward in both, the decode
+    # and tracking in predict_instances'
+    runs = serve_graph.WARMUP + 1
+    expected = {k: n * runs * (1 if k in DECODE_KERNELS else 2) for k, n in per_request.items()}
+    if captured != expected:
+        raise AssertionError(f'{name}: launches while capturing {captured}, expected '
+                             f'{expected}')
+    layout_report()
+
+    outputs = []
+    for i, req in enumerate(requests):
+        reset_counters()
+        got, got_ids = served.predict_instances(req)
+        bare = served.predict(req)
+        replayed = {k: fn.launches for k, fn in COUNTERS.items() if fn.launches}
+        if replayed:
+            raise AssertionError(f'{name}: a replay called the wrappers: {replayed}')
+        want, want_ids = predict_instances(eager, req)
+        plain = predict(unfolded, req)
+        if sorted(got) != sorted(want) or sorted(bare) != sorted(want):
+            raise AssertionError(f'{name}: outputs {sorted(got)}, {sorted(bare)} != '
+                                 f'{sorted(want)}')
+        differ = {k: bits_differ(got[k], v) + bits_differ(bare[k], v) for k, v in want.items()}
+        differ['ids'] = int((got_ids != want_ids).sum())
+        if any(differ.values()):
+            raise AssertionError(f'{name}: request {i}: values whose bits differ between '
+                                 f'the replay and the eager folded model: {differ}')
+        errs = {k: rel_l2(v, plain[k]) for k, v in want.items()}
+        if any(not torch.isfinite(v).all() for v in want.values()):
+            raise AssertionError(f'{name}: non-finite folded outputs')
+        outputs.append((got_ids, errs))
+    # the fold's own error is held at PRECISION 32 (TF32 off), on the same weights:
+    # in bf16 a random-weight network moves by 0.1-0.6 relative L2 from any rounding
+    # change (bf16 against f32 alone does), so the bf16 distances are printed, beside
+    # each bf16 model's distance from the f32 unfolded one
+    cfg32 = get_cfg(argparse.Namespace(config_file=BASELINE,
+                                       opts=list(opts) + ['PRECISION', '32']))
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        ref = predict(build_fiery(cfg32, state_dict=state_dict), requests[0])
+        fold32 = predict(build_fiery(cfg32, state_dict=state_dict, fold_bn=True), requests[0])
+    finally:
+        torch.backends.cudnn.allow_tf32 = True
+    diag = {'f32 folded vs unfolded': {k: rel_l2(fold32[k], v) for k, v in ref.items()},
+            'bf16 unfolded vs f32': {k: rel_l2(predict(unfolded, requests[0])[k], v)
+                                     for k, v in ref.items()},
+            'bf16 folded vs f32': {k: rel_l2(predict(eager, requests[0])[k], v)
+                                   for k, v in ref.items()}}
+    for key, e in diag.items():
+        log(f'{name}: {key}, relative L2 by output: '
+            f'{ {k: float(f"{v:.3e}") for k, v in e.items()} }')
+    if max(diag['f32 folded vs unfolded'].values()) > 2e-2:
+        raise AssertionError(f'{name}: f32 folded vs unfolded relative L2 above 2e-2')
+    launched = {k: v for k, v in captured.items() if v}
+    log(f'{name}: captured in {build_s:.1f} s (fold, cast, {serve_graph.WARMUP} warm-ups '
+        f'and a capture of each graph; launches while capturing {launched}); 3 requests '
+        f'through both graphs equal the eager folded model bit for bit, ids too (ids a '
+        f'request {[int(ids.max()) for ids, _ in outputs]}); no wrapper ran in a replay')
+    log(f'{name}: bf16 folded vs unfolded, relative L2 by output, per request: '
+        f'{[{k: float(f"{v:.3e}") for k, v in errs.items()} for _, errs in outputs]}')
+
+    # eager (folded) and replayed, in turns on the three requests
+    reps = 20
+    calls = {'eager predict': lambda r: predict(eager, r),
+             'graph predict': served.predict,
+             'eager predict_instances': lambda r: predict_instances(eager, r),
+             'graph predict_instances': served.predict_instances}
+    times = {k: [] for k in calls}
+    for i in range(3 + reps):
+        for key, fn in calls.items():
+            t0 = time.perf_counter()
+            fn(requests[i % 3])
+            torch.cuda.synchronize()
+            if i >= 3:
+                times[key].append(1e3 * (time.perf_counter() - t0))
+    host = {'replay': [], 'predict_instances': []}
+    for i in range(reps):
+        served.load(requests[i % 3])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        served.replay('predict_instances')
+        host['replay'].append(1e6 * (time.perf_counter() - t0))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        served.predict_instances(requests[i % 3])
+        host['predict_instances'].append(1e6 * (time.perf_counter() - t0))
+        torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    smi = smi_line()
+    for key, ms in times.items():
+        log(f'{name} {key}: request_ms={[round(t, 3) for t in ms]} '
+            f'median_ms={statistics.median(ms):.3f} spread_ms={min(ms):.3f}-{max(ms):.3f} '
+            f'({reps} in turns); {smi}')
+    log(f'{name}: host us of a replay (graph launch, no sync) median '
+        f'{statistics.median(host["replay"]):.1f} ({min(host["replay"]):.1f}-'
+        f'{max(host["replay"]):.1f}); of a whole predict_instances before its sync '
+        f'(check, copies in, replay, copies out) median '
+        f'{statistics.median(host["predict_instances"]):.1f}; peak memory with the '
+        f'graphs\' pool {peak} bytes ({peak - held} above the {held} held before the '
+        f'capture), reserved {torch.cuda.memory_reserved()}; {smi}')
+
+    def profile():
+        """A replay's kernels against an eager folded request's, by name and count,
+        each window whole (K10's launches all recorded); device busy and K10's ms
+        of each, and of the unfolded model's request."""
+        k10 = per_request['batch_norm']
+        served.load(requests[0])
+        windows = {
+            'replay': window_kernels(lambda: served.replay('predict_instances'), k10),
+            'eager folded': window_kernels(lambda: predict_instances(eager, requests[0]), k10),
+            'eager unfolded': window_kernels(lambda: predict_instances(unfolded, requests[0]),
+                                             k10)}
+        (replay, replay_copies), (eager_kernels, eager_copies) = (
+            windows['replay'][:2], windows['eager folded'][:2])
+
+        def memsets(copies):
+            return sum(n for key, n in copies.items() if key.lower().startswith('memset'))
+
+        if replay != eager_kernels or memsets(replay_copies) != memsets(eager_copies):
+            raise AssertionError(f'{name}: the replay\'s kernels differ from an eager '
+                                 f'request\'s: {dict(replay - eager_kernels)} more, '
+                                 f'{dict(eager_kernels - replay)} fewer; memsets '
+                                 f'{dict(replay_copies)} against {dict(eager_copies)}')
+        for key, (kernels, copies, busy, k10_ms) in windows.items():
+            log(f'{name} profiled {key} (predict_instances): {sum(kernels.values())} kernel '
+                f'launches of {len(kernels)} kernels, copies {json.dumps(copies)}; device '
+                f'busy {busy:.3f} ms; K10 {sum(k10_ms.values()):.4f} ms in {k10} launches '
+                f'({json.dumps({k: round(v, 4) for k, v in k10_ms.items() if v})}); '
+                f'{smi_line()}')
+        log(f'{name}: a replay launches the same {sum(replay.values())} kernels, by name '
+            f'and count, and {memsets(replay_copies)} memsets, as an eager request')
+
+    return profile
 
 
 def relabel_disagreement(a, b):
@@ -2493,6 +2706,10 @@ def main():
     combo_launches, _, _ = phase_serve(opts=COMBO_OPTS, name='serve combo')
     log(f'full-width serve of the combination: ok ({time.perf_counter() - t0:.1f} s)')
     t0 = time.perf_counter()
+    graph_profiles = [phase_served_graph(),
+                      phase_served_graph(COMBO_OPTS, 'served graph combo')]
+    log(f'full-width served graphs, BatchNorm folded: ok ({time.perf_counter() - t0:.1f} s)')
+    t0 = time.perf_counter()
     train_launches, train, dense_run = phase_train()
     log(f'full-width train: ok ({time.perf_counter() - t0:.1f} s)')
     t0 = time.perf_counter()
@@ -2511,7 +2728,9 @@ def main():
     dense_run.profile()
     combo_run.profile()
     serve_profile()
-    del dense_run, combo_run
+    for profile in graph_profiles:
+        profile()
+    del dense_run, combo_run, graph_profiles
     log(f'train steps in turns and profiled: ok ({time.perf_counter() - t0:.1f} s)')
     t0 = time.perf_counter()
     topk = phase_topk_kernels(device)

@@ -35,8 +35,10 @@ class _InputDtype:
     layout_copies = Counter()
 
     def _conv_forward(self, x, weight, bias):
-        y = super()._conv_forward(x, weight.to(x.dtype),
-                                  None if bias is None else bias.to(x.dtype))
+        return self._out_layout(super()._conv_forward(
+            x, weight.to(x.dtype), None if bias is None else bias.to(x.dtype)))
+
+    def _out_layout(self, y):
         if not y.is_contiguous(memory_format=self.out_format):
             _InputDtype.layout_copies[tuple(y.shape)] += 1
             y = y.contiguous(memory_format=self.out_format)
@@ -49,6 +51,17 @@ class Conv2d(_InputDtype, nn.Conv2d):
 
 class Conv3d(_InputDtype, nn.Conv3d):
     out_format = torch.channels_last_3d
+
+
+class ConvTranspose2d(_InputDtype, nn.ConvTranspose2d):
+    """A transposed conv as ``Conv2d`` computes: in the input's dtype, channels-last
+    out. Its weight is (in, out, kh, kw)."""
+    out_format = torch.channels_last
+
+    def forward(self, x):
+        return self._out_layout(F.conv_transpose2d(
+            x, self.weight.to(x.dtype), None if self.bias is None else self.bias.to(x.dtype),
+            self.stride, self.padding, self.output_padding, self.groups, self.dilation))
 
 
 class BatchNorm(nn.modules.batchnorm._BatchNorm):
@@ -116,26 +129,35 @@ def _bn_relu(channels, bn_momentum):
 
 
 class Bottleneck(nn.Module):
-    """1x1 down-project -> 3x3 conv (stride 2 when ``downsample``) -> 1x1 up-project,
-    each followed by BN + ReLU, with a residual: identity, or a projection
-    (2x2 max pool when downsampling, then 1x1 conv + BN)."""
+    """1x1 down-project -> 3x3 conv (stride 2 when ``downsample``; a 3x3 transposed
+    conv of stride 2 when ``upsample``) -> 1x1 up-project, each followed by BN +
+    ReLU, with a residual: identity, or a projection (2x2 max pool when
+    downsampling, a bilinear 2x upsample when upsampling, then 1x1 conv + BN)."""
 
     def __init__(self, in_channels, out_channels=None, kernel_size=3, downsample=False,
-                 bn_momentum=0.1):
+                 bn_momentum=0.1, upsample=False):
         super().__init__()
+        if downsample and upsample:
+            raise ValueError('a Bottleneck downsamples or upsamples, not both')
         out_channels = out_channels or in_channels
         mid = in_channels // 2
-        self.downsample = downsample
+        self.downsample, self.upsample = downsample, upsample
+        pad = (kernel_size - 1) // 2
+        if upsample:
+            conv = ConvTranspose2d(mid, mid, kernel_size, stride=2, padding=pad,
+                                   output_padding=1, bias=False)
+        else:
+            conv = Conv2d(mid, mid, kernel_size, stride=2 if downsample else 1, padding=pad,
+                          bias=False)
         self.layers = nn.Sequential(OrderedDict([
             ('conv_down_project', Conv2d(in_channels, mid, 1, bias=False)),
             ('abn_down_project', _bn_relu(mid, bn_momentum)),
-            ('conv', Conv2d(mid, mid, kernel_size, stride=2 if downsample else 1,
-                            padding=(kernel_size - 1) // 2, bias=False)),
+            ('conv', conv),
             ('abn', _bn_relu(mid, bn_momentum)),
             ('conv_up_project', Conv2d(mid, out_channels, 1, bias=False)),
             ('abn_up_project', _bn_relu(out_channels, bn_momentum)),
         ]))
-        if out_channels == in_channels and not downsample:
+        if out_channels == in_channels and not (downsample or upsample):
             self.projection = None
             # the identity residual rides the last BN: relu(bn(h)) + x
             self.layers.abn_up_project[0].post = 'relu_add'
@@ -143,6 +165,9 @@ class Bottleneck(nn.Module):
             proj = OrderedDict()
             if downsample:
                 proj['upsample_skip_proj'] = nn.MaxPool2d(2, stride=2)
+            elif upsample:
+                proj['upsample_skip_proj'] = nn.Upsample(scale_factor=2, mode='bilinear',
+                                                         align_corners=False)
             proj['conv_skip_proj'] = Conv2d(in_channels, out_channels, 1, bias=False)
             proj['bn_skip_proj'] = BatchNorm(out_channels, momentum=bn_momentum,
                                              post='add')
@@ -156,6 +181,7 @@ class Bottleneck(nn.Module):
         if self.downsample:
             # pad right/bottom if odd so the max pool matches the strided conv
             skip = F.pad(skip, (0, skip.shape[-1] % 2, 0, skip.shape[-2] % 2))
+        if self.downsample or self.upsample:
             skip = self.projection.upsample_skip_proj(skip)
         skip = self.projection.conv_skip_proj(skip)
         return self.projection.bn_skip_proj(skip, residual=residual)

@@ -347,7 +347,7 @@ def lift_splat_depth(depth, feat, geometry, bev_resolution, bev_start_position,
         N, D = ids.shape[1], ids.shape[-1]
         if len(depth_keep) != N:
             raise ValueError(f'depth_keep has {len(depth_keep)} counts for {N} cameras')
-        keep = torch.tensor([int(k) for k in depth_keep], device=ids.device)
+        keep = device_constant(tuple(int(k) for k in depth_keep), torch.int64, ids.device)
         culled = torch.arange(D, device=ids.device) >= keep.view(1, N, 1, 1, 1)
         ids = torch.where(culled, torch.full_like(ids, X * Y * Z), ids)
     out = bev_pool(depth.contiguous(), feat.contiguous(), ids.contiguous(), X * Y * Z, Z)

@@ -12,6 +12,16 @@ running on the CPU.
     out = predict(model, make_request(cfg, seed=1))
     out, ids = predict_instances(model, make_request(cfg, seed=1))  # + (1, 5, 200, 200) ids
 
+The served form, as the JAX package serves it: every BatchNorm folded into its conv
+in f32 before the bf16 cast (``utils/bn_fold.py``), and both requests captured as
+CUDA graphs at a fixed batch (``serve_graph.py``), each answered by one replay:
+
+    state_dict = seeded_state_dict(cfg, seed=0)   # or a checkpoint's f32 weights
+    served = build_served(cfg, state_dict)        # fold, cast, capture
+    out = served.predict(make_request(cfg, seed=1))
+    out, ids = served.predict_instances(make_request(cfg, seed=1))
+    folded = build_fiery(cfg, state_dict=state_dict, fold_bn=True)   # the same, eager
+
 The levers come as overrides, e.g. the sparse, warp-free combination:
     cfg = get_cfg(argparse.Namespace(config_file=BASELINE,
                                      opts=['LIFT.TOPK', '8', 'LIFT.WARP_FREE', 'True']))
@@ -26,18 +36,28 @@ import torch
 from fiery_tpu_torch.evaluate import device_consistent
 from fiery_tpu_torch.models.fiery import Fiery, FieryConfig
 from fiery_tpu_torch.postprocess.instance import predict_instance_segmentation_and_trajectories
+from fiery_tpu_torch.serve_graph import ServedFiery
+from fiery_tpu_torch.utils.bn_fold import fold_batchnorm
 from fiery_tpu_torch.utils.device import resolve_device
 
 BASELINE = os.path.join(os.path.dirname(os.path.abspath(__file__)), 'configs',
                         'baseline.yml')
 
 
-def build_fiery(cfg, device=None):
+def build_fiery(cfg, device=None, state_dict=None, fold_bn=False):
     """Eval-mode Fiery for a CfgNode on ``device`` (default: cuda, which must then
     exist). With PRECISION 16 the convolution weights are bf16; BatchNorm and the
-    buffers stay f32."""
+    buffers stay f32. ``state_dict`` (f32) is loaded before that cast, with every
+    BatchNorm folded into its conv first under ``fold_bn``."""
     device = resolve_device(device)
-    model = Fiery(FieryConfig.from_cfg(cfg)).eval().to(device)
+    model = Fiery(FieryConfig.from_cfg(cfg)).eval()
+    if state_dict is not None:
+        if fold_bn:
+            state_dict, _ = fold_batchnorm(state_dict, model)
+        model.load_state_dict(state_dict)
+    elif fold_bn:
+        raise ValueError('fold_bn folds the weights of a state_dict: pass one')
+    model.to(device)
     dtype = model.cfg.compute_dtype
     with torch.no_grad():
         for m in model.modules():
@@ -62,6 +82,24 @@ def init_params(model, seed):
                 if m.bias is not None:
                     m.bias.zero_()
     return model
+
+
+def seeded_state_dict(cfg, seed=0, device=None):
+    """The f32 state_dict of ``init_params(seed)`` with ``calibrate_batchnorm`` on
+    the requests of seeds 6 and 7 (on ``device``): the random weights that the
+    scripts serve, with the conv weights left f32. The statistics are those of the
+    bf16 model of the same seed, as the convolutions compute in the activations'
+    dtype whatever their weights' dtype."""
+    model = Fiery(FieryConfig.from_cfg(cfg)).eval().to(resolve_device(device))
+    init_params(model, seed)
+    calibrate_batchnorm(model, [make_request(cfg, seed=s) for s in (6, 7)])
+    return model.state_dict()
+
+
+def build_served(cfg, state_dict, device=None, batch=1):
+    """The served form on the card: ``state_dict`` (f32) folded, cast and captured
+    as CUDA graphs at ``batch`` (``serve_graph.ServedFiery``); raises on the CPU."""
+    return ServedFiery(build_fiery(cfg, device, state_dict, fold_bn=True), cfg, batch)
 
 
 def calibrate_batchnorm(model, requests):

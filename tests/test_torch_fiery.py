@@ -153,13 +153,15 @@ def test_port_imports_nothing_of_jax():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     modules = set(out.stdout.split())
-    assert len(modules) >= 34
+    assert len(modules) >= 47
     assert {'fiery_tpu_torch.ops.lap', 'fiery_tpu_torch.postprocess.instance',
             'fiery_tpu_torch.training.metrics', 'fiery_tpu_torch.evaluate',
             'fiery_tpu_torch.training.losses', 'fiery_tpu_torch.training.trainer',
             'fiery_tpu_torch.train', 'fiery_tpu_torch.data.synthetic',
             'fiery_tpu_torch.data.labels', 'fiery_tpu_torch.data.label_warp',
-            'fiery_tpu_torch.data.dataset', 'fiery_tpu_torch.utils.checkpoint'} <= modules
+            'fiery_tpu_torch.data.dataset', 'fiery_tpu_torch.utils.checkpoint',
+            'fiery_tpu_torch.utils.bn_fold', 'fiery_tpu_torch.serve_graph',
+            'fiery_tpu_torch.export'} <= modules
 
 
 def test_entry_points_refuse_the_cpu_unless_asked(monkeypatch):

@@ -117,6 +117,47 @@ def test_compute_depth_plane_keep_and_culled_splat_match_jax():
                             torch.from_numpy(geometry), res, start, dim, depth_keep=(1, 2))
 
 
+def test_culled_ids_take_their_counts_from_a_device_constant(monkeypatch):
+    """The culled splat's voxel ids equal those of the form that built a tensor from
+    the counts on every call (planes d >= keep[n] of camera n sent to the dump
+    bin), its output still equals the JAX package's culled splat, and a second call
+    makes no tensor from a Python list (so a culled forward can be captured)."""
+    frustum = LS.create_frustum((32, 48), 8, (2.0, 10.0, 1.0))
+    intr, extr = _nuscenes_like_rig(n_frames=1, jitter=0.3, seed=4)
+    intr[...] = np.array([[38.0, 0, 24], [0, 38.0, 16], [0, 0, 1]], np.float32)
+    res, start, dim = calculate_birds_eye_view_parameters(*BOUNDS)
+    geometry = np.array(JLS.get_geometry(jnp.asarray(frustum), jnp.asarray(intr),
+                                         jnp.asarray(extr)))        # (1, 6, D, h, w, 3)
+    rng = np.random.RandomState(5)
+    D, h, w = frustum.shape[:3]
+    depth = rng.dirichlet(np.ones(D), (1, 6, h, w)).astype(np.float32)
+    feat = rng.randn(1, 6, h, w, 3).astype(np.float32)
+    counts = (3, 1, 8, 5, 0, 2)
+    seen = []
+    monkeypatch.setattr(LS, 'bev_pool', lambda d, f, ids, *a: seen.append(ids) or
+                        LS.bev_pool_plain(d, f, ids, *a))
+    args = (torch.from_numpy(depth), torch.from_numpy(feat), torch.from_numpy(geometry),
+            res, start, dim)
+    got = LS.lift_splat_depth(*args, depth_keep=counts)
+    ids = LS.voxel_ids(torch.from_numpy(geometry), res, start, dim).permute(0, 1, 3, 4, 2)
+    X, Y, Z = (int(d) for d in dim)
+    keep = torch.tensor(counts)
+    culled = torch.arange(D) >= keep.view(1, 6, 1, 1, 1)
+    want_ids = torch.where(culled, torch.full_like(ids, X * Y * Z), ids)
+    assert torch.equal(seen[0], want_ids) and int(culled.sum()) > 0
+    lifted = jnp.asarray(depth[..., :, None] * feat[..., None, :])
+    want = np.asarray(jax.jit(lambda f, g: JLS.lift_splat(
+        f, g, res, start, dim, depth_keep=counts))(lifted, jnp.asarray(geometry)))
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
+
+    def no_tensor(*a, **kw):
+        raise AssertionError('lift_splat_depth made a tensor from a Python list')
+
+    monkeypatch.setattr(torch, 'tensor', no_tensor)
+    again = LS.lift_splat_depth(*args, depth_keep=counts)
+    assert torch.equal(again, got) and torch.equal(seen[1], want_ids)
+
+
 def test_host_label_prewarp_matches_jax():
     cfg, jcfg = get_cfg(cfg_dict=TINY), jax_get_cfg(cfg_dict=TINY)
     batch = SyntheticFutureDataset(cfg, n_samples=2, n_instances=2, seed=7).get_batch([0, 1])
