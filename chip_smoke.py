@@ -30,9 +30,9 @@ Builds the package's CUDA kernels from csrc/, then:
      and request, and compares every output;
   4. holds the decode and tracking kernels (K6-K9) against their plain versions
      at the served shapes and on planted inputs (K6, K7 and K9 exactly, K6 also on
-     frames with no peak, a flat plateau and 400 x 200 and 320 x 193 grids, K7 on
-     K = 1, 100 and 1,024 centres, planted near-ties, frames with no valid centre
-     or no foreground, non-finite inputs, those grids and C = 2 and 3; K8 over
+     frames with no peak, a flat plateau and 400 x 200, 320 x 193 and 320 x 192
+     grids, K7 on K = 1, 100 and 1,024 centres, planted near-ties, frames with no
+     valid centre or no foreground, non-finite inputs, those grids and C = 2 and 3; K8 over
      the request's clip in one launch, its grid centres equal to the plain version
      on the host and its flow centres within one f32 ulp, two calls with the same
      bits), K9 also on tie-heavy, non-finite and n = 17 to 1024 problems, and
@@ -56,8 +56,8 @@ Builds the package's CUDA kernels from csrc/, then:
      on random rows and on rows with ties at the k-th value)
      (K1 backward beside the L2 gather of its gradient rows; two runs bit for bit;
      K2 backward equal to the plain version on the host, given the card's theta,
-     bit for bit, also at wide poses on 400 x 200 and 320 x 193 grids, and to a
-     second call, and NaN for a map whose pose is not finite);
+     bit for bit, also at wide poses on 400 x 200, 320 x 193 and 320 x 192 grids,
+     and to a second call, and NaN for a map whose pose is not finite);
   8. runs a tiny training step on the card and on the CPU from the same weights,
      batch and noise, and compares the losses and gradients;
   9. the levers: serves three full-width requests and trains three full-width
@@ -90,6 +90,25 @@ Builds the package's CUDA kernels from csrc/, then:
      copies of a profiled step, the loop's step walls with the loader's wait, the
      loader's rate alone, the checkpoint's cost and VPQ from both trackers; then
      requires every launch of four profiled K10 windows after it.
+ 12. the JAX package's other config families (phase_families, FAMILIES): the
+     single-frame model (single_timeframe.yml), the temporal model without a
+     future (temporal_single_timeframe.yml), both on PON's 400 x 200 grid
+     (static_pon_setting.yml, pon_setting.yml), fishing_setting.yml (320 x 192,
+     D = 28; also under LIFT.TOPK 8), Lyft's MODEL.SUBSAMPLE (lyft/baseline.yml)
+     and baseline.yml with the encoder at downsample 16 and with a Bottleneck3D
+     between the temporal blocks, each at full width, PRECISION 16, seeded
+     weights: three eager requests through predict_instances (outputs, ids, the
+     tracker under set_sync_debug_mode('error'), each kernel's launches a request
+     as the family derives them), the served graphs (replays equal to the eager
+     folded model bit for bit, 10 requests of each in turns, a profiled replay's
+     busy, peak memory) and a warm-up and two training steps at the family's
+     BATCHSIZE (losses, parameters and statistics moved, launches a step, step ms,
+     peak memory); K1 and K5 (and their backwards) at fishing's D = 28, K2 forward
+     and backward and K4 at pon's 400 x 200 of extent (50, 25), and K6-K8 on the
+     pon and fishing heads against their plain versions, timed; and
+     python -m fiery_tpu_torch.export --validate of pon_setting.yml in-process.
+     ``python3 chip_smoke.py --only families`` builds the kernels and runs this
+     phase alone (no result line).
 The request and the step also print K10's census (each BatchNorm call's shape
 and epilogue, from hooks) with its summed bound, and K10's device time in one
 profiled request and step.
@@ -127,7 +146,7 @@ from fiery_tpu_torch.models.layers import BatchNorm, _InputDtype
 from fiery_tpu_torch.ops import _build
 from fiery_tpu_torch.ops.batch_norm import (POSTS, batch_norm_backward,
                                             batch_norm_backward_plain, batch_norm_forward,
-                                            batch_norm_forward_plain)
+                                            batch_norm_forward_plain, channel_slices)
 from fiery_tpu_torch.ops import lift_splat as lift_splat_module
 from fiery_tpu_torch.ops.lap import linear_sum_assignment, linear_sum_assignment_plain
 from fiery_tpu_torch.ops.spatial_gru import (gru_output, reset_concat, reset_concat_backward,
@@ -187,14 +206,110 @@ TRAIN_ONLY = ('bev_pool_backward', 'bev_warp_backward', 'kth_largest', 'bev_warp
 # splat and the warp-free lift; training adds the host label warp
 COMBO_OPTS = ('LIFT.TOPK', '8', 'LIFT.WARP_FREE', 'True')
 COMBO_TRAIN_OPTS = COMBO_OPTS + ('DATASET.PREWARP_LABELS', 'True')
-# launches per training step, by configuration
-TRAIN_PER_STEP = {
-    'dense': {'bev_pool': BEV_POOL_KERNELS, 'bev_pool_backward': 1, 'bev_warp': 1,
-              'bev_warp_backward': 1, 'kth_largest': 1, 'bev_warp_nearest': 1, 'topk_select': 0,
-              'topk_select_backward': 0},
-    'combo': {'bev_pool': BEV_POOL_KERNELS, 'bev_pool_backward': 1, 'bev_warp': 0,
-              'bev_warp_backward': 0, 'kth_largest': 1, 'bev_warp_nearest': 0, 'topk_select': 1,
-              'topk_select_backward': 1}}
+def expected_launches(mc, cfg, bn_launches, bn_calls=None):
+    """The launches of every counted kernel a request (``bn_calls`` None) or a
+    training step (``bn_calls``: the step's BatchNorm calls) of a model:
+    K1 (one splat), K5 under LIFT.TOPK, K2 for past frames (receptive field above 1,
+    not warp-free), K11 twice a GRU step of each block, K10 as the hooks counted;
+    a request decodes (K6, K7 once) and tracks (K8 once for a clip of more than one
+    frame, K9 once a step); a step adds the backward kernels of K1, K2, K5, K10 and
+    K11, K3 once (the top-k segmentation loss) and K4 once when there are future
+    label frames to warp back."""
+    T = 1 + mc.n_future
+    warp = int(mc.receptive_field > 1 and not mc.warp_free)
+    gru = 2 * mc.n_gru_blocks * mc.n_future
+    out = dict.fromkeys(COUNTERS, 0)
+    out.update(bev_pool=BEV_POOL_KERNELS, topk_select=int(bool(mc.depth_topk)), bev_warp=warp,
+               spatial_gru=gru, batch_norm=bn_launches)
+    if bn_calls is None:
+        out.update(instance_centers=1, group_pixels=1, segment_centroids=int(T > 1), lap=T - 1)
+    else:
+        out.update(bev_pool_backward=1, bev_warp_backward=warp,
+                   topk_select_backward=out['topk_select'],
+                   kth_largest=int(cfg.SEMANTIC_SEG.USE_TOP_K),
+                   bev_warp_nearest=int(mc.n_future > 0 and not cfg.DATASET.PREWARP_LABELS),
+                   batch_norm_backward=2 * bn_calls, spatial_gru_backward=gru)
+    return out
+
+
+def check_launches(name, got, per_call, n_calls):
+    if got != {k: n * n_calls for k, n in per_call.items()}:
+        raise AssertionError(f'{name}: launches {got} in {n_calls} calls, expected '
+                             f'{per_call} a call')
+
+
+def expected_outputs(mc):
+    """{output: shape} of a request at batch 1 for a FieryConfig: the heads over
+    the present and future frames, flow if enabled, the present distribution when
+    there is a future to sample."""
+    X, Y = mc.bev_size
+    T = 1 + mc.n_future
+    out = {'segmentation': (1, T, X, Y, mc.n_classes), 'instance_center': (1, T, X, Y, 1),
+           'instance_offset': (1, T, X, Y, 2)}
+    if mc.instance_flow_enabled:
+        out['instance_flow'] = (1, T, X, Y, 2)
+    if mc.probabilistic_enabled and mc.n_future:
+        out.update(present_mu=(1, 1, mc.latent_dim), present_log_sigma=(1, 1, mc.latent_dim))
+    return out
+
+
+def check_request_outputs(name, mc, outputs, ids_max=None):
+    """Every (output dict, ids) of predict_instances: the expected shapes, f32 and
+    finite values, (1, frames, X, Y) int32 ids in [0, ids_max]."""
+    expected = expected_outputs(mc)
+    X, Y = mc.bev_size
+    T = 1 + mc.n_future
+    for out, ids in outputs:
+        shapes = {k: tuple(v.shape) for k, v in out.items()}
+        if shapes != expected:
+            raise AssertionError(f'{name}: output shapes {shapes} != {expected}')
+        for k, v in out.items():
+            if v.dtype != torch.float32 or not torch.isfinite(v).all():
+                raise AssertionError(f'{name}: {k}: dtype {v.dtype} or non-finite values')
+        if (ids.shape != (1, T, X, Y) or ids.dtype != torch.int32 or int(ids.min()) < 0
+                or (ids_max is not None and int(ids.max()) > ids_max)):
+            raise AssertionError(f'{name}: instance ids {ids.dtype} {tuple(ids.shape)} '
+                                 f'in [{int(ids.min())}, {int(ids.max())}]')
+
+
+def replays_match_eager(name, served, eager, requests):
+    """Each request through both graphs of ``served`` against ``eager`` (the eager
+    folded model): no wrapper called in a replay, every output and the ids equal
+    bit for bit. Returns (eager outputs, replayed ids) a request."""
+    out = []
+    for i, req in enumerate(requests):
+        reset_counters()
+        got, got_ids = served.predict_instances(req)
+        bare = served.predict(req)
+        replayed = {k: fn.launches for k, fn in COUNTERS.items() if fn.launches}
+        if replayed:
+            raise AssertionError(f'{name}: a replay called the wrappers: {replayed}')
+        want, want_ids = predict_instances(eager, req)
+        if sorted(got) != sorted(want) or sorted(bare) != sorted(want):
+            raise AssertionError(f'{name}: outputs {sorted(got)}, {sorted(bare)} != '
+                                 f'{sorted(want)}')
+        differ = {k: bits_differ(got[k], v) + bits_differ(bare[k], v) for k, v in want.items()}
+        differ['ids'] = int((got_ids != want_ids).sum())
+        if any(differ.values()):
+            raise AssertionError(f'{name}: request {i}: values whose bits differ between '
+                                 f'the replay and the eager folded model: {differ}')
+        out.append((want, got_ids))
+    return out
+
+
+def in_turns(calls, requests, reps, warmup):
+    """{name: host ms of each call} of the callables ``calls`` ({name: fn(request)}),
+    each once a round in turns over the requests, each call ended by a synchronize;
+    the first ``warmup`` rounds untimed."""
+    times = {k: [] for k in calls}
+    for i in range(warmup + reps):
+        for key, fn in calls.items():
+            t0 = time.perf_counter()
+            fn(requests[i % len(requests)])
+            torch.cuda.synchronize()
+            if i >= warmup:
+                times[key].append(1e3 * (time.perf_counter() - t0))
+    return times
 
 
 def log(*args):
@@ -229,10 +344,11 @@ def layout_report():
 
 def count_bn_calls(model, fn):
     """fn() with a forward pre-hook on every BatchNorm of model: (its result, the
-    number of BatchNorm calls it made, the K10 forward launches they imply: two a
-    call in training mode (the statistics with their reduction, then apply), one
-    in eval; and the census of the calls, (shape, bytes a value, post, with a
-    residual, training) each)."""
+    number of BatchNorm calls it made, each counted once a channel slice (a call of
+    more than MAX_CHANNELS channels launches the kernels once a slice), the K10
+    forward launches they imply: two a call and slice in training mode (the
+    statistics with their reduction, then apply), one in eval; and the census of
+    the calls, (shape, bytes a value, post, with a residual, training) each)."""
     census = []
 
     def hook(module, args, kwargs):
@@ -249,7 +365,9 @@ def count_bn_calls(model, fn):
     finally:
         for h in handles:
             h.remove()
-    return out, len(census), sum(2 if c[4] else 1 for c in census), census
+    slices = [len(channel_slices(c[0][1])) for c in census]
+    return (out, sum(slices), sum((2 if c[4] else 1) * n for c, n in zip(census, slices)),
+            census)
 
 
 def census_bound(census, backward=False):
@@ -712,9 +830,6 @@ def phase_serve(n_requests=3, opts=(), name='serve'):
     mc = model.cfg
     X, Y = mc.bev_size
     T = 1 + mc.n_future
-    expected = {'segmentation': (1, T, X, Y, mc.n_classes), 'instance_center': (1, T, X, Y, 1),
-                'instance_offset': (1, T, X, Y, 2), 'instance_flow': (1, T, X, Y, 2),
-                'present_mu': (1, 1, mc.latent_dim), 'present_log_sigma': (1, 1, mc.latent_dim)}
     requests = [make_request(cfg, seed=10 + i) for i in range(n_requests)]
     warm = make_request(cfg, seed=9)       # warm-up (cuDNN plans, kernels)
     _, bn_calls, bn_launches, census = count_bn_calls(
@@ -734,31 +849,9 @@ def phase_serve(n_requests=3, opts=(), name='serve'):
     launches = {name: fn.launches for name, fn in COUNTERS.items()}
     layouts = layout_report()
     peak = torch.cuda.max_memory_allocated()
-    for out, ids in zip(outputs, tracks):
-        shapes = {k: tuple(v.shape) for k, v in out.items()}
-        if shapes != expected:
-            raise AssertionError(f'output shapes {shapes} != {expected}')
-        for k, v in out.items():
-            if v.dtype != torch.float32 or not torch.isfinite(v).all():
-                raise AssertionError(f'{k}: dtype {v.dtype} or non-finite values')
-        if (ids.shape != (1, T, X, Y) or ids.dtype != torch.int32 or int(ids.min()) < 0
-                or int(ids.max()) > T * 100):
-            raise AssertionError(f'instance ids {ids.dtype} {tuple(ids.shape)} '
-                                 f'in [{int(ids.min())}, {int(ids.max())}]')
-    # per request: one splat of BEV_POOL_KERNELS launches (after one top-k select
-    # under LIFT.TOPK), one warp (none warp-free), one decode (K6 and K7 once each),
-    # one centroid launch for the whole clip and one assignment per tracking step,
-    # one BatchNorm launch per (eval) BatchNorm call (counted by hooks in the warm-up
-    # request) and two GRU launches per step of each GRU block
-    per_request = {'bev_pool': BEV_POOL_KERNELS, 'bev_warp': 0 if mc.warp_free else 1,
-                   'topk_select': 1 if mc.depth_topk else 0, 'instance_centers': 1,
-                   'group_pixels': 1, 'segment_centroids': 1 if T > 1 else 0, 'lap': T - 1,
-                   'batch_norm': bn_launches, 'spatial_gru': 2 * mc.n_gru_blocks * mc.n_future,
-                   'batch_norm_backward': 0, 'spatial_gru_backward': 0}
-    for k, n in per_request.items():
-        if launches[k] != n * n_requests:
-            raise AssertionError(f'{name}: {k} launched {launches[k]} times for '
-                                 f'{n_requests} requests, expected {n * n_requests}')
+    check_request_outputs(name, mc, zip(outputs, tracks), ids_max=T * 100)
+    # K10's launches a request counted by hooks in the warm-up request
+    check_launches(name, launches, expected_launches(mc, cfg, bn_launches), n_requests)
 
     log(f'{name} (main path): request_ms={[round(t, 3) for t in times]} '
         f'peak_mem_bytes={peak} launches={launches}')
@@ -899,23 +992,9 @@ def phase_served_graph(opts=(), name='served graph'):
     layout_report()
 
     outputs = []
-    for i, req in enumerate(requests):
-        reset_counters()
-        got, got_ids = served.predict_instances(req)
-        bare = served.predict(req)
-        replayed = {k: fn.launches for k, fn in COUNTERS.items() if fn.launches}
-        if replayed:
-            raise AssertionError(f'{name}: a replay called the wrappers: {replayed}')
-        want, want_ids = predict_instances(eager, req)
+    for req, (want, got_ids) in zip(requests, replays_match_eager(name, served, eager,
+                                                                  requests)):
         plain = predict(unfolded, req)
-        if sorted(got) != sorted(want) or sorted(bare) != sorted(want):
-            raise AssertionError(f'{name}: outputs {sorted(got)}, {sorted(bare)} != '
-                                 f'{sorted(want)}')
-        differ = {k: bits_differ(got[k], v) + bits_differ(bare[k], v) for k, v in want.items()}
-        differ['ids'] = int((got_ids != want_ids).sum())
-        if any(differ.values()):
-            raise AssertionError(f'{name}: request {i}: values whose bits differ between '
-                                 f'the replay and the eager folded model: {differ}')
         errs = {k: rel_l2(v, plain[k]) for k, v in want.items()}
         if any(not torch.isfinite(v).all() for v in want.values()):
             raise AssertionError(f'{name}: non-finite folded outputs')
@@ -956,14 +1035,7 @@ def phase_served_graph(opts=(), name='served graph'):
              'graph predict': served.predict,
              'eager predict_instances': lambda r: predict_instances(eager, r),
              'graph predict_instances': served.predict_instances}
-    times = {k: [] for k in calls}
-    for i in range(3 + reps):
-        for key, fn in calls.items():
-            t0 = time.perf_counter()
-            fn(requests[i % 3])
-            torch.cuda.synchronize()
-            if i >= 3:
-                times[key].append(1e3 * (time.perf_counter() - t0))
+    times = in_turns(calls, requests, reps, warmup=3)
     host = {'replay': [], 'predict_instances': []}
     for i in range(reps):
         served.load(requests[i % 3])
@@ -1113,8 +1185,10 @@ def group_pixels_cases(device):
             ('random', 100, (200, 200), 2), ('random', 1, (200, 200), 2),
             ('random', 1024, (200, 200), 3), ('random', 100, (400, 200), 3),
             ('random', 100, (320, 193), 2), ('random', 1024, (320, 193), 2),
+            ('random', 100, (320, 192), 3), ('random', 1024, (320, 192), 2),
             ('near ties', 100, (200, 200), 2), ('near ties', 1024, (200, 200), 2),
-            ('near ties', 100, (320, 193), 3), ('no valid centre', 100, (200, 200), 2),
+            ('near ties', 100, (320, 193), 3), ('near ties', 100, (320, 192), 2),
+            ('no valid centre', 100, (200, 200), 2),
             ('no foreground', 100, (200, 200), 3), ('non-finite', 100, (200, 200), 2),
             ('band of rows', 100, (200, 200), 2), ('band of columns', 100, (320, 193), 2)]:
         rng = np.random.RandomState(K + h + C + len(case))
@@ -1180,9 +1254,10 @@ def phase_decode_kernels(device, outputs):
     # K6 alone, exactly: a request's frames with no peak (every score -inf: the
     # centres are pixels 0..99, all invalid), one flat plateau above the threshold
     # (every pixel a peak, all tied), and the literature families' grids (400 x 200,
-    # 320 x 193) on the served heads' values and on 3-level plateaus
+    # 320 x 193, and fishing_setting.yml's 320 x 192) on the served heads' values and
+    # on 3-level plateaus
     gk = torch.Generator(device=device).manual_seed(11)
-    grids = [(f'{name} {h2} x {w2}', c) for h2, w2 in ((400, 200), (320, 193))
+    grids = [(f'{name} {h2} x {w2}', c) for h2, w2 in ((400, 200), (320, 193), (320, 192))
              for name, c in (('served values', center.flatten()[torch.randint(
                  0, center.numel(), (T, h2, w2), generator=gk, device=device)]),
                              ('plateaus', planted_heatmaps(device, T, h2, w2)))]
@@ -1198,7 +1273,7 @@ def phase_decode_kernels(device, outputs):
 
     # K7 alone, exactly: random centres at K = 1, 100 and 1,024, planted near-ties, a
     # frame with no valid centre and one with no foreground, non-finite offsets and
-    # logits, 400 x 200 and 320 x 193 grids, C = 2 and 3
+    # logits, 400 x 200, 320 x 193 and 320 x 192 grids, C = 2 and 3
     for name, args in group_pixels_cases(device):
         got, want = instance_ids(*args), instance_ids_plain(*args)
         torch.cuda.synchronize()
@@ -1557,7 +1632,7 @@ def phase_train(n_steps=3, kind='dense', opts=()):
     DATASET.PREWARP_LABELS each batch's label stack is warped on the host before
     its step, outside the step's time. One warm-up step, then the main path:
     n_steps timed steps with the launch counts read around them, held to
-    TRAIN_PER_STEP[kind]."""
+    ``expected_launches``."""
     name = 'train' if kind == 'dense' else f'train {kind}'
     held = torch.cuda.memory_allocated()       # what earlier phases still hold
     cfg = get_cfg(argparse.Namespace(config_file=BASELINE,
@@ -1612,18 +1687,8 @@ def phase_train(n_steps=3, kind='dense', opts=()):
     for r in records:
         if not all(np.isfinite(v) for v in r.values()):
             raise AssertionError(f'{name}: non-finite losses {r}')
-    # two BatchNorm launches forward per training-mode BatchNorm call (one per
-    # eval-mode call) and two backward per call, and two GRU launches each way
-    # per step of each GRU block
-    mc = trainer.model.cfg
-    gru = 2 * mc.n_gru_blocks * mc.n_future
-    per_step = {**TRAIN_PER_STEP[kind], 'batch_norm': bn_launches,
-                'batch_norm_backward': 2 * bn_calls,
-                'spatial_gru': gru, 'spatial_gru_backward': gru}
-    for k, n in per_step.items():
-        if launches[k] != n * n_steps:
-            raise AssertionError(f'{name}: {k} launched {launches[k]} times in {n_steps} '
-                                 f'steps, expected {n} per step')
+    check_launches(name, {k: fn.launches for k, fn in COUNTERS.items()},
+                   expected_launches(trainer.model.cfg, cfg, bn_launches, bn_calls), n_steps)
     for k, v in watched.items():
         if torch.equal(v.detach(), before[k]):
             raise AssertionError(f'{name}: {k} did not change')
@@ -2079,8 +2144,8 @@ def phase_train_kernels(device):
     training shapes (batch 3): K1 backward in f32 (1e-5 + 1e-5 |x|) and bf16 (one
     bf16 ulp), two calls bit for bit; K2 backward equal to the plain version on the
     host (given the card's theta) bit for bit, f32 and bf16, also at wide poses on
-    200 x 200, 400 x 200 and 320 x 193 grids, and to a second call, NaN in every
-    value of a map with a NaN or infinite pose; K3's k-th value equal and its top-k mean
+    200 x 200, 400 x 200, 320 x 193 and 320 x 192 grids, and to a second call, NaN in
+    every value of a map with a NaN or infinite pose; K3's k-th value equal and its top-k mean
     within 1e-6 relative, K4 equal. Times kernel, call, plain version and library
     call; bounds from the shapes of this run."""
     rec = {}
@@ -2136,7 +2201,7 @@ def phase_train_kernels(device):
     # K2 backward: the 6 past frames (3 clips x 2) of 200 x 200 x 64, equal to the
     # plain version on the host bit for bit and to a second call; then wide poses
     # (angles over [-pi, pi], a map half out and one wholly out) on 200 x 200,
-    # 400 x 200 and 320 x 193 grids, bit for bit too
+    # 400 x 200, 320 x 193 and 320 x 192 grids, bit for bit too
     B, H, W = 6, 200, 200
     extent = (50.0, 50.0)
     pose = torch.zeros((B, 6), device=device)
@@ -2155,7 +2220,7 @@ def phase_train_kernels(device):
         cases = [('training shape', g, pose)] + [
             (f'wide poses {h2} x {w2}', torch.randn((B, h2, w2, C), generator=g_wide,
                                                     device=device).to(dtype), wide)
-            for h2, w2 in ((200, 200), (400, 200), (320, 193))]
+            for h2, w2 in ((200, 200), (400, 200), (320, 193), (320, 192))]
         for name, gc_, pc in cases:
             got = bev_warp_backward(gc_, pc, extent)
             again = bev_warp_backward(gc_, pc, extent)
@@ -2685,7 +2750,475 @@ def phase_tiny_train_card_vs_cpu(overrides=TINY, name='tiny train', leaves_only=
 
 
 
-def main():
+# the JAX package's model families beside baseline.yml (YAMLs that differ only in
+# data flags build the same model; each is represented once) and the two
+# architecture overrides no YAML sets, each with its own overrides, served and
+# trained at full width and PRECISION 16 by phase_families
+FAMILIES = [
+    ('identity', 'single_timeframe.yml', ()),
+    ('temporal', 'temporal_single_timeframe.yml', ()),
+    ('static_pon', 'literature/static_pon_setting.yml', ()),
+    ('pon', 'literature/pon_setting.yml', ()),
+    ('fishing', 'literature/fishing_setting.yml', ()),
+    ('fishing_topk8', 'literature/fishing_setting.yml', ('LIFT.TOPK', '8')),
+    ('lyft', 'lyft/baseline.yml', ()),
+    ('downsample_16', 'baseline.yml', ('MODEL.ENCODER.DOWNSAMPLE', '16')),
+    ('inbetween_1', 'baseline.yml', ('MODEL.TEMPORAL_MODEL.INBETWEEN_LAYERS', '1')),
+]
+# the clip a loader hands the trainer under MODEL.SUBSAMPLE: 3 past and present and 5
+# future frames of the subsampled clip (the synthetic set does not subsample)
+SUBSAMPLED_CLIP = ('TIME_RECEPTIVE_FIELD', '3', 'N_FUTURE_FRAMES', '5')
+
+
+def family_cfg(yaml, opts=()):
+    """The config of a YAML under fiery_tpu_torch/configs/ at PRECISION 16."""
+    path = os.path.join(os.path.dirname(BASELINE), yaml)
+    return get_cfg(argparse.Namespace(config_file=path, opts=['PRECISION', '16', *opts]))
+
+
+def family_serve(name, cfg, state_dict, n_requests=3):
+    """Eager requests through predict_instances (the unfolded bf16 model of the seeded
+    weights): output shapes and finite values, ids (1, frames, X, Y), the device
+    tracker under set_sync_debug_mode('error'), each kernel's launches a request.
+    Returns (the model's FieryConfig, the outputs, K10's launches a request, the
+    launches a request, peak memory)."""
+    model = build_fiery(cfg, state_dict=state_dict)
+    mc = model.cfg
+    _, _, bn_launches, _ = count_bn_calls(
+        model, lambda: predict_instances(model, make_request(cfg, seed=9)))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counters()
+    outputs = [predict_instances(model, make_request(cfg, seed=10 + i))
+               for i in range(n_requests)]
+    torch.cuda.synchronize()
+    launches = {k: fn.launches for k, fn in COUNTERS.items()}
+    layout_report()
+    peak = torch.cuda.max_memory_allocated()
+    per_request = expected_launches(mc, cfg, bn_launches)
+    check_launches(f'{name} serve', launches, per_request, n_requests)
+    check_request_outputs(name, mc, outputs)
+    torch.cuda.set_sync_debug_mode('error')
+    try:
+        for out, _ in outputs:
+            device_consistent(out)
+    finally:
+        torch.cuda.set_sync_debug_mode('default')
+    torch.cuda.synchronize()
+    del model
+    return mc, [out for out, _ in outputs], bn_launches, per_request, peak
+
+
+def family_graph(name, cfg, state_dict, k10_launches, reps=10):
+    """The served form (``build_served``: folded, cast, captured): three requests
+    through both graphs equal to the eager folded model bit for bit, ids too, with
+    no wrapper called in a replay; the graph's and the eager folded
+    predict_instances timed, ``reps`` each in turns; peak memory with the graphs'
+    pool; the device busy of a profiled replay (its K10 launches all recorded)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    served = build_served(cfg, state_dict)
+    eager = build_fiery(cfg, state_dict=state_dict, fold_bn=True)
+    requests = [make_request(cfg, seed=10 + i) for i in range(3)]
+    replays_match_eager(f'{name} graph', served, eager, requests)
+    times = in_turns({'graph': served.predict_instances,
+                      'eager folded': lambda r: predict_instances(eager, r)},
+                     requests, reps, warmup=1)
+    peak = torch.cuda.max_memory_allocated()
+    served.load(requests[0])
+    kernels, _, busy, k10_ms = window_kernels(lambda: served.replay('predict_instances'),
+                                              k10_launches)
+    rec = {'graph_ms': statistics.median(times['graph']),
+           'eager_folded_ms': statistics.median(times['eager folded']),
+           'graph_spread_ms': [min(times['graph']), max(times['graph'])],
+           'eager_folded_spread_ms': [min(times['eager folded']), max(times['eager folded'])],
+           'replay_busy_ms': busy, 'replay_kernels': sum(kernels.values()),
+           'replay_k10_ms': sum(k10_ms.values()), 'graph_peak_bytes': peak,
+           'graph_peak_above_held_bytes': peak - held}
+    del served, eager
+    return rec
+
+
+def family_train(name, cfg, n_steps=2):
+    """A warm-up and ``n_steps`` training steps at the family's BATCHSIZE on one
+    seeded synthetic batch (under MODEL.SUBSAMPLE the 8-frame subsampled clip):
+    finite losses, parameters and BatchNorm statistics moved, each kernel's launches
+    a step; the steps' host-clock ms and the peak memory."""
+    cfg = cfg.clone()
+    cfg.defrost()
+    cfg.merge_from_list(['DATASET.NAME', 'synthetic'])
+    trainer = Trainer(cfg)
+    init_params(trainer.model, seed=0)
+    calibrate_batchnorm(trainer.model, [make_request(cfg, seed=s) for s in (6, 7)])
+    batch_cfg = cfg.clone()
+    if cfg.MODEL.SUBSAMPLE:
+        batch_cfg.merge_from_list(list(SUBSAMPLED_CLIP))
+    b = cfg.BATCHSIZE
+    batch = SyntheticFutureDataset(batch_cfg, n_samples=b, seed=0).get_batch(range(b))
+    gen = torch.Generator(device=trainer.device).manual_seed(0)
+    _, bn_calls, bn_launches, _ = count_bn_calls(trainer.model,
+                                                 lambda: trainer.train_step(batch, gen))
+    torch.cuda.synchronize()
+    m = trainer.model
+    watched = {'stem conv': m.encoder.backbone._conv_stem.weight,
+               'segmentation head': m.decoder.segmentation_head[3].weight,
+               'segmentation uncertainty': trainer.uncertainty['segmentation_weight'],
+               'stem BN running var': m.encoder.backbone._bn0.running_var,
+               'decoder BN running mean': m.decoder.bn1.running_mean}
+    before = {k: v.detach().clone() for k, v in watched.items()}
+    torch.cuda.reset_peak_memory_stats()
+    reset_counters()
+    times, losses = [], []
+    for _ in range(n_steps):
+        t0 = time.perf_counter()
+        step_losses, total = trainer.train_step(batch, gen)
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+        losses.append({'total': float(total), **{k: float(v) for k, v in step_losses.items()}})
+    launches = {k: fn.launches for k, fn in COUNTERS.items()}
+    layout_report()
+    peak = torch.cuda.max_memory_allocated()
+    check_launches(f'{name} train', launches,
+                   expected_launches(m.cfg, cfg, bn_launches, bn_calls), n_steps)
+    if not all(np.isfinite(v) for r in losses for v in r.values()):
+        raise AssertionError(f'{name} train: non-finite losses {losses}')
+    still = [k for k, v in watched.items() if torch.equal(v.detach(), before[k])]
+    if still:
+        raise AssertionError(f'{name} train: {still} did not change')
+    del trainer
+    return {'batch': b, 'step_ms': statistics.median(times), 'steps_ms': times,
+            'train_peak_bytes': peak, 'losses': losses[-1],
+            'train_launches': {k: n // n_steps for k, n in launches.items() if n}}
+
+
+def phase_families(device):
+    """Each of FAMILIES at full width, PRECISION 16, seeded weights with BatchNorm
+    calibrated (``seeded_state_dict``): eager serving (``family_serve``), the served
+    graphs (``family_graph``) and training (``family_train``); then K1, K2, K4, K5
+    and K6-K8 against their plain versions at the families' shapes
+    (``family_kernels``) and the export CLI with --validate for pon_setting.yml.
+    Prints a line a family; returns (the records by family, the kernels' records)."""
+    rec, heads = {}, {}
+    for name, yaml, opts in FAMILIES:
+        marks = [time.perf_counter()]
+        cfg = family_cfg(yaml, opts)
+        state_dict = seeded_state_dict(cfg, seed=0)
+        marks.append(time.perf_counter())
+        mc, outputs, k10, per_request, serve_peak = family_serve(name, cfg, state_dict)
+        marks.append(time.perf_counter())
+        if name in ('pon', 'fishing'):
+            heads[name] = outputs[0]
+        r = {'yaml': yaml, 'opts': list(opts), 'bev': list(mc.bev_size),
+             'depth': mc.depth_channels, 'frames_in': mc.receptive_field,
+             'frames_out': 1 + mc.n_future, 'request_launches': {
+                 k: n for k, n in per_request.items() if n}, 'serve_peak_bytes': serve_peak}
+        r.update(family_graph(name, cfg, state_dict, k10))
+        marks.append(time.perf_counter())
+        del state_dict, outputs
+        r.update(family_train(name, cfg))
+        torch.cuda.empty_cache()
+        marks.append(time.perf_counter())
+        r['seconds'] = dict(zip(('weights', 'serve', 'graph', 'train'),
+                                np.diff(marks).round(2).tolist()))
+        rec[name] = r
+        log(f'family {name} ({yaml} {" ".join(opts)}): graph request median '
+            f'{r["graph_ms"]:.3f} ms (eager folded {r["eager_folded_ms"]:.3f}), replay busy '
+            f'{r["replay_busy_ms"]:.3f} ms, train step at batch {r["batch"]} median '
+            f'{r["step_ms"]:.3f} ms, peak bytes serve {serve_peak} graph '
+            f'{r["graph_peak_bytes"]} train {r["train_peak_bytes"]}; '
+            f'{sum(r["seconds"].values()):.1f} s; {smi_line()}')
+        log(f'family {name}: ' + json.dumps(r))
+    kernels = family_kernels(heads, device)
+    import tempfile
+    from fiery_tpu_torch import export as export_cli
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix='fiery_export_') as tmp:
+        export_cli.main(['--config', os.path.join(os.path.dirname(BASELINE), 'literature',
+                                                  'pon_setting.yml'),
+                         '--output', os.path.join(tmp, 'pon.fiery'), '--validate'])
+    log(f'families: export --validate of pon_setting.yml at full width: ok '
+        f'({time.perf_counter() - t0:.1f} s)')
+    return rec, kernels
+
+
+def family_voxel_ids(cfg, reps, device):
+    """Voxel ids (S, N, h, w, D) of ``reps`` clips of a config's seeded rig
+    (make_request's), with its number of bins and of height bins."""
+    mc = FieryConfig.from_cfg(cfg)
+    req = make_request(cfg, seed=0)
+    frustum = torch.from_numpy(create_frustum(mc.final_dim, mc.encoder_downsample,
+                                              mc.d_bound)).to(device)
+    res, start, dim = mc.bev_parameters
+    ids = voxel_ids(get_geometry(frustum, torch.from_numpy(req['intrinsics'][0]).to(device),
+                                 torch.from_numpy(req['extrinsics'][0]).to(device)),
+                    res, start, dim)
+    ids = ids.permute(0, 1, 3, 4, 2).repeat(reps, 1, 1, 1, 1).contiguous()
+    return ids, int(np.prod(dim)), int(dim[2])
+
+
+def timed(fn, symbols, launches, plain, library, nbytes, flops, err, plain_reps=REPS):
+    """A kernel's record: device ms (profiled), call, plain and library ms (CUDA
+    events), the bound from the bytes and operations of this call."""
+    bound_ms, bound_by = bound(nbytes, flops)
+    return dict(max_abs_err=err, ms=kernel_ms(fn, symbols, launches), call_ms=time_ms(fn),
+                plain_ms=time_ms(plain, reps=plain_reps, warmup=1),
+                library_ms=None if library is None else time_ms(library),
+                bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes, flops=flops)
+
+
+def family_kernels(heads, device, k=8, C=64):
+    """The kernels at the families' shapes against their plain versions, bf16 and
+    f32, timed:
+      fishing (D = 28, 320 x 192): K1 forward (3 samples, the request's) and
+      backward (9, a step's), within tolerance of the plain version and the forward
+      bit for bit to it on the host; K5 (3 and 9 samples, k = 8; bf16 rows of 56
+      bytes, the per-weight loads) and its backward (9) equal to their plain
+      versions;
+      pon (400 x 200, extent (50, 25)): K2 forward (2 maps, a request's; 8, a step's
+      at batch 4) equal to the plain version on the host given the card's theta,
+      K2 backward (8) bit for bit to it, K4 (4 label maps of 5 channels) equal;
+      K6, K7 and K8 on the pon and fishing heads of the eager requests, exactly (K8's
+      flow centres within one f32 ulp)."""
+    rec = {}
+    fishing = family_cfg('literature/fishing_setting.yml')
+    g = torch.Generator(device=device).manual_seed(21)
+    for shape, reps in (('request', 1), ('step', 3)):
+        ids, num_bins, z = family_voxel_ids(fishing, reps, device)
+        S, N, h, w, D = ids.shape
+        valid = int((ids < num_bins).sum())
+        depth32 = torch.softmax(torch.randn(ids.shape, generator=g, device=device), -1)
+        feat32 = torch.randn((S, N, h, w, C), generator=g, device=device)
+        for dtype in (torch.float32, torch.bfloat16):
+            es = 4 if dtype == torch.float32 else 2
+            depth, feat = depth32.to(dtype), feat32.to(dtype)
+            at = f'fishing D = {D} {shape}'
+            key = f'{at} {str(dtype)[6:]}'
+            if shape == 'request':
+                got = bev_pool(depth, feat, ids, num_bins, z)
+                err = check_close(f'bev_pool {at}', got, bev_pool_plain(depth, feat, ids,
+                                                                        num_bins, z), dtype)
+                n_host = bits_differ(got.cpu(), bev_pool_plain(depth.cpu(), feat.cpu(),
+                                                               ids.cpu(), num_bins, z))
+                if n_host:
+                    raise AssertionError(f'bev_pool {key}: {n_host} values differ from the '
+                                         'plain version on the host')
+                flat = (ids.view(S, -1).long() + torch.arange(S, device=device)[:, None]
+                        * (num_bins + 1)).view(-1)
+
+                def library(depth=depth, feat=feat, flat=flat):
+                    vol = depth[..., :, None] * feat[..., None, :]
+                    return torch.zeros((S * (num_bins + 1), C), dtype=dtype,
+                                       device=device).index_add_(0, flat, vol.view(-1, C))
+
+                r = timed(lambda: bev_pool(depth, feat, ids, num_bins, z),
+                          ['::splat_'], BEV_POOL_KERNELS,
+                          lambda: bev_pool_plain(depth, feat, ids, num_bins, z), library,
+                          depth.numel() * es + feat.numel() * es + ids.numel() * 4
+                          + S * (num_bins // z) * C * es, 2.0 * valid * C, err, plain_reps=5)
+                rec[('bev_pool', key)] = r
+            else:
+                grad = torch.randn((S, num_bins // z, C), generator=g, device=device).to(dtype)
+                got = bev_pool_backward(depth, feat, ids, grad, num_bins, z)
+                want = bev_pool_backward_plain(depth, feat, ids, grad, num_bins, z)
+                err = max(check_close(f'bev_pool_backward {at} d_depth', got[0], want[0], dtype),
+                          check_close(f'bev_pool_backward {at} d_feat', got[1], want[1], dtype))
+                grad_rows = torch.where(ids < num_bins, ids.long() // z + (
+                    torch.arange(S, device=device) * (num_bins // z)).view(S, 1, 1, 1, 1),
+                    S * (num_bins // z)).view(-1)
+
+                def library(depth=depth, feat=feat, grad=grad, grad_rows=grad_rows):
+                    r_ = torch.cat([grad.view(-1, C), grad.new_zeros((1, C))]).index_select(
+                        0, grad_rows).view(S, N, h, w, D, C)
+                    return (torch.einsum('snhwc,snhwdc->snhwd', feat, r_),
+                            torch.einsum('snhwd,snhwdc->snhwc', depth, r_))
+
+                rec[('bev_pool_backward', key)] = timed(
+                    lambda: bev_pool_backward(depth, feat, ids, grad, num_bins, z),
+                    ['::splat_backward_kernel'], 1,
+                    lambda: bev_pool_backward_plain(depth, feat, ids, grad, num_bins, z),
+                    library, 2 * (depth.numel() + feat.numel()) * es + ids.numel() * 4
+                    + grad.numel() * es, 4.0 * valid * C, err, plain_reps=5)
+            # K5 at D = 28 (k = 8): the per-weight loads of rows whose bytes are not a
+            # multiple of 16 in bf16; planted ties
+            n_pix = ids.numel() // D
+            tdepth = planted_topk_depth(n_pix, D, dtype, device, seed=D + reps).view(ids.shape)
+            got = topk_select(tdepth, ids, k)
+            want = topk_select_plain(tdepth, ids, k)
+            torch.cuda.synchronize()
+            for part, a, b in zip(('top_w', 'ids_k', 'idx'), got, want):
+                if not torch.equal(a, b):
+                    raise AssertionError(f'topk_select {key} {part}: kernel != plain at '
+                                         f'{int((a != b).sum())} values')
+
+            def topk_library(tdepth=tdepth):
+                top = torch.topk(tdepth, k, dim=-1)
+                return top.values, ids.gather(-1, top.indices)
+
+            rec[('topk_select', key)] = timed(
+                lambda: topk_select(tdepth, ids, k), ['topk_select_kernel'], 1,
+                lambda: topk_select_plain(tdepth, ids, k), topk_library,
+                n_pix * (D * (es + 4) + k * (es + 4 + 1)), float(n_pix * D * 8 * es), 0.0)
+            if shape == 'step':
+                idx = got[2]
+                gk = planted_topk_depth(n_pix, k, dtype, device, seed=D + 1).view(idx.shape)
+                got_b = topk_select_backward(gk, idx, D)
+                if bits_differ(got_b, topk_select_backward_plain(gk, idx, D)):
+                    raise AssertionError(f'topk_select_backward {key}: kernel != plain')
+
+                def scatter_library(gk=gk, idx=idx):
+                    return torch.zeros(idx.shape[:-1] + (D,), dtype=gk.dtype,
+                                       device=device).scatter_(-1, idx.long(), gk)
+
+                rec[('topk_select_backward', key)] = timed(
+                    lambda: topk_select_backward(gk, idx, D), ['topk_select_backward_kernel'], 1,
+                    lambda: topk_select_backward_plain(gk, idx, D), scatter_library,
+                    n_pix * (k * (es + 1) + D * es), 0.0, 0.0)
+    log('  families: K1 forward and backward, K5 and its backward at fishing\'s D = 28 '
+        'equal to their plain versions (K1 within tolerance, its forward bit for bit on '
+        'the host)')
+
+    # K2 and K4 on pon's 400 x 200 maps of extent (50, 25)
+    pon = FieryConfig.from_cfg(family_cfg('literature/pon_setting.yml'))
+    (H, W), extent = pon.bev_size, pon.spatial_extent
+    for shape, B in (('request', 2), ('step', 8)):
+        x32 = torch.randn((B, H, W, C), generator=g, device=device)
+        pose = torch.zeros((B, 6), device=device)
+        pose[:, 0] = torch.rand(B, generator=g, device=device) * 4.0 - 2.0
+        pose[:, 1] = torch.rand(B, generator=g, device=device) * 2.0 - 1.0
+        pose[:, 5] = torch.rand(B, generator=g, device=device) * 0.2 - 0.1
+        for dtype in (torch.float32, torch.bfloat16):
+            x = x32.to(dtype)
+            at = f'pon {H} x {W} {shape}'
+            key = f'{at} {str(dtype)[6:]}'
+            theta = card_theta(pose, extent, dtype).cpu()
+            got = bev_warp(x, pose, extent)
+            err = check_close(f'bev_warp {at}', got, bev_warp_plain(x, pose, extent), dtype)
+            host = int((got.cpu() != bev_warp_plain(x.cpu(), pose.cpu(), extent,
+                                                    theta=theta)).sum())
+            if host:
+                raise AssertionError(f'bev_warp {key}: {host} values differ from the host')
+
+            def warp_library(x=x, dtype=dtype):
+                grid = _affine_grid(_warp_theta(pose, extent, dtype), H, W).to(dtype)
+                return F.grid_sample(x.permute(0, 3, 1, 2), grid, mode='bilinear',
+                                     padding_mode='zeros', align_corners=False)
+
+            nbytes = 2 * x.numel() * x.element_size() + pose.numel() * 4
+            rec[('bev_warp', key)] = timed(
+                lambda: bev_warp(x, pose, extent), ['::bev_warp_tile_kernel'], 1,
+                lambda: bev_warp_plain(x, pose, extent), warp_library, nbytes,
+                7.0 * x.numel() + 30.0 * B * H * W, err)
+            if shape == 'step':
+                got = bev_warp_backward(x, pose, extent)
+                n_host = bits_differ(got.cpu(), bev_warp_backward_plain(x.cpu(), pose.cpu(),
+                                                                        extent, theta=theta))
+                if n_host or bits_differ(got, bev_warp_backward(x, pose, extent)):
+                    raise AssertionError(f'bev_warp_backward {key}: {n_host} values differ '
+                                         'from the host, or two calls differ')
+                grid = _affine_grid(_warp_theta(pose, extent, dtype), H, W).to(dtype)
+                gc, xc = x.permute(0, 3, 1, 2), torch.zeros_like(x).permute(0, 3, 1, 2)
+
+                def warp_b_library(gc=gc, xc=xc, grid=grid):
+                    return torch.ops.aten.grid_sampler_2d_backward(gc, xc, grid, 0, 0, False,
+                                                                   [True, False])
+
+                rec[('bev_warp_backward', key)] = timed(
+                    lambda: bev_warp_backward(x, pose, extent), ['::warp_gather_kernel'], 1,
+                    lambda: bev_warp_backward_plain(x, pose, extent), warp_b_library, nbytes,
+                    8.0 * x.numel() + 30.0 * B * H * W, 0.0)
+    labels = torch.randn((4, H, W, 5), generator=g, device=device)
+    labels[..., :2] = torch.randint(0, 3, (4, H, W, 2), generator=g, device=device).float()
+    lpose = torch.zeros((4, 6), device=device)
+    lpose[:, 0] = torch.rand(4, generator=g, device=device) * 6.0 - 3.0
+    lpose[:, 5] = torch.rand(4, generator=g, device=device) * 0.2 - 0.1
+    if not torch.equal(bev_warp_nearest(labels, lpose, extent),
+                       bev_warp_nearest_plain(labels, lpose, extent)):
+        raise AssertionError('bev_warp_nearest pon: kernel != plain')
+
+    def nearest_library():
+        grid = _affine_grid(_warp_theta(lpose, extent, torch.float32), H, W)
+        return F.grid_sample(labels.permute(0, 3, 1, 2), grid, mode='nearest',
+                             padding_mode='zeros', align_corners=False)
+
+    rec[('bev_warp_nearest', f'pon {H} x {W} labels')] = timed(
+        lambda: bev_warp_nearest(labels, lpose, extent), ['::nearest_warp_tile_kernel'], 1,
+        lambda: bev_warp_nearest_plain(labels, lpose, extent), nearest_library,
+        2 * labels.numel() * 4 + lpose.numel() * 4, 30.0 * 4 * H * W, 0.0)
+    log(f'  families: K2 forward and backward and K4 at pon\'s {H} x {W}, extent {extent}, '
+        'equal to their plain versions on the host')
+
+    # K10 on the widths of the encoder at downsample 16 (1,632 and 2,688 channels,
+    # two and three channel slices a call) and on 1,025 (a slice of 505 channels
+    # that is no multiple of 8), at the served images' stride-32 map: forward and
+    # backward, eval and training, against the plain version (y bit for bit)
+    for C, post in ((1632, 'swish'), (2688, 'swish'), (1025, 'add_relu')):
+        for dtype in (torch.float32, torch.bfloat16):
+            for training in (False, True):
+                bn_case((18, C, 7, 15), post, dtype, training, device, seed=C)
+    gen = torch.Generator(device=device).manual_seed(5)
+    xw = rows((18, 2688, 7, 15), torch.bfloat16, gen, device)
+    pw = [torch.rand(2688, generator=gen, device=device) + 0.5 for _ in range(4)]
+    rec[('batch_norm', 'downsample 16 2688 channels eval bfloat16')] = timed(
+        lambda: batch_norm_forward(xw, *pw, False, 0.1, BN_EPS, 'swish'), ['::apply_kernel<'],
+        len(channel_slices(2688)),
+        lambda: batch_norm_forward_plain(xw, *pw, False, 0.1, BN_EPS, 'swish'),
+        lambda: F.silu(F.batch_norm(xw, pw[2], pw[3], pw[0], pw[1], False, 0.1, BN_EPS)),
+        2 * xw.numel() * 2, 10.0 * xw.numel(), 0.0)
+    log('  families: K10 at 1,632, 2,688 and 1,025 channels (channel slices) equal to its '
+        'plain version, forward and backward, eval and training, f32 and bf16')
+
+    # K6, K7 and K8 on the served heads of pon (1 frame of 400 x 200, no flow) and
+    # fishing (5 frames of 320 x 192)
+    for name, out in heads.items():
+        _, T, h, w, n_cls = out['segmentation'].shape
+        center = out['instance_center'].reshape(T, h, w).contiguous()
+        offset = out['instance_offset'].reshape(T, h, w, 2).contiguous()
+        seg = out['segmentation'].reshape(T, h, w, n_cls).contiguous()
+        ck, vk = find_instance_centers(center)
+        cp, vp = find_instance_centers_plain(center)
+        ik, ip = instance_ids(cp, vp, offset, seg), instance_ids_plain(cp, vp, offset, seg)
+        torch.cuda.synchronize()
+        if not (torch.equal(ck, cp) and torch.equal(vk, vp) and torch.equal(ik, ip)):
+            raise AssertionError(f'instance_centers or group_pixels {name} {h} x {w}: '
+                                 'kernel != plain')
+        flow = out.get('instance_flow')
+        flow = None if flow is None else flow.reshape(T, h, w, 2).contiguous()
+        if flow is None:
+            cg, vg = segment_centroids(ip, 101, None)
+            cgp, vgp = segment_centroids_plain(ip.cpu(), 101, None)
+            ok = not bits_differ(cg.cpu(), cgp) and torch.equal(vg.cpu(), vgp)
+        else:
+            got, want = segment_centroids_clip(ip, 101, flow), segment_centroids_clip_plain(
+                ip.cpu(), 101, flow.cpu())
+            ok = (not bits_differ(got[0].cpu(), want[0]) and torch.equal(got[2].cpu(), want[2])
+                  and not bool(((got[1].cpu() - want[1]).abs() > ulp32(want[1])).any()))
+        if not ok:
+            raise AssertionError(f'segment_centroids {name} {h} x {w}: kernel != plain')
+        key = f'{name} {T} x {h} x {w}'
+        rec[('instance_centers', key)] = timed(
+            lambda: find_instance_centers(center), ['::centers_cluster_kernel'], 1,
+            lambda: find_instance_centers_plain(center), None,
+            center.numel() * 4 + T * 100 * 9, 10.0 * center.numel(), 0.0)
+        rec[('group_pixels', key)] = timed(
+            lambda: instance_ids(cp, vp, offset, seg), ['::group_cluster_kernel'], 1,
+            lambda: instance_ids_plain(cp, vp, offset, seg), None,
+            offset.numel() * 4 + seg.numel() * 4 + cp.numel() * 4 + vp.numel() + T * h * w * 4,
+            5.0 * float(((seg.argmax(-1) == 1).reshape(T, -1).sum(1) * vp.sum(1)).sum()), 0.0)
+        log(f'  families: K6, K7 and K8 on the {name} heads ({T} x {h} x {w}) equal to their '
+            f'plain versions; valid centres per frame {vp.sum(1).tolist()}')
+    for (kernel, key), r in rec.items():
+        log(f'  family kernel {kernel} {key}: ' + json.dumps(
+            {k: v for k, v in r.items() if k not in ('bytes', 'flops')}))
+    log(f'  family kernel timings: {smi_line()}')
+    return rec
+
+
+def main(argv=None):
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument('--only', choices=['families'],
+                        help='run only this phase (after the build); prints no result line')
+    args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device', file=sys.stderr)
         sys.exit(1)
@@ -2696,6 +3229,11 @@ def main():
     t0 = time.perf_counter()
     _build.build_all()
     log(f'build: {time.perf_counter() - t0:.1f} s for {_build.kernel_names()}')
+    if args.only == 'families':
+        t0 = time.perf_counter()
+        phase_families(device)
+        log(f'config families: ok ({time.perf_counter() - t0:.1f} s); {smi_line()}')
+        return
 
     # the serve and the training first, so that their request and step times come
     # before torch.profiler (which times the kernels below) has hooked into the process
@@ -2768,6 +3306,10 @@ def main():
     check_trace_whole('trace after the loop')
     log(f'train loop, resume, combination loop and evaluate: ok '
         f'({time.perf_counter() - t0:.1f} s)')
+    t0 = time.perf_counter()
+    families, family_records = phase_families(device)
+    log(f'config families served, captured and trained, their kernels vs plain, the export: '
+        f'ok ({time.perf_counter() - t0:.1f} s)')
 
     # bf16 is the dtype of the served and trained paths
     records = {'bev_pool': pool[('serve', torch.bfloat16)],
@@ -2856,6 +3398,13 @@ def main():
         if name == 'batch_norm':
             entry.update({f'eval_{k}': norm_gru['batch_norm eval'][k]
                           for k in ('ms', 'call_ms', 'plain_ms', 'library_ms', 'bound_ms')})
+        # the kernel at the config families' shapes (phase_families), and its launches
+        # a request and a step in each family
+        entry['families'] = {key: {k: v for k, v in fr.items() if k not in ('bytes', 'flops')}
+                             for (kernel, key), fr in family_records.items() if kernel == name}
+        entry['family_launches'] = {
+            fam: [f['request_launches'].get(name, 0), f['train_launches'].get(name, 0)]
+            for fam, f in families.items()}
         entry.update({k: r[k] for k in ('scipy_ms', 'steps', 'warp_min_ns', 'latency_bound_ms',
                                         'latency_share', 'launch_us', 'row_us', 'step_us',
                                         'dh_sum_ms', 'host_us', 'pass_ms', 'l2_floor_ms',

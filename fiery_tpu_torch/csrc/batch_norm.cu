@@ -64,8 +64,14 @@
 //   intrinsics, rounded where the JAX package rounds. The epilogue is a template
 //   parameter, so a kernel carries only its own epilogue's registers and code.
 // - Eval is one launch of the apply pass.
+// - Wide layers. A launch takes at most kMaxC channels (its constants and its last
+//   block's sums live in shared memory). The wrapper splits a wider call (the
+//   encoder's expanded layers at downsample 16: 1,632 and 2,688 channels) into
+//   channel slices of at most kMaxC, one launch each: a slice's rows are `ld`
+//   values apart (the whole row), its per-channel vectors start at its first
+//   channel. Channels are independent, so the slices give the whole call's bits.
 // Launches: training forward 2 (statistics + finalize, apply), eval 1, backward 2
-// (reduce + finalize, apply). The tickets are global to the device, so the kernels
+// (reduce + finalize, apply), each once a channel slice. The tickets are global to the device, so the kernels
 // of one call run on one stream at a time (the port uses one stream).
 
 #include <cuda_bf16.h>
@@ -217,6 +223,7 @@ constexpr unsigned int kOne2 = 0x3f803f80u;   // (1, 1) in bf16x2
 struct Rows {
   long long M, R;
   int W, C, G;
+  long long S;    // values from one kernel row of x, res, y, dres and dx to the next
 };
 
 // The rows of one thread: first, first + G, ..., last (none when !any).
@@ -540,7 +547,7 @@ stats_kernel(const T* __restrict__ x, Rows rw, double* __restrict__ partial,
 #pragma unroll
       for (int u = 0; u < kUnroll; ++u) {
         const long long m = r + (long long)u * rw.G;
-        if (m <= k.last) xv[u].load(x + m * rw.W + p0);
+        if (m <= k.last) xv[u].load(x + m * rw.S + p0);
       }
 #pragma unroll
       for (int u = 0; u < kUnroll; ++u) {
@@ -598,15 +605,15 @@ apply_kernel(const T* __restrict__ x, const T* __restrict__ res, T* __restrict__
     for (int u = 0; u < kUnroll; ++u) {
       const long long m = r - (long long)u * rw.G;
       if (m >= k.first) {
-        xv[u].load(x + m * rw.W + p0);
-        if (with_res) rv[u].load(res + m * rw.W + p0);
+        xv[u].load(x + m * rw.S + p0);
+        if (with_res) rv[u].load(res + m * rw.S + p0);
       }
     }
 #pragma unroll
     for (int u = 0; u < kUnroll; ++u) {
       const long long m = r - (long long)u * rw.G;
       if (m < k.first) break;
-      epilogue_vec(lane.normalise_vec(xv[u]), rv[u], POST).store(y + m * rw.W + p0);
+      epilogue_vec(lane.normalise_vec(xv[u]), rv[u], POST).store(y + m * rw.S + p0);
     }
   }
 }
@@ -648,9 +655,9 @@ backward_reduce_kernel(const T* __restrict__ dy, long long dy_rs, const T* __res
       for (int u = 0; u < unroll_bwd<GRAD>(); ++u) {
         const long long m = r + (long long)u * rw.G;
         if (m <= k.last) {
-          xv[u].load(x + m * rw.W + p0);
+          xv[u].load(x + m * rw.S + p0);
           dv[u].load(dy + m * dy_rs + p0);
-          if (with_res) rv[u].load(res + m * rw.W + p0);
+          if (with_res) rv[u].load(res + m * rw.S + p0);
         }
       }
 #pragma unroll
@@ -672,7 +679,7 @@ backward_reduce_kernel(const T* __restrict__ dy, long long dy_rs, const T* __res
         if (with_res) {
           Vec<T, V> out;
           out.set(dzs);
-          out.store(dres + m * rw.W + p0);
+          out.store(dres + m * rw.S + p0);
         }
       }
     }
@@ -723,9 +730,9 @@ backward_apply_kernel(const T* __restrict__ dy, long long dy_rs, const T* __rest
     for (int u = 0; u < unroll_bwd<GRAD>(); ++u) {
       const long long m = r - (long long)u * rw.G;
       if (m >= k.first) {
-        xv[u].load(x + m * rw.W + p0);
+        xv[u].load(x + m * rw.S + p0);
         dv[u].load(dy + m * dy_rs + p0);
-        if (with_res) rv[u].load(res + m * rw.W + p0);
+        if (with_res) rv[u].load(res + m * rw.S + p0);
       }
     }
 #pragma unroll
@@ -748,7 +755,7 @@ backward_apply_kernel(const T* __restrict__ dy, long long dy_rs, const T* __rest
       }
       Vec<T, V> o;
       o.set(out);
-      o.store(dx + m * rw.W + p0);
+      o.store(dx + m * rw.S + p0);
     }
   }
 }
@@ -763,12 +770,14 @@ struct Plan {
 bool aligned(const void* p, int bytes) { return ((uintptr_t)p & (uintptr_t)(bytes - 1)) == 0; }
 
 // The plan of the arguments, if the kernels can take it (else false): M rows of C
-// channels, fold of them a kernel row of fold C values, a multiple of V.
+// channels, ld values apart, fold of them a kernel row of fold C values, a
+// multiple of V (fold > 1 only for dense rows, ld = C).
 template <typename T>
-bool plan_of(long long M, int C, int V, int fold, int G, int threads, long long R, int blocks,
-             std::initializer_list<const void*> ptrs, Plan* p) {
+bool plan_of(long long M, int C, long long ld, int V, int fold, int G, int threads,
+             long long R, int blocks, std::initializer_list<const void*> ptrs, Plan* p) {
   const int bytes = V * (int)sizeof(T);
-  if (V < 1 || bytes > 16 || (V & (V - 1)) || C > kMaxC || fold < 1 || M % fold
+  if (V < 1 || bytes > 16 || (V & (V - 1)) || ld < C || (fold == 1 ? ld % V != 0 : ld != C)
+      || C > kMaxC || fold < 1 || M % fold
       || (fold * C) % V || fold * C > kMaxC * 8 || G < 1 || blocks < 1
       || blocks > kGroup * kMaxGroups || threads > (V == 1 ? 1024 : 512)
       || threads < G * (fold * C / V)
@@ -779,6 +788,7 @@ bool plan_of(long long M, int C, int V, int fold, int G, int threads, long long 
   p->rw.M = M / fold;
   p->rw.R = R;
   p->rw.W = fold * C;
+  p->rw.S = fold * ld;
   p->rw.C = C;
   p->rw.G = G;
   p->V = V;
@@ -868,9 +878,9 @@ int forward_t(const void* x, const void* res, void* y, float* mean, float* var, 
               float* running_mean, float* running_var, const float* w, const float* bias,
               double* partial, long long M, int C, int V, int fold, int G, int threads,
               long long R, int blocks, float eps, float momentum, int training, int post,
-              cudaStream_t st) {
+              cudaStream_t st, long long ld) {
   Plan p;
-  if (!plan_of<T>(M, C, V, fold, G, threads, R, blocks, {x, res, y}, &p))
+  if (!plan_of<T>(M, C, ld, V, fold, G, threads, R, blocks, {x, res, y}, &p))
     return (int)cudaErrorInvalidValue;
   return by_width<T>(V, [&](auto v) {
     return by_post(post, [&](auto e) {
@@ -886,10 +896,11 @@ int backward_t(const void* dy, long long dy_rs, const void* x, const void* res, 
                void* dres, const float* mean, const float* var, const float* clamp,
                const float* w, const float* bias, float* dparams, double* partial,
                long long M, int C, int V, int fold, int G, int threads, long long R,
-               int blocks, float eps, int training, int post, cudaStream_t st) {
+               int blocks, float eps, int training, int post, cudaStream_t st,
+               long long ld) {
   Plan p;
   if (dy_rs < C || (fold == 1 ? dy_rs % V != 0 : dy_rs != C)
-      || !plan_of<T>(M, C, V, fold, G, threads, R, blocks, {dy, x, res, dx, dres}, &p))
+      || !plan_of<T>(M, C, ld, V, fold, G, threads, R, blocks, {dy, x, res, dx, dres}, &p))
     return (int)cudaErrorInvalidValue;
   const long long dy_row = fold > 1 ? p.rw.W : dy_rs;   // a kernel row of dy
   return by_width<T>(V, [&](auto v) {
@@ -903,7 +914,8 @@ int backward_t(const void* dy, long long dy_rs, const void* x, const void* res, 
 
 }  // namespace
 
-// x, res, y: M rows of C channels, contiguous (res may be null), float32 or bfloat16;
+// x, res, y: M rows of C channels, row m at m * ld (ld = C: contiguous; more: a
+// channel slice of wider rows, with C <= 1024), res may be null, float32 or bfloat16;
 // mean, var, clamp: (C,) f32, written in training (clamp may be null in eval), read
 // in eval (the running statistics); running_mean, running_var: (C,) f32, updated in
 // training; w, bias: (C,) f32; partial: (blocks + ceil(blocks / 8), 2, C) f64
@@ -911,7 +923,7 @@ int backward_t(const void* dy, long long dy_rs, const void* x, const void* res, 
 // the plan (ops/batch_norm.py `grid`): V values a thread (x, res, y aligned to V
 // elements), fold rows a kernel row (fold C a multiple of V, M a multiple of fold),
 // G row groups and `threads` threads a block, R kernel rows a block, blocks;
-// post: 0 none, 1 relu, 2 swish, 3 add, 4 add_relu, 5 relu_add.
+// post: 0 none, 1 relu, 2 swish, 3 add, 4 add_relu, 5 relu_add; ld last.
 // Returns the first launch's error (cudaGetLastError() after each launch), or
 // cudaErrorInvalidValue for a plan the kernels cannot take.
 extern "C" int fiery_batch_norm_forward(const void* x, const void* res, void* y, float* mean,
@@ -920,21 +932,22 @@ extern "C" int fiery_batch_norm_forward(const void* x, const void* res, void* y,
                                         const float* bias, double* partial, long long M,
                                         int C, int V, int fold, int G, int threads,
                                         long long R, int blocks, float eps, float momentum,
-                                        int training, int post, int is_bf16, void* stream) {
+                                        int training, int post, int is_bf16, void* stream,
+                                        long long ld) {
   if (M == 0 || C == 0) return (int)cudaSuccess;
   cudaStream_t st = (cudaStream_t)stream;
   return is_bf16 ? forward_t<__nv_bfloat16>(x, res, y, mean, var, clamp, running_mean,
                                             running_var, w, bias, partial, M, C, V, fold, G,
                                             threads, R, blocks, eps, momentum, training, post,
-                                            st)
+                                            st, ld)
                  : forward_t<float>(x, res, y, mean, var, clamp, running_mean, running_var, w,
                                     bias, partial, M, C, V, fold, G, threads, R, blocks, eps,
-                                    momentum, training, post, st);
+                                    momentum, training, post, st, ld);
 }
 
 // dy: M rows of C channels, row m at m * dy_rs (dy_rs >= C, a multiple of V; C when
-// fold > 1); x, res, dx, dres: M rows of C channels, contiguous (res and dres for
-// add_relu only, else null); mean, var: the statistics the forward used; clamp:
+// fold > 1); x, res, dx, dres: M rows of C channels, row m at m * ld (res and dres
+// for add_relu only, else null); mean, var: the statistics the forward used; clamp:
 // (C,) f32 (training); dparams: (4, C) f32 out: dweight, dbias and two
 // coefficients of dx; partial: as for the forward; the plan as for the
 // forward. Returns as the forward does.
@@ -945,13 +958,14 @@ extern "C" int fiery_batch_norm_backward(const void* dy, long long dy_rs, const 
                                          const float* bias, float* dparams, double* partial,
                                          long long M, int C, int V, int fold, int G,
                                          int threads, long long R, int blocks, float eps,
-                                         int training, int post, int is_bf16, void* stream) {
+                                         int training, int post, int is_bf16, void* stream,
+                                         long long ld) {
   if (M == 0 || C == 0) return (int)cudaSuccess;
   cudaStream_t st = (cudaStream_t)stream;
   return is_bf16 ? backward_t<__nv_bfloat16>(dy, dy_rs, x, res, dx, dres, mean, var, clamp, w,
                                              bias, dparams, partial, M, C, V, fold, G, threads,
-                                             R, blocks, eps, training, post, st)
+                                             R, blocks, eps, training, post, st, ld)
                  : backward_t<float>(dy, dy_rs, x, res, dx, dres, mean, var, clamp, w, bias,
                                      dparams, partial, M, C, V, fold, G, threads, R, blocks,
-                                     eps, training, post, st);
+                                     eps, training, post, st, ld);
 }

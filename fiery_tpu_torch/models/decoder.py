@@ -67,9 +67,12 @@ class Decoder(nn.Module):
                                      else None)
 
     def forward(self, x):
-        """x (b, s, h, w, c) channels-last -> dict of (b, s, h, w, ·) head outputs."""
+        """x (b, s, h, w, c) channels-last -> dict of (b, s, h, w, ·) head outputs.
+        x may be a strided view (the last frame of a training stack); it is made
+        contiguous (no copy when it is already) because its first skip is the
+        residual of the BatchNorm kernel, which takes only x's channels-last layout."""
         b, s = x.shape[:2]
-        x = x.reshape(b * s, *x.shape[2:]).permute(0, 3, 1, 2)
+        x = x.reshape(b * s, *x.shape[2:]).contiguous().permute(0, 3, 1, 2)
         skip1 = x
         x = self.bn1(self.first_conv(x))
         x = self.layer1(x)

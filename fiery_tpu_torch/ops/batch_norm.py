@@ -29,6 +29,10 @@ variance (1 above 0, 1/2 at 0, 0 below, as JAX differentiates jnp.maximum).
 The kernels take the channels-first view of channels-last memory (4-D
 ``channels_last`` or 5-D ``channels_last_3d``) as M = numel / C rows of C
 channels and raise on any other layout; the plain versions below take any layout.
+A launch takes at most MAX_CHANNELS channels: a wider call (the encoder's expanded
+layers at downsample 16, 1,632 and 2,688 channels) launches the kernels once a
+channel slice (``channel_slices``), each slice's rows a whole row apart; the
+channels are independent, so the slices give the bits of one launch.
 A CPU tensor takes the plain versions; a CUDA tensor launches the kernels.
 """
 
@@ -42,7 +46,19 @@ from fiery_tpu_torch.ops import _build
 
 POSTS = ('none', 'relu', 'swish', 'add', 'add_relu', 'relu_add')
 RESIDUAL_POSTS = ('add', 'add_relu', 'relu_add')
-MAX_CHANNELS = 1024       # the kernels keep <= 1024 channels' constants in shared memory
+MAX_CHANNELS = 1024       # a launch keeps <= 1024 channels' constants in shared memory
+
+
+def channel_slices(C):
+    """[(c0, c1)]: the channel slices a call of C channels launches the kernels on:
+    C itself up to MAX_CHANNELS; beyond it ceil(C / MAX_CHANNELS) slices of equal
+    width rounded up to a multiple of 8 channels, so that each slice starts 16 bytes
+    into the row in bf16 and f32 alike, and the last slice takes the rest."""
+    if C <= MAX_CHANNELS:
+        return [(0, C)]
+    n = -(-C // MAX_CHANNELS)
+    width = 8 * -(-C // (8 * n))
+    return [(c0, min(C, c0 + width)) for c0 in range(0, C, width)]
 
 
 def _reduce_dims(x):
@@ -236,9 +252,6 @@ def thread_rows(M, R, G, block, group, second_pass=False):
 def _check_card(name, x, residual, post):
     if x.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f'{name}: x must be float32 or bfloat16, got {x.dtype}')
-    if x.shape[1] > MAX_CHANNELS:
-        raise ValueError(f'{name}: {x.shape[1]} channels; the kernel takes at most '
-                         f'{MAX_CHANNELS}')
     if rows_form(x) is None:
         raise ValueError(f'{name}: x {tuple(x.shape)} strides {x.stride()} is not a 4-D '
                          f'channels_last or 5-D channels_last_3d tensor')
@@ -263,11 +276,12 @@ def _sms(dev):
 def _plan(name, x, residual, post, align, dy=None, dy_align=0):
     """The launch plan of x's shape, strides, dtype and card (and the residual's and
     dy's) under ``post``, with ``align`` the OR of x's and the residual's addresses
-    mod 16 (``dy_align`` dy's), checked and tiled at its first call: (M, C, V,
-    fold, G, threads, R, blocks, dy's row stride or None when dy is to be copied
-    to x's layout, form, is_bf16, post index, card index). Every later call of that key
-    reuses it, so a call's host work is a dictionary lookup, the parameters'
-    checks and the launch."""
+    mod 16 (``dy_align`` dy's), checked and tiled at its first call: (M, C, the
+    launches, one a channel slice: (c0, slice's C, V, fold, G, threads, R, blocks)
+    each, dy's row stride or None when dy is to be copied to x's layout, form,
+    is_bf16, post index, card index). Every later call of that key reuses it, so a
+    call's host work is a dictionary lookup, the parameters' checks and the
+    launches."""
     dev = x.get_device()
     key = (name, x.shape, x.stride(), x.dtype, dev, post, align, None if residual is None else
            (residual.shape, residual.stride(), residual.dtype, residual.get_device()),
@@ -282,10 +296,14 @@ def _plan(name, x, residual, post, align, dy=None, dy_align=0):
             strides, align = (dy_rs,), align | dy_align
         else:                        # no dy, or a copy of it in x's layout
             strides = ()
-        V, fold = vector_width(C, x.element_size(), strides, align, M)
-        plan = _PLANS[key] = (M, C, V, fold, *grid(M, C, V, fold, _sms(dev)), dy_rs,
-                              rows_form(x), int(x.dtype == torch.bfloat16),
-                              POSTS.index(post), dev)
+        slices = []
+        for c0, c1 in channel_slices(C):
+            # a slice of wider rows: its rows are C values apart
+            wide = strides + ((C,) if c1 - c0 < C else ())
+            V, fold = vector_width(c1 - c0, x.element_size(), wide, align, M)
+            slices.append((c0, c1 - c0, V, fold, *grid(M, c1 - c0, V, fold, _sms(dev))))
+        plan = _PLANS[key] = (M, C, tuple(slices), dy_rs, rows_form(x),
+                              int(x.dtype == torch.bfloat16), POSTS.index(post), dev)
     return plan
 
 
@@ -299,9 +317,9 @@ def _check_params(name, dev, params):
 _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 _ARGTYPES = {
     'fiery_batch_norm_forward': [_P] * 11 + [_LL] + [_I] * 5 + [_LL, _I] + [_F] * 2
-                                + [_I] * 3 + [_P],
+                                + [_I] * 3 + [_P, _LL],
     'fiery_batch_norm_backward': [_P, _LL] + [_P] * 11 + [_LL] + [_I] * 5 + [_LL, _I] + [_F]
-                                 + [_I] * 3 + [_P],
+                                 + [_I] * 3 + [_P, _LL],
 }
 _FNS = {}
 
@@ -317,8 +335,16 @@ def _fn(name):
     return fn
 
 
-def _ptr(t):
-    return 0 if t is None else t.data_ptr()
+def _ptr(t, offset=0):
+    """t's address moved by ``offset`` bytes; null for no tensor."""
+    return 0 if t is None else t.data_ptr() + offset
+
+
+def _partial(slices, device):
+    """The f64 partials of the reductions: a slot a block and a group of blocks of
+    the largest slice, reused by each slice's launch in stream order."""
+    return torch.empty((max(partial_slots(s[-1]) for s in slices), 2,
+                        max(s[1] for s in slices)), dtype=torch.float64, device=device)
 
 
 def batch_norm_forward_plain(x, weight, bias, running_mean, running_var, training,
@@ -340,37 +366,40 @@ def batch_norm_forward(x, weight, bias, running_mean, running_var, training, mom
     ``batch_norm_forward_plain`` returns them, without autograd. A CPU tensor takes
     the plain version; a CUDA tensor launches the kernels (two in training: the
     statistics with their reduction and the running update, then apply; one in
-    eval)."""
+    eval; each once a channel slice, ``channel_slices``)."""
     if x.device.type == 'cpu':
         batch_norm_forward.plain_calls += 1
         return batch_norm_forward_plain(x, weight, bias, running_mean, running_var, training,
                                         momentum, eps, post, residual)
     xp, rp = x.data_ptr(), _ptr(residual)
-    M, C, V, fold, G, threads, R, blocks, _, form, bf16, post_i, dev = _plan(
+    M, C, slices, _, form, bf16, post_i, dev = _plan(
         'batch_norm', x, residual, post, (xp | rp) & 15)
     _check_params('batch_norm', dev, (weight, bias, running_mean, running_var))
     y = torch.empty_like(x)
     if training:
         stats = torch.empty((3, C), dtype=torch.float32, device=x.device)
         mean, var, clamp = stats
-        partial = torch.empty((partial_slots(blocks), 2, C), dtype=torch.float64,
-                              device=x.device)
+        partial = _partial(slices, x.device)
     else:
         mean, var, clamp, partial = running_mean, running_var, None, None
-    rc = _fn('fiery_batch_norm_forward')(
-        xp, rp, y.data_ptr(), mean.data_ptr(), var.data_ptr(), _ptr(clamp),
-        running_mean.data_ptr(), running_var.data_ptr(), weight.data_ptr(), bias.data_ptr(),
-        _ptr(partial), M, C, V, fold, G, threads, R, blocks, eps, momentum, int(training),
-        post_i, bf16, torch._C._cuda_getCurrentRawStream(dev))
-    if rc != 0:
-        raise RuntimeError(f'batch_norm kernel launch failed: CUDA error {rc}')
+    fn, es = _fn('fiery_batch_norm_forward'), x.element_size()
+    stream = torch._C._cuda_getCurrentRawStream(dev)
+    for c0, Cs, V, fold, G, threads, R, blocks in slices:
+        o, o4 = c0 * es, c0 * 4
+        rc = fn(xp + o, _ptr(residual, o), y.data_ptr() + o, mean.data_ptr() + o4,
+                var.data_ptr() + o4, _ptr(clamp, o4), running_mean.data_ptr() + o4,
+                running_var.data_ptr() + o4, weight.data_ptr() + o4, bias.data_ptr() + o4,
+                _ptr(partial), M, Cs, V, fold, G, threads, R, blocks, eps, momentum,
+                int(training), post_i, bf16, stream, C)
+        if rc != 0:
+            raise RuntimeError(f'batch_norm kernel launch failed: CUDA error {rc}')
     if M:
-        batch_norm_forward.launches += 2 if training else 1
+        batch_norm_forward.launches += (2 if training else 1) * len(slices)
     batch_norm_forward.forms[form] += 1
     return y, mean, var, clamp
 
 
-batch_norm_forward.launches = 0        # kernel launches (2 a training call, 1 an eval call)
+batch_norm_forward.launches = 0   # kernel launches (a slice: 2 a training call, 1 an eval call)
 batch_norm_forward.plain_calls = 0     # calls that took the plain version (CPU tensors)
 batch_norm_forward.forms = {'4d': 0, '5d': 0}    # the card calls by layout
 
@@ -431,7 +460,7 @@ def batch_norm_backward(dy, x, weight, bias, mean, var, clamp, eps, post, residu
         return batch_norm_backward_plain(dy, x, weight, bias, mean, var, clamp, eps, post,
                                          residual, training)
     xp, rp, dyp = x.data_ptr(), _ptr(residual), dy.data_ptr()
-    M, C, V, fold, G, threads, R, blocks, dy_rs, form, bf16, post_i, dev = _plan(
+    M, C, slices, dy_rs, form, bf16, post_i, dev = _plan(
         'batch_norm_backward', x, residual, 'add_relu' if post == 'add_relu' else 'none',
         (xp | rp) & 15, dy, dyp & 15)
     _check_params('batch_norm_backward', dev, (weight, bias, mean, var))
@@ -442,22 +471,31 @@ def batch_norm_backward(dy, x, weight, bias, mean, var, clamp, eps, post, residu
         dy_rs, dyp = C, dy.data_ptr()
     dx = torch.empty_like(x)
     dres = torch.empty_like(x) if post == 'add_relu' else None
-    dparams = torch.empty((4, C), dtype=torch.float32, device=x.device)
-    dweight, dbias = dparams[0], dparams[1]
-    partial = torch.empty((partial_slots(blocks), 2, C), dtype=torch.float64,
-                          device=x.device)
-    rc = _fn('fiery_batch_norm_backward')(
-        dyp, dy_rs, xp, rp, dx.data_ptr(), _ptr(dres), mean.data_ptr(), var.data_ptr(),
-        _ptr(clamp), weight.data_ptr(), bias.data_ptr(), dparams.data_ptr(),
-        partial.data_ptr(), M, C, V, fold, G, threads, R, blocks, eps, int(training),
-        POSTS.index(post), bf16, torch._C._cuda_getCurrentRawStream(dev))
-    if rc != 0:
-        raise RuntimeError(f'batch_norm_backward kernel launch failed: CUDA error {rc}')
+    # (4, slice's C) of f32 out a slice: dweight, dbias and the two dx coefficients
+    dparams = torch.empty(4 * C, dtype=torch.float32, device=x.device)
+    partial = _partial(slices, x.device)
+    fn, es = _fn('fiery_batch_norm_backward'), x.element_size()
+    stream = torch._C._cuda_getCurrentRawStream(dev)
+    for c0, Cs, V, fold, G, threads, R, blocks in slices:
+        o, o4 = c0 * es, c0 * 4
+        rc = fn(dyp + o, dy_rs, xp + o, _ptr(residual, o), dx.data_ptr() + o, _ptr(dres, o),
+                mean.data_ptr() + o4, var.data_ptr() + o4, _ptr(clamp, o4),
+                weight.data_ptr() + o4, bias.data_ptr() + o4, dparams.data_ptr() + 4 * o4,
+                partial.data_ptr(), M, Cs, V, fold, G, threads, R, blocks, eps,
+                int(training), POSTS.index(post), bf16, stream, C)
+        if rc != 0:
+            raise RuntimeError(f'batch_norm_backward kernel launch failed: CUDA error {rc}')
+    parts = [dparams[4 * c0:4 * (c0 + Cs)].view(4, Cs) for c0, Cs, *_ in slices]
+    if len(parts) == 1:
+        dweight, dbias = parts[0][0], parts[0][1]
+    else:
+        dweight = torch.cat([p[0] for p in parts])
+        dbias = torch.cat([p[1] for p in parts])
     if M:
-        batch_norm_backward.launches += 2
+        batch_norm_backward.launches += 2 * len(slices)
     return dx, dweight, dbias, dres
 
 
-batch_norm_backward.launches = 0       # kernel launches (2 a call: reduce with its finalize, apply)
+batch_norm_backward.launches = 0       # kernel launches (2 a call and slice: reduce, apply)
 batch_norm_backward.plain_calls = 0
 batch_norm_backward.grad_copies = Counter()

@@ -133,9 +133,13 @@ def calibrate_batchnorm(model, requests):
 def make_request(cfg, seed):
     """A seeded clip for ``cfg``: uint8 images (1, rf, n, H, W, 3), a rig of cameras
     looking outwards (intrinsics (1, rf, n, 3, 3), extrinsics (1, rf, n, 4, 4)) and
-    a small forward ego-motion with a slight yaw (1, rf, 6). Numpy arrays."""
+    a small forward ego-motion with a slight yaw (1, rf, 6). Numpy arrays. rf is
+    the model's ``FieryConfig.receptive_field``: under MODEL.SUBSAMPLE a request is
+    the subsampled clip, 3 frames (every other frame, the ego-motion composed over
+    the two steps between kept frames, as the JAX package's loader hands the
+    model), not TIME_RECEPTIVE_FIELD's 5."""
     rng = np.random.RandomState(seed)
-    s, n = cfg.TIME_RECEPTIVE_FIELD, len(cfg.IMAGE.NAMES)
+    s, n = FieryConfig.from_cfg(cfg).receptive_field, len(cfg.IMAGE.NAMES)
     H, W = cfg.IMAGE.FINAL_DIM
     fx = 0.5 * W
     K = np.array([[fx, 0.0, W / 2.0], [0.0, fx, H / 2.0], [0.0, 0.0, 1.0]], np.float32)

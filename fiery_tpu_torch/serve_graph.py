@@ -28,6 +28,7 @@ import numpy as np
 import torch
 
 from fiery_tpu_torch.evaluate import device_consistent
+from fiery_tpu_torch.models.fiery import FieryConfig
 
 INPUTS = ('image', 'intrinsics', 'extrinsics', 'future_egomotion')
 WARMUP = 2          # eager runs of each path on the capturing stream before its capture
@@ -36,9 +37,12 @@ WARMUP = 2          # eager runs of each path on the capturing stream before its
 def request_spec(cfg, batch=1):
     """{input: (shape, torch dtype)} of a request for the config ``cfg`` at ``batch``
     (the arrays of ``serve.make_request``): uint8 images (B, s, n, H, W, 3) and f32
-    calibration and ego-motion of the s = TIME_RECEPTIVE_FIELD past and present
-    frames of the n cameras."""
-    s, n = cfg.TIME_RECEPTIVE_FIELD, len(cfg.IMAGE.NAMES)
+    calibration and ego-motion of the s past and present frames of the n cameras
+    that the model reads, s = ``FieryConfig.receptive_field``. Under MODEL.SUBSAMPLE
+    that is 3 of TIME_RECEPTIVE_FIELD 5: the request is the subsampled clip, every
+    other frame with the ego-motion of each kept frame composed over the two steps
+    to the next, as the JAX package's loader hands the model."""
+    s, n = FieryConfig.from_cfg(cfg).receptive_field, len(cfg.IMAGE.NAMES)
     H, W = cfg.IMAGE.FINAL_DIM
     return {'image': ((batch, s, n, H, W, 3), torch.uint8),
             'intrinsics': ((batch, s, n, 3, 3), torch.float32),

@@ -105,12 +105,19 @@ def encoder_mapping(version='b4', downsample=8) -> List[Entry]:
 
 
 def temporal_mapping(receptive_field=3, use_pyramid_pooling=True, in_channels=70,
-                     start_out_channels=64) -> List[Entry]:
+                     start_out_channels=64, inbetween_layers=0) -> List[Entry]:
+    """TemporalBlock i is ``model.{i * (1 + L)}`` of the port's flat Sequential, and
+    the L (1, 3, 3) Bottleneck3Ds after it (MODEL.TEMPORAL_MODEL.INBETWEEN_LAYERS)
+    are ``model.{i * (1 + L) + 1 + j}``; JAX numbers them ``Bottleneck3D_{i * L + j}``
+    in its TemporalModel's scope (the JAX package's own table has no entries for
+    them), each a 1x1x1 down-projection, a causal conv of time extent 1 and a
+    1x1x1 up-projection, at the block's output width (no residual projection)."""
     entries: List[Entry] = []
     block_in, block_out = in_channels, start_out_channels
+    step = 1 + inbetween_layers
     for i in range(receptive_field - 1):
         fb = ('temporal_model', f'TemporalBlock_{i}')
-        t = f'model.temporal_model.model.{i}'
+        t = f'model.temporal_model.model.{i * step}'
         paths = [f'{t}.convolution_paths.0.0', f'{t}.convolution_paths.1.0',
                  f'{t}.convolution_paths.2']
         pf = fb + ('prolog_fused',)
@@ -132,6 +139,16 @@ def temporal_mapping(receptive_field=3, use_pyramid_pooling=True, in_channels=70
         if block_out != block_in:
             entries += _conv(fb + ('Conv_0',), f'{t}.projection.0', kind='conv3d_1x1')
             entries += _bn(fb + ('BatchNorm_0',), f'{t}.projection.1')
+        for j in range(inbetween_layers):
+            fj = ('temporal_model', f'Bottleneck3D_{i * inbetween_layers + j}')
+            tj = f'model.temporal_model.model.{i * step + 1 + j}.layers'
+            entries += _conv1x1x1_norm_act(fj + ('Conv1x1x1NormActivated_0',),
+                                           f'{tj}.conv_down_project')
+            entries += (_conv(fj + ('CausalConv3d_0', 'Conv_0'), f'{tj}.conv.conv',
+                              kind='conv3d_causal_kt1')
+                        + _bn(fj + ('CausalConv3d_0', 'BatchNorm_0'), f'{tj}.conv.norm'))
+            entries += _conv1x1x1_norm_act(fj + ('Conv1x1x1NormActivated_1',),
+                                           f'{tj}.conv_up_project')
         block_in = block_out
     return entries
 
@@ -206,14 +223,13 @@ def decoder_mapping(predict_future_flow=True) -> List[Entry]:
 
 def build_mapping(model_cfg) -> List[Entry]:
     """The full table for a FieryConfig."""
-    if model_cfg.inbetween_layers:
-        raise NotImplementedError('the weight table covers INBETWEEN_LAYERS = 0 only')
     entries = encoder_mapping(model_cfg.encoder_name.split('-')[1],
                               model_cfg.encoder_downsample)
     if model_cfg.temporal_name == 'temporal_block':
         in_ch = model_cfg.encoder_out_channels + (6 if model_cfg.input_egopose else 0)
         entries += temporal_mapping(model_cfg.receptive_field, model_cfg.pyramid_pooling,
-                                    in_ch, model_cfg.start_out_channels)
+                                    in_ch, model_cfg.start_out_channels,
+                                    model_cfg.inbetween_layers)
     if model_cfg.n_future > 0:
         if model_cfg.probabilistic_enabled:
             entries += distribution_mapping('present')
