@@ -16,7 +16,18 @@ Builds the package's CUDA kernels from csrc/, then:
      the bf16 distances printed); eager and replayed requests timed in turns, the
      host's part of a replay, the peak memory; after the timed
      phases, a profiled replay holds the same kernels by name and count as an
-     eager request, with device busy and K10's ms of each;
+     eager request, with device busy and K10's ms of each; then the exported
+     program (phase_exported, dense and combined; export.py): the folded forward
+     exported on the card with torch.export (no launch while tracing), its graph
+     holding the fiery_torch operators (K1, K2 or K5, K10, K11) as often as the
+     eager folded forward launches their kernels, loaded in-process (captured by
+     ServedFiery, the launches counted) and in a fresh python3 process that
+     imports only ops/library.py and export.py (no fiery_tpu_torch.models), three
+     requests bit for bit against the eager folded model and ServedFiery, the
+     program's module launching the forward's kernels, its captured requests
+     timed in turns with ServedFiery's and the eager folded model's, and a
+     profiled replay of its predict holding the eager folded forward's kernels
+     by name and count (``--only exported`` runs this phase alone);
   2. holds K1 and K2 against their plain PyTorch versions at the baseline serve
      shapes, in f32 and in bf16 (K2 also at the training step's 6 maps, and equal
      to the plain version on the host, given the card's theta, in every value), and
@@ -106,7 +117,8 @@ Builds the package's CUDA kernels from csrc/, then:
      peak memory); K1 and K5 (and their backwards) at fishing's D = 28, K2 forward
      and backward and K4 at pon's 400 x 200 of extent (50, 25), and K6-K8 on the
      pon and fishing heads against their plain versions, timed; and
-     python -m fiery_tpu_torch.export --validate of pon_setting.yml in-process.
+     python -m fiery_tpu_torch.export --validate of pon_setting.yml in-process
+     (the program exported, loaded, captured and held against the live model).
      ``python3 chip_smoke.py --only families`` builds the kernels and runs this
      phase alone (no result line).
 The request and the step also print K10's census (each BatchNorm call's shape
@@ -126,9 +138,11 @@ import ctypes
 import importlib.util
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 import types
 from collections import Counter
@@ -1096,6 +1110,229 @@ def phase_served_graph(opts=(), name='served graph'):
     return profile
 
 
+# the program's operators (ops/library.py) and the counters of their kernels
+PROGRAM_OPS = {'bev_pool': 'bev_pool', 'bev_warp': 'bev_warp', 'topk_select': 'topk_select',
+               'batch_norm': 'batch_norm', 'gru_reset_concat': 'spatial_gru',
+               'gru_state_update': 'spatial_gru'}
+# the names of their kernels in a profiled window (anonymous-namespace templates)
+PROGRAM_KERNELS = {'bev_pool': ('::splat_count_kernel', '::splat_scan_kernel',
+                                '::splat_fill_kernel', '::splat_pool_kernel'),
+                   'bev_warp': ('::bev_warp_tile_kernel',),
+                   'topk_select': ('::topk_select_kernel',),
+                   'batch_norm': ('::apply_kernel<',),
+                   'spatial_gru': ('::reset_concat', '::state_update')}
+
+
+def program_nodes(program):
+    """{operator: nodes} of the ``fiery_torch`` operators in an exported program."""
+    nodes = Counter(str(n.target) for n in program.graph.nodes if n.op == 'call_function')
+    return {k.split('.')[1]: n for k, n in nodes.items() if k.startswith('fiery_torch.')}
+
+
+def phase_exported(opts=(), name='exported'):
+    """The served forward as a ``torch.export`` program at full width (baseline.yml,
+    PRECISION 16, batch 1, the seeded weights; export.py): exported on the card,
+    which launches no kernel; its graph holds the ``fiery_torch`` operators as
+    often as an eager folded forward launches their kernels (K1's four launches a
+    node); written, loaded in-process (``load_exported``: ``ServedFiery`` captures
+    the program's module) with the launches of the warm-ups and captures counted;
+    the program's module called eagerly once, its kernels counted by the
+    wrappers; three requests through the program's graphs equal to the eager
+    folded model's outputs and ids and to ``ServedFiery`` of the model
+    (``build_served``) bit for bit; the program's captured predict and
+    predict_instances, ``ServedFiery``'s and the eager folded model's timed, 20
+    each in turns. Returns (a record, the artifact's path and the requests, whose
+    answers ``program_fresh_process`` takes in another process, the in-process
+    answers, a closure that profiles a replay of the program's predict against an
+    eager folded forward: the same kernels by name and count)."""
+    from fiery_tpu_torch import export as export_lib
+    cfg = get_cfg(argparse.Namespace(config_file=BASELINE, opts=list(opts)))
+    state_dict = seeded_state_dict(cfg, seed=0)
+    eager = build_fiery(cfg, state_dict=state_dict, fold_bn=True)
+    requests = [make_request(cfg, seed=10 + i) for i in range(3)]
+    predict_instances(eager, requests[0])
+    torch.cuda.synchronize()
+    reset_counters()
+    _, _, bn_launches, census = count_bn_calls(eager, lambda: predict(eager, requests[0]))
+    per_forward = {k: fn.launches for k, fn in COUNTERS.items()}
+    reset_counters()
+    predict_instances(eager, requests[0])
+    per_request = {k: fn.launches for k, fn in COUNTERS.items()}
+
+    reset_counters()
+    t0 = time.perf_counter()
+    blob, _, program = export_lib.export_model(cfg, state_dict=state_dict)
+    export_s = time.perf_counter() - t0
+    traced = {k: fn.launches for k, fn in COUNTERS.items() if fn.launches}
+    if traced:
+        raise AssertionError(f'{name}: the export launched kernels: {traced}')
+    nodes = program_nodes(program)
+    want_nodes = {'bev_pool': per_forward['bev_pool'] // BEV_POOL_KERNELS,
+                  'bev_warp': per_forward['bev_warp'], 'topk_select': per_forward['topk_select'],
+                  'batch_norm': len(census),
+                  'gru_reset_concat': per_forward['spatial_gru'] // 2,
+                  'gru_state_update': per_forward['spatial_gru'] // 2}
+    if nodes != {k: n for k, n in want_nodes.items() if n}:
+        raise AssertionError(f'{name}: the program\'s operators {nodes}, expected {want_nodes}')
+    if not all(nodes.get(k) for k in ('bev_pool', 'batch_norm', 'gru_reset_concat',
+                                        'gru_state_update')):
+        raise AssertionError(f'{name}: K1, K10 or K11 missing from the program: {nodes}')
+    directory = tempfile.mkdtemp(prefix='fiery_program_')
+    path = os.path.join(directory, 'model.fiery')
+    with open(path, 'wb') as f:
+        f.write(blob)
+
+    reset_counters()
+    t0 = time.perf_counter()
+    loaded = export_lib.load_exported(path)
+    load_s = time.perf_counter() - t0
+    captured = {k: fn.launches for k, fn in COUNTERS.items()}
+    runs = serve_graph.WARMUP + 1
+    expected = {k: n * runs * (1 if k in DECODE_KERNELS else 2) for k, n in per_request.items()}
+    if captured != expected:
+        raise AssertionError(f'{name}: launches while loading and capturing {captured}, '
+                             f'expected {expected}')
+    layout_report()
+    # the program's module called eagerly: its operators launch the kernels
+    reset_counters()
+    with torch.inference_mode():
+        loaded.model(*(loaded.static[k] for k in serve_graph.INPUTS))
+    torch.cuda.synchronize()
+    program_launches = {k: fn.launches for k, fn in COUNTERS.items()}
+    if program_launches != per_forward:
+        raise AssertionError(f'{name}: the program\'s module launched {program_launches}, '
+                             f'an eager folded forward {per_forward}')
+    layout_report()
+
+    served = build_served(cfg, state_dict)
+    answers = []
+    for i, (want, ids) in enumerate(replays_match_eager(name, loaded, eager, requests)):
+        other, other_ids = served.predict_instances(requests[i])
+        bare = loaded.predict(requests[i])
+        differ = {k: bits_differ(other[k], v) + bits_differ(bare[k], v) for k, v in want.items()}
+        differ['ids'] = int((other_ids != ids).sum())
+        if any(differ.values()):
+            raise AssertionError(f'{name}: request {i}: values whose bits differ between '
+                                 f'the program and ServedFiery: {differ}')
+        answers.append(({k: v.cpu() for k, v in bare.items()}, ids.cpu()))
+    log(f'{name}: exported in {export_s:.1f} s ({os.path.getsize(path)} bytes; operators '
+        f'{nodes}; no launch while tracing), loaded and captured in {load_s:.1f} s '
+        f'(launches {({k: v for k, v in captured.items() if v})}); its module launches '
+        f'{({k: v for k, v in program_launches.items() if v})} a forward, as the eager '
+        f'folded model; 3 requests through its graphs equal the eager folded model and '
+        f'ServedFiery bit for bit, ids too')
+
+    reps = 20
+    calls = {'program predict': loaded.predict, 'ServedFiery predict': served.predict,
+             'eager folded predict': lambda r: predict(eager, r),
+             'program predict_instances': loaded.predict_instances,
+             'ServedFiery predict_instances': served.predict_instances,
+             'eager folded predict_instances': lambda r: predict_instances(eager, r)}
+    times = in_turns(calls, requests, reps, warmup=3)
+    smi = smi_line()
+    for key, ms in times.items():
+        log(f'{name} {key}: request_ms={[round(t, 3) for t in ms]} '
+            f'median_ms={statistics.median(ms):.3f} spread_ms={min(ms):.3f}-{max(ms):.3f} '
+            f'({reps} in turns); {smi}')
+    record = {'export_s': export_s, 'load_s': load_s, 'bytes': os.path.getsize(path),
+              'nodes': nodes, 'program_launches': {k: v for k, v in program_launches.items()
+                                                   if v},
+              'ms': {k: statistics.median(v) for k, v in times.items()}}
+
+    def profile():
+        """A replay of the program's predict against an eager folded forward and a
+        replay of ServedFiery's: the same kernels by name and count, K1, K2 or K5,
+        K10 and K11 among them; device busy of each."""
+        loaded.load(requests[0])
+        served.load(requests[0])
+        windows = {
+            'program replay': window_kernels(lambda: loaded.replay('predict'), bn_launches),
+            'ServedFiery replay': window_kernels(lambda: served.replay('predict'), bn_launches),
+            'eager folded': window_kernels(lambda: predict(eager, requests[0]), bn_launches)}
+        program_kernels, eager_kernels = windows['program replay'][0], windows['eager folded'][0]
+        for key in ('program replay', 'ServedFiery replay'):
+            if windows[key][0] != eager_kernels:
+                raise AssertionError(f'{name}: the {key}\'s kernels differ from an eager '
+                                     f'folded forward\'s: {dict(windows[key][0] - eager_kernels)} '
+                                     f'more, {dict(eager_kernels - windows[key][0])} fewer')
+        ours = {k: sum(n for kern, n in program_kernels.items() if any(s in kern for s in syms))
+                for k, syms in PROGRAM_KERNELS.items()}
+        want = {k: per_forward[k] for k in PROGRAM_KERNELS}
+        if ours != want or not all(ours[k] for k in ('bev_pool', 'batch_norm', 'spatial_gru')) \
+                or not (ours['bev_warp'] or ours['topk_select']):
+            raise AssertionError(f'{name}: the program replay\'s kernels {ours}, expected {want}')
+        for key, (kernels, copies, busy, k10_ms) in windows.items():
+            log(f'{name} profiled {key} (predict): {sum(kernels.values())} kernel launches '
+                f'of {len(kernels)} kernels, copies {json.dumps(copies)}; device busy '
+                f'{busy:.3f} ms; K10 {sum(k10_ms.values()):.4f} ms; {smi_line()}')
+        log(f'{name}: a replay of the program launches the same {sum(program_kernels.values())} '
+            f'kernels, by name and count, as an eager folded forward (ours: {ours})')
+        record['replay_busy_ms'] = windows['program replay'][2]
+
+    return record, (path, requests), answers, profile
+
+
+PROGRAM_CHILD = r"""
+import sys
+import time
+import torch
+from fiery_tpu_torch.ops import library  # noqa: F401
+from fiery_tpu_torch import export
+
+answers, modules = [], None
+for path, requests_path in zip(sys.argv[2::2], sys.argv[3::2]):
+    t0 = time.perf_counter()
+    served = export.load_exported(path)
+    load_s = time.perf_counter() - t0
+    got = []
+    for request in torch.load(requests_path):
+        out, ids = served.predict_instances(request)
+        got.append(({k: v.cpu() for k, v in served.predict(request).items()}, ids.cpu()))
+    answers.append((got, load_s))
+    del served
+modules = sorted(m for m in sys.modules if m.split('.')[0] in ('fiery_tpu', 'fiery_tpu_torch'))
+torch.save({'answers': answers, 'modules': modules}, sys.argv[1])
+"""
+
+
+def program_fresh_process(items):
+    """Each (name, (artifact path, requests), in-process answers) loaded and answered
+    in one fresh python3 process that imports only ``ops/library.py`` and
+    ``export.py``: no module of ``fiery_tpu_torch.models`` (or of the JAX package)
+    imported, every output and the ids equal to the in-process program's bit for
+    bit. Removes the artifacts' directories."""
+    directory = os.path.dirname(items[0][1][0])
+    args = [os.path.join(directory, 'answers.pt')]
+    for i, (_, (path, requests), _) in enumerate(items):
+        args += [path, os.path.join(directory, f'requests{i}.pt')]
+        torch.save([{k: torch.from_numpy(v) for k, v in r.items()} for r in requests], args[-1])
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, '-c', PROGRAM_CHILD] + args,
+                          cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True,
+                          text=True, timeout=600)
+    if proc.returncode != 0:
+        raise AssertionError(f'the fresh process failed (rc {proc.returncode}):\n'
+                             f'{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}')
+    result = torch.load(args[0], weights_only=False)
+    bad = [m for m in result['modules']
+           if m.startswith('fiery_tpu_torch.models') or m.split('.')[0] == 'fiery_tpu']
+    if bad or 'fiery_tpu_torch.ops.library' not in result['modules']:
+        raise AssertionError(f'the fresh process imported {bad}')
+    for (name, _, want), (got, load_s) in zip(items, result['answers']):
+        for i, ((w_out, w_ids), (g_out, g_ids)) in enumerate(zip(want, got)):
+            differ = {k: bits_differ(g_out[k], v) for k, v in w_out.items()}
+            differ['ids'] = int((g_ids != w_ids).sum())
+            if sorted(g_out) != sorted(w_out) or any(differ.values()):
+                raise AssertionError(f'{name}: request {i} in the fresh process: {differ}')
+        log(f'{name}: loaded in a fresh process in {load_s:.1f} s (its modules: '
+            f'{len(result["modules"])} of fiery_tpu_torch, none of models); 3 requests equal '
+            f'the in-process program bit for bit')
+    log(f'fresh process: {time.perf_counter() - t0:.1f} s in all')
+    shutil.rmtree(directory, ignore_errors=True)
+    for _, (path, _), _ in items[1:]:
+        shutil.rmtree(os.path.dirname(path), ignore_errors=True)
+
+
 def relabel_disagreement(a, b):
     """Pixels that no renaming of a's ids explains: for each id of a, the pixels
     whose id in b is not the one most of that id's pixels take in b. Unlike a pixel
@@ -1837,8 +2074,6 @@ def phase_train_loop():
     launches are counted. Prints the H2D copy of a batch, pinned and pageable, and
     the copies of one profiled step; the loop's step walls with the loader's wait;
     the loader's batches a second; the checkpoint's cost; VPQ of both trackers."""
-    import shutil
-    import tempfile
     from fiery_tpu_torch import evaluate as evaluate_cli
     from fiery_tpu_torch import train as train_cli
     from fiery_tpu_torch.data.dataset import prepare_dataloaders
@@ -2470,7 +2705,7 @@ def gru_case(B, Cx, dtype, device, seed, C=64, T=4, H=200, W=200):
     tag = f'spatial_gru B={B} C_x={Cx}'
     err = max(check_close(f'{tag} reset_concat', reset_concat(x_t, r_pre, h),
                           reset_concat_plain(x_t, r_pre, h), dtype),
-              check_close(f'{tag} state_update', state_update(u_pre, h, ht, out[:, 2]),
+              check_close(f'{tag} state_update', state_update(u_pre, h, ht, out, 2),
                           state_update_plain(u_pre, h, ht), dtype))
     dcat = rows((B, Cx + C, H, W), dtype, gen, device)
     dout = prev[:, 3]
@@ -2633,7 +2868,7 @@ def phase_norm_gru_kernels(device):
         log(f'  spatial_gru B={B} C_x={Cx}: both launches and their backward equal to plain '
             f'within tolerance, f32 and bf16')
         x_t, h, r_pre, u_pre, ht = (t[k] for k in ('x_t', 'h', 'r_pre', 'u_pre', 'ht'))
-        slot, dcat, dout = t['out'][:, 2], t['dcat'], t['dout']
+        out, dcat, dout = t['out'], t['dcat'], t['dout']
         n = h.numel()
         es = h.element_size()
 
@@ -2652,10 +2887,10 @@ def phase_norm_gru_kernels(device):
         new_l = torch.stack([(1.0 - u_s) * h_l + u_s * ht_l], dim=1)
         rec[('spatial_gru', B)] = dict(
             ms=kernel_ms(lambda: (reset_concat(x_t, r_pre, h),
-                                  state_update(u_pre, h, ht, slot)),
+                                  state_update(u_pre, h, ht, out, 2)),
                          ['reset_concat_kernel', 'state_update_kernel'], 2),
             call_ms=time_ms(lambda: (reset_concat(x_t, r_pre, h),
-                                     state_update(u_pre, h, ht, slot))),
+                                     state_update(u_pre, h, ht, out, 2))),
             plain_ms=time_ms(lambda: (reset_concat_plain(x_t, r_pre, h),
                                       state_update_plain(u_pre, h, ht))),
             library_ms=time_ms(old_step),
@@ -2930,7 +3165,6 @@ def phase_families(device):
             f'{sum(r["seconds"].values()):.1f} s; {smi_line()}')
         log(f'family {name}: ' + json.dumps(r))
     kernels = family_kernels(heads, device)
-    import tempfile
     from fiery_tpu_torch import export as export_cli
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory(prefix='fiery_export_') as tmp:
@@ -3216,7 +3450,7 @@ def family_kernels(heads, device, k=8, C=64):
 
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument('--only', choices=['families'],
+    parser.add_argument('--only', choices=['families', 'exported'],
                         help='run only this phase (after the build); prints no result line')
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
@@ -3234,6 +3468,17 @@ def main(argv=None):
         phase_families(device)
         log(f'config families: ok ({time.perf_counter() - t0:.1f} s); {smi_line()}')
         return
+    if args.only == 'exported':
+        t0 = time.perf_counter()
+        exported = {name: phase_exported(opts, name) for name, opts in (
+            ('exported', ()), ('exported combo', COMBO_OPTS))}
+        program_fresh_process([(name, art, answers)
+                               for name, (_, art, answers, _) in exported.items()])
+        for _, _, _, profile in exported.values():
+            profile()
+        log('exported programs: ' + json.dumps({k: v[0] for k, v in exported.items()}))
+        log(f'exported programs: ok ({time.perf_counter() - t0:.1f} s); {smi_line()}')
+        return
 
     # the serve and the training first, so that their request and step times come
     # before torch.profiler (which times the kernels below) has hooked into the process
@@ -3247,6 +3492,14 @@ def main(argv=None):
     graph_profiles = [phase_served_graph(),
                       phase_served_graph(COMBO_OPTS, 'served graph combo')]
     log(f'full-width served graphs, BatchNorm folded: ok ({time.perf_counter() - t0:.1f} s)')
+    t0 = time.perf_counter()
+    exported = {name: phase_exported(opts, name) for name, opts in (
+        ('exported', ()), ('exported combo', COMBO_OPTS))}
+    program_fresh_process([(name, art, answers)
+                           for name, (_, art, answers, _) in exported.items()])
+    graph_profiles += [profile for _, _, _, profile in exported.values()]
+    log(f'full-width exported programs, loaded in- and out of process: ok '
+        f'({time.perf_counter() - t0:.1f} s)')
     t0 = time.perf_counter()
     train_launches, train, dense_run = phase_train()
     log(f'full-width train: ok ({time.perf_counter() - t0:.1f} s)')
@@ -3269,6 +3522,9 @@ def main(argv=None):
     for profile in graph_profiles:
         profile()
     del dense_run, combo_run, graph_profiles
+    programs = {name: rec for name, (rec, _, _, _) in exported.items()}
+    del exported
+    log('exported programs: ' + json.dumps(programs))
     log(f'train steps in turns and profiled: ok ({time.perf_counter() - t0:.1f} s)')
     t0 = time.perf_counter()
     topk = phase_topk_kernels(device)
@@ -3367,6 +3623,10 @@ def main(argv=None):
         entry['call_ms'] = r['call_ms']
         if name in ('bev_pool', 'bev_warp', 'topk_select', 'batch_norm', 'spatial_gru'):
             entry['train_launches'] = trained[name]
+            # the launches of the exported program's forward (its operators), dense
+            # and combined
+            entry['program_launches'] = [programs[key]['program_launches'].get(name, 0)
+                                         for key in ('exported', 'exported combo')]
         if name in ('bev_pool', 'batch_norm', 'batch_norm_backward', 'spatial_gru',
                     'spatial_gru_backward'):
             entry['combo_launches'] = combo_launches[name]

@@ -29,10 +29,19 @@ import sys
 import torch
 
 CHILD = r'''
+import inspect
 import sys
 import torch
 from fiery_tpu_torch.ops import batch_norm as BN
 from fiery_tpu_torch.ops import spatial_gru as GRU
+
+
+def state_update(u_pre, h, ht, slot):
+    """GRU.state_update into ``slot``: of trees that take the slot, or the buffer
+    and the slot's index (``torch.ops.fiery_torch.gru_state_update``)."""
+    if 'slot' in inspect.signature(GRU.state_update).parameters:
+        return GRU.state_update(u_pre, h, ht, slot)
+    return GRU.state_update(u_pre, h, ht, slot[:, None], 0)
 
 POSTS = ('none', 'relu', 'swish', 'add', 'add_relu', 'relu_add')
 RESIDUAL = ('add', 'add_relu', 'relu_add')
@@ -98,7 +107,7 @@ for B, Cx in ((1, 32), (3, 64)):
         r_pre, u_pre, ht = (rows((B, C, H, W), dtype, gen) for _ in range(3))
         dcat = rows((B, Cx + C, H, W), dtype, gen)
         slots = GRU.gru_output(h, T)
-        GRU.state_update(u_pre, h, ht, slots[:, 2])
+        state_update(u_pre, h, ht, slots[:, 2])
         key = f'gru B={B} {str(dtype)[6:]}'
         outs = (('cat', GRU.reset_concat(x[:, 1], r_pre, h)), ('h_new', slots[:, 2]))
         outs += tuple(zip(('dr_pre', 'dh_reset'),
@@ -122,7 +131,7 @@ for C, offset in ((64, 0), (64, 2), (64, 1), (1, 0)):
     z, h, ht, g = operand(every), operand(every.flip(0)), operand(every.roll(1)), \
         operand(every.roll(7))
     slot = operand(torch.zeros_like(every))
-    GRU.state_update(z, h, ht, slot)
+    state_update(z, h, ht, slot)
     key = f'gru every bf16 C={C} offset={offset}'
     outs = (('cat', GRU.reset_concat(h, z, h)), ('h_new', slot))
     outs += tuple(zip(('dr_pre', 'dh_reset'), GRU.reset_concat_backward(g, z, h)))

@@ -21,10 +21,7 @@ import numpy as np
 import torch
 
 from fiery_tpu_torch.postprocess.instance import (
-    decode_instance_predictions,
-    make_instance_id_temporally_consistent_device,
-    predict_instance_segmentation_and_trajectories,
-)
+    device_consistent, predict_instance_segmentation_and_trajectories)
 from fiery_tpu_torch.data.dataset import numeric_batch, prepare_dataloaders
 from fiery_tpu_torch.training.metrics import IntersectionOverUnion, PanopticMetric, iou_update
 from fiery_tpu_torch.training.trainer import Trainer
@@ -42,18 +39,6 @@ def _scaled_ranges(bev_size):
         out[key] = ((int(start * X / 200), int(end * X / 200)),
                     (int(start * Y / 200), int(end * Y / 200)))
     return out
-
-
-def device_consistent(output):
-    """Decode and track on the output's device: (b, s, h, w) int32 temporally
-    consistent instance ids, with no host round trip (K6, K7, then per step two K8
-    and one K9 launches)."""
-    pred_inst = decode_instance_predictions(
-        {k: output[k] for k in ['segmentation', 'instance_center', 'instance_offset']})
-    flow = output.get('instance_flow')
-    if flow is None:
-        flow = torch.zeros_like(output['instance_offset'])
-    return make_instance_id_temporally_consistent_device(pred_inst, flow)
 
 
 def update_metrics(output, labels, iou_states, panoptic_metrics, ranges, n_classes,

@@ -33,7 +33,10 @@ A launch takes at most MAX_CHANNELS channels: a wider call (the encoder's expand
 layers at downsample 16, 1,632 and 2,688 channels) launches the kernels once a
 channel slice (``channel_slices``), each slice's rows a whole row apart; the
 channels are independent, so the slices give the bits of one launch.
-A CPU tensor takes the plain versions; a CUDA tensor launches the kernels.
+A CPU tensor takes the plain versions; a CUDA tensor launches the kernels. The
+forward is the operator ``torch.ops.fiery_torch.batch_norm`` (eval) or
+``batch_norm_train`` (ops/library.py), whose CUDA implementation is
+``batch_norm_card``.
 """
 
 import ctypes
@@ -360,17 +363,24 @@ def batch_norm_forward_plain(x, weight, bias, running_mean, running_var, trainin
     return batch_norm_plain(x, weight, bias, mean, var, eps, post, residual), mean, var, clamp
 
 
-def batch_norm_forward(x, weight, bias, running_mean, running_var, training, momentum, eps,
-                       post='none', residual=None):
-    """K10's forward (csrc/batch_norm.cu): (y, mean, var, clamp) as
-    ``batch_norm_forward_plain`` returns them, without autograd. A CPU tensor takes
-    the plain version; a CUDA tensor launches the kernels (two in training: the
-    statistics with their reduction and the running update, then apply; one in
-    eval; each once a channel slice, ``channel_slices``)."""
-    if x.device.type == 'cpu':
-        batch_norm_forward.plain_calls += 1
-        return batch_norm_forward_plain(x, weight, bias, running_mean, running_var, training,
-                                        momentum, eps, post, residual)
+def batch_norm_train_plain(x, weight, bias, running_mean, running_var, momentum, eps, post,
+                           residual):
+    """Plain version of K10's training forward as ``torch.ops.fiery_torch.batch_norm_train``
+    returns it: (y, stats), stats (3, C) f32 the batch's mean, variance and clamp
+    derivative; the running statistics are updated in place."""
+    y, mean, var, clamp = batch_norm_forward_plain(x, weight, bias, running_mean, running_var,
+                                                   True, momentum, eps, post, residual)
+    return y, torch.stack([mean, var, clamp])
+
+
+def batch_norm_card(x, weight, bias, running_mean, running_var, training, momentum, eps,
+                    post, residual):
+    """K10's forward on the card, the CUDA implementation of
+    ``torch.ops.fiery_torch.batch_norm`` (eval) and ``batch_norm_train``: (y, stats)
+    with stats (3, C) f32 as ``batch_norm_train_plain`` returns them in training
+    (the running statistics updated in place), None in eval. Two launches in
+    training (the statistics with their reduction and the running update, then
+    apply), one in eval, each once a channel slice (``channel_slices``)."""
     xp, rp = x.data_ptr(), _ptr(residual)
     M, C, slices, _, form, bf16, post_i, dev = _plan(
         'batch_norm', x, residual, post, (xp | rp) & 15)
@@ -381,7 +391,7 @@ def batch_norm_forward(x, weight, bias, running_mean, running_var, training, mom
         mean, var, clamp = stats
         partial = _partial(slices, x.device)
     else:
-        mean, var, clamp, partial = running_mean, running_var, None, None
+        stats, mean, var, clamp, partial = None, running_mean, running_var, None, None
     fn, es = _fn('fiery_batch_norm_forward'), x.element_size()
     stream = torch._C._cuda_getCurrentRawStream(dev)
     for c0, Cs, V, fold, G, threads, R, blocks in slices:
@@ -396,6 +406,23 @@ def batch_norm_forward(x, weight, bias, running_mean, running_var, training, mom
     if M:
         batch_norm_forward.launches += (2 if training else 1) * len(slices)
     batch_norm_forward.forms[form] += 1
+    return y, stats
+
+
+def batch_norm_forward(x, weight, bias, running_mean, running_var, training, momentum, eps,
+                       post='none', residual=None):
+    """K10's forward: (y, mean, var, clamp) as ``batch_norm_forward_plain`` returns
+    them, without autograd, through ``torch.ops.fiery_torch.batch_norm`` in eval and
+    ``batch_norm_train`` in training (ops/library.py). A CPU tensor takes the plain
+    version; a CUDA tensor launches the kernels (``batch_norm_card``)."""
+    if not training:
+        y = torch.ops.fiery_torch.batch_norm(x, weight, bias, running_mean, running_var, eps,
+                                             post, residual)
+        return y, running_mean, running_var, None
+    y, stats = torch.ops.fiery_torch.batch_norm_train(x, weight, bias, running_mean,
+                                                      running_var, momentum, eps, post,
+                                                      residual)
+    mean, var, clamp = stats
     return y, mean, var, clamp
 
 

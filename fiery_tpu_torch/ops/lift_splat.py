@@ -11,7 +11,9 @@ and depth without building the volume either. ``lift_splat``
 keeps the JAX signature over a lifted volume and is the plain reference form.
 The sparse splat (``lift_splat_topk``, LIFT.TOPK) picks each pixel's k largest
 depth bins with the ``topk_select`` kernel (csrc/topk_select.cu) and splats them
-through ``bev_pool`` at D = k.
+through ``bev_pool`` at D = k. Both forwards are operators,
+``torch.ops.fiery_torch.bev_pool`` and ``topk_select`` (ops/library.py; CUDA
+implementations ``bev_pool_card``, ``topk_select_card``).
 """
 
 import ctypes
@@ -178,7 +180,7 @@ def _layout(S, pix_per_sample, D, num_bins, z_bins=1):
     return out
 
 
-def _check_pool_inputs(name, depth, feat, ids, num_bins, z_bins):
+def _check_pool_shapes(name, depth, feat, ids, num_bins, z_bins):
     S, N, h, w, D = depth.shape
     C = feat.shape[-1]
     if feat.shape != (S, N, h, w, C) or ids.shape != depth.shape:
@@ -186,10 +188,18 @@ def _check_pool_inputs(name, depth, feat, ids, num_bins, z_bins):
                          f'{tuple(feat.shape)}, ids {tuple(ids.shape)} do not agree')
     if num_bins % z_bins:
         raise ValueError(f'{name}: num_bins {num_bins} is not a multiple of {z_bins}')
+
+
+def _check_pool_inputs(name, depth, feat, ids, num_bins, z_bins):
+    _check_pool_shapes(name, depth, feat, ids, num_bins, z_bins)
     if depth.device.type == 'cpu':
         return
     if depth.device.type != 'cuda':
         raise ValueError(f'{name}: unsupported device {depth.device}')
+    _check_pool_card(name, depth, feat, ids)
+
+
+def _check_pool_card(name, depth, feat, ids):
     if depth.dtype not in (torch.float32, torch.bfloat16) or feat.dtype != depth.dtype:
         raise TypeError(f'{name}: depth/feat must share float32 or bfloat16, got '
                         f'{depth.dtype}/{feat.dtype}')
@@ -201,9 +211,11 @@ def _check_pool_inputs(name, depth, feat, ids, num_bins, z_bins):
         raise ValueError(f'{name}: inputs must be on one device')
 
 
-def _bev_pool_forward(depth, feat, ids, num_bins, z_bins):
-    if depth.device.type == 'cpu':
-        return bev_pool_plain(depth, feat, ids, num_bins, z_bins)
+def bev_pool_card(depth, feat, ids, num_bins, z_bins):
+    """K1 forward on the card, the CUDA implementation of
+    ``torch.ops.fiery_torch.bev_pool``: its int32 workspace allocated from the
+    shapes alone (``_layout``), then ``BEV_POOL_KERNELS`` launches."""
+    _check_pool_card('bev_pool', depth, feat, ids)
     S, N, h, w, D = depth.shape
     C = feat.shape[-1]
     ws = torch.empty(_layout(S, N * h * w, D, num_bins, z_bins)[6], dtype=torch.int32,
@@ -226,7 +238,7 @@ class _BevPool(torch.autograd.Function):
     def forward(ctx, depth, feat, ids, num_bins, z_bins):
         ctx.save_for_backward(depth, feat, ids)
         ctx.num_bins, ctx.z_bins = num_bins, z_bins
-        return _bev_pool_forward(depth, feat, ids, num_bins, z_bins)
+        return torch.ops.fiery_torch.bev_pool(depth, feat, ids, num_bins, z_bins)
 
     @staticmethod
     def backward(ctx, g):
@@ -245,14 +257,16 @@ def bev_pool(depth, feat, ids, num_bins, z_bins=1):
     out (S, num_bins // z_bins, C) with out[s, id // z_bins] += depth * feat,
     accumulated in f32 in ascending row order within each voxel, the z_bins voxels
     of a cell added in order, and cast to depth's dtype; its backward is
-    ``bev_pool_backward``. A CPU tensor takes the plain versions; a CUDA tensor
-    launches the kernels (``BEV_POOL_KERNELS`` of them, counted in
-    ``bev_pool.launches``), with no host sync.
+    ``bev_pool_backward``. The forward is ``torch.ops.fiery_torch.bev_pool``
+    (ops/library.py): a CPU tensor takes the plain versions; a CUDA tensor launches
+    the kernels (``BEV_POOL_KERNELS`` of them, counted in ``bev_pool.launches``),
+    with no host sync.
     """
-    _check_pool_inputs('bev_pool', depth, feat, ids, num_bins, z_bins)
+    _check_pool_shapes('bev_pool', depth, feat, ids, num_bins, z_bins)
     if torch.is_grad_enabled() and (depth.requires_grad or feat.requires_grad):
         return _BevPool.apply(depth, feat, ids, num_bins, z_bins)
-    return _bev_pool_forward(depth, feat, ids, num_bins, z_bins)   # no graph to record
+    # no graph to record
+    return torch.ops.fiery_torch.bev_pool(depth, feat, ids, num_bins, z_bins)
 
 
 bev_pool.launches = 0
@@ -421,8 +435,10 @@ def _check_topk_inputs(depth, ids, k):
                          f'{tuple(depth.shape)}')
     if not 1 <= k <= D:
         raise ValueError(f'topk_select: k = {k} outside [1, {D}]')
-    if depth.device.type == 'cpu':
-        return
+
+
+def _check_topk_card(depth, ids):
+    D = depth.shape[-1]
     if depth.device.type != 'cuda' or ids.device != depth.device:
         raise ValueError(f'topk_select: depth and ids must share a CUDA device, got '
                          f'{depth.device} and {ids.device}')
@@ -435,32 +451,37 @@ def _check_topk_inputs(depth, ids, k):
         raise ValueError('topk_select: inputs must be contiguous')
 
 
+def topk_select_card(depth, ids, k):
+    """K5 on the card, the CUDA implementation of ``torch.ops.fiery_torch.topk_select``:
+    (top_w, ids_k, idx) as ``topk_select_plain`` returns them, one launch."""
+    _check_topk_card(depth, ids)
+    D = depth.shape[-1]
+    fn = _build.load('topk_select').fiery_topk_select
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_longlong] + [ctypes.c_int] * 3 \
+        + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    shape = depth.shape[:-1] + (k,)
+    top_w = torch.empty(shape, dtype=depth.dtype, device=depth.device)
+    ids_k = torch.empty(shape, dtype=torch.int32, device=depth.device)
+    idx = torch.empty(shape, dtype=torch.uint8, device=depth.device)
+    stream = torch.cuda.current_stream(depth.device).cuda_stream
+    rc = fn(depth.data_ptr(), ids.data_ptr(), top_w.data_ptr(), ids_k.data_ptr(),
+            idx.data_ptr(), depth.numel() // D, D, k, int(depth.dtype == torch.bfloat16),
+            stream)
+    if rc != 0:
+        raise RuntimeError(f'topk_select kernel launch failed: CUDA error {rc}')
+    topk_select.launches += 1
+    return top_w, ids_k, idx
+
+
 class _TopkSelect(torch.autograd.Function):
     """The select with its backward kernel; the ids get no gradient."""
 
     @staticmethod
     def forward(ctx, depth, ids, k):
-        D = depth.shape[-1]
-        if depth.device.type == 'cpu':
-            top_w, ids_k, idx = topk_select_plain(depth, ids, k)
-        else:
-            fn = _build.load('topk_select').fiery_topk_select
-            fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_longlong] + [ctypes.c_int] * 3 \
-                + [ctypes.c_void_p]
-            fn.restype = ctypes.c_int
-            shape = depth.shape[:-1] + (k,)
-            top_w = torch.empty(shape, dtype=depth.dtype, device=depth.device)
-            ids_k = torch.empty(shape, dtype=torch.int32, device=depth.device)
-            idx = torch.empty(shape, dtype=torch.uint8, device=depth.device)
-            stream = torch.cuda.current_stream(depth.device).cuda_stream
-            rc = fn(depth.data_ptr(), ids.data_ptr(), top_w.data_ptr(), ids_k.data_ptr(),
-                    idx.data_ptr(), depth.numel() // D, D, k,
-                    int(depth.dtype == torch.bfloat16), stream)
-            if rc != 0:
-                raise RuntimeError(f'topk_select kernel launch failed: CUDA error {rc}')
-            topk_select.launches += 1
+        top_w, ids_k, idx = torch.ops.fiery_torch.topk_select(depth, ids, k)
         ctx.save_for_backward(idx)
-        ctx.D = D
+        ctx.D = depth.shape[-1]
         ctx.mark_non_differentiable(ids_k, idx)
         ctx.set_materialize_grads(False)
         return top_w, ids_k, idx
@@ -481,11 +502,14 @@ def topk_select(depth, ids, k):
     (top_w (..., k) in depth's dtype, ids_k (..., k) int32, idx (..., k) uint8): the
     JAX package's ``_topk_select_nosort`` set (ties at the k-th weight take the
     lowest bins) in ascending bin order, and the selected bins. The gradient of
-    top_w flows back to the selected bins (``topk_select_backward``). A CPU tensor
-    takes the plain versions; a CUDA tensor launches the kernels.
+    top_w flows back to the selected bins (``topk_select_backward``). The forward is
+    ``torch.ops.fiery_torch.topk_select`` (ops/library.py): a CPU tensor takes the
+    plain versions; a CUDA tensor launches the kernels.
     """
     _check_topk_inputs(depth, ids, k)
-    return _TopkSelect.apply(depth, ids, k)
+    if torch.is_grad_enabled() and depth.requires_grad:
+        return _TopkSelect.apply(depth, ids, k)
+    return torch.ops.fiery_torch.topk_select(depth, ids, k)     # no graph to record
 
 
 topk_select.launches = 0

@@ -21,7 +21,9 @@ a frame of the input sequence, the latent broadcast over the map, a channel slic
 of a gradient. A gradient laid out otherwise is copied; another operand raises.
 Each wrapper checks and plans a shape once (``_plan``): the access width (16
 bytes where the addresses, strides and channel counts allow it) and the grid. A
-CPU tensor takes the plain versions; a CUDA tensor launches the kernels.
+CPU tensor takes the plain versions; a CUDA tensor launches the kernels. The
+forward launches are the operators ``torch.ops.fiery_torch.gru_reset_concat`` and
+``gru_state_update`` (ops/library.py; CUDA implementations ``*_card``).
 """
 
 import ctypes
@@ -192,13 +194,10 @@ def _empty_rows(B, C, H, W, like):
     return torch.empty((B, H, W, C), dtype=like.dtype, device=like.device).permute(0, 3, 1, 2)
 
 
-def reset_concat(x_t, r_pre, h):
-    """K11's first launch of a step: ``reset_concat_plain`` into a new channels-last
-    (B, C_x + C, H, W) tensor, without autograd. A CPU tensor takes the plain
-    version; a CUDA tensor launches the kernel."""
-    if h.device.type == 'cpu':
-        spatial_gru.plain_calls += 1
-        return reset_concat_plain(x_t, r_pre, h)
+def reset_concat_card(x_t, r_pre, h):
+    """K11's first launch of a step on the card, the CUDA implementation of
+    ``torch.ops.fiery_torch.gru_reset_concat``: ``reset_concat_plain`` into a new
+    channels-last (B, C_x + C, H, W) tensor."""
     B, C, H, W = h.shape
     cat = _empty_rows(B, x_t.shape[1] + C, H, W, h)
     _launch(0, (x_t, r_pre, h, cat))
@@ -206,20 +205,31 @@ def reset_concat(x_t, r_pre, h):
     return cat
 
 
-def state_update(u_pre, h, h_tilde, slot):
-    """K11's second launch of a step: ``state_update_plain`` written into ``slot``
-    (a (B, C, H, W) view of channels-last rows, e.g. out[:, t]) through its
-    storage, without autograd. A CPU tensor takes the plain version; a CUDA tensor
-    launches the kernel."""
-    if h.device.type == 'cpu':
-        spatial_gru.plain_calls += 1
-        # .data: written as the kernel writes it, without bumping the version of
-        # the buffer that autograd tracks
-        slot.data.copy_(state_update_plain(u_pre, h, h_tilde))
-        return slot
-    _launch(1, (u_pre, h, h_tilde, slot))
+def state_update_card(u_pre, h, h_tilde, out, t):
+    """K11's second launch of a step on the card, the CUDA implementation of
+    ``torch.ops.fiery_torch.gru_state_update``: ``state_update_plain`` written into
+    slot t of ``out``, (B, T, C, H, W), whose slots are channels-last rows."""
+    _launch(1, (u_pre, h, h_tilde, out[:, t]))
     spatial_gru.launches += 1
-    return slot
+
+
+def reset_concat(x_t, r_pre, h):
+    """K11's first launch of a step: ``reset_concat_plain`` into a new channels-last
+    (B, C_x + C, H, W) tensor, without autograd, through
+    ``torch.ops.fiery_torch.gru_reset_concat`` (ops/library.py). A CPU tensor takes
+    the plain version; a CUDA tensor launches the kernel."""
+    return torch.ops.fiery_torch.gru_reset_concat(x_t, r_pre, h)
+
+
+def state_update(u_pre, h, h_tilde, out, t):
+    """K11's second launch of a step: ``state_update_plain`` written into slot t of
+    ``out`` (B, T, C, H, W) (``gru_output``'s buffer, or any whose slot t is a view
+    the kernel takes, ``pixel_strides``), without autograd, through
+    ``torch.ops.fiery_torch.gru_state_update``, which declares its write of the
+    whole buffer; returns the slot out[:, t]. A CPU tensor takes the plain version;
+    a CUDA tensor launches the kernel."""
+    torch.ops.fiery_torch.gru_state_update(u_pre, h, h_tilde, out, t)
+    return out[:, t]
 
 
 def reset_concat_backward(dstate, r_pre, h):
@@ -276,7 +286,10 @@ class _StateUpdate(torch.autograd.Function):
     @staticmethod
     def forward(ctx, u_pre, h, h_tilde, out, t):
         ctx.save_for_backward(u_pre, h, h_tilde)
-        return state_update(u_pre, h, h_tilde, out[:, t])
+        # through .data: the slots of earlier steps are saved for their backward, and
+        # a write of the buffer must not move the version autograd checks them by
+        torch.ops.fiery_torch.gru_state_update(u_pre, h, h_tilde, out.data, t)
+        return out[:, t]
 
     @staticmethod
     def backward(ctx, dout):
@@ -354,7 +367,7 @@ def gru_state_update(u_pre, h, h_tilde, out, t):
     K11, second launch of a step); returns that slot, differentiable in u_pre, h and
     h_tilde."""
     if not _recording(u_pre, h, h_tilde):
-        return state_update(u_pre, h, h_tilde, out[:, t])
+        return state_update(u_pre, h, h_tilde, out, t)
     return _StateUpdate.apply(u_pre, h, h_tilde, out, t)
 
 

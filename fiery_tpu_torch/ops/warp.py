@@ -12,6 +12,8 @@ grid are rounded to the feature dtype (as the JAX package computes them in x.dty
 the 4-tap blend is f32, rounded once. The kernels' f32 cos and sin can differ from
 the host's in the last bit; ``card_theta`` gives theta as the kernels compute it,
 and the plain versions on the host, given that theta, compute what the kernels do.
+The bilinear forward is the operator ``torch.ops.fiery_torch.bev_warp``
+(ops/library.py; CUDA implementation ``bev_warp_card``).
 """
 
 import ctypes
@@ -248,6 +250,16 @@ def _gather_entries(H, W, dtype):
     return _kernel('fiery_bev_warp_gather_entries')(H, W, int(dtype == torch.bfloat16))
 
 
+def bev_warp_card(x, pose, extent_x, extent_y):
+    """K2 forward on the card, the CUDA implementation of
+    ``torch.ops.fiery_torch.bev_warp``: one launch of fiery_bev_warp (bilinear), which
+    computes theta from the pose itself."""
+    _check_card('bev_warp', x, pose)
+    out = _launch_warp(x, pose, (extent_x, extent_y), nearest=False)
+    bev_warp.launches += 1
+    return out
+
+
 class _BevWarp(torch.autograd.Function):
     """The bilinear warp with its backward kernel; the pose is input data and gets
     no gradient."""
@@ -256,12 +268,7 @@ class _BevWarp(torch.autograd.Function):
     def forward(ctx, x, pose, spatial_extent):
         ctx.save_for_backward(pose)
         ctx.spatial_extent = spatial_extent
-        if x.device.type == 'cpu':
-            return bev_warp_plain(x, pose, spatial_extent)
-        _check_card('bev_warp', x, pose)
-        out = _launch_warp(x, pose, spatial_extent, nearest=False)
-        bev_warp.launches += 1
-        return out
+        return torch.ops.fiery_torch.bev_warp(x, pose, *spatial_extent)
 
     @staticmethod
     def backward(ctx, g):
@@ -274,11 +281,15 @@ def bev_warp(x, pose, spatial_extent):
 
     x (B, H, W, C) float32 or bfloat16, channels-last; pose (B, 6) float32;
     spatial_extent (extent_x, extent_y) in metres. Returns x warped by each pose,
-    same shape and dtype; its backward is ``bev_warp_backward``. A CPU tensor
-    takes the plain versions; a CUDA tensor launches the kernels.
+    same shape and dtype; its backward is ``bev_warp_backward``. The forward is
+    ``torch.ops.fiery_torch.bev_warp`` (ops/library.py), the extents its float
+    arguments: a CPU tensor takes the plain versions; a CUDA tensor launches the
+    kernels.
     """
     _check_shapes('bev_warp', x, pose)
-    return _BevWarp.apply(x, pose, spatial_extent)
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _BevWarp.apply(x, pose, spatial_extent)
+    return torch.ops.fiery_torch.bev_warp(x, pose, *spatial_extent)   # no graph to record
 
 
 bev_warp.launches = 0

@@ -466,6 +466,18 @@ def make_instance_id_temporally_consistent_device(pred_inst, future_flow,
     return torch.stack(frames, dim=1)
 
 
+def device_consistent(output):
+    """Decode and track on the output's device: (b, s, h, w) int32 temporally
+    consistent instance ids, with no host round trip (K6, K7, then per step two K8
+    and one K9 launches)."""
+    pred_inst = decode_instance_predictions(
+        {k: output[k] for k in ['segmentation', 'instance_center', 'instance_offset']})
+    flow = output.get('instance_flow')
+    if flow is None:
+        flow = torch.zeros_like(output['instance_offset'])
+    return make_instance_id_temporally_consistent_device(pred_inst, flow)
+
+
 # ---------------------------------------------------------------------------
 # Host temporal consistency (scipy Hungarian on numpy ids)
 # ---------------------------------------------------------------------------

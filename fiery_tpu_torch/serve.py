@@ -33,9 +33,9 @@ import os
 import numpy as np
 import torch
 
-from fiery_tpu_torch.evaluate import device_consistent
 from fiery_tpu_torch.models.fiery import Fiery, FieryConfig
-from fiery_tpu_torch.postprocess.instance import predict_instance_segmentation_and_trajectories
+from fiery_tpu_torch.postprocess.instance import (
+    device_consistent, predict_instance_segmentation_and_trajectories)
 from fiery_tpu_torch.serve_graph import ServedFiery
 from fiery_tpu_torch.utils.bn_fold import fold_batchnorm
 from fiery_tpu_torch.utils.device import resolve_device

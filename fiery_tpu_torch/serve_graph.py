@@ -2,7 +2,8 @@
 of the JAX package's ``make_serving_fn`` under ``jax.jit``: one executable at a
 fixed batch).
 
-    served = ServedFiery(model, cfg, batch=1)   # an eval model on the card, BN folded
+    served = ServedFiery(model, cfg, batch=1)   # an eval model on the card, BN folded,
+                                                # or an exported program's module
     out = served.predict(request)             # the forward: one graph replay
     out, ids = served.predict_instances(request)   # + decode and tracking, one replay
 
@@ -27,8 +28,7 @@ counters (``fn.launches``) count the capture's launches, not a replay's.
 import numpy as np
 import torch
 
-from fiery_tpu_torch.evaluate import device_consistent
-from fiery_tpu_torch.models.fiery import FieryConfig
+from fiery_tpu_torch.postprocess.instance import device_consistent
 
 INPUTS = ('image', 'intrinsics', 'extrinsics', 'future_egomotion')
 WARMUP = 2          # eager runs of each path on the capturing stream before its capture
@@ -42,7 +42,8 @@ def request_spec(cfg, batch=1):
     that is 3 of TIME_RECEPTIVE_FIELD 5: the request is the subsampled clip, every
     other frame with the ego-motion of each kept frame composed over the two steps
     to the next, as the JAX package's loader hands the model."""
-    s, n = FieryConfig.from_cfg(cfg).receptive_field, len(cfg.IMAGE.NAMES)
+    s = 3 if cfg.MODEL.SUBSAMPLE else cfg.TIME_RECEPTIVE_FIELD   # FieryConfig's rule
+    n = len(cfg.IMAGE.NAMES)
     H, W = cfg.IMAGE.FINAL_DIM
     return {'image': ((batch, s, n, H, W, 3), torch.uint8),
             'intrinsics': ((batch, s, n, 3, 3), torch.float32),
@@ -69,17 +70,30 @@ def check_request(request, spec):
             raise TypeError(f'{key}: dtype {_dtype_of(value)}, the graph takes {dtype}')
 
 
+def is_eval_forward(model):
+    """Whether ``model`` computes the eval forward: an ``nn.Module`` in eval mode, or
+    the module of an exported program (which keeps the mode it was traced in and may
+    refuse ``.eval()``) that updates no BatchNorm statistics, i.e. holds no
+    ``fiery_torch.batch_norm_train`` node."""
+    if isinstance(model, torch.fx.GraphModule):
+        train = torch.ops.fiery_torch.batch_norm_train.default
+        return not any(node.target is train for node in model.graph.nodes)
+    return not model.training
+
+
 class ServedFiery:
     """``serve.predict`` and ``serve.predict_instances`` of an eval model on the card
     at a fixed batch, each captured as one CUDA graph; ``cfg`` is the model's
-    config."""
+    config. ``model`` is an ``nn.Module`` in eval mode or the module of an exported
+    program (``torch.export``) of the eval forward."""
 
     def __init__(self, model, cfg, batch=1):
         device = next(model.parameters()).device
         if device.type != 'cuda':
             raise RuntimeError(f'a CUDA graph needs the model on a CUDA device, not {device}')
-        if model.training:
-            raise ValueError('the served graph captures the eval forward: call model.eval()')
+        if not is_eval_forward(model):
+            raise ValueError('the served graph captures the eval forward: call model.eval(), '
+                             'or export the eval model')
         self.model = model
         self.spec = request_spec(cfg, batch)
         self.static = {k: torch.zeros(shape, dtype=dtype, device=device)

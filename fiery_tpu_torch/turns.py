@@ -8,7 +8,10 @@ builds its kernels and then measures full-width baseline.yml (PRECISION 16,
 seeded random weights, BatchNorm calibrated on two seeded clips), dense and the
 levers' combination (LIFT.TOPK 8, LIFT.WARP_FREE; DATASET.PREWARP_LABELS in
 training, the labels warped on the host outside the step):
-  * request ms: host clock around ``predict`` + synchronize, after a warm-up;
+  * request ms: host clock around ``predict`` + synchronize, after a warm-up; and
+    the same for the served model, every BatchNorm folded
+    (``serve.seeded_state_dict``, ``build_fiery(..., fold_bn=True)``):
+    ``folded_request_ms_<kind>``;
   * step ms at batch 3: host clock around ``Trainer.train_step`` + synchronize,
     drop-connect and noise drawn on the card, after a warm-up step;
   * the same requests again, with the host time inside the BatchNorm wrapper
@@ -33,8 +36,12 @@ training, the labels warped on the host outside the step):
     bf16: ``k1_host_us``), of the centroids (``segment_centroids``, 8 x 8 ids in
     101 slots with flow: ``k8_host_us``), of the warp and its backward
     (``bev_warp``, ``bev_warp_backward``, 8 x 8 x 64 bf16: ``k2_host_us``,
-    ``k2b_host_us``) and of the centres (``find_instance_centers``, one 16 x 16
-    frame: ``k6_host_us``);
+    ``k2b_host_us``), of the centres (``find_instance_centers``, one 16 x 16
+    frame: ``k6_host_us``), of the top-k select (``topk_select``, the splat's
+    4 x 4 pixels, k = 3: ``k5_host_us``), of an eval BatchNorm (``batch_norm``,
+    8 x 8 x 64 bf16 channels-last, post relu: ``k10_host_us``) and of the GRU's
+    two gate calls (``gru_reset_concat`` and ``gru_state_update`` on 8 x 8 x 64
+    bf16: ``k11_reset_host_us``, ``k11_update_host_us``);
   * last, each of those kernels alone, the same calls in either tree: K2 forward
     at the serve and training shapes (2 and 6 maps of 200 x 200 x 64 bf16), K4 on
     a label stack (12 maps of 200 x 200 x 7 f32) and K6 on a request's 5 frames of
@@ -67,13 +74,15 @@ import torch
 from fiery_tpu_torch.ops import _build
 from fiery_tpu_torch.ops import batch_norm as BN
 from fiery_tpu_torch.ops import lift_splat as LS
+from fiery_tpu_torch.ops import spatial_gru as GRU
 from fiery_tpu_torch.ops import warp as WP
 from fiery_tpu_torch.postprocess import instance as PI
 from fiery_tpu_torch.data.label_warp import make_prewarp_transform
 from fiery_tpu_torch.data.synthetic import SyntheticFutureDataset
 from fiery_tpu_torch.training import losses as L
 from fiery_tpu_torch.serve import (BASELINE, build_fiery, calibrate_batchnorm, init_params,
-                                   make_request, predict, predict_instances)
+                                   make_request, predict, predict_instances,
+                                   seeded_state_dict)
 from fiery_tpu_torch.training.trainer import Trainer
 from fiery_tpu_torch.utils.config import get_cfg
 
@@ -161,6 +170,14 @@ out['k2b_host_us'] = host_us(lambda: WP.bev_warp_backward(grad, pose, (50.0, 50.
 out['k2_host_us'] = host_us(lambda: WP.bev_warp(grad, pose, (50.0, 50.0)))
 heat = torch.rand((1, 16, 16), generator=gen, device='cuda')
 out['k6_host_us'] = host_us(lambda: PI.find_instance_centers(heat))
+out['k5_host_us'] = host_us(lambda: LS.topk_select(depth, ids, 3))
+rows = grad.permute(0, 3, 1, 2)                # (1, 64, 8, 8) channels-last
+ones, zeros = torch.ones(64, device='cuda'), torch.zeros(64, device='cuda')
+out['k10_host_us'] = host_us(lambda: BN.batch_norm(rows, ones, zeros, zeros, ones, False, 0.1,
+                                                   1e-5, 'relu'))
+slots = GRU.gru_output(rows, 2)
+out['k11_reset_host_us'] = host_us(lambda: GRU.gru_reset_concat(rows, rows, rows))
+out['k11_update_host_us'] = host_us(lambda: GRU.gru_state_update(rows, rows, rows, slots, 0))
 
 
 
@@ -209,6 +226,11 @@ for kind, opts in (('dense', []), ('combo', combo)):
     profiled(lambda: predict(model, reqs[1]), out, f'request_ms_{kind}')
     profiled(lambda: predict_instances(model, reqs[1]), out, f'instances_ms_{kind}')
     del model
+    folded = build_fiery(cfg, state_dict=seeded_state_dict(cfg, seed=0), fold_bn=True)
+    ms = [timed(lambda r=r: predict(folded, r)) for r in reqs]
+    out[f'folded_request_ms_{kind}'] = statistics.median(ms[1:])
+    out[f'folded_request_ms_{kind}_all'] = ms[1:]
+    del folded
     topts = ['DATASET.NAME', 'synthetic'] + opts + (
         ['DATASET.PREWARP_LABELS', 'True'] if kind == 'combo' else [])
     cfg = get_cfg(argparse.Namespace(config_file=BASELINE, opts=topts))

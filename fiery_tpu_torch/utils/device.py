@@ -8,6 +8,7 @@ a run copies them, and every later call reuses them without a host sync.
 import functools
 
 import torch
+from torch._subclasses.fake_tensor import unset_fake_temporarily
 
 
 @functools.lru_cache(maxsize=None)
@@ -20,9 +21,16 @@ def _constant(values, dtype, device):
 
 def device_constant(values, dtype, device):
     """torch.tensor(values, dtype=dtype, device=device), made on the first call for
-    these values and reused after; callers must not modify it."""
-    return _constant(tuple(v.item() if hasattr(v, 'item') else v for v in values), dtype,
-                     torch.device(device))
+    these values and reused after; callers must not modify it. Under
+    ``torch.export`` it is made outside the trace's fake tensors, so that the cache
+    holds a real tensor that later calls may use, and the program takes it as a
+    constant, as an eager call does (a tensor made in the trace would be copied
+    anew at every call of the program)."""
+    values = tuple(v.item() if hasattr(v, 'item') else v for v in values)
+    if torch.compiler.is_exporting():
+        with unset_fake_temporarily():
+            return _constant(values, dtype, torch.device(device))
+    return _constant(values, dtype, torch.device(device))
 
 
 def resolve_device(device=None):

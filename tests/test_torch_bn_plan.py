@@ -90,9 +90,9 @@ def test_large_calls_fill_the_card_and_small_ones_take_what_their_rows_fill():
 
 @pytest.fixture
 def caught(monkeypatch):
-    """The kernels' arguments, caught: the wrapper runs its card path on 'meta'
-    tensors, and each launch lands in the returned list; the plan cache and the
-    counters are the test's own."""
+    """The kernels' arguments, caught: the card path (``batch_norm_card``, the
+    operators' CUDA implementation) runs on 'meta' tensors, and each launch lands
+    in the returned list; the plan cache and the counters are the test's own."""
     calls = []
 
     def fn(name):
@@ -134,7 +134,8 @@ def test_wrappers_hand_the_plan_and_a_partial_slot_per_block(caught, monkeypatch
     x = _meta_rows(shape)
     params = [torch.empty(C, device='meta') for _ in range(4)]
     fwd0, bwd0 = BN.batch_norm_forward.launches, BN.batch_norm_backward.launches
-    _, mean, var, clamp = BN.batch_norm_forward(x, *params, training, 0.1, 1e-3, 'swish')
+    _, stats = BN.batch_norm_card(x, *params, training, 0.1, 1e-3, 'swish', None)
+    mean, var, clamp = stats if training else (params[2], params[3], None)
     assert BN.batch_norm_forward.launches == fwd0 + (2 if training else 1)
     M = x.numel() // C
     V, fold = BN.vector_width(C, 2, rows=M)

@@ -86,9 +86,10 @@ def test_grid_covers_every_pixel_once(P, G):
 
 @pytest.fixture
 def caught(monkeypatch):
-    """The kernel's arguments, caught: the wrappers run their card path on 'meta'
-    tensors, and each launch lands in the returned list as (plan fields,
-    pointers); the plan cache and the counters are the test's own."""
+    """The kernel's arguments, caught: the card paths (``*_card``, the operators'
+    CUDA implementations) run on 'meta' tensors, and each launch lands in the
+    returned list as (plan fields, pointers); the plan cache and the counters are
+    the test's own."""
     calls = []
 
     def fn(plan, *args):
@@ -122,7 +123,7 @@ def test_wrappers_hand_the_plan_and_count_launches(caught, x_layout):
     h, h_st = L['slot']
     r_pre, u_pre, ht = (rows((B, 64, H, W), device='meta') for _ in range(3))
     conv = L['conv output'][1]
-    cat = GRU.reset_concat(x_t, r_pre, h)
+    cat = GRU.reset_concat_card(x_t, r_pre, h)
     assert cat.shape == (B, Cx + 64, H, W) and GRU.pixel_strides(cat) == (
         H * W * (Cx + 64), Cx + 64)
     plan, ptrs = caught[-1]
@@ -130,7 +131,7 @@ def test_wrappers_hand_the_plan_and_count_launches(caught, x_layout):
                                 [x_st, conv, h_st, GRU.pixel_strides(cat)])
     assert len(ptrs) == GRU.MAX_OPERANDS + 1 and ptrs[4:7] == (None,) * 3
     out = GRU.gru_output(h, T)
-    GRU.state_update(u_pre, h, ht, out[:, 1])
+    GRU.state_update_card(u_pre, h, ht, out, 1)
     assert caught[-1][0] == _plan_fields(1, 8, 8, 0, [conv, h_st, conv, h_st])
     assert GRU.spatial_gru.launches == 2
     dcat, dcat_st = L['dcat state half']
@@ -148,7 +149,7 @@ def test_plans_are_made_once_per_key(caught):
     r_pre, h = rows((B, 64, H, W), device='meta'), rows((B, 64, H, W), device='meta')
     x_t = rows((B, 32, H, W), device='meta')
     for _ in range(3):
-        GRU.reset_concat(x_t, r_pre, h)
+        GRU.reset_concat_card(x_t, r_pre, h)
     assert len(GRU._PLANS) == 1 and len(caught) == 3
     plan = GRU._plan(0, (x_t, r_pre, h, rows((B, 96, H, W), device='meta')), 4)
     assert list(plan)[2] == 2 and len(GRU._PLANS) == 2
@@ -162,9 +163,9 @@ def test_gradients_of_other_layouts_are_copied_and_inputs_refused(caught):
     GRU.state_update_backward(dout, u_pre, h, ht)
     assert caught[-1][0][9:11] == [H * W * 64, 64]
     with pytest.raises(ValueError):
-        GRU.state_update(dout, h, ht, rows((B, 64, H, W), device='meta'))
+        GRU.state_update_card(dout, h, ht, rows((B, 64, H, W), device='meta')[:, None], 0)
     with pytest.raises(ValueError):
-        GRU.reset_concat(rows((B, 32, H, W), torch.float32, 'meta'), r_pre, h)
+        GRU.reset_concat_card(rows((B, 32, H, W), torch.float32, 'meta'), r_pre, h)
     with pytest.raises(ValueError):
-        GRU.reset_concat(rows((B, 32, H, W), device='meta'), rows((B, 48, H, W),
-                                                                  device='meta'), h)
+        GRU.reset_concat_card(rows((B, 32, H, W), device='meta'),
+                              rows((B, 48, H, W), device='meta'), h)

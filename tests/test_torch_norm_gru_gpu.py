@@ -243,7 +243,7 @@ def test_spatial_gru_kernels_match_plain(cuda, B, Cx, dtype):
     cat = GRU.reset_concat(x[:, 1], r_pre, h)
     assert _within(cat, GRU.reset_concat_plain(x[:, 1], r_pre, h), dtype)
     out = GRU.gru_output(h, T)
-    GRU.state_update(u_pre, h, ht, out[:, 2])
+    GRU.state_update(u_pre, h, ht, out, 2)
     assert _within(out[:, 2], GRU.state_update_plain(u_pre, h, ht), dtype)
     assert GRU.spatial_gru.launches == launches + 2
     tol = 1e-5 if dtype == torch.float32 else 1e-2
@@ -280,7 +280,7 @@ def gru_sweep(cuda, C, offset=0):
     x_t = operand(torch.randn(65536, generator=gen, device=cuda).to(torch.bfloat16))
     g = operand(torch.randn(65536, generator=gen, device=cuda).to(torch.bfloat16))
     slot = operand(torch.zeros_like(every))
-    got = {'cat': GRU.reset_concat(x_t, z, h), 'h_new': GRU.state_update(z, h, ht, slot)}
+    got = {'cat': GRU.reset_concat(x_t, z, h), 'h_new': GRU.state_update(z, h, ht, slot[:, None], 0)}
     want = {'cat': GRU.reset_concat_plain(x_t, z, h), 'h_new': GRU.state_update_plain(z, h, ht)}
     for name, a, c in zip(('dr_pre', 'dh_reset', 'du_pre', 'dh_update', 'dh_tilde'),
                           GRU.reset_concat_backward(g, z, h) + GRU.state_update_backward(

@@ -1,7 +1,9 @@
 """On the card: the served form (``serve.build_served``: BatchNorm folded, both
 requests captured as CUDA graphs) at a tiny config against the eager folded model,
 every output and id bit for bit on requests other than the one captured, with no
-Python launch during a replay. Every test needs a CUDA device and skips without one.
+Python launch during a replay; and the same of the exported program
+(``export.export_model`` on the card, ``load_exported``), which refuses to load on
+the CPU. Every test needs a CUDA device and skips without one.
 
 The file imports nothing of JAX, so that it runs where JAX is not installed:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_served_gpu.py
@@ -10,11 +12,13 @@ The file imports nothing of JAX, so that it runs where JAX is not installed:
 import pytest
 import torch
 
+from fiery_tpu_torch.export import export_model, load_exported, read_artifact
 from fiery_tpu_torch.ops.batch_norm import batch_norm_forward
 from fiery_tpu_torch.ops.lift_splat import bev_pool
 from fiery_tpu_torch.postprocess.instance import instance_ids
 from fiery_tpu_torch.serve import (build_fiery, build_served, make_request, predict,
                                    predict_instances, seeded_state_dict)
+from fiery_tpu_torch.serve_graph import ServedFiery
 from fiery_tpu_torch.utils.config import get_cfg
 
 pytestmark = pytest.mark.gpu
@@ -69,3 +73,37 @@ def test_replay_equals_the_eager_folded_model(cuda, levers):
     assert all(torch.equal(kept[k], got[k]) for k in kept)
     assert not torch.equal(predict(eager, make_request(cfg, 13))['segmentation'],
                            got['segmentation'])
+
+
+@pytest.mark.parametrize('levers', [{}, {'TOPK': 3, 'WARP_FREE': True}],
+                         ids=['dense', 'combo'])
+def test_the_exported_program_replays_the_eager_folded_model(cuda, levers, tmp_path):
+    cfg = get_cfg(cfg_dict={**TINY, 'LIFT': {**TINY['LIFT'], **levers}})
+    state_dict = seeded_state_dict(cfg, seed=0)
+    path = tmp_path / 'model.fiery'
+    path.write_bytes(export_model(cfg, state_dict=state_dict)[0])
+    assert read_artifact(str(path))['device'] == torch.device('cuda',
+                                                              torch.cuda.current_device())
+    with pytest.raises(ValueError, match='does not run on cpu'):
+        load_exported(str(path), device='cpu')
+    served = load_exported(str(path))
+    assert isinstance(served, ServedFiery) and isinstance(served.model, torch.fx.GraphModule)
+    eager = build_fiery(cfg, state_dict=state_dict, fold_bn=True)
+    counts = (bev_pool.launches, batch_norm_forward.launches, instance_ids.launches)
+    with torch.inference_mode():
+        served.model(*(served.static[k] for k in ('image', 'intrinsics', 'extrinsics',
+                                                  'future_egomotion')))
+    assert bev_pool.launches > counts[0] and batch_norm_forward.launches > counts[1]
+    for seed in (10, 11):
+        request = make_request(cfg, seed)
+        before = (bev_pool.launches, batch_norm_forward.launches, instance_ids.launches)
+        got, got_ids = served.predict_instances(request)
+        got_bare = served.predict(request)
+        assert (bev_pool.launches, batch_norm_forward.launches,
+                instance_ids.launches) == before       # a replay calls no wrapper
+        want, want_ids = predict_instances(eager, request)
+        assert torch.equal(got_ids, want_ids)
+        assert sorted(got) == sorted(want) == sorted(got_bare)
+        for k, v in want.items():
+            assert torch.isfinite(v).all() and torch.equal(got[k], v), k
+            assert torch.equal(got_bare[k], v), k

@@ -75,9 +75,9 @@ def test_blocks_cover_every_output_value_once(shape, itemsize):
 
 @pytest.fixture
 def caught(monkeypatch):
-    """The forward kernel's arguments, caught: the wrappers run their card path on
-    'meta' tensors and each launch lands in the returned list; the counters are
-    the test's own."""
+    """The forward kernel's arguments, caught: the card paths (``bev_warp_card``, the
+    operator's CUDA implementation, and ``bev_warp_nearest``) run on 'meta' tensors
+    and each launch lands in the returned list; the counters are the test's own."""
     calls = []
     monkeypatch.setattr(W, '_kernel', lambda name: lambda *a: calls.append((name, a)) or 0)
     monkeypatch.setattr(W, '_check_card', lambda *a: None)
@@ -94,7 +94,7 @@ def test_wrappers_hand_the_plan(caught, dtype):
     map starting 2 values past a 16-byte boundary takes a narrower access."""
     x = torch.empty((6, 200, 200, 64), dtype=dtype, device='meta')
     pose = torch.empty((6, 6), device='meta')
-    W.bev_warp(x, pose, (50.0, 25.0))
+    W.bev_warp_card(x, pose, 50.0, 25.0)
     W.bev_warp_nearest(x, pose, (50.0, 25.0))
     assert (W.bev_warp.launches, W.bev_warp_nearest.launches) == (1, 1)
     es = x.element_size()
@@ -105,5 +105,5 @@ def test_wrappers_hand_the_plan(caught, dtype):
         assert args[13:18] == W.warp_plan(6, 200, 200, 64, es, 0)
     shifted = torch.empty(6 * 200 * 200 * 64 + 2, dtype=dtype, device='meta')[2:].view(
         6, 200, 200, 64)
-    W.bev_warp(shifted, pose, (50.0, 25.0))
+    W.bev_warp_card(shifted, pose, 50.0, 25.0)
     assert caught[-1][1][13] == 2             # 4 bytes in (bf16), 8 bytes (f32)
