@@ -101,7 +101,22 @@ Builds the package's CUDA kernels from csrc/, then:
      copies of a profiled step, the loop's step walls with the loader's wait, the
      loader's rate alone, the checkpoint's cost and VPQ from both trackers; then
      requires every launch of four profiled K10 windows after it.
- 12. the JAX package's other config families (phase_families, FAMILIES): the
+ 12. the nuScenes and Lyft loader on trees of real JPEGs that the port's writer
+     makes in a temporary directory (phase_real_set; ``--only real_set`` runs it
+     alone): a nuScenes mini tree at 1600 x 900 (3 scenes of 12 samples) and a
+     Lyft tree at lyft/baseline.yml's 1920 x 1080 (2 scenes of 17); the loader
+     alone on baseline.yml at batch 3 (a sample's decode, rasterisation and
+     label generation ms on one core, batches a second in N_WORKERS workers,
+     every image by the decoder the machine has: the native pipe where it
+     builds, else PIL; the prewarp's ms in the workers and whether the loader or
+     the step sets the pace); python -m fiery_tpu_torch.train on it at full
+     width, PRECISION 16, batch 3, VIS_INTERVAL 1 (3 steps; LOOP_DENSE's
+     launches, finite losses, the train and val videos as GIFs of 5 frames),
+     one combination epoch with the prewarp in the workers, the evaluation CLI
+     with both trackers (finite IoU and VPQ), one epoch of lyft/baseline.yml (15
+     frames loaded, 8 kept), and the visualise CLI where matplotlib imports;
+     each step's wall and loader wait.
+ 13. the JAX package's other config families (phase_families, FAMILIES): the
      single-frame model (single_timeframe.yml), the temporal model without a
      future (temporal_single_timeframe.yml), both on PON's 400 x 200 grid
      (static_pon_setting.yml, pon_setting.yml), fishing_setting.yml (320 x 192,
@@ -152,11 +167,15 @@ import scipy.optimize
 import torch
 import torch.nn.functional as F
 
+from fiery_tpu_torch.data.dataset import prepare_dataloaders
 from fiery_tpu_torch.data.label_warp import make_prewarp_transform
+from fiery_tpu_torch.data.labels import convert_instance_mask_to_center_and_offset_label
 from fiery_tpu_torch.data.synthetic import SyntheticFutureDataset
 from fiery_tpu_torch.evaluate import device_consistent
 from fiery_tpu_torch.models.fiery import FieryConfig
 from fiery_tpu_torch.models.layers import BatchNorm, _InputDtype
+from fiery_tpu_torch.native import build_error as native_build_error
+from fiery_tpu_torch.native import image_pipe_available
 from fiery_tpu_torch.ops import _build
 from fiery_tpu_torch.ops.batch_norm import (POSTS, batch_norm_backward,
                                             batch_norm_backward_plain, batch_norm_forward,
@@ -2047,15 +2066,22 @@ def path_launches(name, run, expected, absent=()):
 
 def loop_walls(name, run):
     """The loop's steps by the host clock: the wait on the loader, and the rest of
-    each step (LOGGING_INTERVAL 1: every step ends in a synchronising read)."""
+    each step (LOGGING_INTERVAL 1: every step ends in a synchronising read), and
+    the ms of each step's video where the run drew one (outside the step)."""
     waits = [r['loader_wait_ms'] for r in run.steps]
     steps = [r['step_ms'] for r in run.steps]
     walls = [a + b for a, b in zip(waits, steps)]
-    log(f'{name}: steps {[r["step"] for r in run.steps]} loader_wait_ms='
-        f'{[round(x, 3) for x in waits]} step_ms={[round(x, 3) for x in steps]} '
-        f'wall_ms={[round(x, 3) for x in walls]}; after the first step of each epoch: '
-        f'median wait {statistics.median(waits[1:]):.3f}, step {statistics.median(steps[1:]):.3f}, '
-        f'wall {statistics.median(walls[1:]):.3f}')
+    videos = [r['video_ms'] for r in run.steps]
+    line = (f'{name}: steps {[r["step"] for r in run.steps]} loader_wait_ms='
+            f'{[round(x, 3) for x in waits]} step_ms={[round(x, 3) for x in steps]} '
+            f'wall_ms={[round(x, 3) for x in walls]}')
+    if any(v is not None for v in videos):
+        line += f' video_ms={[v if v is None else round(v, 3) for v in videos]}'
+    if len(steps) > 1:
+        line += (f'; after the first step of each epoch: median wait '
+                 f'{statistics.median(waits[1:]):.3f}, step {statistics.median(steps[1:]):.3f}, '
+                 f'wall {statistics.median(walls[1:]):.3f}')
+    log(line)
     return {'loader_wait_ms': waits, 'step_ms': steps}
 
 
@@ -2076,7 +2102,6 @@ def phase_train_loop():
     the loader's batches a second; the checkpoint's cost; VPQ of both trackers."""
     from fiery_tpu_torch import evaluate as evaluate_cli
     from fiery_tpu_torch import train as train_cli
-    from fiery_tpu_torch.data.dataset import prepare_dataloaders
     from fiery_tpu_torch.training.trainer import step_generator
     from fiery_tpu_torch.utils.checkpoint import (host_copy, load_checkpoint, save_checkpoint,
                                                   save_checkpoint_async, serialise,
@@ -2238,6 +2263,299 @@ def phase_train_loop():
                 'evaluate': results}
     finally:
         shutil.rmtree(log_dir, ignore_errors=True)
+
+
+LYFT_BASELINE = os.path.join(os.path.dirname(BASELINE), 'lyft', 'baseline.yml')
+
+
+def real_set_opts(tree, log_dir, name='nuscenes'):
+    return ['DATASET.NAME', name, 'DATASET.VERSION', 'mini', 'DATASET.DATAROOT', tree,
+            'LOGGING_INTERVAL', '1', 'LOG_DIR', log_dir]
+
+
+def write_trees(root):
+    """A nuScenes mini tree at 1600 x 900 (2 train scenes and 1 val scene of 12
+    samples) and a Lyft tree at lyft/baseline.yml's IMAGE.W x IMAGE.H (1 train and
+    1 val scene of 17 samples, for its 15-frame windows), written at once by two
+    processes of the writer's CLI. Returns (nuScenes dataroot, Lyft dataroot,
+    {tree: s}, the Lyft images' (w, h))."""
+    lyft_cfg = get_cfg(argparse.Namespace(config_file=LYFT_BASELINE, opts=[]))
+    size = (lyft_cfg.IMAGE.W, lyft_cfg.IMAGE.H)
+    nusc, lyft = os.path.join(root, 'nusc'), os.path.join(root, 'lyft')
+    cmd = [sys.executable, '-m', 'fiery_tpu_torch.data.fake_nuscenes']
+    cmds = {'nuscenes': cmd + [nusc],
+            'lyft': cmd + [lyft, '--lyft', '--train-scenes', '1', '--val-scenes', '1',
+                           '--samples', '17', '--width', str(size[0]),
+                           '--height', str(size[1])]}
+    t0 = time.perf_counter()
+    procs = {k: subprocess.Popen(c, cwd=os.path.dirname(os.path.abspath(__file__)),
+                                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for k, c in cmds.items()}
+    seconds = {}
+    try:
+        for k, proc in procs.items():
+            text, _ = proc.communicate(timeout=600)
+            seconds[k] = time.perf_counter() - t0
+            if proc.returncode != 0:
+                raise RuntimeError(f'writing the {k} tree failed (rc={proc.returncode}):\n{text}')
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    return nusc, lyft, seconds, size
+
+
+def tree_bytes(root):
+    return sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(root) for f in fs)
+
+
+def sample_breakdown(ds, i):
+    """ms of one sample's pieces on this process's one core: the decode of its
+    frames' JPEGs (with the calibrations), the rasterisation of its labels, and the
+    label generation (centerness, offset, flow)."""
+    recs = [ds.ixes[j] for j in ds.indices[i]]
+    t0 = time.perf_counter()
+    for rec in recs:
+        ds.get_input_data(rec)
+    t1 = time.perf_counter()
+    instance_map, instances = {}, []
+    for rec in recs:
+        _, inst, _, instance_map, _ = ds.get_label_cached(rec, instance_map)
+        instances.append(inst.astype(np.int32))
+    t2 = time.perf_counter()
+    ego = np.stack([ds.get_future_egomotion(rec, j).astype(np.float32)
+                    for rec, j in zip(recs, ds.indices[i])])
+    convert_instance_mask_to_center_and_offset_label(
+        np.stack(instances), ego, num_instances=len(instance_map),
+        ignore_index=ds.cfg.DATASET.IGNORE_INDEX, subtract_egomotion=True,
+        spatial_extent=ds.spatial_extent)
+    t3 = time.perf_counter()
+    return {'decode_ms': 1e3 * (t1 - t0), 'rasterise_ms': 1e3 * (t2 - t1),
+            'labels_ms': 1e3 * (t3 - t2), 'images': len(recs) * len(ds.cfg.IMAGE.NAMES)}
+
+
+def loader_epochs(cfg):
+    """Two epochs of the train loader that serves the card, its worker pool kept
+    between them: {'batches' (an epoch's), 'pool_s' (the pool's start),
+    'first_batch_s', 'rest_s' (the rest of the first epoch), 'epoch2_s'}, and the
+    loader."""
+    loader, _ = prepare_dataloaders(cfg, device='cuda')
+    loader._get_pool()
+    t0 = time.perf_counter()
+    batches = iter(loader)
+    next(batches)
+    t1 = time.perf_counter()
+    n = 1 + sum(1 for _ in batches)
+    t2 = time.perf_counter()
+    sum(1 for _ in loader)
+    t3 = time.perf_counter()
+    loader.shutdown()
+    return {'batches': n, 'pool_s': loader.pool_start_s, 'first_batch_s': t1 - t0,
+            'rest_s': t2 - t1, 'epoch2_s': t3 - t2}, loader
+
+
+def check_decoders(name, counts, n_images=None, crop_leaves_image=False):
+    """Every image went through the native pipe where it builds, else through PIL.
+    Where the crop leaves the resized image (lyft/baseline.yml) the pipe refuses
+    each call and PIL decodes it. n_images: the images expected, if known."""
+    counts = dict(counts)
+    n = counts.get('native', 0) + counts.get('pil', 0)
+    if not image_pipe_available():
+        want = {'pil': n}
+    elif crop_leaves_image:
+        want = {'native_refused': n, 'pil': n}
+    else:
+        want = {'native': n}
+    if n == 0 or counts != want or (n_images is not None and n != n_images):
+        raise AssertionError(f'{name}: decode counts {counts}, expected {want} '
+                             f'({n_images} images)')
+    return counts
+
+
+def video_frames(run, n_frames, h, w):
+    """The run's videos: n_frames frames of (h, w), each written as a GIF of that
+    size; returns their file names."""
+    from PIL import Image
+    names = []
+    for video in run.videos:
+        with Image.open(video['path']) as gif:
+            size = gif.size
+        if tuple(video['shape']) != (1, n_frames, h, w, 3) or size != (w, h):
+            raise AssertionError(f'{video["path"]}: frames {video["shape"]}, GIF {size}, '
+                                 f'expected {n_frames} frames of {(h, w)}')
+        names.append(os.path.basename(video['path']))
+    return names
+
+
+def finite_losses(name, run):
+    losses = [r['total_loss'] for r in read_metrics(run.save_dir) if 'total_loss' in r]
+    if len(losses) != len(run.steps) or not np.all(np.isfinite(losses)):
+        raise AssertionError(f'{name}: total losses {losses} for {len(run.steps)} steps')
+    return losses
+
+
+def phase_real_set():
+    """The nuScenes and Lyft loader at full width on trees of real JPEGs that the
+    port's writer makes (1600 x 900, and lyft/baseline.yml's 1920 x 1080): the
+    loader alone (batches a second, a sample's decode, rasterisation and label
+    generation, the decode counts, the prewarp in the workers), the training CLI on
+    baseline.yml (PRECISION 16, batch 3, EPOCHS 1, VIS_INTERVAL 1: 3 steps, the
+    launches of LOOP_DENSE, finite losses, the train and val videos), one epoch of
+    the combination with the prewarp in the workers, the evaluation CLI with both
+    trackers, and one epoch of lyft/baseline.yml; the visualise CLI where
+    matplotlib imports. Returns the numbers it printed."""
+    from fiery_tpu_torch import evaluate as evaluate_cli
+    from fiery_tpu_torch import train as train_cli
+    from fiery_tpu_torch import visualise as visualise_cli
+    from fiery_tpu_torch.data.nuscenes_dataset import build_real_datasets
+    cores = len(os.sched_getaffinity(0))
+    log(f'real set: native pipe {"built" if image_pipe_available() else "unavailable"} '
+        f'({native_build_error()}); {cores} cores; {smi_line()}')
+    root = tempfile.mkdtemp(prefix='fiery_real_set_')
+    out = {}
+    try:
+        # 1. the trees
+        nusc, lyft, seconds, lyft_size = write_trees(root)
+        out['trees'] = {'nuscenes_bytes': tree_bytes(nusc), 'lyft_bytes': tree_bytes(lyft),
+                        'seconds': seconds}
+        log(f'real set trees, written at once: nuScenes mini 1600x900, 3 scenes of 12 '
+            f'samples, {out["trees"]["nuscenes_bytes"]} bytes, in {seconds["nuscenes"]:.3f} '
+            f's; Lyft {lyft_size[0]}x{lyft_size[1]}, 2 scenes of 17 samples, '
+            f'{out["trees"]["lyft_bytes"]} bytes, in {seconds["lyft"]:.3f} s')
+
+        # 2. the loader alone, baseline.yml, batch 3, 7-frame windows
+        log_dir = os.path.join(root, 'runs')
+        cfg = get_cfg(argparse.Namespace(config_file=BASELINE,
+                                         opts=real_set_opts(nusc, log_dir)))
+        ds = build_real_datasets(cfg)[0]
+        images = ds.sequence_length * len(cfg.IMAGE.NAMES)      # a sample's JPEGs
+        parts = [sample_breakdown(ds, i) for i in range(3)]
+        ds.take_decode_counts()
+        log(f'real set sample (one core, {images} JPEGs): ' + json.dumps(
+            [{k: round(v, 3) for k, v in p.items()} for p in parts]))
+        if image_pipe_available():
+            # the pipe's pixels against PIL's, on the tree's JPEGs at baseline's resize
+            paths = [os.path.join(ds.dataroot, ds.nusc.get('sample_data', ds.ixes[0][
+                'data'][cam])['filename']) for cam in cfg.IMAGE.NAMES]
+            native_px = ds._load_images(paths)
+            ds._native_images = False
+            pil_px = ds._load_images(paths)
+            ds._native_images = None
+            diff = np.abs(native_px.astype(np.int16) - pil_px)
+            if diff.max() > 1:
+                raise AssertionError(f'native pipe vs PIL: {diff.max()} LSB')
+            log(f'native pipe vs PIL on {len(paths)} JPEGs: {int((diff > 0).sum())} of '
+                f'{diff.size} values differ by 1 LSB')
+        rate, loader = loader_epochs(cfg)
+        counts = check_decoders('loader alone', loader.decode_counts,
+                                2 * rate['batches'] * cfg.BATCHSIZE * images)
+        rate['batches_per_s'] = rate['batches'] / rate['epoch2_s']
+        log(f'real set loader alone ({cfg.N_WORKERS} workers on {cores} cores, epochs of '
+            f'{rate["batches"]} batches of {cfg.BATCHSIZE}): pool start '
+            f'{rate["pool_s"]:.3f} s, first batch {rate["first_batch_s"]:.3f} s, the rest '
+            f'of the epoch {rate["rest_s"]:.3f} s, a second epoch {rate["epoch2_s"]:.3f} s '
+            f'({rate["batches_per_s"]:.3f} batches/s); decode counts {json.dumps(counts)}')
+        out['loader'] = rate
+        out['samples'] = parts
+        # one core's ms a batch of 3
+        batch_ms = cfg.BATCHSIZE * statistics.median(
+            p['decode_ms'] + p['rasterise_ms'] + p['labels_ms'] for p in parts)
+
+        # 3. training and evaluation at full width on the nuScenes tree
+        opts = real_set_opts(nusc, log_dir) + ['EPOCHS', '1', 'VIS_INTERVAL', '1']
+        run, _ = path_launches('real set train', lambda: train_cli.main(
+            ['--config', BASELINE, *opts]), LOOP_DENSE)
+        losses = finite_losses('real set train', run)
+        if [r['step'] for r in run.steps] != [1, 2, 3]:
+            raise AssertionError(f'real set train: steps {run.steps}')
+        # a panel a frame from the present on: 5 rows of BEV maps, GT | prediction
+        X, Y = (int(v) for v in ds.bev_dimension[:2])
+        n_frames = cfg.N_FUTURE_FRAMES + 1
+        names = video_frames(run, n_frames, 5 * X, 2 * Y)
+        if sorted(names) != ['train_outputs_step1.gif', 'train_outputs_step2.gif',
+                             'train_outputs_step3.gif', 'val_outputs_step3.gif']:
+            raise AssertionError(f'real set videos: {names}')
+        counts = [check_decoders(f'real set {k}', l.decode_counts)
+                  for k, l in zip(('train', 'val'), run.loaders)]
+        log(f'real set train: losses {[round(x, 4) for x in losses]}; videos {names} '
+            f'({n_frames} frames of {2 * Y} x {5 * X}); decode counts train '
+            f'{json.dumps(counts[0])}, val {json.dumps(counts[1])}')
+        loop_walls('real set train steps', run)
+        log(f'real set train: pool start {run.loaders[0].pool_start_s:.3f} s (train), '
+            f'{run.loaders[1].pool_start_s:.3f} s (val)')
+        out['train'] = run.steps
+        step_ms = statistics.median(r['step_ms'] for r in run.steps[1:])
+        waits = [round(r['loader_wait_ms'], 3) for r in run.steps]
+        final = os.path.join(run.save_dir, 'checkpoint_final')
+        del run
+
+        combo, _ = path_launches('real set train combination', lambda: train_cli.main(
+            ['--config', BASELINE, *real_set_opts(nusc, log_dir), 'EPOCHS', '1',
+             *COMBO_TRAIN_OPTS]), LOOP_COMBO,
+            absent=('bev_warp', 'bev_warp_backward', 'bev_warp_nearest'))
+        finite_losses('real set train combination', combo)
+        prewarps = combo.loaders[0].transform_ms
+        if len(prewarps) < len(combo.steps):
+            raise AssertionError(f'real set combination: prewarp ran {len(prewarps)} times')
+        loop_walls('real set train combination steps', combo)
+        # F4: the prewarp's share of a batch's work in a worker, and the pace
+        prewarp_ms = statistics.median(prewarps)
+        busy = min(cores, cfg.N_WORKERS, rate['batches'])
+        log(f'real set pace (F4): the prewarp in the workers {[round(x, 3) for x in prewarps]} '
+            f'ms a batch, median {prewarp_ms:.3f}, {100 * prewarp_ms / batch_ms:.1f}% of a '
+            f'batch of {cfg.BATCHSIZE} on one core ({batch_ms:.3f} ms); the loader alone made '
+            f'a batch each {1e3 / rate["batches_per_s"]:.3f} ms with {busy} workers busy, '
+            f'against a dense step of {step_ms:.3f} ms (median of steps 2-3): the '
+            f'{"loader" if 1e3 / rate["batches_per_s"] > step_ms else "step"} sets the pace; '
+            f'the dense loop\'s waits {waits} ms')
+        out['combo'] = {'steps': combo.steps, 'prewarp_ms': prewarps}
+        out['pace'] = {'batch_ms': batch_ms, 'prewarp_ms': prewarp_ms, 'step_ms': step_ms}
+        del combo
+
+        results = {}
+        for matching, extra in ((False, []), (True, ['--device-matching'])):
+            results[matching], _ = path_launches(
+                f'real set evaluate{" --device-matching" if matching else ""}',
+                lambda: evaluate_cli.main(['--checkpoint', final, '--max-batches', '2',
+                                           *extra]),
+                EVAL_KERNELS + (('segment_centroids', 'lap') if matching else ()),
+                absent=() if matching else ('segment_centroids', 'lap'))
+            if not all(np.isfinite(v) for v in results[matching].values()):
+                raise AssertionError(f'real set evaluate: {results[matching]}')
+        log('real set evaluate (2 val windows), device tracker against host tracker: '
+            + json.dumps({k: [float(results[True][k]), float(results[False][k])]
+                          for k in results[True]}))
+        out['evaluate'] = results
+
+        # 4. Lyft: one epoch of lyft/baseline.yml, 15 frames loaded, 8 kept
+        lyft_opts = real_set_opts(lyft, log_dir, 'lyft') + ['EPOCHS', '1']
+        lyft_ds = build_real_datasets(get_cfg(argparse.Namespace(
+            config_file=LYFT_BASELINE, opts=lyft_opts)))[0]
+        frames = lyft_ds[0]['image'].shape[0]
+        if lyft_ds.sequence_length != 15 or frames != 8:
+            raise AssertionError(f'lyft: {lyft_ds.sequence_length} frames loaded, {frames} kept')
+        lrun, _ = path_launches('real set lyft train', lambda: train_cli.main(
+            ['--config', LYFT_BASELINE, *lyft_opts]), LOOP_DENSE)
+        finite_losses('real set lyft train', lrun)
+        lcounts = [check_decoders(f'lyft {k}', l.decode_counts, crop_leaves_image=True)
+                   for k, l in zip(('train', 'val'), lrun.loaders)]
+        log(f'real set lyft: 15 frames loaded, 8 kept; decode counts train '
+            f'{json.dumps(lcounts[0])}, val {json.dumps(lcounts[1])}')
+        loop_walls('real set lyft steps', lrun)
+        out['lyft'] = lrun.steps
+
+        # 5. the visualise CLI, where matplotlib imports on this machine
+        if importlib.util.find_spec('matplotlib') is None:
+            log('real set visualise CLI: not run, no matplotlib on this machine (its '
+                'figure is checked on the CPU, tests/test_torch_visualisation.py)')
+        else:
+            paths = visualise_cli.main(['--checkpoint', final, '--output-dir',
+                                        os.path.join(root, 'vis')])
+            log(f'real set visualise CLI: {len(paths)} figures')
+        return out
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
 
 
 def check_trace_whole(name, windows=4):
@@ -3450,7 +3768,7 @@ def family_kernels(heads, device, k=8, C=64):
 
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument('--only', choices=['families', 'exported'],
+    parser.add_argument('--only', choices=['families', 'exported', 'real_set'],
                         help='run only this phase (after the build); prints no result line')
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
@@ -3467,6 +3785,11 @@ def main(argv=None):
         t0 = time.perf_counter()
         phase_families(device)
         log(f'config families: ok ({time.perf_counter() - t0:.1f} s); {smi_line()}')
+        return
+    if args.only == 'real_set':
+        t0 = time.perf_counter()
+        phase_real_set()
+        log(f'real set: ok ({time.perf_counter() - t0:.1f} s); {smi_line()}')
         return
     if args.only == 'exported':
         t0 = time.perf_counter()
@@ -3561,6 +3884,10 @@ def main(argv=None):
     phase_train_loop()
     check_trace_whole('trace after the loop')
     log(f'train loop, resume, combination loop and evaluate: ok '
+        f'({time.perf_counter() - t0:.1f} s)')
+    t0 = time.perf_counter()
+    phase_real_set()
+    log(f'real set: nuScenes and Lyft trees trained, evaluated and drawn: ok '
         f'({time.perf_counter() - t0:.1f} s)')
     t0 = time.perf_counter()
     families, family_records = phase_families(device)

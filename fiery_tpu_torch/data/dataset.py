@@ -18,19 +18,28 @@ parent process pins each batch's numeric arrays, so that ``Trainer.to_device``
 copies them with ``non_blocking=True``; the batch then holds CPU tensors in
 pinned memory in place of those arrays.
 
-Datasets: 'synthetic' (in memory, no external data). The nuScenes and Lyft sets
-are not ported yet and raise.
+Datasets: 'synthetic' (in memory, no external data), and 'nuscenes' and 'lyft'
+(``data/nuscenes_dataset.py``: the JSON tables and JPEGs under DATASET.DATAROOT,
+in cfg.N_WORKERS workers). Each batch's load reports what it measured: the
+images each decoder decoded (``decode_counts``, summed over the workers) and the
+ms of the batch transform (``transform_ms``, a list, one entry a transformed
+batch); ``pool_start_s`` is the seconds the worker pool took to start and answer
+a first task.
 """
 
 import multiprocessing as mp
+import os
 import queue as queue_mod
 import sys
 import threading
+import time
+from collections import Counter
 
 import numpy as np
 import torch
 
 from fiery_tpu_torch.data.label_warp import make_prewarp_transform
+from fiery_tpu_torch.data.nuscenes_dataset import build_real_datasets
 from fiery_tpu_torch.data.synthetic import SyntheticFutureDataset
 
 _WORKER_DATASET = None
@@ -44,17 +53,45 @@ def _worker_init(dataset, transform=None):
 
 
 def load_batch(dataset, idx, transform=None):
-    """The samples ``idx`` of ``dataset`` stacked into one numpy batch, then the
-    transform."""
+    """(batch, report): the samples ``idx`` of ``dataset`` stacked into one numpy
+    batch, then the transform; and what the load measured: the images each
+    decoder decoded (datasets with ``take_decode_counts``) and the ms of the
+    transform (None without one)."""
     samples = [dataset[int(i)] for i in idx]
     batch = {k: np.stack([s[k] for s in samples]) for k in samples[0]}
+    transform_ms = None
     if transform is not None:
+        t0 = time.perf_counter()
         batch = transform(batch)
-    return batch
+        transform_ms = 1e3 * (time.perf_counter() - t0)
+    take = getattr(dataset, 'take_decode_counts', None)
+    return batch, {'decode_counts': take() if take else Counter(),
+                   'transform_ms': transform_ms}
 
 
 def _worker_load(idx):
     return load_batch(_WORKER_DATASET, idx, _WORKER_TRANSFORM)
+
+
+def _main_module_name():
+    """[the name under which the forkserver can import the main module], or [].
+
+    Each worker runs the main module again as ``__mp_main__`` (the reason for the
+    ``__main__`` guard), and Python 3.12's forkserver does not preload it (its
+    ``'__main__'`` preload never receives the main path), so every worker would
+    import what the main module imports: torch and the model for the training
+    CLI, ~10 s a worker on a shared host. Imported once in the server by its
+    name, the main module's imports are loaded in every worker forked from it.
+    A ``-m`` module is importable by its spec's name, a script by its file's
+    stem (its directory leads ``sys.path``, which the server copies)."""
+    main = sys.modules.get('__main__')
+    spec = getattr(main, '__spec__', None)
+    if spec is not None:
+        return [] if spec.name.endswith('__main__') else [spec.name]
+    path = getattr(main, '__file__', None)
+    if path is None or not path.endswith('.py'):
+        return []
+    return [os.path.splitext(os.path.basename(path))[0]]
 
 
 def _worker_backend_probe(_=None):
@@ -103,6 +140,9 @@ class DataLoader:
         self.process_count = process_count
         self.transform = transform
         self.pin_memory = pin_memory
+        self.decode_counts = Counter()
+        self.transform_ms = []
+        self.pool_start_s = None
         self._epoch = 0
         self._pool = None
 
@@ -112,6 +152,10 @@ class DataLoader:
             # forking a multithreaded process can deadlock; forkserver workers fork
             # from a clean server process and get the dataset and transform by pickle
             ctx = mp.get_context('forkserver')
+            # the server imports the loader's modules and the main module's once,
+            # so that each worker forks with them loaded
+            ctx.set_forkserver_preload([__name__, *_main_module_name()])
+            t0 = time.perf_counter()
             self._pool = ctx.Pool(self.num_workers, initializer=_worker_init,
                                   initargs=(self.dataset, self.transform))
             try:
@@ -124,6 +168,7 @@ class DataLoader:
                     'dying on arrival (an unpicklable dataset or transform, or a '
                     '__main__ module that a forkserver child cannot import, as from '
                     'stdin). Use num_workers=0 in that case.') from e
+            self.pool_start_s = time.perf_counter() - t0
         return self._pool
 
     def shutdown(self):
@@ -160,7 +205,11 @@ class DataLoader:
             batches.append(idx)
         return batches
 
-    def _finish(self, batch):
+    def _finish(self, measured):
+        batch, report = measured
+        self.decode_counts.update(report['decode_counts'])
+        if report['transform_ms'] is not None:
+            self.transform_ms.append(report['transform_ms'])
         return pin_batch(batch) if self.pin_memory else batch
 
     def peek(self):
@@ -181,7 +230,8 @@ class DataLoader:
             # the workers make and transform the batches; this thread pins them
             source = pool.imap(_worker_load, batches)
         else:
-            source = (load_batch(self.dataset, idx, self.transform) for idx in batches)
+            source = (load_batch(self.dataset, idx, self.transform)
+                      for idx in batches)
         q = queue_mod.Queue(maxsize=self.prefetch)
         stop = threading.Event()
         done = object()
@@ -197,8 +247,8 @@ class DataLoader:
 
         def producer():
             try:
-                for batch in source:
-                    if not put((None, self._finish(batch))):
+                for measured in source:
+                    if not put((None, self._finish(measured))):
                         return
             except Exception as e:           # raised again on the consuming thread
                 put((e, None))
@@ -236,9 +286,10 @@ def prepare_dataloaders(cfg, device=None):
         n_train = cfg.DATASET.N_SYNTHETIC_SAMPLES
         train_ds = SyntheticFutureDataset(cfg, n_samples=n_train, seed=0)
         val_ds = SyntheticFutureDataset(cfg, n_samples=max(2, n_train // 4), seed=1000)
+    elif name in ('nuscenes', 'lyft'):
+        train_ds, val_ds = build_real_datasets(cfg)
     else:
-        raise NotImplementedError(f'DATASET.NAME {name!r}: only the synthetic dataset is '
-                                  f'ported')
+        raise ValueError(f'Unknown dataset {name}')
     num_workers = cfg.N_WORKERS if name in ('nuscenes', 'lyft') else 0
     transform = make_prewarp_transform(cfg) if cfg.DATASET.PREWARP_LABELS else None
     pin = device is not None and torch.device(device).type == 'cuda'

@@ -12,13 +12,20 @@ sparse, warp-free combination with host-warped labels:
 The loop of the JAX package's: epochs of the train loader (``data/dataset.py``:
 shuffled, drop_last, batches pinned for the card and made, with the label prewarp
 of DATASET.PREWARP_LABELS, off the thread that runs the steps); every
-LOGGING_INTERVAL steps (and at step 1) the losses as scalars; after each epoch a
-validation (IoU accumulated on the device, VPQ from the host tracker, the
-uncertainty weights) and an asynchronous checkpoint ``checkpoint_epochN``; at the
-end ``checkpoint_final``. Scalars go to ``<run>/metrics.jsonl`` (one
-``{"step": s, key: value}`` a line, the JAX loop's keys) and to TensorBoard when
-``torch.utils.tensorboard`` imports. The run directory is
-``LOG_DIR/<date>_<host>_<TAG>``.
+LOGGING_INTERVAL steps (and at step 1) the losses as scalars; every VIS_INTERVAL
+steps the ground truth against the prediction on the step's batch as a video
+(``utils/visualisation.visualise_output``); after each epoch a validation (IoU
+accumulated on the device, VPQ from the host tracker, the uncertainty weights,
+the video of the first val batch) and an asynchronous checkpoint
+``checkpoint_epochN``; at the end ``checkpoint_final``. Scalars go to
+``<run>/metrics.jsonl`` (one ``{"step": s, key: value}`` a line, the JAX loop's
+keys) and videos to ``<run>/videos/<key>_step<s>.gif`` (``train_outputs``,
+``val_outputs``), both to TensorBoard too when ``torch.utils.tensorboard``
+imports. The run directory is ``LOG_DIR/<date>_<host>_<TAG>``.
+
+The real sets train with ``DATASET.NAME nuscenes DATASET.VERSION mini
+DATASET.DATAROOT <tree>`` (or ``DATASET.NAME lyft DATASET.DATAROOT <tree>``), e.g.
+on a tree of ``python -m fiery_tpu_torch.data.fake_nuscenes``.
 
 ``--resume DIR|auto`` continues from a checkpoint (``auto``: the newest complete
 one under LOG_DIR, or a fresh start when there is none) at epoch step // (steps
@@ -28,11 +35,12 @@ and drop-connect masks from a generator seeded by (seed, step), so that k steps,
 a checkpoint and a resume draw what an uninterrupted run does. Under
 LIFT.DEPTH_CULL the kept depth planes come from a first look at the train loader.
 ``--steps N`` ends the run after global step N (then only ``checkpoint_final``).
-It runs on the CUDA card unless given --device cpu. Not yet ported: the
-VIS_INTERVAL videos (visualisation) and several cards.
+It runs on the CUDA card unless given --device cpu. Not yet ported: several
+cards.
 """
 
 import argparse
+import io
 import json
 import os
 import socket
@@ -54,6 +62,7 @@ from fiery_tpu_torch.utils.checkpoint import (find_latest_checkpoint, load_check
 from fiery_tpu_torch.utils.config import get_cfg
 from fiery_tpu_torch.utils.device import resolve_device
 from fiery_tpu_torch.utils.geometry import calculate_birds_eye_view_parameters
+from fiery_tpu_torch.utils.visualisation import visualise_output
 
 
 def parse_args(argv=None):
@@ -72,10 +81,12 @@ def parse_args(argv=None):
 
 
 class MetricLogger:
-    """Scalars as a JSONL mirror, and to TensorBoard when it imports."""
+    """Scalars as a JSONL mirror and videos as GIFs, and both to TensorBoard when it
+    imports."""
 
     def __init__(self, log_dir):
         os.makedirs(log_dir, exist_ok=True)
+        self.video_dir = os.path.join(log_dir, 'videos')
         self.jsonl = open(os.path.join(log_dir, 'metrics.jsonl'), 'a')
         try:
             from torch.utils.tensorboard import SummaryWriter
@@ -88,6 +99,30 @@ class MetricLogger:
         self.jsonl.flush()
         if self.tb is not None:
             self.tb.add_scalar(key, float(value), step)
+
+    def video(self, key, frames, step):
+        """frames: (1, T, H, W, 3) uint8. Written as an animated GIF (a frame each
+        500 ms, looping) to ``<run>/videos/<key>_step<step>.gif``, and as the same
+        GIF in a TensorBoard image summary, which its images tab plays (GIF merges
+        equal consecutive frames). Returns {'key', 'step', 'path', 'shape'}, the
+        frames' shape."""
+        from PIL import Image
+        frames = np.asarray(frames)
+        imgs = [Image.fromarray(frame) for frame in frames[0]]
+        buf = io.BytesIO()
+        imgs[0].save(buf, format='GIF', save_all=True, append_images=imgs[1:],
+                     duration=500, loop=0)
+        os.makedirs(self.video_dir, exist_ok=True)
+        path = os.path.join(self.video_dir, f'{key}_step{step}.gif')
+        with open(path, 'wb') as f:
+            f.write(buf.getvalue())
+        if self.tb is not None:
+            from tensorboard.compat.proto.summary_pb2 import Summary
+            image = Summary.Image(height=frames.shape[2], width=frames.shape[3],
+                                  colorspace=3, encoded_image_string=buf.getvalue())
+            self.tb._get_file_writer().add_summary(
+                Summary(value=[Summary.Value(tag=key, image=image)]), step)
+        return {'key': key, 'step': step, 'path': path, 'shape': frames.shape}
 
     def close(self):
         self.jsonl.close()
@@ -118,16 +153,19 @@ def new_run_dir(cfg):
     return path
 
 
-def validate(trainer, valloader):
+def validate(trainer, valloader, on_first=None):
     """One pass over the val loader: IoU of each class over the whole grid
-    (accumulated on the device) and the vehicles' VPQ from the host tracker."""
+    (accumulated on the device) and the vehicles' VPQ from the host tracker.
+    ``on_first(output, labels)`` is called with the first batch's."""
     n_classes = trainer.model.cfg.n_classes
     X, Y = trainer.model.cfg.bev_size
     whole = {'whole': ((0, X), (0, Y))}
     panoptic = {'whole': PanopticMetric(n_classes)}
     iou_states = torch.zeros((1, 4, n_classes), dtype=torch.float32, device=trainer.device)
-    for batch in valloader:
+    for i, batch in enumerate(valloader):
         output, labels, _ = trainer.eval_step(numeric_batch(batch))
+        if i == 0 and on_first is not None:
+            on_first(output, labels)
         iou_states = update_metrics(output, labels, iou_states, panoptic, whole, n_classes,
                                     device_matching=False)
     iou = IntersectionOverUnion(n_classes)
@@ -136,9 +174,11 @@ def validate(trainer, valloader):
 
 
 def main(argv=None):
-    """Train; returns the run: ``trainer``, ``save_dir``, and ``steps``, a record
-    per step of this run (step, ms waiting on the loader, ms from the batch to the
-    next wait, host clock)."""
+    """Train; returns the run: ``trainer``, ``save_dir``, ``steps``, a record per
+    step of this run (step, ms waiting on the loader, ms from the batch to the end
+    of the step's logging, ms of its video or None, host clock), ``videos``, what
+    ``MetricLogger.video`` returned for each video written, and ``loaders``, the train and val loaders (their
+    decode counts and transform times)."""
     args = parse_args(argv)
     cfg = get_cfg(args)
     device = resolve_device(args.device)
@@ -179,7 +219,8 @@ def main(argv=None):
         print(f'Warm-starting from {cfg.PRETRAINED.PATH}', flush=True)
         load_pretrained_params(cfg.PRETRAINED.PATH, trainer)
 
-    run = types.SimpleNamespace(trainer=trainer, save_dir=save_dir, steps=[])
+    run = types.SimpleNamespace(trainer=trainer, save_dir=save_dir, steps=[], videos=[],
+                                loaders=(trainloader, valloader))
     capped = False
     for epoch in range(start_epoch, cfg.EPOCHS):
         epoch_start = time.perf_counter()
@@ -193,8 +234,9 @@ def main(argv=None):
             if batch is None:
                 break
             t1 = time.perf_counter()
+            batch = numeric_batch(batch)
             losses, total = trainer.train_step(
-                numeric_batch(batch), step_generator(args.seed, trainer.step, device))
+                batch, step_generator(args.seed, trainer.step, device))
             step = trainer.step
             if step % cfg.LOGGING_INTERVAL == 0 or step == 1:
                 scalars = {'total_loss': float(total),
@@ -202,14 +244,24 @@ def main(argv=None):
                 print(json.dumps({'epoch': epoch, 'step': step, **scalars}), flush=True)
                 for k, v in scalars.items():
                     logger.scalar(k, v, step)
+            t2 = time.perf_counter()
+            video_ms = None
+            if step % cfg.VIS_INTERVAL == 0:
+                # the ground truth against the prediction of the updated weights
+                output, labels, _ = trainer.eval_step(batch)
+                run.videos.append(logger.video(
+                    'train_outputs', visualise_output(labels, output, cfg), step))
+                video_ms = 1e3 * (time.perf_counter() - t2)
             run.steps.append({'step': step, 'loader_wait_ms': 1e3 * (t1 - t0),
-                              'step_ms': 1e3 * (time.perf_counter() - t1)})
+                              'step_ms': 1e3 * (t2 - t1), 'video_ms': video_ms})
         if capped:
             batches.close()
             break
 
-        iou, vpq = validate(trainer, valloader)
         step = trainer.step
+        iou, vpq = validate(trainer, valloader, on_first=lambda output, labels: (
+            run.videos.append(logger.video(
+                'val_outputs', visualise_output(labels, output, cfg), step))))
         uw = {k: float(v.detach()) for k, v in trainer.uncertainty.items()}
         logger.scalar('segmentation_weight', 1.0 / np.exp(uw['segmentation_weight']), step)
         for k in ('centerness_weight', 'offset_weight', 'flow_weight'):

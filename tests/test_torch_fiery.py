@@ -137,7 +137,8 @@ def test_state_dict_from_jax_round_trips_bit_exactly(tiny):
 
 
 def test_port_imports_nothing_of_jax():
-    """Every module of the package, and chip_smoke.py's imports, in a fresh process."""
+    """Every module of the package, and chip_smoke.py's imports, in a fresh process;
+    none imports matplotlib on import (the visualise CLI does when it draws)."""
     code = (
         'import importlib, pkgutil, sys\n'
         'import fiery_tpu_torch\n'
@@ -145,7 +146,7 @@ def test_port_imports_nothing_of_jax():
         '    importlib.import_module(m.name)\n'
         'import chip_smoke\n'
         'bad = sorted(k for k in sys.modules if k.split(".")[0] in ("jax", "jaxlib", '
-        '"flax", "fiery_tpu"))\n'
+        '"flax", "fiery_tpu", "matplotlib"))\n'
         'assert not bad, bad\n'
         'print(" ".join(k for k in sys.modules if k.startswith("fiery_tpu_torch")))\n')
     env = {k: v for k, v in os.environ.items() if k != 'PYTHONPATH'}
@@ -161,7 +162,11 @@ def test_port_imports_nothing_of_jax():
             'fiery_tpu_torch.data.labels', 'fiery_tpu_torch.data.label_warp',
             'fiery_tpu_torch.data.dataset', 'fiery_tpu_torch.utils.checkpoint',
             'fiery_tpu_torch.utils.bn_fold', 'fiery_tpu_torch.serve_graph',
-            'fiery_tpu_torch.export'} <= modules
+            'fiery_tpu_torch.export', 'fiery_tpu_torch.native',
+            'fiery_tpu_torch.data.nuscenes_dataset', 'fiery_tpu_torch.data.nuscenes_indexer',
+            'fiery_tpu_torch.data.fake_nuscenes', 'fiery_tpu_torch.data.lyft_splits',
+            'fiery_tpu_torch.utils.quaternion', 'fiery_tpu_torch.utils.visualisation',
+            'fiery_tpu_torch.visualise'} <= modules
 
 
 def test_entry_points_refuse_the_cpu_unless_asked(monkeypatch):

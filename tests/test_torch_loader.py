@@ -178,8 +178,12 @@ def test_cpu_loaders_do_not_pin_and_other_sets_raise():
     train, val = prepare_dataloaders(get_cfg(cfg_dict=TINY), device='cpu')
     assert not train.pin_memory and not val.pin_memory
     assert isinstance(train.peek()['image'], np.ndarray)
-    with pytest.raises(NotImplementedError, match='synthetic'):
-        prepare_dataloaders(get_cfg(cfg_dict={'DATASET': {'NAME': 'nuscenes'}}))
+    # an unknown set raises, as in the JAX package; nuScenes reads its tables
+    with pytest.raises(ValueError, match='kitti'):
+        prepare_dataloaders(get_cfg(cfg_dict={'DATASET': {'NAME': 'kitti'}}))
+    with pytest.raises(FileNotFoundError, match='v1.0-trainval'):
+        prepare_dataloaders(get_cfg(cfg_dict={'DATASET': {'NAME': 'nuscenes',
+                                                          'DATAROOT': '/nonexistent'}}))
 
 
 @pytest.mark.gpu

@@ -207,7 +207,8 @@ def test_trainer_and_train_cli_refuse_the_cpu_unless_asked(monkeypatch, capsys, 
     monkeypatch.setitem(sys.modules, 'torch.utils.tensorboard', None)
     with pytest.raises(RuntimeError, match='CUDA'):
         train.main(['--config', BASELINE, '--steps', '1', *tiny_opts])
-    with pytest.raises(NotImplementedError, match='synthetic'):
+    # baseline.yml's own set is nuScenes trainval under ./nuscenes/, absent here
+    with pytest.raises(FileNotFoundError, match='v1.0-trainval'):
         train.main(['--config', BASELINE, '--device', 'cpu', '--steps', '1'])
     trainer = train.main(['--config', BASELINE, '--device', 'cpu', '--steps', '2',
                           *tiny_opts]).trainer
