@@ -136,6 +136,24 @@ Builds the package's CUDA kernels from csrc/, then:
      (the program exported, loaded, captured and held against the live model).
      ``python3 chip_smoke.py --only families`` builds the kernels and runs this
      phase alone (no result line).
+ 14. data-parallel training (phase_data_parallel, after the training loop;
+     ``--only data_parallel`` runs it alone): in a one-rank NCCL group, the
+     full-width baseline.yml step at batch 3 of a DistributedDataParallel trainer
+     whose BatchNorms synchronise their statistics (K10's partials, gather,
+     finalize and apply launches, counted against the step's BatchNorm calls; no
+     plain version; a second step under set_sync_debug_mode('error')) against the
+     unsynchronised step from the same weights, batch and generator (run three
+     times): losses and running statistics bit for bit, gradients and Adam
+     moments within twice that step's own run-to-run spread (its backward adds with atomics in the
+     bilinear upsamples' and adaptive pooling's gradients), the two timed in turns
+     with their peak memory; the synchronised kernels against their plain
+     versions at every training call shape of the step, timed beside
+     torch.nn.SyncBatchNorm's function at world size 1; two gloo ranks on the
+     card (this script, started with --dp-out), batch 3 each, against one
+     process at batch 6 in f32 (TF32 off, its convolutions and squeeze-excitation
+     means on the halves of its batch, which the random full-width step is
+     sensitive to) at the CPU test's tolerances, their weights equal bit for bit; ``python -m torch.distributed.run --nproc_per_node 1 -m
+     fiery_tpu_torch.train`` for 2 steps.
 The request and the step also print K10's census (each BatchNorm call's shape
 and epilogue, from hooks) with its summed bound, and K10's device time in one
 profiled request and step.
@@ -149,11 +167,13 @@ Without a CUDA card, or without the package beside it, it fails.
 """
 
 import argparse
+import contextlib
 import ctypes
 import importlib.util
 import json
 import os
 import shutil
+import socket
 import statistics
 import subprocess
 import sys
@@ -165,6 +185,7 @@ from collections import Counter
 import numpy as np
 import scipy.optimize
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from fiery_tpu_torch.data.dataset import prepare_dataloaders
@@ -173,13 +194,19 @@ from fiery_tpu_torch.data.labels import convert_instance_mask_to_center_and_offs
 from fiery_tpu_torch.data.synthetic import SyntheticFutureDataset
 from fiery_tpu_torch.evaluate import device_consistent
 from fiery_tpu_torch.models.fiery import FieryConfig
-from fiery_tpu_torch.models.layers import BatchNorm, _InputDtype
+from fiery_tpu_torch.models.layers import BatchNorm, ConvTranspose2d, _InputDtype
 from fiery_tpu_torch.native import build_error as native_build_error
 from fiery_tpu_torch.native import image_pipe_available
 from fiery_tpu_torch.ops import _build
-from fiery_tpu_torch.ops.batch_norm import (POSTS, batch_norm_backward,
-                                            batch_norm_backward_plain, batch_norm_forward,
-                                            batch_norm_forward_plain, channel_slices)
+from fiery_tpu_torch.ops.batch_norm import (
+    POSTS, batch_norm_backward, batch_norm_backward_apply_card, batch_norm_backward_apply_plain,
+    batch_norm_backward_finalize_card, batch_norm_backward_finalize_plain,
+    batch_norm_backward_partials_card, batch_norm_backward_partials_plain,
+    batch_norm_backward_plain, batch_norm_backward_sync, batch_norm_finalize_card,
+    batch_norm_finalize_plain, batch_norm_forward, batch_norm_forward_plain,
+    batch_norm_partials_card, batch_norm_partials_plain, batch_norm_plain,
+    batch_norm_sync_forward, channel_slices, gather_sums)
+from fiery_tpu_torch.parallel.mesh import make_parallel_trainer, maybe_initialize_distributed
 from fiery_tpu_torch.ops import lift_splat as lift_splat_module
 from fiery_tpu_torch.ops.lap import linear_sum_assignment, linear_sum_assignment_plain
 from fiery_tpu_torch.ops.spatial_gru import (gru_output, reset_concat, reset_concat_backward,
@@ -211,7 +238,8 @@ from fiery_tpu_torch.training.losses import (_top_k_sum_from_threshold, compute_
                                              kth_largest, kth_largest_plain,
                                              kth_largest_plan)
 from fiery_tpu_torch.training.metrics import PanopticMetric
-from fiery_tpu_torch.training.trainer import INPUTS, Trainer
+from fiery_tpu_torch.training.trainer import INPUTS, Trainer, step_generator
+from fiery_tpu_torch.utils.checkpoint import load_checkpoint
 from fiery_tpu_torch.utils.config import get_cfg
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, f32 and f64 (non-tensor-core) flop/s
@@ -3766,14 +3794,550 @@ def family_kernels(heads, device, k=8, C=64):
     return rec
 
 
+# ---- data-parallel training (parallel/mesh.py): K10's synchronised statistics ----
+
+DP_SEED = 0
+
+
+def dp_cfg(batch, opts=()):
+    return get_cfg(argparse.Namespace(config_file=BASELINE, opts=[
+        'DATASET.NAME', 'synthetic', 'BATCHSIZE', str(batch), *opts]))
+
+
+def dp_trainer(cfg):
+    """A full-width trainer with seeded weights and BatchNorm calibrated as
+    phase_train's (the same on every rank and in every reference)."""
+    trainer = Trainer(cfg)
+    init_params(trainer.model, seed=DP_SEED)
+    calibrate_batchnorm(trainer.model, [make_request(cfg, seed=s) for s in (6, 7)])
+    return trainer
+
+
+def dp_batch(cfg, n, seed=0):
+    """n synthetic clips, numpy: the global batch of a data-parallel step."""
+    return SyntheticFutureDataset(cfg, n_samples=n, seed=seed).get_batch(range(n))
+
+
+def dp_step(trainer, batch, rank=0, world=1, step=0):
+    """One step of ``trainer`` from the step generator of (DP_SEED, step) on rank
+    ``rank`` of ``world``: its losses, gradients, and new weights, running
+    statistics and Adam moments, each by name (tensors on the card)."""
+    losses, total = trainer.compute_gradients(
+        batch, step_generator(DP_SEED, step, trainer.device, rank, world))
+    names = [n for n, _ in trainer.model.named_parameters()] + \
+        ['uncertainty.' + k for k in trainer.uncertainty]
+    grads = {n: p.grad.detach().clone() for n, p in zip(names, trainer.params)}
+    trainer.apply_gradients()
+    state = {k: v.detach().clone() for k, v in trainer.model.state_dict().items()}
+    state.update({'uncertainty.' + k: p.detach().clone() for k, p in trainer.uncertainty.items()})
+    moments = {n: trainer.optimizer.state[p]['exp_avg'].clone()
+               for n, p in zip(names, trainer.params)}
+    return {'losses': {**losses, 'total': total}, 'grads': grads, 'state': state,
+            'exp_avg': moments}
+
+
+# the two gloo ranks' comparison runs in f32 with TF32 off, the CPU test's arithmetic:
+# under PRECISION 16 a batch of 3 and one of 6 take other cuDNN algorithms, whose bf16
+# roundings move the losses by ~2e-3 (PERF.md, PR 19)
+DP_F32 = ('PRECISION', '32')
+
+
+@contextlib.contextmanager
+def batch_in_halves():
+    """Every convolution of the port's layers, and the squeeze-excitation blocks'
+    spatial means, computed on the two halves of the batch (dim 0: the ranks'
+    samples) and concatenated: the shapes two ranks of 3 clips run, in one process
+    on 6. Both pick their kernels (and so the order of their f32 sums) by the whole
+    tensor's size; a batch of 6 moves the encoder's first means by ~1e-9, which the
+    random full-width f32 step amplifies to 7.8% of the future prediction's
+    gradients (PERF.md, PR 19). In halves, what is left to compare is the
+    data-parallel step itself."""
+    conv, tconv, mean = _InputDtype._conv_forward, ConvTranspose2d.forward, torch.Tensor.mean
+
+    def halves(fn, x, *args, **kwargs):
+        return torch.cat([fn(h, *args, **kwargs) for h in x.chunk(2)])
+
+    def conv_halves(self, x, weight, bias):
+        if x.shape[0] % 2:
+            return conv(self, x, weight, bias)
+        return self._out_layout(halves(lambda h: conv(self, h, weight, bias), x))
+
+    def tconv_halves(self, x):
+        if x.shape[0] % 2:
+            return tconv(self, x)
+        return self._out_layout(halves(lambda h: tconv(self, h), x))
+
+    def mean_halves(self, *args, **kwargs):
+        if (kwargs.get('dim', args[0] if args else None) == (-2, -1) and self.dim() == 4
+                and self.shape[0] % 2 == 0):
+            return halves(mean, self, *args, **kwargs)
+        return mean(self, *args, **kwargs)
+
+    _InputDtype._conv_forward, ConvTranspose2d.forward = conv_halves, tconv_halves
+    torch.Tensor.mean = mean_halves
+    try:
+        yield
+    finally:
+        _InputDtype._conv_forward, ConvTranspose2d.forward = conv, tconv
+        torch.Tensor.mean = mean
+
+
+def f32_only():
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+
+def dp_rank_main(out):
+    """One gloo rank of phase_data_parallel's two-rank step on the one card
+    (``chip_smoke.py --dp-out PATH`` with torchrun's variables set): the full-width
+    step on its 3 clips of the 6 (f32, TF32 off), written to ``out`` (on the host)."""
+    f32_only()
+    maybe_initialize_distributed(device='cuda:0', backend='gloo')
+    rank, world = dist.get_rank(), dist.get_world_size()
+    try:
+        cfg = dp_cfg(3, DP_F32)
+        trainer = make_parallel_trainer(dp_trainer(cfg))
+        batch = {k: v[3 * rank:3 * (rank + 1)] for k, v in dp_batch(cfg, 3 * world).items()}
+        reset_counters()
+        sync_counters(reset=True)
+        rec = dp_step(trainer, batch, rank, world)
+        rec['launches'] = {**{k: fn.launches for k, fn in COUNTERS.items()}, **sync_counters()}
+        rec['plain_calls'] = [fn.plain_calls for fn in PLAIN_COUNTED]
+        torch.save(to_host(rec), out)
+    finally:
+        dist.destroy_process_group()
+
+
+def to_host(tree):
+    """Every tensor of a nested dict moved to the host."""
+    if isinstance(tree, dict):
+        return {k: to_host(v) for k, v in tree.items()}
+    return tree.cpu() if isinstance(tree, torch.Tensor) else tree
+
+
+# the synchronised path's wrappers, by the name of their kernel
+SYNC_COUNTERS = {'batch_norm_partials': batch_norm_partials_card,
+                 'batch_norm_finalize': batch_norm_finalize_card,
+                 'batch_norm_backward_partials': batch_norm_backward_partials_card,
+                 'batch_norm_backward_finalize': batch_norm_backward_finalize_card,
+                 'batch_norm_backward_apply': batch_norm_backward_apply_card}
+
+
+def sync_counters(reset=False):
+    if reset:
+        for fn in SYNC_COUNTERS.values():
+            fn.launches = 0
+    return {k: fn.launches for k, fn in SYNC_COUNTERS.items()}
+
+
+def step_differences(got, want):
+    """{kind: {name: values whose bits differ}} over the losses, gradients, state
+    and Adam moments of two dp_step records, the differing names only."""
+    out = {}
+    for kind in ('losses', 'grads', 'state', 'exp_avg'):
+        diff = {k: bits_differ(got[kind][k].float(), v.float()) for k, v in want[kind].items()
+                if v.is_floating_point()}
+        out[kind] = {k: n for k, n in diff.items() if n}
+    return out
+
+
+def summary(differ):
+    """A step_differences result in counts: {kind: (names, values)}."""
+    return {kind: (len(d), sum(d.values())) for kind, d in differ.items()}
+
+
+def dp_matches_plain(name, got, runs, lr):
+    """The one-rank step against runs of the unsynchronised step from the same
+    weights, batch and generator. The forward repeats its bits, so the losses and
+    the running statistics must equal the unsynchronised step's bit for bit. The
+    backward does not repeat its own bits on the card (the bilinear upsamples' and
+    the adaptive pooling's backward add with atomics; torch's
+    use_deterministic_algorithms lists them; some modules' gradients jump by ~1.5%
+    between runs), so the gradients and Adam moments are held to that step's own
+    spread: each top-level module's relative L2 distance to the first run within
+    twice the largest distance of another run to it, over every module (zero when
+    the runs repeat their bits: then bit for bit), and the parameters within 2 lr."""
+    differ = step_differences(got, runs[0])
+    log(f'{name}: values whose bits differ ((names, values) by kind): the unsynchronised '
+        f'step\'s runs against its first '
+        + json.dumps([summary(step_differences(r, runs[0])) for r in runs[1:]])
+        + f'; the one-rank step against it {json.dumps(summary(differ))}')
+    stats = [k for k in differ['state'] if k.endswith(('running_mean', 'running_var'))]
+    if differ['losses'] or stats:
+        raise AssertionError(f'{name}: losses {differ["losses"]} or running statistics '
+                             f'{stats} differ from the unsynchronised step\'s bits')
+    for kind in ('grads', 'exp_avg'):
+        own = [l2_by_module_and_leaf(r[kind], runs[0][kind])[0] for r in runs[1:]]
+        spread = max(max(o.values()) for o in own)
+        mine = l2_by_module_and_leaf(got[kind], runs[0][kind])[0]
+        log(f'{name}: {kind} relative L2 to the first run, by module: the other runs '
+            f'{json.dumps(own)}; the one-rank step {json.dumps(mine)}')
+        over = {m: e for m, e in mine.items() if e > 2 * spread}
+        if over:
+            raise AssertionError(f'{name}: {kind} beyond twice the unsynchronised step\'s '
+                                 f'largest run-to-run distance {spread}: {over}')
+    moved = max(float((got['state'][k] - runs[0]['state'][k]).abs().max()) for k in got['grads'])
+    if moved > 2 * lr + 1e-6:
+        raise AssertionError(f'{name}: a parameter differs by {moved} > 2 lr')
+
+
+def l2_by_module_and_leaf(got, want):
+    """({module: relative L2}, {leaf: relative L2, its norm floored at 1e-3 of its
+    module's}), as relative_l2_gradients measures them."""
+    modules, leaves = {}, {}
+    for m in sorted({n.split('.')[0] for n in want}):
+        names = [n for n in want if n.split('.')[0] == m]
+        a = torch.cat([got[n].double().flatten() for n in names])
+        b = torch.cat([want[n].double().flatten() for n in names])
+        modules[m] = float((a - b).norm() / b.norm().clamp_min(1e-30))
+        for n in names:
+            floor = max(float(want[n].double().norm()), 1e-3 * float(b.norm()), 1e-30)
+            leaves[n] = float((got[n].double() - want[n].double()).norm()) / floor
+    return modules, leaves
+
+
+def dp_within_cpu_tolerances(name, got, want, lr):
+    """A data-parallel step against one process on the whole batch, at
+    tests/test_torch_parallel_step.py's tolerances: losses and running statistics
+    1e-4 relative (1e-5 absolute), parameters within 2 lr, gradients and Adam
+    moments as relative L2 errors, 1e-2 a top-level module and 1e-1 a leaf. Returns
+    the worst of each against its bound."""
+    worst = {}
+    for k, v in want['losses'].items():
+        err = abs(float(got['losses'][k]) - float(v))
+        worst['loss'] = max(worst.get('loss', 0.0), err / (1e-5 + 1e-4 * abs(float(v))))
+    stats = [k for k in want['state'] if k.endswith(('running_mean', 'running_var'))]
+    params = [k for k in want['grads']]
+    worst['stats'] = max(float(((got['state'][k] - want['state'][k]).abs()
+                                / (1e-5 + 1e-4 * want['state'][k].abs())).max()) for k in stats)
+    worst['params'] = max(float((got['state'][k] - want['state'][k]).abs().max())
+                          for k in params) / (2 * lr + 1e-6)
+    for kind in ('grads', 'exp_avg'):
+        mod, leaf = l2_by_module_and_leaf(got[kind], want[kind])
+        log(f'{name}: {kind} relative L2 by module: {json.dumps(mod)}')
+        worst[kind] = max(max(mod.values()) / 1e-2, max(leaf.values()) / 1e-1)
+    log(f'{name}: worst against its bound: ' + json.dumps(worst))
+    if any(v > 1 for v in worst.values()):
+        raise AssertionError(f'{name}: outside the tolerances: {worst}')
+    return worst
+
+
+def sync_kernel_case(shape, es, post, seed, group):
+    """K10's synchronised kernels at one training call's shape against their plain
+    versions: the rank's f64 sums (1e-12 relative), the statistics and running
+    statistics (1e-6), y (check_close) and the backward's dx, dweight, dbias and
+    dresidual (check_grads). Returns the largest absolute errors of y and of the
+    gradients."""
+    dtype = torch.bfloat16 if es == 2 else torch.float32
+    gen = torch.Generator(device='cuda').manual_seed(seed)
+    C = shape[1]
+    x = rows(shape, dtype, gen, 'cuda', mean=0.5)
+    res = rows(shape, dtype, gen, 'cuda') if post in ('add', 'add_relu', 'relu_add') else None
+    w = torch.rand(C, generator=gen, device='cuda') + 0.5
+    b = torch.randn(C, generator=gen, device='cuda')
+    rm = torch.randn(C, generator=gen, device='cuda') * 0.1 + 0.5
+    rv = torch.rand(C, generator=gen, device='cuda') + 0.5
+    tag = f'batch_norm sync {post} {tuple(shape)} {str(dtype)[6:]}'
+    sums = batch_norm_partials_card(x, res, post)
+    want_sums = batch_norm_partials_plain(x)
+    if rel_l2(sums, want_sums) > 1e-12:
+        raise AssertionError(f'{tag}: the rank\'s sums differ: {rel_l2(sums, want_sums)}')
+    gathered = gather_sums(sums, group)
+    rk, rp = (rm.clone(), rv.clone()), (rm.clone(), rv.clone())
+    stats = batch_norm_finalize_card(gathered, *rk, 0.1)
+    want = batch_norm_finalize_plain(gathered, *rp, 0.1)
+    for label, a, c in (('statistics', stats, want), ('running mean', rk[0], rp[0]),
+                        ('running var', rk[1], rp[1])):
+        check_stats(f'{tag} {label}', a, c)
+    y, mean, var, clamp = batch_norm_sync_forward(x, w, b, rm.clone(), rv.clone(), 0.1, BN_EPS,
+                                                  post, res, group)
+    y_err = check_close(tag, y, batch_norm_plain(x, w, b, mean, var, BN_EPS, post, res), dtype)
+    del y
+    dy = rows(shape, dtype, gen, 'cuda')
+    gk = batch_norm_backward_sync(dy, x, w, b, mean, var, clamp, BN_EPS, post, res, group)
+    local, dres = batch_norm_backward_partials_plain(dy, x, w, b, mean, var, BN_EPS, post, res)
+    dparams = batch_norm_backward_finalize_plain(local[None], 0, clamp)
+    dx = batch_norm_backward_apply_plain(dy, x, w, b, mean, var, dparams, BN_EPS, post, res)
+    g_err = check_grads(f'{tag} backward', gk, (dx, dparams[0], dparams[1], dres), dtype)
+    return y_err, g_err
+
+
+def sync_timings(group):
+    """The synchronised forward and backward at the largest training call
+    (BN_SITES['swish'], bf16, post swish) in a one-rank NCCL group: the device ms of
+    their kernels (reduction, finalize, apply), a call's ms with the gather (CUDA
+    events), the plain versions' ms, and the library's: torch.nn.SyncBatchNorm's
+    function (its batch_norm_stats, all_gather, gather_stats_with_counts and
+    batch_norm_elemt) at world size 1, + F.silu, and its autograd backward. The
+    bound is the fused path's: bytes, inputs read once and outputs written once."""
+    from torch.nn.modules._functions import SyncBatchNorm as SyncBatchNormFn
+    shape, dtype, post = BN_SITES['swish'], torch.bfloat16, 'swish'
+    gen = torch.Generator(device='cuda').manual_seed(98)
+    x = rows(shape, dtype, gen, 'cuda')
+    dy = rows(shape, dtype, gen, 'cuda')
+    C, n, es = shape[1], x.numel(), x.element_size()
+    w, b = torch.ones(C, device='cuda'), torch.zeros(C, device='cuda')
+    rm, rv = torch.zeros(C, device='cuda'), torch.ones(C, device='cuda')
+    fwd = lambda: batch_norm_sync_forward(x, w, b, rm, rv, 0.1, BN_EPS, post, None,  # noqa
+                                          group)
+    classify = lambda key: ('finalize' if '::finalize_' in key else k10_pass(key))  # noqa
+    by_pass = pass_ms(fwd, classify, {'stats': 1, 'finalize': 1, 'apply': 1})
+    _, mean, var, clamp = fwd()
+
+    def fwd_plain():
+        local = batch_norm_partials_plain(x)
+        m, v, _ = batch_norm_finalize_plain(gather_sums(local, group), rm.clone(), rv.clone(),
+                                            0.1)
+        return batch_norm_plain(x, w, b, m, v, BN_EPS, post)
+
+    def fwd_library():
+        return F.silu(SyncBatchNormFn.apply(x, w, b, rm, rv, BN_EPS, 0.1, group, 1))
+
+    rec = {'batch_norm_sync': dict(
+        ms=sum(by_pass.values()), pass_ms=by_pass, call_ms=time_ms(fwd),
+        plain_ms=time_ms(fwd_plain, reps=5, warmup=1), library_ms=time_ms(fwd_library),
+        bytes=2 * n * es, flops=12.0 * n, shape=shape)}
+    bwd = lambda: batch_norm_backward_sync(dy, x, w, b, mean, var, clamp, BN_EPS, post,  # noqa
+                                           None, group)
+    by_pass = pass_ms(bwd, lambda key: 'finalize' if '::finalize_' in key else k10_pass(key),
+                      {'backward_reduce': 1, 'finalize': 1, 'backward_apply': 1})
+
+    def bwd_plain():
+        local, _ = batch_norm_backward_partials_plain(dy, x, w, b, mean, var, BN_EPS, post, None)
+        dparams = batch_norm_backward_finalize_plain(gather_sums(local, group), 0, clamp)
+        return batch_norm_backward_apply_plain(dy, x, w, b, mean, var, dparams, BN_EPS, post,
+                                               None)
+
+    xl, wl, bl = (t.detach().clone().requires_grad_() for t in (x, w, b))
+    yl = F.silu(SyncBatchNormFn.apply(xl, wl, bl, rm.clone(), rv.clone(), BN_EPS, 0.1, group, 1))
+    rec['batch_norm_sync_backward'] = dict(
+        ms=sum(by_pass.values()), pass_ms=by_pass, call_ms=time_ms(bwd),
+        plain_ms=time_ms(bwd_plain, reps=5, warmup=1),
+        library_ms=time_ms(lambda: torch.autograd.grad(yl, (xl, wl, bl), dy,
+                                                       retain_graph=True)),
+        bytes=3 * n * es, flops=26.0 * n, shape=shape)
+    for r in rec.values():
+        r['bound_ms'], r['bound_by'] = bound(r['bytes'], r['flops'])
+    log('  synchronised K10 timings: ' + json.dumps(rec) + f'; {smi_line()}')
+    return rec
+
+
+def phase_data_parallel(device):
+    """Data-parallel training on the one card (parallel/mesh.py). In a one-rank
+    NCCL group: the full-width baseline.yml step at batch 3 (PRECISION 16) of a
+    DistributedDataParallel trainer whose BatchNorms synchronise their statistics,
+    against the unsynchronised step from the same weights, batch and generator, run
+    three times (``dp_matches_plain``: the losses and running statistics bit for
+    bit; the gradients and Adam moments within twice the unsynchronised step's own
+    run-to-run spread, as its backward does not repeat its bits on the card), with
+    the synchronised kernels' launches counted against the step's BatchNorm calls,
+    no plain version run and, in a second step, no host synchronisation
+    (set_sync_debug_mode('error')); the two steps timed in turns, with their peak
+    memory; K10's synchronised kernels against their plain versions at every
+    training call shape of the step, and timed beside torch.nn.SyncBatchNorm. Then
+    two gloo ranks on the card (fresh processes, this script with --dp-out), each
+    at batch 3, against one process at batch 6 from the same weights and
+    generator, in f32 with TF32 off (DP_F32), its convolutions and squeeze-excitation
+    means run on the two halves of its batch (``batch_in_halves``), at the CPU
+    test's tolerances, their parameters equal bit for bit; and
+    ``torch.distributed.run --nproc_per_node 1 -m fiery_tpu_torch.train`` for 2
+    steps. Returns (the sync kernels' records, the launches of the main path)."""
+    torch.cuda.empty_cache()      # the batch-6 f32 step below peaks at ~61 GB
+    tmp = tempfile.mkdtemp(prefix='fiery_dp_')
+    env = {**os.environ, 'NCCL_SOCKET_IFNAME': os.environ.get('NCCL_SOCKET_IFNAME', 'lo'),
+           'GLOO_SOCKET_IFNAME': os.environ.get('GLOO_SOCKET_IFNAME', 'lo')}
+    os.environ.update({k: env[k] for k in ('NCCL_SOCKET_IFNAME', 'GLOO_SOCKET_IFNAME')})
+    try:
+        dist.init_process_group('nccl', init_method=f'file://{tmp}/nccl', rank=0, world_size=1)
+        try:
+            records, launches = dp_one_rank(device, dist.group.WORLD)
+        finally:
+            dist.destroy_process_group()
+        torch.cuda.empty_cache()
+        dp_two_gloo_ranks(tmp, env)
+        dp_torchrun(tmp, env)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return records, launches
+
+
+def dp_one_rank(device, group):
+    name = 'data parallel (one NCCL rank)'
+    cfg = dp_cfg(3)
+    batches = [dp_batch(cfg, 3, seed=s) for s in range(3)]
+    plain = [dp_trainer(cfg) for _ in range(3)]
+    runs = [dp_step(t, batches[0]) for t in plain]
+    ddp = make_parallel_trainer(dp_trainer(cfg), group)
+    reset_counters()
+    sync_counters(reset=True)
+    got = dp_step(ddp, batches[0])                # the main path
+    launches = {**{k: fn.launches for k, fn in COUNTERS.items()}, **sync_counters()}
+    plain_calls = [fn.plain_calls for fn in PLAIN_COUNTED]
+    dp_matches_plain(name, got, runs, cfg.OPTIMIZER.LR)
+    _, bn_calls, bn_launches, census = count_bn_calls(
+        ddp.model, lambda: ddp.compute_gradients(batches[1], step_generator(DP_SEED, 1, device)))
+    calls = [c for c in census if c[4]]
+    slices = sum(len(channel_slices(c[0][1])) for c in calls)
+    want = {'batch_norm': slices, 'batch_norm_backward': 0,
+            'batch_norm_partials': slices, 'batch_norm_finalize': len(calls),
+            'batch_norm_backward_partials': slices,
+            'batch_norm_backward_finalize': len(calls), 'batch_norm_backward_apply': slices}
+    got_launches = {k: launches[k] for k in want}
+    if got_launches != want or any(plain_calls):
+        raise AssertionError(f'{name}: launches {got_launches}, expected {want}; plain '
+                             f'versions run {plain_calls}')
+    missing = [k for k in TRAIN_KERNELS if k not in ('topk_select', 'topk_select_backward',
+                                                     'batch_norm_backward')
+               and not launches[k]]
+    if missing:
+        raise AssertionError(f'{name}: kernels not launched on the path: {missing}')
+    log(f'{name} (main path) launches: ' + json.dumps({k: v for k, v in launches.items() if v}))
+
+    on_card = ddp.to_device(batches[1])
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode('error')
+    try:
+        ddp.train_step(on_card, step_generator(DP_SEED, 2, device))
+    finally:
+        torch.cuda.set_sync_debug_mode('default')
+    torch.cuda.synchronize()
+    log(f'{name}: a step from the batch on the card ran under set_sync_debug_mode("error")')
+    del on_card, runs
+
+    times, peaks = {'plain': [], 'ddp': []}, {'plain': 0, 'ddp': 0}
+    for i in range(3):
+        for key, t in (('plain', plain[0]), ('ddp', ddp), ('ddp', ddp), ('plain', plain[0])):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            t.train_step(batches[2], step_generator(DP_SEED, 3 + i, device))
+            torch.cuda.synchronize()
+            times[key].append(1e3 * (time.perf_counter() - t0))
+            peaks[key] = max(peaks[key], torch.cuda.max_memory_allocated())
+    log(f'{name}: steps in turns (ms) ' + json.dumps(
+        {k: [round(x, 3) for x in v] for k, v in times.items()})
+        + ' median ' + json.dumps({k: round(statistics.median(v), 3) for k, v in times.items()})
+        + f' peak_mem_bytes {json.dumps(peaks)}; {smi_line()}')
+    del plain, ddp, got
+    torch.cuda.empty_cache()
+
+    errs = [0.0, 0.0]
+    shapes = sorted({(c[0], c[1], c[2]) for c in calls})
+    for i, (shape, es, post) in enumerate(shapes):
+        y_err, g_err = sync_kernel_case(shape, es, post, 1000 + i, group)
+        if es == 2:
+            errs = [max(errs[0], y_err), max(errs[1], g_err)]
+        torch.cuda.empty_cache()
+    log(f'{name}: the synchronised kernels equal to their plain versions within tolerance at '
+        f'the step\'s {len(shapes)} training call shapes')
+    records = sync_timings(group)
+    records['batch_norm_sync']['max_abs_err'] = errs[0]
+    records['batch_norm_sync_backward']['max_abs_err'] = errs[1]
+    records['batch_norm_sync']['step_ms'] = {k: statistics.median(v) for k, v in times.items()}
+    records['batch_norm_sync']['peak_bytes'] = peaks
+    return records, launches
+
+
+def dp_two_gloo_ranks(tmp, env):
+    """Two gloo ranks on the one card, batch 3 each, against one process at batch 6
+    (the same weights, clips and generator seed), in f32 with TF32 off (DP_F32)."""
+    name = 'data parallel (two gloo ranks)'
+    cfg = dp_cfg(6, DP_F32)
+    saved = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.benchmark)
+    f32_only()
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        whole = to_host(dp_step(dp_trainer(cfg), dp_batch(cfg, 6)))
+        peak = torch.cuda.max_memory_allocated()
+        trainer = dp_trainer(cfg)        # calibrated as the ranks' are, whole
+        with batch_in_halves():
+            want = to_host(dp_step(trainer, dp_batch(cfg, 6)))
+        del trainer
+    finally:
+        (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.benchmark) = saved
+    torch.cuda.empty_cache()
+    outs = [os.path.join(tmp, f'rank{r}.pt') for r in range(2)]
+    rendezvous = {'WORLD_SIZE': '2', 'MASTER_ADDR': '127.0.0.1', 'MASTER_PORT': str(free_port())}
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), '--dp-out', outs[r]],
+                              env={**env, **rendezvous, 'RANK': str(r), 'LOCAL_RANK': str(r)},
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for r in range(2)]
+    try:
+        logs = [p.communicate(timeout=600)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, p in enumerate(procs):
+        if p.returncode != 0:
+            raise AssertionError(f'{name}: rank {r} exited {p.returncode}:\n{logs[r][-4000:]}')
+    got = [torch.load(o, weights_only=False) for o in outs]
+    for r, g in enumerate(got):
+        if any(g['plain_calls']) or not all(g['launches'][k] for k in SYNC_COUNTERS):
+            raise AssertionError(f'{name}: rank {r} launches {g["launches"]}, plain versions '
+                                 f'run {g["plain_calls"]}')
+    differ = step_differences(got[1], got[0])
+    if differ['state'] or differ['exp_avg']:
+        raise AssertionError(f'{name}: the ranks\' weights or moments differ: {differ}')
+    for kind in ('grads', 'exp_avg'):
+        log(f'{name}: {kind} relative L2 by module against the batch-6 step run whole: '
+            f'{json.dumps(l2_by_module_and_leaf(got[0][kind], whole[kind])[0])}; the '
+            f'batch-6 step in halves against it: '
+            f'{json.dumps(l2_by_module_and_leaf(want[kind], whole[kind])[0])}')
+    worst = dp_within_cpu_tolerances(f'{name} against one process at batch 6 (in halves)',
+                                     got[0], want, cfg.OPTIMIZER.LR)
+    log(f'{name}: both ranks hold the same weights, statistics and moments bit for bit; '
+        f'within the CPU test\'s tolerances of the batch-6 step ({json.dumps(worst)}); the '
+        f'batch-6 step\'s peak {peak} bytes')
+
+
+def free_port():
+    with socket.socket() as s:
+        s.bind(('127.0.0.1', 0))
+        return s.getsockname()[1]
+
+
+def dp_torchrun(tmp, env):
+    """``python -m torch.distributed.run --nproc_per_node 1 -m fiery_tpu_torch.train``
+    for 2 steps at full width on the synthetic clips: exit 0 and a final
+    checkpoint at step 2."""
+    name = 'data parallel (torchrun, one rank)'
+    log_dir = os.path.join(tmp, 'runs')
+    cmd = [sys.executable, '-m', 'torch.distributed.run', '--nproc_per_node', '1',
+           '--master_addr', '127.0.0.1', '--master_port', str(free_port()), '-m',
+           'fiery_tpu_torch.train', '--config', BASELINE, '--steps', '2', 'DATASET.NAME',
+           'synthetic', 'EPOCHS', '1', 'LOG_DIR', log_dir]
+    t0 = time.perf_counter()
+    out = subprocess.run(cmd, env=env, capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    if out.returncode != 0:
+        raise AssertionError(f'{name}: exit {out.returncode}:\n{out.stdout[-3000:]}\n'
+                             f'{out.stderr[-3000:]}')
+    runs = os.listdir(log_dir)
+    final = os.path.join(log_dir, runs[0], 'checkpoint_final')
+    state, _ = load_checkpoint(final)
+    if len(runs) != 1 or state['step'] != 2 or 'x 1 rank(s)' not in out.stdout:
+        raise AssertionError(f'{name}: runs {runs}, step {state["step"]}:\n{out.stdout[-2000:]}')
+    log(f'{name}: exit 0 in {wall:.1f} s, checkpoint_final at step 2; '
+        + ' | '.join(line for line in out.stdout.splitlines() if '"step"' in line))
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument('--only', choices=['families', 'exported', 'real_set'],
+    parser.add_argument('--only', choices=['families', 'exported', 'real_set', 'data_parallel'],
                         help='run only this phase (after the build); prints no result line')
+    # one rank of phase_data_parallel's gloo ranks (the script starts them itself)
+    parser.add_argument('--dp-out', help=argparse.SUPPRESS)
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device', file=sys.stderr)
         sys.exit(1)
+    if args.dp_out is not None:
+        dp_rank_main(args.dp_out)
+        return
     device = torch.device('cuda')
     log(smi_line())
     log(f'torch {torch.__version__} cuda {torch.version.cuda} '
@@ -3790,6 +4354,12 @@ def main(argv=None):
         t0 = time.perf_counter()
         phase_real_set()
         log(f'real set: ok ({time.perf_counter() - t0:.1f} s); {smi_line()}')
+        return
+    if args.only == 'data_parallel':
+        t0 = time.perf_counter()
+        records, _ = phase_data_parallel(device)
+        log('data parallel: ' + json.dumps(records))
+        log(f'data parallel: ok ({time.perf_counter() - t0:.1f} s); {smi_line()}')
         return
     if args.only == 'exported':
         t0 = time.perf_counter()
@@ -3884,6 +4454,10 @@ def main(argv=None):
     phase_train_loop()
     check_trace_whole('trace after the loop')
     log(f'train loop, resume, combination loop and evaluate: ok '
+        f'({time.perf_counter() - t0:.1f} s)')
+    t0 = time.perf_counter()
+    dp_records, dp_launches = phase_data_parallel(device)
+    log(f'data parallel: one NCCL rank, two gloo ranks, torchrun: ok '
         f'({time.perf_counter() - t0:.1f} s)')
     t0 = time.perf_counter()
     phase_real_set()
@@ -3999,6 +4573,23 @@ def main(argv=None):
                                         'ms_501_slots', 'ms_no_peak', 'ms_flat_plateau')
                       if k in r})
         kernels.append(entry)
+    # K10's synchronised statistics (the data-parallel path): launches of the one-rank
+    # NCCL step, the reduction and finalize launches (forward), and the backward's
+    # reduction, finalize and apply launches; the apply pass forward is K10's eval launch
+    for name, keys in (('batch_norm_sync', ('batch_norm_partials', 'batch_norm_finalize')),
+                       ('batch_norm_sync_backward', ('batch_norm_backward_partials',
+                                                     'batch_norm_backward_finalize',
+                                                     'batch_norm_backward_apply'))):
+        r = dp_records[name]
+        kernels.append({'name': name, 'route': 'cuda',
+                        'source': 'fiery_tpu_torch/csrc/batch_norm.cu',
+                        'replaces': 'fiery_tpu/models/layers.py:157',
+                        'launches': sum(dp_launches[k] for k in keys),
+                        'max_abs_err': r['max_abs_err'], 'ms': r['ms'], 'plain_ms': r['plain_ms'],
+                        'bound_ms': r['bound_ms'], 'bound_by': r['bound_by'],
+                        'library_ms': r['library_ms'], 'call_ms': r['call_ms'],
+                        'pass_ms': r['pass_ms'],
+                        'launches_by_kernel': {k: dp_launches[k] for k in keys}})
     for label, r in (('', train), (' of the combination', combo_train)):
         log(f'train step{label} (batch 3, full width): median_step_ms={r["step_ms"]:.3f} '
             f'peak_mem_bytes={r["peak_bytes"]} held_by_earlier_phases={r["held_bytes"]} '

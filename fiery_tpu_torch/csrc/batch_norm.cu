@@ -70,9 +70,22 @@
 //   channel slices of at most kMaxC, one launch each: a slice's rows are `ld`
 //   values apart (the whole row), its per-channel vectors start at its first
 //   channel. Channels are independent, so the slices give the whole call's bits.
+// - Statistics over several processes (sync-BN; the JAX package takes `mean` and
+//   `mean2` over the global batch that GSPMD shards, fiery_tpu/models/layers.py:157-167).
+//   No collective runs inside a kernel: the reductions' last block writes the rank's
+//   f64 sums (S1, S2 forward; S_dz, S_dzx backward) and its row count into a (2 C + 1)
+//   vector instead of finalizing (`sums`), the wrapper gathers the ranks' vectors into
+//   (world, 2 C + 1) (ops/batch_norm.py `gather_sums`), and a small kernel sums the
+//   slots in rank order in f64 and finalizes as the last block would
+//   (`finalize_stats_kernel`, `finalize_grads_kernel`); the apply passes run as they
+//   are. Every rank gets the same bits whatever the collective's order, and at one
+//   rank the bits of the fused launch: the same f64 partials summed in the same block
+//   order, then one slot.
 // Launches: training forward 2 (statistics + finalize, apply), eval 1, backward 2
-// (reduce + finalize, apply), each once a channel slice. The tickets are global to the device, so the kernels
-// of one call run on one stream at a time (the port uses one stream).
+// (reduce + finalize, apply), each once a channel slice; synchronised, the forward is
+// a reduce a slice, one finalize and an apply a slice, and so is the backward. The
+// tickets are global to the device, so the kernels of one call run on one stream at
+// a time (the port uses one stream); each process has its own context and tickets.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -524,15 +537,50 @@ __device__ __forceinline__ bool reduce_partials(double* __restrict__ partial, in
   return true;
 }
 
+// Channel c's statistics from the f64 sums a = S1, b = S2 of n rows: mean, var,
+// clamp, and the running statistics moved by momentum.
+__device__ __forceinline__ void write_stats(double a, double b, double n, int c,
+                                            float* __restrict__ mean, float* __restrict__ var,
+                                            float* __restrict__ clamp,
+                                            float* __restrict__ running_mean,
+                                            float* __restrict__ running_var, float momentum,
+                                            float one_minus_momentum) {
+  const float m = (float)(a / n);
+  const float m2 = (float)(b / n);
+  const float raw = __fsub_rn(m2, __fmul_rn(m, m));
+  const float v = fmaxf(raw, 0.0f);
+  mean[c] = m;
+  var[c] = v;
+  clamp[c] = raw > 0.0f ? 1.0f : (raw == 0.0f ? 0.5f : 0.0f);
+  running_mean[c] = __fadd_rn(__fmul_rn(running_mean[c], one_minus_momentum),
+                              __fmul_rn(m, momentum));
+  running_var[c] = __fadd_rn(__fmul_rn(running_var[c], one_minus_momentum),
+                             __fmul_rn(v, momentum));
+}
+
+// The last block's sums of a reduction, red[c] and red[C + c], and its row count
+// into the rank's vector: S_a at sums[c], S_b at sums[sums_ld + c], n at *count.
+__device__ __forceinline__ void write_sums(const double* red, int C, double n,
+                                           double* __restrict__ sums, long long sums_ld,
+                                           double* __restrict__ count) {
+  for (int c = threadIdx.x; c < C; c += blockDim.x) {
+    sums[c] = red[c];
+    sums[sums_ld + c] = red[C + c];
+  }
+  if (threadIdx.x == 0) *count = n;
+}
+
 // Training statistics in one launch: each block sums x and x^2 over its rows
 // (f64) into its partial; the last block sums the partials and writes mean, var
-// and clamp, and updates the running statistics.
+// and clamp, and updates the running statistics; or, given `sums`, writes the sums
+// and the row count there for the ranks' finalize.
 template <typename T, int V>
 __global__ void __launch_bounds__(max_threads<V>())
 stats_kernel(const T* __restrict__ x, Rows rw, double* __restrict__ partial,
              float* __restrict__ mean, float* __restrict__ var, float* __restrict__ clamp,
              float* __restrict__ running_mean, float* __restrict__ running_var,
-             float momentum, float one_minus_momentum) {
+             float momentum, float one_minus_momentum, double* __restrict__ sums,
+             long long sums_ld, double* __restrict__ count) {
   __shared__ __align__(16) double red[red_doubles<V>()];
   int g, p0;
   const bool active = lane_of<V>(rw, &g, &p0);
@@ -566,20 +614,66 @@ stats_kernel(const T* __restrict__ x, Rows rw, double* __restrict__ partial,
   block_sum<V>(s2, active, g, p0, rw, red, part + rw.C);
   if (!reduce_partials(partial, rw.C, red, g_tickets[0])) return;
   const double n = (double)rw.M * (double)(rw.W / rw.C);
-  for (int c = threadIdx.x; c < rw.C; c += blockDim.x) {
-    const double a = red[c], b = red[rw.C + c];
-    const float m = (float)(a / n);
-    const float m2 = (float)(b / n);
-    const float raw = __fsub_rn(m2, __fmul_rn(m, m));
-    const float v = fmaxf(raw, 0.0f);
-    mean[c] = m;
-    var[c] = v;
-    clamp[c] = raw > 0.0f ? 1.0f : (raw == 0.0f ? 0.5f : 0.0f);
-    running_mean[c] = __fadd_rn(__fmul_rn(running_mean[c], one_minus_momentum),
-                                __fmul_rn(m, momentum));
-    running_var[c] = __fadd_rn(__fmul_rn(running_var[c], one_minus_momentum),
-                               __fmul_rn(v, momentum));
+  if (sums != nullptr) {
+    write_sums(red, rw.C, n, sums, sums_ld, count);
+    return;
   }
+  for (int c = threadIdx.x; c < rw.C; c += blockDim.x)
+    write_stats(red[c], red[rw.C + c], n, c, mean, var, clamp, running_mean, running_var,
+                momentum, one_minus_momentum);
+}
+
+// Channel c's backward coefficients from the f64 sums a = S_dz, b = S_dzx of n
+// rows: the dx coefficients S_dz / n and clamp S_dzx / n (0 in eval) at dparams[2
+// ld + c] and dparams[3 ld + c].
+__device__ __forceinline__ void write_dx_coefficients(double a, double b, double n, int c,
+                                                      long long ld, const float* clamp,
+                                                      int training, float* dparams) {
+  dparams[2 * ld + c] = training ? (float)(a / n) : 0.0f;
+  dparams[3 * ld + c] = training ? __fmul_rn(clamp[c], (float)(b / n)) : 0.0f;
+}
+
+// Synchronised statistics, finalize: the ranks' vectors (S1, S2, rows) summed in
+// rank order in f64 (slot 0, then each next slot added), then what stats_kernel's
+// last block writes. gathered: (world, 2 C + 1) f64. A thread a channel.
+__global__ void finalize_stats_kernel(const double* __restrict__ gathered, int world, int C,
+                                      float* __restrict__ mean, float* __restrict__ var,
+                                      float* __restrict__ clamp,
+                                      float* __restrict__ running_mean,
+                                      float* __restrict__ running_var, float momentum,
+                                      float one_minus_momentum) {
+  const int c = blockIdx.x * blockDim.x + threadIdx.x;
+  if (c >= C) return;
+  const long long ld = 2LL * C + 1;
+  double a = gathered[c], b = gathered[C + c], n = gathered[2 * C];
+  for (int r = 1; r < world; ++r) {
+    a += gathered[r * ld + c];
+    b += gathered[r * ld + C + c];
+    n += gathered[r * ld + 2 * C];
+  }
+  write_stats(a, b, n, c, mean, var, clamp, running_mean, running_var, momentum,
+              one_minus_momentum);
+}
+
+// Synchronised backward, finalize: dweight and dbias from this rank's own sums
+// (slot `rank`), so that the average of the ranks' parameter gradients is the global
+// one; the dx coefficients from the sums over the ranks in rank order and the global
+// row count. dparams: (4, C) f32.
+__global__ void finalize_grads_kernel(const double* __restrict__ gathered, int world,
+                                      int rank, int C, const float* __restrict__ clamp,
+                                      float* __restrict__ dparams) {
+  const int c = blockIdx.x * blockDim.x + threadIdx.x;
+  if (c >= C) return;
+  const long long ld = 2LL * C + 1;
+  double a = gathered[c], b = gathered[C + c], n = gathered[2 * C];
+  for (int r = 1; r < world; ++r) {
+    a += gathered[r * ld + c];
+    b += gathered[r * ld + C + c];
+    n += gathered[r * ld + 2 * C];
+  }
+  dparams[c] = (float)gathered[rank * ld + C + c];   // dweight
+  dparams[C + c] = (float)gathered[rank * ld + c];   // dbias
+  write_dx_coefficients(a, b, n, c, C, clamp, 1, dparams);
 }
 
 // y = POST(normalise(x), r), each thread walking its rows last to first.
@@ -620,7 +714,8 @@ apply_kernel(const T* __restrict__ x, const T* __restrict__ res, T* __restrict__
 
 // Backward, pass 1 in one launch: dz per value (written as dres for add_relu),
 // and per block the f64 sums of dz and dz * xhat; the last block sums the
-// partials into dparams: dweight, dbias and the two coefficients of dx. Row m of
+// partials into dparams: dweight, dbias and the two coefficients of dx; or, given
+// `sums`, writes the sums and the row count there for the ranks' finalize. Row m of
 // dy starts at m * dy_rs. GRAD: the epilogue whose gradient is taken (none for
 // add, relu for relu_add: they pass dy to the residual unchanged).
 template <typename T, int V, int GRAD>
@@ -631,7 +726,8 @@ backward_reduce_kernel(const T* __restrict__ dy, long long dy_rs, const T* __res
                        const float* __restrict__ w, const float* __restrict__ bias,
                        const float* __restrict__ clamp, float eps, Rows rw, int training,
                        double* __restrict__ partial,
-                       float* __restrict__ dparams) {
+                       float* __restrict__ dparams, double* __restrict__ sums,
+                       long long sums_ld, double* __restrict__ count) {
   // the constants go to registers before the loop; block_sum's first barrier
   // then lets the block's sums take their place
   __shared__ __align__(16) unsigned char smem[smem_bytes<V>()];
@@ -689,24 +785,28 @@ backward_reduce_kernel(const T* __restrict__ dy, long long dy_rs, const T* __res
   block_sum<V>(s2, active, g, p0, rw, red, part + rw.C);
   if (!reduce_partials(partial, rw.C, red, g_tickets[1])) return;
   const double n = (double)rw.M * (double)(rw.W / rw.C);
+  if (sums != nullptr) {
+    write_sums(red, rw.C, n, sums, sums_ld, count);
+    return;
+  }
   for (int c = threadIdx.x; c < rw.C; c += blockDim.x) {
     const double a = red[c], b = red[rw.C + c];
     dparams[c] = (float)b;          // dweight
     dparams[rw.C + c] = (float)a;   // dbias
-    dparams[2 * rw.C + c] = training ? (float)(a / n) : 0.0f;
-    dparams[3 * rw.C + c] = training ? __fmul_rn(clamp[c], (float)(b / n)) : 0.0f;
+    write_dx_coefficients(a, b, n, c, rw.C, clamp, training, dparams);
   }
 }
 
-// Backward, pass 2: dx, each thread walking its rows last to first.
+// Backward, pass 2: dx, each thread walking its rows last to first; the dx
+// coefficients of channel c at dparams[2 dp_ld + c] and dparams[3 dp_ld + c].
 template <typename T, int V, int GRAD>
 __global__ void __launch_bounds__(max_threads<V>())
 backward_apply_kernel(const T* __restrict__ dy, long long dy_rs, const T* __restrict__ x,
                       const T* __restrict__ res, T* __restrict__ dx,
                       const float* __restrict__ mean, const float* __restrict__ var,
                       const float* __restrict__ w, const float* __restrict__ bias,
-                      const float* __restrict__ dparams, float eps, Rows rw,
-                      int training) {
+                      const float* __restrict__ dparams, long long dp_ld, float eps,
+                      Rows rw, int training) {
   __shared__ __align__(16) float ks[kConsts][kMaxC];
   channel_consts<T>(mean, var, w, bias, eps, rw.C, ks);
   int g, p0;
@@ -719,8 +819,8 @@ backward_apply_kernel(const T* __restrict__ dy, long long dy_rs, const T* __rest
 #pragma unroll
   for (int v = 0; v < V; ++v) {
     const int c = (p0 + v) % rw.C;
-    ca[v] = dparams[2 * rw.C + c];
-    cb[v] = dparams[3 * rw.C + c];
+    ca[v] = dparams[2 * dp_ld + c];
+    cb[v] = dparams[3 * dp_ld + c];
   }
   constexpr bool with_res = GRAD == kAddRelu;
   const long long step = (long long)unroll_bwd<GRAD>() * rw.G;
@@ -805,7 +905,7 @@ int forward_v(const Plan& p, const void* x, const void* res, void* y, float* mea
   if (training) {
     stats_kernel<T, V><<<p.blocks, p.threads, 0, st>>>(
         (const T*)x, p.rw, partial, mean, var, clamp, running_mean, running_var, momentum,
-        (float)(1.0 - (double)momentum));
+        (float)(1.0 - (double)momentum), nullptr, 0, nullptr);
     const cudaError_t e = cudaGetLastError();
     if (e != cudaSuccess) return (int)e;
   }
@@ -821,12 +921,12 @@ int backward_v(const Plan& p, const void* dy, long long dy_rs, const void* x, co
                int training, cudaStream_t st) {
   backward_reduce_kernel<T, V, GRAD><<<p.blocks, p.threads, 0, st>>>(
       (const T*)dy, dy_rs, (const T*)x, (const T*)res, (T*)dres, mean, var, w, bias, clamp,
-      eps, p.rw, training, partial, dparams);
+      eps, p.rw, training, partial, dparams, nullptr, 0, nullptr);
   const cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   backward_apply_kernel<T, V, GRAD><<<p.blocks, p.threads, 0, st>>>(
       (const T*)dy, dy_rs, (const T*)x, (const T*)res, (T*)dx, mean, var, w, bias, dparams,
-      eps, p.rw, training);
+      p.rw.C, eps, p.rw, training);
   return (int)cudaGetLastError();
 }
 
@@ -912,6 +1012,56 @@ int backward_t(const void* dy, long long dy_rs, const void* x, const void* res, 
   });
 }
 
+// The synchronised reductions' launches: the forward's statistics (x and x^2) and
+// the backward's (dz and dz * xhat, with dres for add_relu), each writing the
+// rank's sums; and the backward's apply pass with the coefficients of a (4, dp_ld)
+// dparams.
+template <typename T>
+int partials_t(const void* x, double* sums, long long sums_ld, double* count,
+               double* partial, long long M, int C, int V, int fold, int G, int threads,
+               long long R, int blocks, cudaStream_t st, long long ld) {
+  Plan p;
+  if (!plan_of<T>(M, C, ld, V, fold, G, threads, R, blocks, {x}, &p))
+    return (int)cudaErrorInvalidValue;
+  return by_width<T>(V, [&](auto v) {
+    stats_kernel<T, decltype(v)::value><<<p.blocks, p.threads, 0, st>>>(
+        (const T*)x, p.rw, partial, nullptr, nullptr, nullptr, nullptr, nullptr, 0.0f, 0.0f,
+        sums, sums_ld, count);
+    return (int)cudaGetLastError();
+  });
+}
+
+template <typename T>
+int backward_sync_t(int pass, const void* dy, long long dy_rs, const void* x, const void* res,
+                    void* out, const float* mean, const float* var, const float* w,
+                    const float* bias, const float* dparams, long long dp_ld, double* sums,
+                    long long sums_ld, double* count, double* partial, long long M, int C,
+                    int V, int fold, int G, int threads, long long R, int blocks, float eps,
+                    int post, cudaStream_t st, long long ld) {
+  Plan p;
+  if (dy_rs < C || (fold == 1 ? dy_rs % V != 0 : dy_rs != C)
+      || !plan_of<T>(M, C, ld, V, fold, G, threads, R, blocks, {dy, x, res, out}, &p))
+    return (int)cudaErrorInvalidValue;
+  const long long dy_row = fold > 1 ? p.rw.W : dy_rs;   // a kernel row of dy
+  return by_width<T>(V, [&](auto v) {
+    return by_grad(post, [&](auto e) {
+      constexpr int kV = decltype(v)::value, kGrad = decltype(e)::value;
+      if (pass == 0) {
+        backward_reduce_kernel<T, kV, kGrad><<<p.blocks, p.threads, 0, st>>>(
+            (const T*)dy, dy_row, (const T*)x, (const T*)res, (T*)out, mean, var, w, bias,
+            nullptr, eps, p.rw, 1, partial, nullptr, sums, sums_ld, count);
+      } else {
+        backward_apply_kernel<T, kV, kGrad><<<p.blocks, p.threads, 0, st>>>(
+            (const T*)dy, dy_row, (const T*)x, (const T*)res, (T*)out, mean, var, w, bias,
+            dparams, dp_ld, eps, p.rw, 1);
+      }
+      return (int)cudaGetLastError();
+    });
+  });
+}
+
+constexpr int kFinalizeThreads = 256;
+
 }  // namespace
 
 // x, res, y: M rows of C channels, row m at m * ld (ld = C: contiguous; more: a
@@ -968,4 +1118,87 @@ extern "C" int fiery_batch_norm_backward(const void* dy, long long dy_rs, const 
                  : backward_t<float>(dy, dy_rs, x, res, dx, dres, mean, var, clamp, w, bias,
                                      dparams, partial, M, C, V, fold, G, threads, R, blocks,
                                      eps, training, post, st, ld);
+}
+
+// The synchronised statistics (several processes). sums: the rank's (2 C + 1) f64
+// vector, seen from this launch's first channel: S1 at sums[c], S2 at sums[sums_ld
+// + c], the row count at *count (sums_ld: the whole call's C); the plan and x as
+// for the forward. One launch, which the last block finishes.
+extern "C" int fiery_batch_norm_partials(const void* x, double* sums, long long sums_ld,
+                                         double* count, double* partial, long long M, int C,
+                                         int V, int fold, int G, int threads, long long R,
+                                         int blocks, int is_bf16, void* stream, long long ld) {
+  if (M == 0 || C == 0) return (int)cudaSuccess;
+  cudaStream_t st = (cudaStream_t)stream;
+  return is_bf16 ? partials_t<__nv_bfloat16>(x, sums, sums_ld, count, partial, M, C, V, fold,
+                                             G, threads, R, blocks, st, ld)
+                 : partials_t<float>(x, sums, sums_ld, count, partial, M, C, V, fold, G,
+                                     threads, R, blocks, st, ld);
+}
+
+// gathered: (world, 2 C + 1) f64, the ranks' vectors in rank order; mean, var,
+// clamp: (C,) f32 out; running_mean, running_var: (C,) f32, updated. One launch.
+extern "C" int fiery_batch_norm_finalize(const double* gathered, int world, int C, float* mean,
+                                         float* var, float* clamp, float* running_mean,
+                                         float* running_var, float momentum, void* stream) {
+  if (C == 0) return (int)cudaSuccess;
+  if (world < 1) return (int)cudaErrorInvalidValue;
+  finalize_stats_kernel<<<(C + kFinalizeThreads - 1) / kFinalizeThreads, kFinalizeThreads, 0,
+                          (cudaStream_t)stream>>>(gathered, world, C, mean, var, clamp,
+                                                  running_mean, running_var, momentum,
+                                                  (float)(1.0 - (double)momentum));
+  return (int)cudaGetLastError();
+}
+
+// The synchronised backward's reduce: dres (add_relu, else null) and the rank's
+// (S_dz, S_dzx, rows) into sums as fiery_batch_norm_partials writes them; the other
+// arguments as for fiery_batch_norm_backward (training).
+extern "C" int fiery_batch_norm_backward_partials(
+    const void* dy, long long dy_rs, const void* x, const void* res, void* dres,
+    const float* mean, const float* var, const float* w, const float* bias, double* sums,
+    long long sums_ld, double* count, double* partial, long long M, int C, int V, int fold,
+    int G, int threads, long long R, int blocks, float eps, int post, int is_bf16,
+    void* stream, long long ld) {
+  if (M == 0 || C == 0) return (int)cudaSuccess;
+  cudaStream_t st = (cudaStream_t)stream;
+  return is_bf16 ? backward_sync_t<__nv_bfloat16>(0, dy, dy_rs, x, res, dres, mean, var, w,
+                                                  bias, nullptr, 0, sums, sums_ld, count,
+                                                  partial, M, C, V, fold, G, threads, R,
+                                                  blocks, eps, post, st, ld)
+                 : backward_sync_t<float>(0, dy, dy_rs, x, res, dres, mean, var, w, bias,
+                                          nullptr, 0, sums, sums_ld, count, partial, M, C, V,
+                                          fold, G, threads, R, blocks, eps, post, st, ld);
+}
+
+// gathered: (world, 2 C + 1) f64, the ranks' backward vectors in rank order; clamp:
+// (C,) f32; dparams: (4, C) f32 out (dweight and dbias of this rank's own sums, the
+// two dx coefficients of the global ones). One launch.
+extern "C" int fiery_batch_norm_backward_finalize(const double* gathered, int world, int rank,
+                                                  int C, const float* clamp, float* dparams,
+                                                  void* stream) {
+  if (C == 0) return (int)cudaSuccess;
+  if (world < 1 || rank < 0 || rank >= world) return (int)cudaErrorInvalidValue;
+  finalize_grads_kernel<<<(C + kFinalizeThreads - 1) / kFinalizeThreads, kFinalizeThreads, 0,
+                          (cudaStream_t)stream>>>(gathered, world, rank, C, clamp, dparams);
+  return (int)cudaGetLastError();
+}
+
+// The synchronised backward's apply pass: dx from the coefficients at dparams[2
+// dp_ld + c] and dparams[3 dp_ld + c] (dparams seen from this launch's first
+// channel); the other arguments as for fiery_batch_norm_backward (training).
+extern "C" int fiery_batch_norm_backward_apply(
+    const void* dy, long long dy_rs, const void* x, const void* res, void* dx,
+    const float* mean, const float* var, const float* w, const float* bias,
+    const float* dparams, long long dp_ld, long long M, int C, int V, int fold, int G,
+    int threads, long long R, int blocks, float eps, int post, int is_bf16, void* stream,
+    long long ld) {
+  if (M == 0 || C == 0) return (int)cudaSuccess;
+  cudaStream_t st = (cudaStream_t)stream;
+  return is_bf16 ? backward_sync_t<__nv_bfloat16>(1, dy, dy_rs, x, res, dx, mean, var, w, bias,
+                                                  dparams, dp_ld, nullptr, 0, nullptr, nullptr,
+                                                  M, C, V, fold, G, threads, R, blocks, eps,
+                                                  post, st, ld)
+                 : backward_sync_t<float>(1, dy, dy_rs, x, res, dx, mean, var, w, bias, dparams,
+                                          dp_ld, nullptr, 0, nullptr, nullptr, M, C, V, fold, G,
+                                          threads, R, blocks, eps, post, st, ld);
 }

@@ -276,11 +276,13 @@ def numeric_batch(batch):
             if isinstance(v, torch.Tensor) or np.asarray(v).dtype.kind in 'biufc'}
 
 
-def prepare_dataloaders(cfg, device=None):
+def prepare_dataloaders(cfg, device=None, batch_size=None, process_index=0, process_count=1):
     """(train_loader, val_loader) for the configured dataset: train shuffled with
-    drop_last, val in order, batches of cfg.BATCHSIZE. The loaders pin their
-    batches when ``device`` is a CUDA device; with device None or the CPU they
-    yield numpy batches."""
+    drop_last, val in order, batches of ``batch_size`` (cfg.BATCHSIZE when None).
+    The loaders pin their batches when ``device`` is a CUDA device; with device
+    None or the CPU they yield numpy batches. Several processes (data-parallel
+    ranks): (process_index, process_count) has each read a disjoint strided shard
+    of every (identically shuffled) epoch, as the JAX package's loaders do."""
     name = cfg.DATASET.NAME
     if name == 'synthetic':
         n_train = cfg.DATASET.N_SYNTHETIC_SAMPLES
@@ -293,7 +295,9 @@ def prepare_dataloaders(cfg, device=None):
     num_workers = cfg.N_WORKERS if name in ('nuscenes', 'lyft') else 0
     transform = make_prewarp_transform(cfg) if cfg.DATASET.PREWARP_LABELS else None
     pin = device is not None and torch.device(device).type == 'cuda'
-    kw = dict(num_workers=num_workers, transform=transform, pin_memory=pin)
-    train_loader = DataLoader(train_ds, cfg.BATCHSIZE, shuffle=True, drop_last=True, **kw)
-    val_loader = DataLoader(val_ds, cfg.BATCHSIZE, shuffle=False, drop_last=False, **kw)
+    kw = dict(num_workers=num_workers, transform=transform, pin_memory=pin,
+              process_index=process_index, process_count=process_count)
+    bs = cfg.BATCHSIZE if batch_size is None else batch_size
+    train_loader = DataLoader(train_ds, bs, shuffle=True, drop_last=True, **kw)
+    val_loader = DataLoader(val_ds, bs, shuffle=False, drop_last=False, **kw)
     return train_loader, val_loader

@@ -15,6 +15,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from fiery_tpu_torch.models.layers import BatchNorm, Conv2d
+from fiery_tpu_torch.parallel.mesh import draw_batch
 
 # (num_repeat, kernel, stride, expand_ratio, in_filters, out_filters, se_ratio)
 _BLOCK_ARGS = [
@@ -118,7 +119,8 @@ class MBConvBlock(nn.Module):
     def forward(self, x, generator=None):
         """x (N, C, H, W). In training with a drop rate, the residual branch of each
         sample is kept with probability 1 - rate and scaled by 1 / (1 - rate); the
-        uniforms come from ``generator`` (torch's default one if None)."""
+        uniforms come from ``generator`` (torch's default one if None; a
+        ``RankGenerator``'s are the global batch's, parallel/mesh.py)."""
         inputs = x
         if self.has_expand:
             x = self._bn0(self._expand_conv(x))
@@ -135,7 +137,7 @@ class MBConvBlock(nn.Module):
         x = self._bn2(x, post='none')
         keep = 1.0 - self.drop_rate
         device = generator.device if generator is not None else x.device
-        u = torch.rand((x.shape[0], 1, 1, 1), generator=generator, device=device)
+        u = draw_batch(torch.rand, (x.shape[0], 1, 1, 1), generator, device)
         x = x / keep * (u < keep).to(device=x.device, dtype=x.dtype)
         return x + inputs
 

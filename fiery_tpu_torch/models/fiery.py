@@ -35,6 +35,7 @@ from fiery_tpu_torch.ops.lift_splat import (create_frustum, get_geometry, lift_s
                                             lift_splat_topk)
 from fiery_tpu_torch.ops.warp import (compose_poses_to_present, cumulative_warp_features,
                                       warp_points_to_present)
+from fiery_tpu_torch.parallel.mesh import draw_batch
 from fiery_tpu_torch.utils.geometry import (calculate_birds_eye_view_parameters,
                                             pack_sequence_dim)
 
@@ -297,7 +298,7 @@ class Fiery(nn.Module):
         if noise is None:
             if self.training:
                 device = generator.device if generator is not None else mu.device
-                noise = torch.randn(mu.shape, generator=generator, device=device)
+                noise = draw_batch(torch.randn, mu.shape, generator, device)
             else:
                 noise = torch.zeros_like(mu)
         return mu + torch.exp(log_sigma) * noise.to(mu.device, mu.dtype), output

@@ -76,7 +76,10 @@ class BatchNorm(nn.modules.batchnorm._BatchNorm):
     own update takes the unbiased one); momentum None is the cumulative average,
     m = 1 / batches seen. The epilogues add, add_relu and relu_add take the
     ``residual`` argument of ``forward``; ``post=`` of ``forward`` overrides the
-    module's for one call.
+    module's for one call. With ``process_group`` set (a ``torch.distributed``
+    group; parallel/mesh.py ``make_parallel_trainer`` sets it), training takes the
+    statistics over the group's ranks (sync-BN, as the JAX package's BatchNorm over
+    a batch sharded on its ``data`` axis); eval is unchanged.
     """
 
     def __init__(self, num_features, eps=1e-5, momentum=0.1, post='none'):
@@ -84,6 +87,7 @@ class BatchNorm(nn.modules.batchnorm._BatchNorm):
         if post not in POSTS:
             raise ValueError(f'Invalid BN epilogue {post}')
         self.post = post
+        self.process_group = None
 
     def _check_input_dim(self, x):
         if x.dim() not in (4, 5):
@@ -102,7 +106,7 @@ class BatchNorm(nn.modules.batchnorm._BatchNorm):
                 self.num_batches_tracked)
         return batch_norm(x, self.weight, self.bias, self.running_mean, self.running_var,
                           self.training, m, self.eps, self.post if post is None else post,
-                          residual)
+                          residual, self.process_group)
 
 
 def resize_bilinear(x, out_hw):

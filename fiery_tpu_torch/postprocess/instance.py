@@ -25,6 +25,7 @@ import torch.nn.functional as F
 
 from fiery_tpu_torch.ops import _build
 from fiery_tpu_torch.ops.lap import linear_sum_assignment
+from fiery_tpu_torch.utils.rounding import sqrt_rn
 
 MAX_INSTANCES = 100  # the reference caps detected centres at 100 per frame
 
@@ -440,7 +441,7 @@ def make_instance_id_temporally_consistent_device(pred_inst, future_flow,
         prev_valid = prev_valid_all.gather(1, prev_slot_ids) & (prev_slot_ids > 0)
 
         diff = prev_centers[:, :, None] - cur_centers[:, None, :]
-        dist = torch.sqrt((diff * diff).sum(dim=-1))
+        dist = sqrt_rn((diff * diff).sum(dim=-1))
         valid_pair = prev_valid[:, :, None] & cur_valid[:, None, :]
         valid_pair[:, :, 0] = False
         valid_pair[:, 0, :] = False

@@ -35,8 +35,19 @@ and drop-connect masks from a generator seeded by (seed, step), so that k steps,
 a checkpoint and a resume draw what an uninterrupted run does. Under
 LIFT.DEPTH_CULL the kept depth planes come from a first look at the train loader.
 ``--steps N`` ends the run after global step N (then only ``checkpoint_final``).
-It runs on the CUDA card unless given --device cpu. Not yet ported: several
-cards.
+It runs on the CUDA card unless given --device cpu.
+
+Data-parallel over several processes (parallel/mesh.py), one card each:
+
+    python -m torch.distributed.run --nproc_per_node N -m fiery_tpu_torch.train \
+        --config fiery_tpu_torch/configs/baseline.yml DATASET.NAME synthetic
+
+BATCHSIZE is per rank (the global batch is BATCHSIZE x N), each rank reads its
+shard of every epoch, the BatchNorm statistics and the masked losses are global,
+the ranks' DEPTH_CULL keeps are the maximum of theirs, and the validation sums the
+ranks' metric states. Only rank 0 prints, logs, writes videos and saves
+checkpoints; every rank resumes from the checkpoint rank 0 finds, behind a
+barrier. On the CPU (``--device cpu``) the ranks use gloo.
 """
 
 import argparse
@@ -49,10 +60,14 @@ import types
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from fiery_tpu_torch.data.dataset import numeric_batch, prepare_dataloaders
 from fiery_tpu_torch.evaluate import update_metrics
 from fiery_tpu_torch.ops.lift_splat import compute_depth_plane_keep, create_frustum
+from fiery_tpu_torch.parallel.mesh import (make_parallel_trainer, max_across_ranks,
+                                           maybe_initialize_distributed, rank_and_world,
+                                           sum_states)
 from fiery_tpu_torch.serve import init_params
 from fiery_tpu_torch.training.metrics import IntersectionOverUnion, PanopticMetric
 from fiery_tpu_torch.training.trainer import Trainer, step_generator
@@ -60,7 +75,6 @@ from fiery_tpu_torch.utils.checkpoint import (find_latest_checkpoint, load_check
                                               load_pretrained_params, save_checkpoint,
                                               save_checkpoint_async, wait_for_async_save)
 from fiery_tpu_torch.utils.config import get_cfg
-from fiery_tpu_torch.utils.device import resolve_device
 from fiery_tpu_torch.utils.geometry import calculate_birds_eye_view_parameters
 from fiery_tpu_torch.utils.visualisation import visualise_output
 
@@ -156,7 +170,9 @@ def new_run_dir(cfg):
 def validate(trainer, valloader, on_first=None):
     """One pass over the val loader: IoU of each class over the whole grid
     (accumulated on the device) and the vehicles' VPQ from the host tracker.
-    ``on_first(output, labels)`` is called with the first batch's."""
+    ``on_first(output, labels)`` is called with the first batch's. Data-parallel,
+    each rank passes over its shard and the ranks' states are summed before the
+    scores (``sum_states``)."""
     n_classes = trainer.model.cfg.n_classes
     X, Y = trainer.model.cfg.bev_size
     whole = {'whole': ((0, X), (0, Y))}
@@ -169,8 +185,21 @@ def validate(trainer, valloader, on_first=None):
         iou_states = update_metrics(output, labels, iou_states, panoptic, whole, n_classes,
                                     device_matching=False)
     iou = IntersectionOverUnion(n_classes)
-    iou.load_state(iou_states[0].cpu().numpy().astype(np.float64))
+    iou_state = iou_states[0].cpu().numpy().astype(np.float64)
+    if trainer.group is not None:
+        iou_state = sum_states(iou_state, trainer.group)
+        panoptic['whole'].load_state(sum_states(panoptic['whole'].state(), trainer.group))
+    iou.load_state(iou_state)
     return iou.compute(), panoptic['whole'].compute()['pq'][1]
+
+
+def _from_rank_0(value):
+    """Rank 0's value on every rank (a path, say)."""
+    if not dist.is_initialized():
+        return value
+    box = [value]
+    dist.broadcast_object_list(box, src=0)
+    return box[0]
 
 
 def main(argv=None):
@@ -181,23 +210,31 @@ def main(argv=None):
     decode counts and transform times)."""
     args = parse_args(argv)
     cfg = get_cfg(args)
-    device = resolve_device(args.device)
-    trainloader, valloader = prepare_dataloaders(cfg, device=device)
+    device = maybe_initialize_distributed(args.device)
+    rank, world = rank_and_world()
+    trainloader, valloader = prepare_dataloaders(cfg, device=device, process_index=rank,
+                                                 process_count=world)
+    steps_max, steps_min = max_across_ranks([len(trainloader), -len(trainloader)])
+    if steps_max != -steps_min:
+        raise ValueError(f'the ranks\' shards give {-steps_min} to {steps_max} batches an '
+                         f'epoch: N_SYNTHETIC_SAMPLES (or the split) must shard evenly')
+    log = print if rank == 0 else (lambda *a, **k: None)
 
     depth_keep = None
     if cfg.LIFT.DEPTH_CULL:
         peek = trainloader.peek()
         if peek is None:
             raise ValueError('empty training dataset')
-        depth_keep = depth_plane_keep(cfg, peek)
-        print(json.dumps({'depth_keep': [int(k) for k in depth_keep]}), flush=True)
+        # every rank culls with the largest keep of any rank's first batch
+        depth_keep = max_across_ranks(depth_plane_keep(cfg, peek))
+        log(json.dumps({'depth_keep': depth_keep}), flush=True)
     trainer = Trainer(cfg, depth_keep=depth_keep, device=device)
     init_params(trainer.model, seed=args.seed)
 
-    save_dir = new_run_dir(cfg)
-    logger = MetricLogger(save_dir)
-    print(f'Logging to {save_dir}; device {device}, batch {cfg.BATCHSIZE}, '
-          f'{len(trainloader)} steps an epoch', flush=True)
+    save_dir = _from_rank_0(new_run_dir(cfg))
+    logger = MetricLogger(save_dir) if rank == 0 else None
+    log(f'Logging to {save_dir}; device {device}, batch {cfg.BATCHSIZE} x {world} '
+        f'rank(s), {len(trainloader)} steps an epoch', flush=True)
     # the JAX loop takes a first batch here to initialise its state; the look
     # advances the loader's epoch counter, so that the epochs below shuffle as its do
     trainloader.peek()
@@ -205,19 +242,23 @@ def main(argv=None):
     start_epoch = 0
     if args.resume:
         target = cfg.LOG_DIR if args.resume == 'auto' else args.resume
-        resolved = find_latest_checkpoint(target)
+        if dist.is_initialized():
+            dist.barrier()
+        resolved = _from_rank_0(find_latest_checkpoint(target))
         if resolved is None:
             if args.resume != 'auto':
                 raise SystemExit(f'--resume: no complete checkpoint at {target}')
-            print(f'--resume auto: no checkpoint under {target}, starting fresh', flush=True)
+            log(f'--resume auto: no checkpoint under {target}, starting fresh', flush=True)
         else:
-            print(f'Resuming from {resolved}', flush=True)
+            log(f'Resuming from {resolved}', flush=True)
             state, _ = load_checkpoint(resolved)
             trainer.load_state(state, strict=True)
             start_epoch = trainer.step // max(1, len(trainloader))
     elif cfg.PRETRAINED.LOAD_WEIGHTS and cfg.PRETRAINED.PATH:
-        print(f'Warm-starting from {cfg.PRETRAINED.PATH}', flush=True)
+        log(f'Warm-starting from {cfg.PRETRAINED.PATH}', flush=True)
         load_pretrained_params(cfg.PRETRAINED.PATH, trainer)
+    if dist.is_initialized():
+        make_parallel_trainer(trainer)
 
     run = types.SimpleNamespace(trainer=trainer, save_dir=save_dir, steps=[], videos=[],
                                 loaders=(trainloader, valloader))
@@ -236,9 +277,9 @@ def main(argv=None):
             t1 = time.perf_counter()
             batch = numeric_batch(batch)
             losses, total = trainer.train_step(
-                batch, step_generator(args.seed, trainer.step, device))
+                batch, step_generator(args.seed, trainer.step, device, rank, world))
             step = trainer.step
-            if step % cfg.LOGGING_INTERVAL == 0 or step == 1:
+            if rank == 0 and (step % cfg.LOGGING_INTERVAL == 0 or step == 1):
                 scalars = {'total_loss': float(total),
                            **{k: float(v) for k, v in losses.items()}}
                 print(json.dumps({'epoch': epoch, 'step': step, **scalars}), flush=True)
@@ -246,7 +287,7 @@ def main(argv=None):
                     logger.scalar(k, v, step)
             t2 = time.perf_counter()
             video_ms = None
-            if step % cfg.VIS_INTERVAL == 0:
+            if rank == 0 and step % cfg.VIS_INTERVAL == 0:
                 # the ground truth against the prediction of the updated weights
                 output, labels, _ = trainer.eval_step(batch)
                 run.videos.append(logger.video(
@@ -259,9 +300,11 @@ def main(argv=None):
             break
 
         step = trainer.step
-        iou, vpq = validate(trainer, valloader, on_first=lambda output, labels: (
-            run.videos.append(logger.video(
+        iou, vpq = validate(trainer, valloader, on_first=None if rank else (
+            lambda output, labels: run.videos.append(logger.video(
                 'val_outputs', visualise_output(labels, output, cfg), step))))
+        if rank:
+            continue
         uw = {k: float(v.detach()) for k, v in trainer.uncertainty.items()}
         logger.scalar('segmentation_weight', 1.0 / np.exp(uw['segmentation_weight']), step)
         for k in ('centerness_weight', 'offset_weight', 'flow_weight'):
@@ -277,14 +320,20 @@ def main(argv=None):
                           'val_vpq_vehicles': float(vpq)}), flush=True)
         save_checkpoint_async(os.path.join(save_dir, f'checkpoint_epoch{epoch}'), trainer, cfg)
 
-    wait_for_async_save()
-    save_checkpoint(os.path.join(save_dir, 'checkpoint_final'), trainer, cfg)
+    if rank == 0:
+        wait_for_async_save()
+        save_checkpoint(os.path.join(save_dir, 'checkpoint_final'), trainer, cfg)
+        logger.close()
     trainloader.shutdown()
     valloader.shutdown()
-    logger.close()
-    print(f'Training complete; checkpoints in {save_dir}', flush=True)
+    if dist.is_initialized():
+        # the ranks end together, after rank 0's checkpoint is on disk
+        dist.barrier()
+    log(f'Training complete; checkpoints in {save_dir}', flush=True)
     return run
 
 
 if __name__ == '__main__':
     main()
+    if dist.is_initialized():
+        dist.destroy_process_group()

@@ -11,6 +11,7 @@ the JAX package's custom VJP does.
 import ctypes
 
 import torch
+import torch.distributed as dist
 import torch.nn as nn
 import torch.nn.functional as F
 
@@ -107,10 +108,15 @@ def top_k_mean(loss, k):
 
 
 def spatial_regression_loss(prediction, target, norm, ignore_index=255,
-                            future_discount=1.0):
+                            future_discount=1.0, group=None):
     """L1 (norm 1) or L2 (norm 2) regression of (b, s, h, w, c) maps, summed over
     channels, discounted by future_discount ** t, averaged over the pixels whose
-    first target channel is not ignore_index (0 when there are none)."""
+    first target channel is not ignore_index (0 when there are none).
+
+    With a process ``group`` (data-parallel, W ranks) the count is the global
+    batch's (all-reduced), and the rank's sum is scaled by W: the ranks' average of
+    their values (and of their gradients, as DDP takes it) is then the global
+    batch's loss, which a per-rank ratio averaged would not be."""
     if prediction.dim() != 5:
         raise ValueError(f'spatial_regression_loss: expected (b, s, h, w, c), got '
                          f'{tuple(prediction.shape)}')
@@ -126,8 +132,11 @@ def spatial_regression_loss(prediction, target, norm, ignore_index=255,
     discounts = future_discount ** torch.arange(s, dtype=loss.dtype, device=loss.device)
     loss = loss * discounts[None, :, None, None, None]
     denom = mask.sum()
-    return torch.where(denom > 0, (loss * mask).sum() / denom.clamp_min(1.0),
-                       torch.zeros_like(denom))
+    total = (loss * mask).sum()
+    if group is not None:
+        dist.all_reduce(denom, group=group)
+        total = total * dist.get_world_size(group)
+    return torch.where(denom > 0, total / denom.clamp_min(1.0), torch.zeros_like(denom))
 
 
 def segmentation_loss(prediction, target, class_weights, ignore_index=255,
@@ -170,9 +179,11 @@ def init_uncertainty_weights(instance_flow_enabled=True):
     return nn.ParameterDict({n: nn.Parameter(torch.zeros(())) for n in names})
 
 
-def compute_losses(output, labels, uncertainty_weights, cfg):
+def compute_losses(output, labels, uncertainty_weights, cfg, group=None):
     """The loss dict of a training step: each task loss scaled by its learned
     uncertainty weight, with the weights' own regularisers, and the weighted KL.
+    ``group``: the process group of a data-parallel step (the regression losses'
+    global count, ``spatial_regression_loss``), or None.
 
     labels: 'segmentation' (b, s, h, w) int, 'centerness' (b, s, h, w, 1),
     'offset' (b, s, h, w, 2) and, with instance flow, 'flow' (b, s, h, w, 2).
@@ -189,18 +200,18 @@ def compute_losses(output, labels, uncertainty_weights, cfg):
 
     loss['instance_center'] = 1.0 / (2.0 * torch.exp(uw['centerness_weight'])) * \
         spatial_regression_loss(output['instance_center'], labels['centerness'], norm=2,
-                                future_discount=discount)
+                                future_discount=discount, group=group)
     loss['centerness_uncertainty'] = 0.5 * uw['centerness_weight']
 
     loss['instance_offset'] = 1.0 / (2.0 * torch.exp(uw['offset_weight'])) * \
         spatial_regression_loss(output['instance_offset'], labels['offset'], norm=1,
-                                ignore_index=ignore, future_discount=discount)
+                                ignore_index=ignore, future_discount=discount, group=group)
     loss['offset_uncertainty'] = 0.5 * uw['offset_weight']
 
     if cfg.INSTANCE_FLOW.ENABLED:
         loss['instance_flow'] = 1.0 / (2.0 * torch.exp(uw['flow_weight'])) * \
             spatial_regression_loss(output['instance_flow'], labels['flow'], norm=1,
-                                    ignore_index=ignore, future_discount=discount)
+                                    ignore_index=ignore, future_discount=discount, group=group)
         loss['flow_uncertainty'] = 0.5 * uw['flow_weight']
 
     if cfg.PROBABILISTIC.ENABLED:

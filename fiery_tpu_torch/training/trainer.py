@@ -23,7 +23,14 @@ parameters too and take part in the clip and in Adam.
 
 The generator lives on the trainer's device, so that drawing the drop-connect
 masks and the latent noise never waits on the host; the training loop seeds one a
-step (``step_generator``). ``Trainer.state()`` and ``Trainer.load_state()`` are what
+step (``step_generator``).
+
+Data-parallel (parallel/mesh.py ``make_parallel_trainer``): each rank's trainer
+takes its share of the global batch; ``forward_losses`` is then the losses module
+inside DistributedDataParallel, the BatchNorms take their statistics over the
+ranks, a ``noise`` given is the global batch's (each rank keeps its rows), the
+generator is ``step_generator(..., rank, world)``'s, and the returned losses are
+the global ones. ``Trainer.state()`` and ``Trainer.load_state()`` are what
 a checkpoint holds (``utils/checkpoint.py``): the weights, the uncertainty weights,
 the Adam state and the step.
 """
@@ -31,9 +38,11 @@ the Adam state and the step.
 import dataclasses
 
 import torch
+import torch.nn as nn
 
 from fiery_tpu_torch.models.fiery import Fiery, FieryConfig
 from fiery_tpu_torch.ops.warp import cumulative_warp_features_reverse
+from fiery_tpu_torch.parallel.mesh import RankGenerator, global_losses, rank_rows
 from fiery_tpu_torch.training.losses import compute_losses, init_uncertainty_weights
 from fiery_tpu_torch.utils.device import device_constant, resolve_device
 
@@ -44,14 +53,17 @@ def clip_by_global_norm_(grads, max_norm):
     """Scale the gradients in place as optax.clip_by_global_norm does; returns the
     global norm, a 0-d tensor on their device.
 
-    The norm is the square root of the summed squares of every gradient (one dot
-    product over their concatenation: a single reduction, cheaper on the host than
-    a list of per-tensor squares). Each gradient t stays as it is when the norm is
+    The norm is the square root of the summed squares of every gradient (one
+    reduction over their concatenation, cheaper on the host than a list of
+    per-tensor squares), summed in f64 and rounded once to f32: an f32 sum's error
+    depends on its order, which the host's BLAS picks (an AVX-512 host's f32 dot
+    missed the f64 norm by 5e-5 relative, and moved a clipped step's Adam moments
+    past JAX's by as much). Each gradient t stays as it is when the norm is
     below max_norm, else it becomes (t / norm) * max_norm: a division, then a
     multiplication. Both factors are chosen on the device (1 and 1 below the clip),
     so the step never waits on the host and an unclipped gradient keeps its bits."""
     flat = torch.cat([g.reshape(-1) for g in grads])
-    norm = torch.dot(flat, flat).sqrt()
+    norm = torch.linalg.vector_norm(flat, dtype=torch.float64).float()
     del flat
     one, clip = device_constant((1.0, max_norm), torch.float32, norm.device)
     keep = norm < clip
@@ -60,11 +72,33 @@ def clip_by_global_norm_(grads, max_norm):
     return norm
 
 
-def step_generator(seed, step, device):
+def step_generator(seed, step, device, rank=0, world=1):
     """The random stream of one training step: a generator on ``device`` seeded
     from (seed, step), as the JAX package folds the step into its key. A resumed
-    run draws what an uninterrupted one draws, with no generator state saved."""
-    return torch.Generator(device=device).manual_seed((int(seed) << 32) + int(step))
+    run draws what an uninterrupted one draws, with no generator state saved. On
+    rank ``rank`` of ``world`` (> 1) a ``RankGenerator`` of the same seed: the
+    ranks' draws together are one process's on the global batch."""
+    g = (torch.Generator(device=device) if world == 1
+         else RankGenerator(torch.device(device), rank, world))
+    return g.manual_seed((int(seed) << 32) + int(step))
+
+
+class StepLosses(nn.Module):
+    """The model and the uncertainty weights as one module whose forward is a
+    training step's loss dict: what DistributedDataParallel wraps, so that every
+    gradient, the uncertainty weights' too, is averaged over the ranks. ``group``:
+    the process group of the masked losses' global count, or None."""
+
+    def __init__(self, model, uncertainty, cfg):
+        super().__init__()
+        self.model, self.uncertainty, self.cfg = model, uncertainty, cfg
+        self.group = None
+
+    def forward(self, inputs, future_distribution_inputs, labels, noise=None,
+                generator=None):
+        output = self.model(*inputs, future_distribution_inputs, noise=noise,
+                            generator=generator)
+        return compute_losses(output, labels, self.uncertainty, self.cfg, group=self.group)
 
 
 class Trainer:
@@ -90,6 +124,10 @@ class Trainer:
                                           weight_decay=cfg.OPTIMIZER.WEIGHT_DECAY,
                                           fused=device.type == 'cuda')
         self.step = 0              # optimizer steps taken, the JAX TrainState's step
+        # the losses of a step's forward; make_parallel_trainer wraps it in DDP
+        self.step_losses = StepLosses(self.model, self.uncertainty, cfg)
+        self.forward_losses = self.step_losses
+        self.group, self.rank, self.world = None, 0, 1
 
     def state(self):
         """What a checkpoint holds: the model's state_dict, the uncertainty weights,
@@ -167,20 +205,27 @@ class Trainer:
 
     def compute_gradients(self, batch, generator=None, noise=None):
         """Forward, losses and backward of one step, leaving the gradients in the
-        parameters' ``.grad``. Returns (loss dict, total loss), detached."""
+        parameters' ``.grad`` (averaged over the ranks when data-parallel). Returns
+        (loss dict, total loss), detached: the global batch's."""
         if generator is not None and generator.device.type != self.device.type:
             raise ValueError(f'the generator is on {generator.device} and the trainer on '
                              f'{self.device}: each draw would be a blocking copy')
+        if (self.world > 1 and generator is not None
+                and getattr(generator, 'world', 1) != self.world):
+            raise ValueError('a data-parallel step draws from step_generator(..., rank, world)')
         batch = self.to_device(batch)
+        if noise is not None and self.world > 1:
+            noise = rank_rows(noise, batch['image'].shape[0], self.rank)
         self.model.train()
         labels, fdi = self.prepare_future_labels(batch)
-        output = self.model(*(batch[k] for k in INPUTS), fdi, noise=noise,
-                            generator=generator)
-        losses = compute_losses(output, labels, self.uncertainty, self.cfg)
+        losses = self.forward_losses([batch[k] for k in INPUTS], fdi, labels, noise, generator)
         total = sum(losses.values())
         self.optimizer.zero_grad(set_to_none=True)
         total.backward()
-        return {k: v.detach() for k, v in losses.items()}, total.detach()
+        losses, total = {k: v.detach() for k, v in losses.items()}, total.detach()
+        if self.group is not None:
+            losses, total = global_losses(losses, total, self.group)
+        return losses, total
 
     def apply_gradients(self):
         """Clip the global gradient norm (``clip_by_global_norm_``), then the Adam

@@ -30,6 +30,7 @@ import torch
 import torch.nn as nn
 
 from fiery_tpu_torch.models.fiery import Fiery
+from fiery_tpu_torch.utils.rounding import sqrt_rn
 from fiery_tpu_torch.utils.weight_import import build_mapping
 
 
@@ -88,9 +89,8 @@ def fold_batchnorm(state_dict, model, strict=True):
             raise NotImplementedError(f'{conv_name}: a grouped ConvTranspose')
         scale, bias, mean, var = (_f32(state_dict, f'{bn_name}.{k}') for k in
                                   ('weight', 'bias', 'running_mean', 'running_var'))
-        # the root correctly rounded, as numpy's: PyTorch's vectorised f32 sqrt on the
-        # CPU can miss by an ulp, and the f64 root of an f32 rounded once cannot
-        mul = scale * 1.0 / torch.sqrt((var + eps).double()).float()
+        # the root correctly rounded, as numpy's (utils/rounding.py)
+        mul = scale * 1.0 / sqrt_rn(var + eps)
         add = bias - mean * mul
         weight = _f32(state_dict, f'{conv_name}.weight')
         shape = [1] * weight.dim()

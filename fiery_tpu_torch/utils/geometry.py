@@ -3,6 +3,8 @@
 import numpy as np
 import torch
 
+from fiery_tpu_torch.utils.rounding import sqrt_rn
+
 
 def calculate_birds_eye_view_parameters(x_bounds, y_bounds, z_bounds):
     """(resolution, start_position, dimension) numpy arrays of the BEV grid."""
@@ -42,7 +44,7 @@ def pose_vec2mat(vec):
 def mat2pose_vec(matrix):
     """(..., 4, 4) SE(3) matrix -> 6-DoF vector, inverse of ``pose_vec2mat``."""
     rotx = torch.atan2(-matrix[..., 1, 2], matrix[..., 2, 2])
-    cosy = torch.sqrt(matrix[..., 1, 2] ** 2 + matrix[..., 2, 2] ** 2)
+    cosy = sqrt_rn(matrix[..., 1, 2] ** 2 + matrix[..., 2, 2] ** 2)
     roty = torch.atan2(matrix[..., 0, 2], cosy)
     rotz = torch.atan2(-matrix[..., 0, 1], matrix[..., 0, 0])
     rotation = torch.stack([rotx, roty, rotz], dim=-1)

@@ -166,7 +166,8 @@ def test_port_imports_nothing_of_jax():
             'fiery_tpu_torch.data.nuscenes_dataset', 'fiery_tpu_torch.data.nuscenes_indexer',
             'fiery_tpu_torch.data.fake_nuscenes', 'fiery_tpu_torch.data.lyft_splits',
             'fiery_tpu_torch.utils.quaternion', 'fiery_tpu_torch.utils.visualisation',
-            'fiery_tpu_torch.visualise'} <= modules
+            'fiery_tpu_torch.visualise', 'fiery_tpu_torch.parallel',
+            'fiery_tpu_torch.parallel.mesh', 'fiery_tpu_torch.utils.rounding'} <= modules
 
 
 def test_entry_points_refuse_the_cpu_unless_asked(monkeypatch):
