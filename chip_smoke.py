@@ -154,6 +154,18 @@ Builds the package's CUDA kernels from csrc/, then:
      means on the halves of its batch, which the random full-width step is
      sensitive to) at the CPU test's tolerances, their weights equal bit for bit; ``python -m torch.distributed.run --nproc_per_node 1 -m
      fiery_tpu_torch.train`` for 2 steps.
+ 15. camera-parallel training (phase_camera_parallel, after the data-parallel
+     phase; ``--only camera_parallel`` runs it alone): two gloo ranks on the card
+     (this script, started with --cam-out) form one camera group, each encoding 3
+     of the 6 cameras of the full-width baseline.yml step at batch 3, the
+     encoder's outputs gathered before the splat, against one process whose
+     encoder runs each rank's cameras apart, in f32 (TF32 off) at the CPU test's
+     tolerances, the ranks' weights equal bit for bit, the bf16 step's distances
+     printed; one step at batch 1 of LIFT.TOPK 8 + LIFT.WARP_FREE held the same
+     way; each rank's launches and peak memory against the one process's, with
+     the bytes the encoder's forward holds; ``python -m torch.distributed.run
+     --nproc_per_node 2 -m fiery_tpu_torch.train --camera-parallel 2`` on the card
+     for 2 steps.
 The request and the step also print K10's census (each BatchNorm call's shape
 and epilogue, from hooks) with its summed bound, and K10's device time in one
 profiled request and step.
@@ -206,7 +218,8 @@ from fiery_tpu_torch.ops.batch_norm import (
     batch_norm_finalize_plain, batch_norm_forward, batch_norm_forward_plain,
     batch_norm_partials_card, batch_norm_partials_plain, batch_norm_plain,
     batch_norm_sync_forward, channel_slices, gather_sums)
-from fiery_tpu_torch.parallel.mesh import make_parallel_trainer, maybe_initialize_distributed
+from fiery_tpu_torch.parallel.mesh import (gather_cameras, make_parallel_trainer,
+                                           maybe_initialize_distributed)
 from fiery_tpu_torch.ops import lift_splat as lift_splat_module
 from fiery_tpu_torch.ops.lap import linear_sum_assignment, linear_sum_assignment_plain
 from fiery_tpu_torch.ops.spatial_gru import (gru_output, reset_concat, reset_concat_backward,
@@ -3818,12 +3831,13 @@ def dp_batch(cfg, n, seed=0):
     return SyntheticFutureDataset(cfg, n_samples=n, seed=seed).get_batch(range(n))
 
 
-def dp_step(trainer, batch, rank=0, world=1, step=0):
-    """One step of ``trainer`` from the step generator of (DP_SEED, step) on rank
-    ``rank`` of ``world``: its losses, gradients, and new weights, running
-    statistics and Adam moments, each by name (tensors on the card)."""
+def dp_step(trainer, batch, rank=0, world=1, step=0, camera=0, cameras=1):
+    """One step of ``trainer`` from the step generator of (DP_SEED, step) on data
+    shard ``rank`` of ``world`` and camera rank ``camera`` of ``cameras``: its
+    losses, gradients, and new weights, running statistics and Adam moments, each
+    by name (tensors on the card)."""
     losses, total = trainer.compute_gradients(
-        batch, step_generator(DP_SEED, step, trainer.device, rank, world))
+        batch, step_generator(DP_SEED, step, trainer.device, rank, world, camera, cameras))
     names = [n for n, _ in trainer.model.named_parameters()] + \
         ['uncertainty.' + k for k in trainer.uncertainty]
     grads = {n: p.grad.detach().clone() for n, p in zip(names, trainer.params)}
@@ -3843,43 +3857,60 @@ DP_F32 = ('PRECISION', '32')
 
 
 @contextlib.contextmanager
-def batch_in_halves():
-    """Every convolution of the port's layers, and the squeeze-excitation blocks'
-    spatial means, computed on the two halves of the batch (dim 0: the ranks'
-    samples) and concatenated: the shapes two ranks of 3 clips run, in one process
-    on 6. Both pick their kernels (and so the order of their f32 sums) by the whole
-    tensor's size; a batch of 6 moves the encoder's first means by ~1e-9, which the
-    random full-width f32 step amplifies to 7.8% of the future prediction's
-    gradients (PERF.md, PR 19). In halves, what is left to compare is the
-    data-parallel step itself."""
+def computed_in_groups(split, modules=None):
+    """Every convolution of the port's layers (of the modules whose ids ``modules``
+    holds, when given), and the squeeze-excitation blocks' spatial means, computed
+    on groups of their input's rows (dim 0) apart and put back in place: the shapes
+    that several ranks run, in one process. ``split(x)`` gives None (x computed
+    whole) or (the groups, a function that puts their results back in place). Both
+    pick their kernels (and so the order of their f32 sums) by the whole tensor's
+    size; a batch of 6 moves the encoder's first means by ~1e-9, which the random
+    full-width f32 step amplifies to 7.8% of the future prediction's gradients
+    (PERF.md, PR 19). In groups, what is left to compare is the parallel step
+    itself."""
     conv, tconv, mean = _InputDtype._conv_forward, ConvTranspose2d.forward, torch.Tensor.mean
 
-    def halves(fn, x, *args, **kwargs):
-        return torch.cat([fn(h, *args, **kwargs) for h in x.chunk(2)])
+    def in_groups(fn, x):
+        how = split(x)
+        if how is None:
+            return None
+        parts, join = how
+        return join([fn(h) for h in parts])
 
-    def conv_halves(self, x, weight, bias):
-        if x.shape[0] % 2:
-            return conv(self, x, weight, bias)
-        return self._out_layout(halves(lambda h: conv(self, h, weight, bias), x))
+    def conv_groups(self, x, weight, bias):
+        if modules is None or id(self) in modules:
+            out = in_groups(lambda h: conv(self, h, weight, bias), x)
+            if out is not None:
+                return self._out_layout(out)
+        return conv(self, x, weight, bias)
 
-    def tconv_halves(self, x):
-        if x.shape[0] % 2:
-            return tconv(self, x)
-        return self._out_layout(halves(lambda h: tconv(self, h), x))
+    def tconv_groups(self, x):
+        if modules is None or id(self) in modules:
+            out = in_groups(lambda h: tconv(self, h), x)
+            if out is not None:
+                return self._out_layout(out)
+        return tconv(self, x)
 
-    def mean_halves(self, *args, **kwargs):
-        if (kwargs.get('dim', args[0] if args else None) == (-2, -1) and self.dim() == 4
-                and self.shape[0] % 2 == 0):
-            return halves(mean, self, *args, **kwargs)
+    def mean_groups(self, *args, **kwargs):
+        if kwargs.get('dim', args[0] if args else None) == (-2, -1) and self.dim() == 4:
+            out = in_groups(lambda h: mean(h, *args, **kwargs), self)
+            if out is not None:
+                return out
         return mean(self, *args, **kwargs)
 
-    _InputDtype._conv_forward, ConvTranspose2d.forward = conv_halves, tconv_halves
-    torch.Tensor.mean = mean_halves
+    _InputDtype._conv_forward, ConvTranspose2d.forward = conv_groups, tconv_groups
+    torch.Tensor.mean = mean_groups
     try:
         yield
     finally:
         _InputDtype._conv_forward, ConvTranspose2d.forward = conv, tconv
         torch.Tensor.mean = mean
+
+
+def halves(x):
+    """``computed_in_groups``'s split of the two ranks' samples: the two halves of
+    the batch (dim 0), when it has an even number of rows."""
+    return None if x.shape[0] % 2 else (x.chunk(2), torch.cat)
 
 
 def f32_only():
@@ -4137,9 +4168,9 @@ def phase_data_parallel(device):
     training call shape of the step, and timed beside torch.nn.SyncBatchNorm. Then
     two gloo ranks on the card (fresh processes, this script with --dp-out), each
     at batch 3, against one process at batch 6 from the same weights and
-    generator, in f32 with TF32 off (DP_F32), its convolutions and squeeze-excitation
-    means run on the two halves of its batch (``batch_in_halves``), at the CPU
-    test's tolerances, their parameters equal bit for bit; and
+    generator, in f32 with TF32 off (DP_F32), its convolutions and
+    squeeze-excitation means run on the two halves of its batch
+    (``computed_in_groups(halves)``), at the CPU test's tolerances, their parameters equal bit for bit; and
     ``torch.distributed.run --nproc_per_node 1 -m fiery_tpu_torch.train`` for 2
     steps. Returns (the sync kernels' records, the launches of the main path)."""
     torch.cuda.empty_cache()      # the batch-6 f32 step below peaks at ~61 GB
@@ -4251,7 +4282,7 @@ def dp_two_gloo_ranks(tmp, env):
         whole = to_host(dp_step(dp_trainer(cfg), dp_batch(cfg, 6)))
         peak = torch.cuda.max_memory_allocated()
         trainer = dp_trainer(cfg)        # calibrated as the ranks' are, whole
-        with batch_in_halves():
+        with computed_in_groups(halves):
             want = to_host(dp_step(trainer, dp_batch(cfg, 6)))
         del trainer
     finally:
@@ -4325,18 +4356,311 @@ def dp_torchrun(tmp, env):
         + ' | '.join(line for line in out.stdout.splitlines() if '"step"' in line))
 
 
+
+# ---- camera-parallel training (parallel/mesh.py): the encoder split over the cameras ----
+
+CAMERAS = 2
+# the camera-parallel checks: (batch, options, held at the CPU tolerances); the bf16
+# step (PRECISION 16, the training default) is only compared, as on random weights its
+# roundings move the gradients by per cents under any change of cuDNN algorithm. The
+# dense f32 step also runs in one process with its encoder whole, to print how far
+# the image groups alone move it
+CAM_CASES = {'dense': (3, DP_F32, True), 'dense bf16': (3, (), False),
+             'combo': (1, DP_F32 + COMBO_OPTS, True)}
+CAM_WHOLE = ('dense',)
+# the kernels each rank's step must launch, besides K10's synchronised path: the dense
+# step's (K10's backward counts under SYNC_COUNTERS), and the combination's (K5, no K2)
+CAM_DENSE_KERNELS = ('bev_pool', 'bev_pool_backward', 'bev_warp', 'bev_warp_backward',
+                     'kth_largest', 'bev_warp_nearest', 'batch_norm', 'spatial_gru',
+                     'spatial_gru_backward')
+CAM_COMBO_KERNELS = ('bev_pool', 'bev_pool_backward', 'topk_select', 'topk_select_backward',
+                     'kth_largest', 'bev_warp_nearest', 'batch_norm', 'spatial_gru',
+                     'spatial_gru_backward')
+
+
+def camera_groups(n_images, n_cameras, cameras):
+    """``computed_in_groups``'s split of a camera group's ranks' images: a tensor of
+    the encoder's ``n_images`` images, (sample, frame, camera) with the camera minor,
+    in ``cameras`` groups, each rank's images: strided blocks of n_cameras / cameras
+    (``rank_rows``), each made contiguous in the input's layout."""
+    def split(x):
+        if x.shape[0] != n_images:
+            return None
+        fmt = (torch.channels_last if x.dim() == 4 and not x.is_contiguous()
+               and x.is_contiguous(memory_format=torch.channels_last)
+               else torch.contiguous_format)
+        blocks = x.unflatten(0, (-1, cameras, n_cameras // cameras))
+        parts = [blocks[:, m].flatten(0, 1).contiguous(memory_format=fmt)
+                 for m in range(cameras)]
+
+        def join(outs):
+            out = torch.stack([o.unflatten(0, (blocks.shape[0], -1)) for o in outs], dim=1)
+            return out.flatten(0, 2).contiguous(memory_format=fmt)
+        return parts, join
+    return split
+
+
+def footprint(trainer, fn):
+    """fn() under hooks that read the card's allocated bytes before the step, as the
+    encoder starts and ends its forward, and as the model ends its forward (the
+    activations autograd then holds), and the step's peak: (fn's result, bytes)."""
+    marks = {}
+
+    def mark(key):
+        def hook(*_):
+            marks[key] = torch.cuda.memory_allocated()
+        return hook
+    handles = [trainer.model.encoder.register_forward_pre_hook(mark('encoder_start')),
+               trainer.model.encoder.register_forward_hook(mark('encoder_end')),
+               trainer.model.register_forward_hook(mark('forward_end'))]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    marks['start'] = torch.cuda.memory_allocated()
+    try:
+        out = fn()
+    finally:
+        for h in handles:
+            h.remove()
+    torch.cuda.synchronize()
+    marks['peak'] = torch.cuda.max_memory_allocated()
+    marks['encoder_bytes'] = marks['encoder_end'] - marks['encoder_start']
+    marks['forward_bytes'] = marks['forward_end'] - marks['start']
+    marks['encoder_share'] = marks['encoder_bytes'] / marks['forward_bytes']
+    return out, marks
+
+
+def cam_cfg(key):
+    batch, opts, _ = CAM_CASES[key]
+    return dp_cfg(batch, opts)
+
+
+def cam_rank_main(out):
+    """One gloo rank of phase_camera_parallel's camera group of two on the one card
+    (``chip_smoke.py --cam-out PATH`` with torchrun's variables set): each case of
+    CAM_CASES on the whole batch (one data shard), encoding its half of the 6
+    cameras, written to ``out`` (on the host) with its launches and memory."""
+    f32_only()
+    maybe_initialize_distributed(device='cuda:0', backend='gloo')
+    rank = dist.get_rank()
+    try:
+        recs = {}
+        for key in CAM_CASES:
+            t0 = time.perf_counter()
+            cfg = cam_cfg(key)
+            trainer = make_parallel_trainer(dp_trainer(cfg), cameras=CAMERAS)
+            batch = dp_batch(cfg, cfg.BATCHSIZE)
+            reset_counters()
+            sync_counters(reset=True)
+            rec, rec['memory'] = footprint(trainer, lambda: dp_step(
+                trainer, batch, camera=rank, cameras=CAMERAS))
+            rec['launches'] = {**{k: fn.launches for k, fn in COUNTERS.items()},
+                               **sync_counters()}
+            rec['plain_calls'] = [fn.plain_calls for fn in PLAIN_COUNTED]
+            rec['seconds'] = time.perf_counter() - t0
+            recs[key] = to_host(rec)
+            del trainer
+            torch.cuda.empty_cache()
+        torch.save(recs, out)
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_camera_parallel(device):
+    """Camera-parallel training on the one card (parallel/mesh.py, --camera-parallel):
+    the camera gather's NCCL calls (all-gather, all-reduce) in a group of one rank
+    (the identity both ways);
+    two gloo ranks (this script with --cam-out, fresh processes sharing the card)
+    form one camera group, each encoding 3 of the 6 cameras of the full-width
+    baseline.yml step at batch 3, the encoder's depth and features gathered over
+    the group before the splat, against one process on the same batch, weights and
+    generator whose encoder runs each rank's cameras apart
+    (``computed_in_groups(camera_groups(...))``): in f32 with TF32 off at the CPU
+    test's tolerances, the ranks' weights equal bit for bit, the bf16 step's distances
+    printed (and the f32 step's distances to one process with its encoder whole);
+    the same for one step at batch 1 of LIFT.TOPK 8 + LIFT.WARP_FREE (K5
+    and the warp-free geometry on gathered cameras); each rank's launches (the
+    dense step's training kernels, K10's synchronised path, K5 in the combination;
+    no plain version) and peak memory against the one process's, with the bytes
+    that the encoder's forward leaves for the backward; then ``fiery_tpu_torch.train
+    --camera-parallel 2`` under ``torch.distributed.run`` on the card (gloo,
+    ``cam_torchrun``) for 2 steps at batch 1. Returns the records."""
+    name = 'camera parallel'
+    torch.cuda.empty_cache()
+    tmp = tempfile.mkdtemp(prefix='fiery_cam_')
+    env = {**os.environ, 'GLOO_SOCKET_IFNAME': os.environ.get('GLOO_SOCKET_IFNAME', 'lo'),
+           'NCCL_SOCKET_IFNAME': os.environ.get('NCCL_SOCKET_IFNAME', 'lo')}
+    os.environ.update({k: env[k] for k in ('NCCL_SOCKET_IFNAME', 'GLOO_SOCKET_IFNAME')})
+    # the gather's all_gather and all_reduce on NCCL in a group of one rank
+    # (two NCCL ranks cannot share the card): the identity, both ways, bit for bit, at
+    # the dense step's gathered depth and features (b s, 6, 28, 60, 48 + 64), bf16
+    dist.init_process_group('nccl', init_method=f'file://{tmp}/nccl', rank=0, world_size=1)
+    try:
+        x = torch.randn((9, 6, 28, 60, 112), device=device).to(torch.bfloat16)
+        g = torch.randn_like(x)
+        leaf = x.clone().requires_grad_(True)
+        out = gather_cameras(leaf, dist.group.WORLD)
+        out.backward(g)
+        if not (torch.equal(out, x) and torch.equal(leaf.grad, g)):
+            raise AssertionError(f'{name}: the NCCL gather of one rank is not the identity')
+        log(f'{name}: NCCL gather and its adjoint in a group of one rank: the identity, '
+            f'bit for bit')
+    finally:
+        dist.destroy_process_group()
+    saved = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    f32_only()
+    want, whole = {}, {}
+    try:
+        for key in CAM_CASES:
+            t0 = time.perf_counter()
+            cfg = cam_cfg(key)
+            batch = dp_batch(cfg, cfg.BATCHSIZE)
+            if key in CAM_WHOLE:
+                whole[key] = to_host(dp_step(dp_trainer(cfg), batch))
+                torch.cuda.empty_cache()
+            trainer = dp_trainer(cfg)
+            n_cameras = len(cfg.IMAGE.NAMES)
+            n_images = cfg.BATCHSIZE * trainer.model.cfg.receptive_field * n_cameras
+            encoder = {id(m) for m in trainer.model.encoder.modules()}
+            with computed_in_groups(camera_groups(n_images, n_cameras, CAMERAS), encoder):
+                rec, rec['memory'] = footprint(trainer, lambda: dp_step(trainer, batch))
+            want[key] = to_host(rec)
+            del trainer
+            torch.cuda.empty_cache()
+            log(f'{name}: the one process\'s {key} step(s) in {time.perf_counter() - t0:.1f} s')
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+    try:
+        outs = [os.path.join(tmp, f'rank{r}.pt') for r in range(CAMERAS)]
+        rendezvous = {'WORLD_SIZE': str(CAMERAS), 'MASTER_ADDR': '127.0.0.1',
+                      'MASTER_PORT': str(free_port())}
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), '--cam-out',
+                                   outs[r]],
+                                  env={**env, **rendezvous, 'RANK': str(r),
+                                       'LOCAL_RANK': str(r)},
+                                  stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                 for r in range(CAMERAS)]
+        try:
+            logs = [p.communicate(timeout=600)[0] for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        for r, p in enumerate(procs):
+            if p.returncode != 0:
+                raise AssertionError(f'{name}: rank {r} exited {p.returncode}:\n'
+                                     f'{logs[r][-4000:]}')
+        log(f'{name}: the two ranks ran in {time.perf_counter() - t0:.1f} s')
+        got = [torch.load(o, weights_only=False) for o in outs]
+        records = {}
+        for key, (_, _, held) in CAM_CASES.items():
+            ranks = [g[key] for g in got]
+            label = f'{name} ({key}, two gloo ranks of 3 cameras)'
+            expect = CAM_DENSE_KERNELS if key.startswith('dense') else CAM_COMBO_KERNELS
+            for r, g in enumerate(ranks):
+                missing = [k for k in expect + tuple(SYNC_COUNTERS) if not g['launches'][k]]
+                if missing or any(g['plain_calls']):
+                    raise AssertionError(f'{label}: rank {r} launched none of {missing}; plain '
+                                         f'versions run {g["plain_calls"]}')
+            differ = step_differences(ranks[1], ranks[0])
+            if differ['state'] or differ['exp_avg']:
+                raise AssertionError(f'{label}: the ranks\' weights or moments differ: {differ}')
+            for kind in ('grads', 'exp_avg') if key in whole else ():
+                ours, groups = (l2_by_module_and_leaf(r[kind], whole[key][kind])[0]
+                                for r in (ranks[0], want[key]))
+                log(f'{label}: {kind} relative L2 by module against the one process run '
+                    f'whole: {json.dumps(ours)}; the one process in camera groups against '
+                    f'it: {json.dumps(groups)}')
+            losses = {k: [float(ranks[0]['losses'][k]), float(want[key]['losses'][k])]
+                      for k in want[key]['losses']}
+            log(f'{label}: losses (ranks, one process in camera groups) {json.dumps(losses)}')
+            rec = {'launches': {k: v for k, v in ranks[0]['launches'].items() if v},
+                   'rank_seconds': [g['seconds'] for g in ranks],
+                   'memory': {'ranks': [g['memory'] for g in ranks],
+                              'one_process': want[key]['memory']}}
+            if held:
+                rec['worst'] = dp_within_cpu_tolerances(
+                    f'{label} against one process in camera groups', ranks[0], want[key],
+                    cam_cfg(key).OPTIMIZER.LR)
+            else:
+                rec['grads_l2'] = l2_by_module_and_leaf(ranks[0]['grads'], want[key]['grads'])[0]
+                log(f'{label}: bf16 gradients relative L2 by module against one process in '
+                    f'camera groups (printed, not held): {json.dumps(rec["grads_l2"])}')
+            log(f'{label}: the ranks\' weights, statistics and moments equal bit for bit; '
+                f'launches of rank 0 {json.dumps(rec["launches"])}; memory '
+                f'{json.dumps(rec["memory"])}; {smi_line()}')
+            records[key] = rec
+        cam_torchrun(tmp, env)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return records
+
+
+def cam_train_main(argv):
+    """One rank of ``cam_torchrun`` (``chip_smoke.py --cam-train ARGS`` under torchrun):
+    joins a gloo group on the one card (two NCCL ranks cannot share it), then runs
+    the training CLI's ``main(ARGS)``, which takes the group as it finds it."""
+    from fiery_tpu_torch.train import main as train_main
+    maybe_initialize_distributed(device='cuda:0', backend='gloo')
+    try:
+        train_main(argv)
+    finally:
+        dist.destroy_process_group()
+
+
+def cam_torchrun(tmp, env):
+    """``fiery_tpu_torch.train --camera-parallel 2`` under ``python -m
+    torch.distributed.run --nproc_per_node 2`` for 2 steps at full width and batch 1
+    on the synthetic clips (a batch of 3 costs the loader's one thread ~3 s), both
+    ranks on the one card over gloo (``cam_train_main``): exit 0, one camera group,
+    a final checkpoint at step 2."""
+    name = 'camera parallel (torchrun, a camera group of two ranks)'
+    log_dir = os.path.join(tmp, 'runs')
+    cmd = [sys.executable, '-m', 'torch.distributed.run', '--nproc_per_node', str(CAMERAS),
+           '--master_addr', '127.0.0.1', '--master_port', str(free_port()),
+           os.path.abspath(__file__), '--cam-train', '--config', BASELINE,
+           '--device', 'cuda:0', '--camera-parallel', str(CAMERAS), '--steps', '2',
+           'DATASET.NAME', 'synthetic', 'BATCHSIZE', '1', 'EPOCHS', '1', 'LOG_DIR', log_dir]
+    t0 = time.perf_counter()
+    out = subprocess.run(cmd, env=env, capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    if out.returncode != 0:
+        raise AssertionError(f'{name}: exit {out.returncode}:\n{out.stdout[-3000:]}\n'
+                             f'{out.stderr[-3000:]}')
+    runs = os.listdir(log_dir)
+    state, _ = load_checkpoint(os.path.join(log_dir, runs[0], 'checkpoint_final'))
+    if (len(runs) != 1 or state['step'] != 2
+            or f'x 1 data shard(s) of {CAMERAS} camera ranks' not in out.stdout):
+        raise AssertionError(f'{name}: runs {runs}, step {state["step"]}:\n{out.stdout[-2000:]}')
+    log(f'{name}: exit 0 in {wall:.1f} s, checkpoint_final at step 2; '
+        + ' | '.join(line for line in out.stdout.splitlines() if '"step"' in line))
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument('--only', choices=['families', 'exported', 'real_set', 'data_parallel'],
+    parser.add_argument('--only', choices=['families', 'exported', 'real_set', 'data_parallel',
+                                           'camera_parallel'],
                         help='run only this phase (after the build); prints no result line')
-    # one rank of phase_data_parallel's gloo ranks (the script starts them itself)
+    # one rank of phase_data_parallel's and phase_camera_parallel's gloo ranks (the
+    # script starts them itself)
     parser.add_argument('--dp-out', help=argparse.SUPPRESS)
+    parser.add_argument('--cam-out', help=argparse.SUPPRESS)
+    # one rank of phase_camera_parallel's torchrun of the training CLI: the rest of
+    # the command line is the CLI's
+    parser.add_argument('--cam-train', nargs=argparse.REMAINDER, help=argparse.SUPPRESS)
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device', file=sys.stderr)
         sys.exit(1)
     if args.dp_out is not None:
         dp_rank_main(args.dp_out)
+        return
+    if args.cam_out is not None:
+        cam_rank_main(args.cam_out)
+        return
+    if args.cam_train is not None:
+        cam_train_main(args.cam_train)
         return
     device = torch.device('cuda')
     log(smi_line())
@@ -4360,6 +4684,12 @@ def main(argv=None):
         records, _ = phase_data_parallel(device)
         log('data parallel: ' + json.dumps(records))
         log(f'data parallel: ok ({time.perf_counter() - t0:.1f} s); {smi_line()}')
+        return
+    if args.only == 'camera_parallel':
+        t0 = time.perf_counter()
+        records = phase_camera_parallel(device)
+        log('camera parallel: ' + json.dumps(records))
+        log(f'camera parallel: ok ({time.perf_counter() - t0:.1f} s); {smi_line()}')
         return
     if args.only == 'exported':
         t0 = time.perf_counter()
@@ -4459,6 +4789,11 @@ def main(argv=None):
     dp_records, dp_launches = phase_data_parallel(device)
     log(f'data parallel: one NCCL rank, two gloo ranks, torchrun: ok '
         f'({time.perf_counter() - t0:.1f} s)')
+    t0 = time.perf_counter()
+    cam_records = phase_camera_parallel(device)
+    log('camera parallel: ' + json.dumps(cam_records))
+    log(f'camera parallel: two gloo ranks of a camera group, dense and combined, torchrun: '
+        f'ok ({time.perf_counter() - t0:.1f} s)')
     t0 = time.perf_counter()
     phase_real_set()
     log(f'real set: nuScenes and Lyft trees trained, evaluated and drawn: ok '

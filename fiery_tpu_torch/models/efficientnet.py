@@ -116,11 +116,12 @@ class MBConvBlock(nn.Module):
         self.has_skip = stride == 1 and in_channels == out_channels
         self._bn2 = bn(out_channels, 'add' if self.has_skip else 'none')
 
-    def forward(self, x, generator=None):
+    def forward(self, x, generator=None, per_frame=None):
         """x (N, C, H, W). In training with a drop rate, the residual branch of each
         sample is kept with probability 1 - rate and scaled by 1 / (1 - rate); the
         uniforms come from ``generator`` (torch's default one if None; a
-        ``RankGenerator``'s are the global batch's, parallel/mesh.py)."""
+        ``RankGenerator``'s are the global batch's, parallel/mesh.py, of which
+        ``per_frame``, the cameras of each sample-frame in N, picks the rank's)."""
         inputs = x
         if self.has_expand:
             x = self._bn0(self._expand_conv(x))
@@ -137,7 +138,7 @@ class MBConvBlock(nn.Module):
         x = self._bn2(x, post='none')
         keep = 1.0 - self.drop_rate
         device = generator.device if generator is not None else x.device
-        u = draw_batch(torch.rand, (x.shape[0], 1, 1, 1), generator, device)
+        u = draw_batch(torch.rand, (x.shape[0], 1, 1, 1), generator, device, per_frame)
         x = x / keep * (u < keep).to(device=x.device, dtype=x.dtype)
         return x + inputs
 
@@ -161,12 +162,12 @@ class EfficientNetFPN(nn.Module):
                         drop_rate=drop_connect_rate * i / n_blocks)
             for i, (k, s, e, ci, co, se) in enumerate(block_specs(version)[:n_blocks])])
 
-    def forward(self, x, generator=None):
+    def forward(self, x, generator=None, per_frame=None):
         x = self._bn0(self._conv_stem(x))
         endpoints = {}
         prev = x
         for block in self._blocks:
-            x = block(x, generator)
+            x = block(x, generator, per_frame)
             if prev.shape[-2] > x.shape[-2]:
                 endpoints[f'reduction_{len(endpoints) + 1}'] = prev
             prev = x

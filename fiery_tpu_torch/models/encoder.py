@@ -36,10 +36,11 @@ class Encoder(nn.Module):
         head = out_channels + depth_channels if use_depth_distribution else out_channels
         self.depth_layer = Conv2d(upsampling_out, head, kernel_size=1)
 
-    def forward(self, x, generator=None):
+    def forward(self, x, generator=None, per_frame=None):
         """x (B, H, W, 3) -> (depth (B, h, w, D), features (B, h, w, C)). The
-        generator draws the backbone's drop-connect masks in training."""
-        feat_hi, feat_lo = self.backbone(x.permute(0, 3, 1, 2), generator)
+        generator draws the backbone's drop-connect masks in training; ``per_frame``:
+        the cameras of each sample-frame in B (parallel/mesh.py ``rank_rows``)."""
+        feat_hi, feat_lo = self.backbone(x.permute(0, 3, 1, 2), generator, per_frame)
         x = self.depth_layer(self.upsampling_layer(feat_hi, feat_lo)).permute(0, 2, 3, 1)
         D, C = self.D, self.C
         if not self.use_depth_distribution:

@@ -35,7 +35,7 @@ from fiery_tpu_torch.ops.lift_splat import (create_frustum, get_geometry, lift_s
                                             lift_splat_topk)
 from fiery_tpu_torch.ops.warp import (compose_poses_to_present, cumulative_warp_features,
                                       warp_points_to_present)
-from fiery_tpu_torch.parallel.mesh import draw_batch
+from fiery_tpu_torch.parallel.mesh import draw_batch, gather_cameras
 from fiery_tpu_torch.utils.geometry import (calculate_birds_eye_view_parameters,
                                             pack_sequence_dim)
 
@@ -222,6 +222,10 @@ class Fiery(nn.Module):
             self.future_prediction = FuturePrediction(fp_in, c.latent_dim, c.n_gru_blocks,
                                                       c.n_res_layers, m)
         self.decoder = Decoder(fp_in, c.n_classes, c.instance_flow_enabled, m)
+        # the camera group of a camera-parallel trainer (parallel/mesh.py
+        # make_parallel_trainer): in training the images are then the rank's cameras,
+        # and the encoder's outputs are gathered over the group before the splat
+        self.camera_group = None
 
     def forward(self, image, intrinsics, extrinsics, future_egomotion,
                 future_distribution_inputs=None, noise=None, generator=None):
@@ -308,11 +312,14 @@ class Fiery(nn.Module):
         """(b, s, n, H, W, 3) images -> (b, s, X, Y, C) BEV features. With
         ``egomotion`` (b, s, 6) (the warp-free lift) the past frames' geometry is
         moved into the present frame by the composed poses, in f32, before it is
-        cast to the compute dtype; the present frame's is left as it is."""
+        cast to the compute dtype; the present frame's is left as it is. In
+        training with a ``camera_group`` of M ranks, x holds the rank's n = N / M
+        cameras of the N that the calibrations hold: the encoder runs on them, and
+        its depth and features are gathered over the group before the splat."""
         c = self.cfg
         b, s, n = x.shape[:3]
         geometry = get_geometry(self.frustum, pack_sequence_dim(intrinsics),
-                                pack_sequence_dim(extrinsics))   # (b*s, n, D, h, w, 3)
+                                pack_sequence_dim(extrinsics))   # (b*s, N, D, h, w, 3)
         if egomotion is not None and s > 1:
             geometry = geometry.reshape(b, s, *geometry.shape[1:])
             poses = compose_poses_to_present(egomotion)            # (b, s-1, 6)
@@ -321,9 +328,15 @@ class Fiery(nn.Module):
                                         c.spatial_extent, (c.x_bound[:2], c.y_bound[:2]))
             past = torch.cat([xy, past[..., 2:]], dim=-1).view(b, s - 1, *past.shape[1:])
             geometry = pack_sequence_dim(torch.cat([past, geometry[:, -1:]], dim=1))
-        depth, feat = self.encoder(x.reshape(b * s * n, *x.shape[3:]), generator)
+        depth, feat = self.encoder(x.reshape(b * s * n, *x.shape[3:]), generator, per_frame=n)
         depth = depth.reshape(b * s, n, *depth.shape[1:])          # (b*s, n, h, w, D)
         feat = feat.reshape(b * s, n, *feat.shape[1:])             # (b*s, n, h, w, C)
+        if self.training and self.camera_group is not None:
+            depth = gather_cameras(depth, self.camera_group)      # (b*s, N, h, w, D)
+            feat = gather_cameras(feat, self.camera_group)
+        if depth.shape[1] != intrinsics.shape[2]:
+            raise ValueError(f'{depth.shape[1]} cameras encoded for the '
+                             f'{intrinsics.shape[2]} of the calibrations')
         res, start, dim = c.bev_parameters
         geometry = geometry.to(feat.dtype)
         if c.depth_topk:

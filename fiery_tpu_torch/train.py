@@ -48,6 +48,13 @@ the ranks' DEPTH_CULL keeps are the maximum of theirs, and the validation sums t
 ranks' metric states. Only rank 0 prints, logs, writes videos and saves
 checkpoints; every rank resumes from the checkpoint rank 0 finds, behind a
 barrier. On the CPU (``--device cpu``) the ranks use gloo.
+
+``--camera-parallel M`` (the JAX package's flag) makes each M adjacent ranks one
+data shard, a camera group, whose ranks each encode N / M of the N cameras; the
+encoder's outputs are gathered over the group before the splat. BATCHSIZE is then
+per data shard: the global batch is BATCHSIZE x W / M (W ranks), the M ranks of a
+group read the same shard, and the validation sums each data shard's states once.
+M must divide the ranks and the cameras.
 """
 
 import argparse
@@ -90,6 +97,8 @@ def parse_args(argv=None):
     p.add_argument('--seed', type=int, default=0,
                    help="the seeded weights and the steps' random stream")
     p.add_argument('--device', default=None, help='cuda (the default) or cpu')
+    p.add_argument('--camera-parallel', type=int, default=1,
+                   help='ranks a data shard, each encoding its share of the cameras')
     p.add_argument('opts', nargs=argparse.REMAINDER, help='KEY VALUE config overrides')
     return p.parse_args(argv)
 
@@ -171,8 +180,9 @@ def validate(trainer, valloader, on_first=None):
     """One pass over the val loader: IoU of each class over the whole grid
     (accumulated on the device) and the vehicles' VPQ from the host tracker.
     ``on_first(output, labels)`` is called with the first batch's. Data-parallel,
-    each rank passes over its shard and the ranks' states are summed before the
-    scores (``sum_states``)."""
+    each rank passes over its data shard's share (every camera: the eval forward is
+    not camera-parallel) and the states of the trainer's data group, where each
+    data shard is counted once, are summed before the scores (``sum_states``)."""
     n_classes = trainer.model.cfg.n_classes
     X, Y = trainer.model.cfg.bev_size
     whole = {'whole': ((0, X), (0, Y))}
@@ -212,8 +222,16 @@ def main(argv=None):
     cfg = get_cfg(args)
     device = maybe_initialize_distributed(args.device)
     rank, world = rank_and_world()
-    trainloader, valloader = prepare_dataloaders(cfg, device=device, process_index=rank,
-                                                 process_count=world)
+    cameras = args.camera_parallel
+    if cameras > 1 and not dist.is_initialized():
+        raise SystemExit('--camera-parallel needs several ranks: run under torchrun')
+    if cameras < 1 or world % cameras:
+        raise SystemExit(f'--camera-parallel {cameras} must divide the {world} ranks')
+    # this rank's data shard of the world's world / cameras, and its camera rank
+    shard, shards = rank // cameras, world // cameras
+    camera = rank % cameras
+    trainloader, valloader = prepare_dataloaders(cfg, device=device, process_index=shard,
+                                                 process_count=shards)
     steps_max, steps_min = max_across_ranks([len(trainloader), -len(trainloader)])
     if steps_max != -steps_min:
         raise ValueError(f'the ranks\' shards give {-steps_min} to {steps_max} batches an '
@@ -233,8 +251,10 @@ def main(argv=None):
 
     save_dir = _from_rank_0(new_run_dir(cfg))
     logger = MetricLogger(save_dir) if rank == 0 else None
-    log(f'Logging to {save_dir}; device {device}, batch {cfg.BATCHSIZE} x {world} '
-        f'rank(s), {len(trainloader)} steps an epoch', flush=True)
+    layout = (f'{shards} rank(s)' if cameras == 1 else
+              f'{shards} data shard(s) of {cameras} camera ranks')
+    log(f'Logging to {save_dir}; device {device}, batch {cfg.BATCHSIZE} x {layout}, '
+        f'{len(trainloader)} steps an epoch', flush=True)
     # the JAX loop takes a first batch here to initialise its state; the look
     # advances the loader's epoch counter, so that the epochs below shuffle as its do
     trainloader.peek()
@@ -258,7 +278,7 @@ def main(argv=None):
         log(f'Warm-starting from {cfg.PRETRAINED.PATH}', flush=True)
         load_pretrained_params(cfg.PRETRAINED.PATH, trainer)
     if dist.is_initialized():
-        make_parallel_trainer(trainer)
+        make_parallel_trainer(trainer, cameras=cameras)
 
     run = types.SimpleNamespace(trainer=trainer, save_dir=save_dir, steps=[], videos=[],
                                 loaders=(trainloader, valloader))
@@ -277,7 +297,8 @@ def main(argv=None):
             t1 = time.perf_counter()
             batch = numeric_batch(batch)
             losses, total = trainer.train_step(
-                batch, step_generator(args.seed, trainer.step, device, rank, world))
+                batch, step_generator(args.seed, trainer.step, device, shard, shards, camera,
+                                      cameras))
             step = trainer.step
             if rank == 0 and (step % cfg.LOGGING_INTERVAL == 0 or step == 1):
                 scalars = {'total_loss': float(total),

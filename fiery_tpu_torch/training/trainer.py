@@ -25,14 +25,17 @@ The generator lives on the trainer's device, so that drawing the drop-connect
 masks and the latent noise never waits on the host; the training loop seeds one a
 step (``step_generator``).
 
-Data-parallel (parallel/mesh.py ``make_parallel_trainer``): each rank's trainer
-takes its share of the global batch; ``forward_losses`` is then the losses module
-inside DistributedDataParallel, the BatchNorms take their statistics over the
-ranks, a ``noise`` given is the global batch's (each rank keeps its rows), the
-generator is ``step_generator(..., rank, world)``'s, and the returned losses are
-the global ones. ``Trainer.state()`` and ``Trainer.load_state()`` are what
-a checkpoint holds (``utils/checkpoint.py``): the weights, the uncertainty weights,
-the Adam state and the step.
+Data- and camera-parallel (parallel/mesh.py ``make_parallel_trainer``): each
+rank's trainer takes its data shard's share of the global batch, with every camera
+(a step encodes only the rank's cameras and copies only their images to the
+device; ``intrinsics`` and ``extrinsics`` stay whole); ``forward_losses`` is then
+the losses module inside DistributedDataParallel, the BatchNorms take their
+statistics over the ranks, a ``noise`` given is the global batch's (each rank
+keeps its data shard's rows), the generator is ``step_generator(..., rank,
+world, camera, cameras)``'s, and the returned losses are the global ones.
+``Trainer.state()`` and ``Trainer.load_state()`` are what a checkpoint holds
+(``utils/checkpoint.py``): the weights, the uncertainty weights, the Adam state and
+the step.
 """
 
 import dataclasses
@@ -72,14 +75,15 @@ def clip_by_global_norm_(grads, max_norm):
     return norm
 
 
-def step_generator(seed, step, device, rank=0, world=1):
+def step_generator(seed, step, device, rank=0, world=1, camera=0, cameras=1):
     """The random stream of one training step: a generator on ``device`` seeded
     from (seed, step), as the JAX package folds the step into its key. A resumed
     run draws what an uninterrupted one draws, with no generator state saved. On
-    rank ``rank`` of ``world`` (> 1) a ``RankGenerator`` of the same seed: the
-    ranks' draws together are one process's on the global batch."""
-    g = (torch.Generator(device=device) if world == 1
-         else RankGenerator(torch.device(device), rank, world))
+    data shard ``rank`` of ``world`` and camera rank ``camera`` of ``cameras``
+    (either count > 1) a ``RankGenerator`` of the same seed: the ranks' draws
+    together are one process's on the global batch."""
+    g = (torch.Generator(device=device) if world == 1 and cameras == 1
+         else RankGenerator(torch.device(device), rank, world, camera, cameras))
     return g.manual_seed((int(seed) << 32) + int(step))
 
 
@@ -127,7 +131,10 @@ class Trainer:
         # the losses of a step's forward; make_parallel_trainer wraps it in DDP
         self.step_losses = StepLosses(self.model, self.uncertainty, cfg)
         self.forward_losses = self.step_losses
+        # make_parallel_trainer: the data group, this rank's data shard of ``world``
+        # and its camera rank of ``cameras``
         self.group, self.rank, self.world = None, 0, 1
+        self.camera, self.cameras = 0, 1
 
     def state(self):
         """What a checkpoint holds: the model's state_dict, the uncertainty weights,
@@ -210,9 +217,17 @@ class Trainer:
         if generator is not None and generator.device.type != self.device.type:
             raise ValueError(f'the generator is on {generator.device} and the trainer on '
                              f'{self.device}: each draw would be a blocking copy')
-        if (self.world > 1 and generator is not None
-                and getattr(generator, 'world', 1) != self.world):
-            raise ValueError('a data-parallel step draws from step_generator(..., rank, world)')
+        mine = (self.rank, self.world, self.camera, self.cameras)
+        if (generator is not None and mine != (0, 1, 0, 1)
+                and tuple(getattr(generator, k, None) for k in
+                          ('rank', 'world', 'camera', 'cameras')) != mine):
+            raise ValueError(f'a parallel step on data shard {self.rank} of {self.world}, '
+                             f'camera rank {self.camera} of {self.cameras}, draws from '
+                             f'step_generator(..., {", ".join(map(str, mine))})')
+        if self.cameras > 1:
+            # the rank's cameras of dim 2, copied alone to the device
+            n = batch['image'].shape[2] // self.cameras
+            batch = {**batch, 'image': batch['image'][:, :, self.camera * n:(self.camera + 1) * n]}
         batch = self.to_device(batch)
         if noise is not None and self.world > 1:
             noise = rank_rows(noise, batch['image'].shape[0], self.rank)

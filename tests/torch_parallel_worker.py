@@ -1,5 +1,6 @@
-"""One rank of the port's data-parallel CPU tests (tests/test_torch_parallel*.py),
-and the inputs they share with the one-process references:
+"""One rank of the port's data- and camera-parallel CPU tests
+(tests/test_torch_parallel*.py, tests/test_torch_camera_parallel*.py), and the
+inputs they share with the one-process references:
 
     python tests/torch_parallel_worker.py CASE RANK WORLD INIT_FILE OUT
 
@@ -253,7 +254,103 @@ def case_steps(rank, world):
     return out
 
 
-CASES = {'bn': case_bn, 'steps': case_steps}
+CAMERAS = 2                        # camera ranks a data shard in the camera-parallel cases
+GATHER_SHAPE = (3, 4, 5, 2, 3)     # (b s, N, h, w, C): 2 cameras a rank
+GATHER_SEED = 43
+# TINY_JAX (2 cameras) with 2 samples a data shard: drop-connect at b0's rate
+TINY_CAM = {**TINY_JAX, 'BATCHSIZE': 2}
+
+
+def gather_inputs(world):
+    """(x, grads): the (b s, N, h, w, C) f64 tensor whose cameras the ranks split,
+    and each rank's gradient with respect to the gathered tensor (differing by
+    rank)."""
+    rng = np.random.RandomState(GATHER_SEED)
+    x = torch.from_numpy(rng.randn(*GATHER_SHAPE))
+    return x, [torch.from_numpy(rng.randn(*GATHER_SHAPE)) for _ in range(world)]
+
+
+# TINY_DP with 2 cameras: the validation's and DEPTH_CULL's camera-parallel cases
+TINY_DP_CAM = {**TINY_DP, 'IMAGE': {**TINY_DP['IMAGE'], 'NAMES': ['CAM_A', 'CAM_B']}}
+
+
+def cam_cull_cfg():
+    """TINY_DP_CAM with depth planes out to 12 m, past the 4 m grid: DEPTH_CULL's
+    keeps then drop planes."""
+    return tiny_cfg({**TINY_DP_CAM, 'LIFT': {**TINY_DP_CAM['LIFT'],
+                                             'D_BOUND': [2.0, 12.0, 1.0]}})
+
+
+def case_gather(rank, world):
+    """``gather_cameras`` over a camera group of the whole world in f64: the
+    gathered tensor and the rank's input gradient under its own output gradient;
+    the mesh's coordinates; and the refusals of camera counts that divide neither
+    the ranks nor the cameras (a message each)."""
+    from fiery_tpu_torch.parallel.mesh import create_mesh, gather_cameras, make_parallel_trainer
+    mesh = create_mesh(world)
+    x, grads = gather_inputs(world)
+    n = x.shape[1] // world
+    mine = x[:, rank * n:(rank + 1) * n].clone().requires_grad_(True)
+    out = gather_cameras(mine, mesh.camera)
+    (out * grads[rank]).sum().backward()
+    refused = {}
+    for key, fn in (('ranks', lambda: create_mesh(world + 1)),
+                    ('cameras', lambda: make_parallel_trainer(seeded_trainer(tiny_cfg()),
+                                                              cameras=world))):
+        try:
+            fn()
+        except ValueError as e:
+            refused[key] = str(e)
+    return {'out': out.detach(), 'grad': mine.grad, 'refused': refused,
+            'mesh': (mesh.data_rank, mesh.data_size, mesh.camera_rank, mesh.cameras,
+                     dist.get_world_size(mesh.data), dist.get_world_size(mesh.camera))}
+
+
+def case_cameras(rank, world):
+    """The camera-parallel tiny step at (D, M) = (world / 2, 2): TINY_CAM on the
+    data shard's 2 samples of the 2 D-sample batch, with drop-connect and the step's
+    generator ('drop'). At world 4 also, at TINY_DP_CAM, the validation and
+    DEPTH_CULL's keep of the shard's first batch, the maximum over the world; and at
+    TINY_JAX, without drop-connect and with the global batch's noise, the step on
+    the shard's sample of D ('noise')."""
+    import fiery_tpu_torch.models.efficientnet as efficientnet
+    from fiery_tpu_torch.data.dataset import numeric_batch, prepare_dataloaders
+    from fiery_tpu_torch.parallel.mesh import make_parallel_trainer, max_across_ranks
+    from fiery_tpu_torch.train import depth_plane_keep, validate
+    from fiery_tpu_torch.training.trainer import step_generator
+    shards = world // CAMERAS
+    shard, camera = divmod(rank, CAMERAS)
+    out = {}
+    if world == 4:
+        cfg = tiny_cfg(TINY_DP_CAM)
+        trainer = make_parallel_trainer(seeded_trainer(cfg), cameras=CAMERAS)
+        trainloader, valloader = prepare_dataloaders(cfg, process_index=shard,
+                                                     process_count=shards)
+        out['validate'] = validate(trainer, valloader)
+        out['validate_group'] = dist.get_process_group_ranks(trainer.group)
+        out['depth_keep'] = max_across_ranks(depth_plane_keep(
+            cam_cull_cfg(), numeric_batch(trainloader.peek())))
+    cfg = tiny_cfg(TINY_CAM)
+    trainer = make_parallel_trainer(seeded_trainer(cfg), cameras=CAMERAS)
+    out['mesh'] = (trainer.rank, trainer.world, trainer.camera, trainer.cameras)
+    batch = {k: rows_of(v, shard, shards) for k, v in global_batch(cfg, n=2 * shards).items()}
+    out['drop'] = take_step(trainer, batch, step_generator(STEP_SEED, 0, 'cpu', shard, shards,
+                                                           camera, CAMERAS))
+    if world == 4:
+        saved = efficientnet._GLOBAL_PARAMS['b0']
+        efficientnet._GLOBAL_PARAMS['b0'] = (1.0, 1.0, 0.0)
+        try:
+            cfg = tiny_cfg(TINY_JAX)
+            trainer = make_parallel_trainer(seeded_trainer(cfg), cameras=CAMERAS)
+        finally:
+            efficientnet._GLOBAL_PARAMS['b0'] = saved
+        batch = {k: rows_of(v, shard, shards) for k, v in global_batch(cfg, n=shards).items()}
+        out['noise'] = take_step(trainer, batch,
+                                 noise=torch.from_numpy(global_noise(cfg, n=shards)))
+    return out
+
+
+CASES = {'bn': case_bn, 'steps': case_steps, 'gather': case_gather, 'cameras': case_cameras}
 
 
 def spawn_ranks(case, tmp_path, world=2, timeout=600):
