@@ -160,12 +160,21 @@ Builds the package's CUDA kernels from csrc/, then:
      of the 6 cameras of the full-width baseline.yml step at batch 3, the
      encoder's outputs gathered before the splat, against one process whose
      encoder runs each rank's cameras apart, in f32 (TF32 off) at the CPU test's
-     tolerances, the ranks' weights equal bit for bit, the bf16 step's distances
-     printed; one step at batch 1 of LIFT.TOPK 8 + LIFT.WARP_FREE held the same
-     way; each rank's launches and peak memory against the one process's, with
+     tolerances, the ranks' weights equal bit for bit; one step at batch 1 of
+     LIFT.TOPK 8 + LIFT.WARP_FREE held the same way (the bf16 step's distances are
+     phase 16's); each rank's launches and peak memory against the one process's, with
      the bytes the encoder's forward holds; ``python -m torch.distributed.run
-     --nproc_per_node 2 -m fiery_tpu_torch.train --camera-parallel 2`` on the card
-     for 2 steps.
+     --nproc_per_node 2 -m fiery_tpu_torch.train --camera-parallel 2 --bev-parallel``
+     on the card for 2 steps (the camera gather and the BEV rows both).
+ 16. BEV-parallel training (phase_bev_parallel, after the camera-parallel phase;
+     ``--only bev_parallel`` runs it alone): the row gather's and the row mean's
+     NCCL calls in a group of one rank (the identity); two gloo ranks on the card
+     (this script, started with --bev-out) form one camera group that also splits
+     the 200 BEV rows (104 + 96) after the splat, the same three steps held against
+     one process whose encoder runs each rank's cameras apart and whose modules
+     after the splat run each rank's rows apart with its halos
+     (``rows_in_groups``), at the CPU test's tolerances; each rank's launches and
+     peak memory.
 The request and the step also print K10's census (each BatchNorm call's shape
 and epilogue, from hooks) with its summed bound, and K10's device time in one
 profiled request and step.
@@ -218,8 +227,10 @@ from fiery_tpu_torch.ops.batch_norm import (
     batch_norm_finalize_plain, batch_norm_forward, batch_norm_forward_plain,
     batch_norm_partials_card, batch_norm_partials_plain, batch_norm_plain,
     batch_norm_sync_forward, channel_slices, gather_sums)
-from fiery_tpu_torch.parallel.mesh import (gather_cameras, make_parallel_trainer,
-                                           maybe_initialize_distributed)
+from fiery_tpu_torch.models import temporal_layers
+from fiery_tpu_torch.parallel.mesh import (RowShare, _memory_like, gather_cameras,
+                                           gather_rows, group_row_mean, make_parallel_trainer,
+                                           maybe_initialize_distributed, row_plan)
 from fiery_tpu_torch.ops import lift_splat as lift_splat_module
 from fiery_tpu_torch.ops.lap import linear_sum_assignment, linear_sum_assignment_plain
 from fiery_tpu_torch.ops.spatial_gru import (gru_output, reset_concat, reset_concat_backward,
@@ -4360,14 +4371,14 @@ def dp_torchrun(tmp, env):
 # ---- camera-parallel training (parallel/mesh.py): the encoder split over the cameras ----
 
 CAMERAS = 2
-# the camera-parallel checks: (batch, options, held at the CPU tolerances); the bf16
-# step (PRECISION 16, the training default) is only compared, as on random weights its
-# roundings move the gradients by per cents under any change of cuDNN algorithm. The
-# dense f32 step also runs in one process with its encoder whole, to print how far
-# the image groups alone move it
-CAM_CASES = {'dense': (3, DP_F32, True), 'dense bf16': (3, (), False),
+# the camera- and BEV-parallel checks: (batch, options, held at the CPU tolerances).
+# The bf16 step (PRECISION 16, the training default) is only compared, as on random
+# weights its roundings move the gradients by per cents under any change of cuDNN
+# algorithm; the BEV phase runs it (its ranks run the camera gather too), the camera
+# phase, whose path that one contains, runs the held steps alone
+BEV_CASES = {'dense': (3, DP_F32, True), 'dense bf16': (3, (), False),
              'combo': (1, DP_F32 + COMBO_OPTS, True)}
-CAM_WHOLE = ('dense',)
+CAM_CASES = {k: v for k, v in BEV_CASES.items() if v[2]}
 # the kernels each rank's step must launch, besides K10's synchronised path: the dense
 # step's (K10's backward counts under SYNC_COUNTERS), and the combination's (K5, no K2)
 CAM_DENSE_KERNELS = ('bev_pool', 'bev_pool_backward', 'bev_warp', 'bev_warp_backward',
@@ -4430,24 +4441,26 @@ def footprint(trainer, fn):
 
 
 def cam_cfg(key):
-    batch, opts, _ = CAM_CASES[key]
+    batch, opts, _ = BEV_CASES[key]
     return dp_cfg(batch, opts)
 
 
-def cam_rank_main(out):
+def cam_rank_main(out, bev=False):
     """One gloo rank of phase_camera_parallel's camera group of two on the one card
     (``chip_smoke.py --cam-out PATH`` with torchrun's variables set): each case of
     CAM_CASES on the whole batch (one data shard), encoding its half of the 6
-    cameras, written to ``out`` (on the host) with its launches and memory."""
+    cameras, written to ``out`` (on the host) with its launches and memory. With
+    ``bev`` (``--bev-out PATH``, phase_bev_parallel) each of BEV_CASES, also
+    training its share of the BEV rows."""
     f32_only()
     maybe_initialize_distributed(device='cuda:0', backend='gloo')
     rank = dist.get_rank()
     try:
         recs = {}
-        for key in CAM_CASES:
+        for key in BEV_CASES if bev else CAM_CASES:
             t0 = time.perf_counter()
             cfg = cam_cfg(key)
-            trainer = make_parallel_trainer(dp_trainer(cfg), cameras=CAMERAS)
+            trainer = make_parallel_trainer(dp_trainer(cfg), cameras=CAMERAS, bev_parallel=bev)
             batch = dp_batch(cfg, cfg.BATCHSIZE)
             reset_counters()
             sync_counters(reset=True)
@@ -4465,6 +4478,24 @@ def cam_rank_main(out):
         dist.destroy_process_group()
 
 
+def gloo_env():
+    """The environment of the phases' rank processes (sockets on the loopback), set
+    in this process too."""
+    env = {**os.environ, 'GLOO_SOCKET_IFNAME': os.environ.get('GLOO_SOCKET_IFNAME', 'lo'),
+           'NCCL_SOCKET_IFNAME': os.environ.get('NCCL_SOCKET_IFNAME', 'lo')}
+    os.environ.update({k: env[k] for k in ('NCCL_SOCKET_IFNAME', 'GLOO_SOCKET_IFNAME')})
+    return env
+
+
+@contextlib.contextmanager
+def nccl_group_of_one(tmp):
+    dist.init_process_group('nccl', init_method=f'file://{tmp}/nccl', rank=0, world_size=1)
+    try:
+        yield dist.group.WORLD
+    finally:
+        dist.destroy_process_group()
+
+
 def phase_camera_parallel(device):
     """Camera-parallel training on the one card (parallel/mesh.py, --camera-parallel):
     the camera gather's NCCL calls (all-gather, all-reduce) in a group of one rank
@@ -4475,26 +4506,23 @@ def phase_camera_parallel(device):
     the group before the splat, against one process on the same batch, weights and
     generator whose encoder runs each rank's cameras apart
     (``computed_in_groups(camera_groups(...))``): in f32 with TF32 off at the CPU
-    test's tolerances, the ranks' weights equal bit for bit, the bf16 step's distances
-    printed (and the f32 step's distances to one process with its encoder whole);
-    the same for one step at batch 1 of LIFT.TOPK 8 + LIFT.WARP_FREE (K5
+    test's tolerances, the ranks' weights equal bit for bit (the bf16 step's
+    distances are phase_bev_parallel's); the same for one step at batch 1 of
+    LIFT.TOPK 8 + LIFT.WARP_FREE (K5
     and the warp-free geometry on gathered cameras); each rank's launches (the
     dense step's training kernels, K10's synchronised path, K5 in the combination;
     no plain version) and peak memory against the one process's, with the bytes
     that the encoder's forward leaves for the backward; then ``fiery_tpu_torch.train
-    --camera-parallel 2`` under ``torch.distributed.run`` on the card (gloo,
-    ``cam_torchrun``) for 2 steps at batch 1. Returns the records."""
+    --camera-parallel 2 --bev-parallel`` under ``torch.distributed.run`` on the card
+    (gloo, ``cam_torchrun``) for 2 steps at batch 1. Returns the records."""
     name = 'camera parallel'
     torch.cuda.empty_cache()
     tmp = tempfile.mkdtemp(prefix='fiery_cam_')
-    env = {**os.environ, 'GLOO_SOCKET_IFNAME': os.environ.get('GLOO_SOCKET_IFNAME', 'lo'),
-           'NCCL_SOCKET_IFNAME': os.environ.get('NCCL_SOCKET_IFNAME', 'lo')}
-    os.environ.update({k: env[k] for k in ('NCCL_SOCKET_IFNAME', 'GLOO_SOCKET_IFNAME')})
+    env = gloo_env()
     # the gather's all_gather and all_reduce on NCCL in a group of one rank
     # (two NCCL ranks cannot share the card): the identity, both ways, bit for bit, at
     # the dense step's gathered depth and features (b s, 6, 28, 60, 48 + 64), bf16
-    dist.init_process_group('nccl', init_method=f'file://{tmp}/nccl', rank=0, world_size=1)
-    try:
+    with nccl_group_of_one(tmp):
         x = torch.randn((9, 6, 28, 60, 112), device=device).to(torch.bfloat16)
         g = torch.randn_like(x)
         leaf = x.clone().requires_grad_(True)
@@ -4504,24 +4532,37 @@ def phase_camera_parallel(device):
             raise AssertionError(f'{name}: the NCCL gather of one rank is not the identity')
         log(f'{name}: NCCL gather and its adjoint in a group of one rank: the identity, '
             f'bit for bit')
+    try:
+        records = group_ranks_against_one_process(name, tmp, env, bev=False)
+        cam_torchrun(tmp, env)
     finally:
-        dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+    return records
+
+
+def group_ranks_against_one_process(name, tmp, env, bev):
+    """CAM_CASES' steps (BEV_CASES' with ``bev``) of one process (in camera groups,
+    and with ``bev`` in row shares too), then of two gloo ranks of one camera group
+    on the card (this script with --cam-out, or --bev-out with ``bev``), held
+    against each other; the records of the phase."""
     saved = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
     f32_only()
-    want, whole = {}, {}
+    want = {}
+    cases = BEV_CASES if bev else CAM_CASES
+    groups = 'camera groups and row shares' if bev else 'camera groups'
     try:
-        for key in CAM_CASES:
+        for key in cases:
             t0 = time.perf_counter()
             cfg = cam_cfg(key)
             batch = dp_batch(cfg, cfg.BATCHSIZE)
-            if key in CAM_WHOLE:
-                whole[key] = to_host(dp_step(dp_trainer(cfg), batch))
-                torch.cuda.empty_cache()
             trainer = dp_trainer(cfg)
             n_cameras = len(cfg.IMAGE.NAMES)
             n_images = cfg.BATCHSIZE * trainer.model.cfg.receptive_field * n_cameras
             encoder = {id(m) for m in trainer.model.encoder.modules()}
-            with computed_in_groups(camera_groups(n_images, n_cameras, CAMERAS), encoder):
+            rows = rows_in_groups(row_plan(trainer.model.cfg.bev_size[0], CAMERAS),
+                                  row_sharded(trainer.model)) if bev else \
+                contextlib.nullcontext()
+            with computed_in_groups(camera_groups(n_images, n_cameras, CAMERAS), encoder), rows:
                 rec, rec['memory'] = footprint(trainer, lambda: dp_step(trainer, batch))
             want[key] = to_host(rec)
             del trainer
@@ -4529,72 +4570,168 @@ def phase_camera_parallel(device):
             log(f'{name}: the one process\'s {key} step(s) in {time.perf_counter() - t0:.1f} s')
     finally:
         torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+    outs = [os.path.join(tmp, f'rank{r}.pt') for r in range(CAMERAS)]
+    rendezvous = {'WORLD_SIZE': str(CAMERAS), 'MASTER_ADDR': '127.0.0.1',
+                  'MASTER_PORT': str(free_port())}
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                               '--bev-out' if bev else '--cam-out', outs[r]],
+                              env={**env, **rendezvous, 'RANK': str(r),
+                                   'LOCAL_RANK': str(r)},
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for r in range(CAMERAS)]
     try:
-        outs = [os.path.join(tmp, f'rank{r}.pt') for r in range(CAMERAS)]
-        rendezvous = {'WORLD_SIZE': str(CAMERAS), 'MASTER_ADDR': '127.0.0.1',
-                      'MASTER_PORT': str(free_port())}
-        t0 = time.perf_counter()
-        procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), '--cam-out',
-                                   outs[r]],
-                                  env={**env, **rendezvous, 'RANK': str(r),
-                                       'LOCAL_RANK': str(r)},
-                                  stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-                 for r in range(CAMERAS)]
-        try:
-            logs = [p.communicate(timeout=600)[0] for p in procs]
-        finally:
-            for p in procs:
-                if p.poll() is None:
-                    p.kill()
-                    p.wait()
-        for r, p in enumerate(procs):
-            if p.returncode != 0:
-                raise AssertionError(f'{name}: rank {r} exited {p.returncode}:\n'
-                                     f'{logs[r][-4000:]}')
-        log(f'{name}: the two ranks ran in {time.perf_counter() - t0:.1f} s')
-        got = [torch.load(o, weights_only=False) for o in outs]
-        records = {}
-        for key, (_, _, held) in CAM_CASES.items():
-            ranks = [g[key] for g in got]
-            label = f'{name} ({key}, two gloo ranks of 3 cameras)'
-            expect = CAM_DENSE_KERNELS if key.startswith('dense') else CAM_COMBO_KERNELS
-            for r, g in enumerate(ranks):
-                missing = [k for k in expect + tuple(SYNC_COUNTERS) if not g['launches'][k]]
-                if missing or any(g['plain_calls']):
-                    raise AssertionError(f'{label}: rank {r} launched none of {missing}; plain '
-                                         f'versions run {g["plain_calls"]}')
-            differ = step_differences(ranks[1], ranks[0])
-            if differ['state'] or differ['exp_avg']:
-                raise AssertionError(f'{label}: the ranks\' weights or moments differ: {differ}')
-            for kind in ('grads', 'exp_avg') if key in whole else ():
-                ours, groups = (l2_by_module_and_leaf(r[kind], whole[key][kind])[0]
-                                for r in (ranks[0], want[key]))
-                log(f'{label}: {kind} relative L2 by module against the one process run '
-                    f'whole: {json.dumps(ours)}; the one process in camera groups against '
-                    f'it: {json.dumps(groups)}')
-            losses = {k: [float(ranks[0]['losses'][k]), float(want[key]['losses'][k])]
-                      for k in want[key]['losses']}
-            log(f'{label}: losses (ranks, one process in camera groups) {json.dumps(losses)}')
-            rec = {'launches': {k: v for k, v in ranks[0]['launches'].items() if v},
-                   'rank_seconds': [g['seconds'] for g in ranks],
-                   'memory': {'ranks': [g['memory'] for g in ranks],
-                              'one_process': want[key]['memory']}}
-            if held:
-                rec['worst'] = dp_within_cpu_tolerances(
-                    f'{label} against one process in camera groups', ranks[0], want[key],
-                    cam_cfg(key).OPTIMIZER.LR)
-            else:
-                rec['grads_l2'] = l2_by_module_and_leaf(ranks[0]['grads'], want[key]['grads'])[0]
-                log(f'{label}: bf16 gradients relative L2 by module against one process in '
-                    f'camera groups (printed, not held): {json.dumps(rec["grads_l2"])}')
-            log(f'{label}: the ranks\' weights, statistics and moments equal bit for bit; '
-                f'launches of rank 0 {json.dumps(rec["launches"])}; memory '
-                f'{json.dumps(rec["memory"])}; {smi_line()}')
-            records[key] = rec
-        cam_torchrun(tmp, env)
+        logs = [p.communicate(timeout=600)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, p in enumerate(procs):
+        if p.returncode != 0:
+            raise AssertionError(f'{name}: rank {r} exited {p.returncode}:\n'
+                                 f'{logs[r][-4000:]}')
+    log(f'{name}: the two ranks ran in {time.perf_counter() - t0:.1f} s')
+    got = [torch.load(o, weights_only=False) for o in outs]
+    records = {}
+    for key, (_, _, held) in cases.items():
+        ranks = [g[key] for g in got]
+        edges = row_plan(FieryConfig.from_cfg(cam_cfg(key)).bev_size[0], CAMERAS)
+        label = (f'{name} ({key}, two gloo ranks of 3 cameras'
+                 + (f' and {edges[1]} or {edges[2] - edges[1]} BEV rows)' if bev else ')'))
+        expect = CAM_DENSE_KERNELS if key.startswith('dense') else CAM_COMBO_KERNELS
+        for r, g in enumerate(ranks):
+            missing = [k for k in expect + tuple(SYNC_COUNTERS) if not g['launches'][k]]
+            if missing or any(g['plain_calls']):
+                raise AssertionError(f'{label}: rank {r} launched none of {missing}; plain '
+                                     f'versions run {g["plain_calls"]}')
+        differ = step_differences(ranks[1], ranks[0])
+        if differ['state'] or differ['exp_avg']:
+            raise AssertionError(f'{label}: the ranks\' weights or moments differ: {differ}')
+        losses = {k: [float(ranks[0]['losses'][k]), float(want[key]['losses'][k])]
+                  for k in want[key]['losses']}
+        log(f'{label}: losses (ranks, one process in {groups}) {json.dumps(losses)}')
+        rec = {'launches': {k: v for k, v in ranks[0]['launches'].items() if v},
+               'rank_seconds': [g['seconds'] for g in ranks],
+               'memory': {'ranks': [g['memory'] for g in ranks],
+                          'one_process': want[key]['memory']}}
+        if held:
+            rec['worst'] = dp_within_cpu_tolerances(
+                f'{label} against one process in {groups}', ranks[0], want[key],
+                cam_cfg(key).OPTIMIZER.LR)
+        else:
+            rec['grads_l2'] = l2_by_module_and_leaf(ranks[0]['grads'], want[key]['grads'])[0]
+            log(f'{label}: bf16 gradients relative L2 by module against one process in '
+                f'{groups} (printed, not held): {json.dumps(rec["grads_l2"])}')
+        log(f'{label}: the ranks\' weights, statistics and moments equal bit for bit; '
+            f'launches of rank 0 {json.dumps(rec["launches"])}; memory '
+            f'{json.dumps(rec["memory"])}; {smi_line()}')
+        records[key] = rec
+    return records
+
+
+# ---- BEV-parallel training (parallel/mesh.py): the BEV rows split over a camera group ----
+
+def row_sharded(model):
+    """The ids of the modules that run on a share of the BEV rows."""
+    return {id(m) for name in ('temporal_model', 'future_prediction', 'decoder')
+            if hasattr(model, name) for m in getattr(model, name).modules()}
+
+
+@contextlib.contextmanager
+def rows_in_groups(edges, modules):
+    """The BEV axis's ranks' shapes in one process: every convolution of the modules
+    whose ids ``modules`` holds computed on each share of the rows of ``edges``
+    (``row_plan``) apart, as its rank computes it (the share's rows with those its
+    kernel reads across the share's edges, zeros at the grid's true edges, only the
+    columns padded; in its rank's memory layout), the outputs put back in place;
+    and the pyramid pooling's spatial mean as the sum of the shares' f32 sums, in
+    share order. cuDNN and the means pick their kernels by a tensor's size and
+    layout (the ``computed_in_groups`` note)."""
+    conv, pool = _InputDtype._conv_forward, temporal_layers._causal_avg_pool3d
+    X = edges[-1]
+
+    def shares(rows):
+        s = X // rows
+        return [(edges[m] // s, edges[m + 1] // s) for m in range(len(edges) - 1)]
+
+    def conv_rows(self, x, weight, bias):
+        rows = x.shape[-2]
+        if id(self) not in modules or X % rows or X // rows > 8:
+            return conv(self, x, weight, bias)
+        k, st, p = self.kernel_size[-2], self.stride[-2], self.padding[-2]
+        below = max(0, k - st - p) if not (p == 0 and k <= st) else 0
+        above = p if not (p == 0 and k <= st) else 0
+        outs = []
+        for a, b in shares(rows):
+            top = x[..., a - above:a, :] if a else x[..., :1, :].new_zeros(
+                x.shape[:-2] + (p, x.shape[-1]))
+            bottom = x[..., b:b + below, :] if b < rows else x[..., :1, :].new_zeros(
+                x.shape[:-2] + (p, x.shape[-1]))
+            # a rank's share has its whole tensor's layout; the halo's concatenation
+            # takes it (exchange_rows), a share without a halo goes in as it is
+            part = (_memory_like(torch.cat([top, x[..., a:b, :], bottom], dim=-2), x)
+                    if top.shape[-2] or bottom.shape[-2] else x[..., a:b, :])
+            fn = F.conv2d if x.dim() == 4 else F.conv3d
+            outs.append(self._out_layout(fn(
+                part, weight.to(x.dtype), None if bias is None else bias.to(x.dtype),
+                self.stride, (*self.padding[:-2], 0, self.padding[-1]), self.dilation,
+                self.groups)))
+        return self._out_layout(torch.cat(outs, dim=-2))
+
+    def pool_rows(x, pool_size):
+        H, W = x.shape[-2:]
+        if tuple(pool_size[1:]) != (H, W) or X % H:
+            return pool(x, pool_size)
+        total = None
+        for a, b in shares(H):
+            part = _memory_like(x[..., a:b, :], x).float().sum(dim=(-2, -1), keepdim=True)
+            total = part if total is None else total + part
+        h = (total / (H * W)).to(x.dtype)
+        return torch.cat([h[:, :, :1], (h[:, :, :-1] + h[:, :, 1:]) / 2.0], dim=2)
+
+    _InputDtype._conv_forward, temporal_layers._causal_avg_pool3d = conv_rows, pool_rows
+    try:
+        yield
+    finally:
+        _InputDtype._conv_forward, temporal_layers._causal_avg_pool3d = conv, pool
+
+
+def phase_bev_parallel(device):
+    """BEV-parallel training on the one card (parallel/mesh.py, --bev-parallel): the
+    row gather's and the row mean's NCCL calls in a group of one rank (the identity,
+    and the mean, both ways); then BEV_CASES' steps on two gloo ranks of one camera
+    group that also split the 200 BEV rows (104 + 96) after the splat (this script
+    with --bev-out), against one process whose encoder runs each rank's cameras
+    apart and whose modules after the splat run each rank's rows apart
+    (``rows_in_groups``), at the CPU test's tolerances, their weights equal bit for
+    bit; each rank's launches and peak memory, with the bytes that the forward holds
+    before and after the encoder. Returns the records."""
+    name = 'bev parallel'
+    torch.cuda.empty_cache()
+    tmp = tempfile.mkdtemp(prefix='fiery_bev_')
+    env = gloo_env()
+    with nccl_group_of_one(tmp) as group:
+        share = RowShare(group, 0, (0, 200))
+        x = torch.randn((9, 64, 200, 200), device=device)
+        leaf = x.clone().requires_grad_(True)
+        out = gather_rows(leaf, -2, share)
+        g = torch.randn_like(out)
+        out.backward(g)
+        mean_leaf = x.clone().requires_grad_(True)
+        mean = group_row_mean(mean_leaf, share)
+        mean.backward(torch.ones_like(mean))
+        if not (torch.equal(out, x) and torch.equal(leaf.grad, g)
+                and torch.equal(mean, x.sum(dim=(-2, -1), keepdim=True) / 40000)
+                and torch.equal(mean_leaf.grad, torch.full_like(x, 1 / 40000))):
+            raise AssertionError(f'{name}: the NCCL row gather or row mean of one rank is not '
+                                 f'the identity or the mean')
+        log(f'{name}: NCCL row gather and row mean with their adjoints in a group of one '
+            f'rank: the identity and the mean, bit for bit')
+    try:
+        return group_ranks_against_one_process(name, tmp, env, bev=True)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    return records
 
 
 def cam_train_main(argv):
@@ -4610,7 +4747,8 @@ def cam_train_main(argv):
 
 
 def cam_torchrun(tmp, env):
-    """``fiery_tpu_torch.train --camera-parallel 2`` under ``python -m
+    """``fiery_tpu_torch.train --camera-parallel 2 --bev-parallel`` (the camera gather
+    and the BEV rows both) under ``python -m
     torch.distributed.run --nproc_per_node 2`` for 2 steps at full width and batch 1
     on the synthetic clips (a batch of 3 costs the loader's one thread ~3 s), both
     ranks on the one card over gloo (``cam_train_main``): exit 0, one camera group,
@@ -4620,7 +4758,8 @@ def cam_torchrun(tmp, env):
     cmd = [sys.executable, '-m', 'torch.distributed.run', '--nproc_per_node', str(CAMERAS),
            '--master_addr', '127.0.0.1', '--master_port', str(free_port()),
            os.path.abspath(__file__), '--cam-train', '--config', BASELINE,
-           '--device', 'cuda:0', '--camera-parallel', str(CAMERAS), '--steps', '2',
+           '--device', 'cuda:0', '--camera-parallel', str(CAMERAS), '--bev-parallel',
+           '--steps', '2',
            'DATASET.NAME', 'synthetic', 'BATCHSIZE', '1', 'EPOCHS', '1', 'LOG_DIR', log_dir]
     t0 = time.perf_counter()
     out = subprocess.run(cmd, env=env, capture_output=True, text=True, timeout=600)
@@ -4631,7 +4770,8 @@ def cam_torchrun(tmp, env):
     runs = os.listdir(log_dir)
     state, _ = load_checkpoint(os.path.join(log_dir, runs[0], 'checkpoint_final'))
     if (len(runs) != 1 or state['step'] != 2
-            or f'x 1 data shard(s) of {CAMERAS} camera ranks' not in out.stdout):
+            or f'x 1 data shard(s) of {CAMERAS} camera ranks, each training its share of '
+               f'the BEV rows' not in out.stdout):
         raise AssertionError(f'{name}: runs {runs}, step {state["step"]}:\n{out.stdout[-2000:]}')
     log(f'{name}: exit 0 in {wall:.1f} s, checkpoint_final at step 2; '
         + ' | '.join(line for line in out.stdout.splitlines() if '"step"' in line))
@@ -4640,12 +4780,13 @@ def cam_torchrun(tmp, env):
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument('--only', choices=['families', 'exported', 'real_set', 'data_parallel',
-                                           'camera_parallel'],
+                                           'camera_parallel', 'bev_parallel'],
                         help='run only this phase (after the build); prints no result line')
     # one rank of phase_data_parallel's and phase_camera_parallel's gloo ranks (the
     # script starts them itself)
     parser.add_argument('--dp-out', help=argparse.SUPPRESS)
     parser.add_argument('--cam-out', help=argparse.SUPPRESS)
+    parser.add_argument('--bev-out', help=argparse.SUPPRESS)
     # one rank of phase_camera_parallel's torchrun of the training CLI: the rest of
     # the command line is the CLI's
     parser.add_argument('--cam-train', nargs=argparse.REMAINDER, help=argparse.SUPPRESS)
@@ -4658,6 +4799,9 @@ def main(argv=None):
         return
     if args.cam_out is not None:
         cam_rank_main(args.cam_out)
+        return
+    if args.bev_out is not None:
+        cam_rank_main(args.bev_out, bev=True)
         return
     if args.cam_train is not None:
         cam_train_main(args.cam_train)
@@ -4690,6 +4834,12 @@ def main(argv=None):
         records = phase_camera_parallel(device)
         log('camera parallel: ' + json.dumps(records))
         log(f'camera parallel: ok ({time.perf_counter() - t0:.1f} s); {smi_line()}')
+        return
+    if args.only == 'bev_parallel':
+        t0 = time.perf_counter()
+        records = phase_bev_parallel(device)
+        log('bev parallel: ' + json.dumps(records))
+        log(f'bev parallel: ok ({time.perf_counter() - t0:.1f} s); {smi_line()}')
         return
     if args.only == 'exported':
         t0 = time.perf_counter()
@@ -4794,6 +4944,11 @@ def main(argv=None):
     log('camera parallel: ' + json.dumps(cam_records))
     log(f'camera parallel: two gloo ranks of a camera group, dense and combined, torchrun: '
         f'ok ({time.perf_counter() - t0:.1f} s)')
+    t0 = time.perf_counter()
+    bev_records = phase_bev_parallel(device)
+    log('bev parallel: ' + json.dumps(bev_records))
+    log(f'bev parallel: two gloo ranks of a camera group splitting the BEV rows, dense and '
+        f'combined: ok ({time.perf_counter() - t0:.1f} s)')
     t0 = time.perf_counter()
     phase_real_set()
     log(f'real set: nuScenes and Lyft trees trained, evaluated and drawn: ok '

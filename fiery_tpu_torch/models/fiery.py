@@ -35,7 +35,7 @@ from fiery_tpu_torch.ops.lift_splat import (create_frustum, get_geometry, lift_s
                                             lift_splat_topk)
 from fiery_tpu_torch.ops.warp import (compose_poses_to_present, cumulative_warp_features,
                                       warp_points_to_present)
-from fiery_tpu_torch.parallel.mesh import draw_batch, gather_cameras
+from fiery_tpu_torch.parallel.mesh import bev_rows, draw_batch, gather_cameras, gather_rows
 from fiery_tpu_torch.utils.geometry import (calculate_birds_eye_view_parameters,
                                             pack_sequence_dim)
 
@@ -226,6 +226,10 @@ class Fiery(nn.Module):
         # make_parallel_trainer): in training the images are then the rank's cameras,
         # and the encoder's outputs are gathered over the group before the splat
         self.camera_group = None
+        # the rank's share of the BEV rows under the BEV spatial axis (a RowShare of
+        # the camera group, make_parallel_trainer(bev_parallel=True)): in training the
+        # modules after the splat then run on the share
+        self.row_share = None
 
     def forward(self, image, intrinsics, extrinsics, future_egomotion,
                 future_distribution_inputs=None, noise=None, generator=None):
@@ -233,7 +237,9 @@ class Fiery(nn.Module):
         maps of the present and future frames, which training needs. noise (b, 1, L):
         the latent's standard-normal draw; if None, training draws it from
         ``generator`` (torch's default one if None) and eval takes zero. The
-        generator also draws the drop-connect masks."""
+        generator also draws the drop-connect masks. In training with a
+        ``row_share`` the BEV outputs are the share's rows (dim 2), the
+        distributions' the whole grid's."""
         c = self.cfg
         rf, dt = c.receptive_field, c.compute_dtype
         image = image[:, :rf]
@@ -255,27 +261,41 @@ class Fiery(nn.Module):
             ego = torch.cat([torch.zeros_like(ego[:, :1]), ego[:, :rf - 1]], dim=1)
             x = torch.cat([x, ego.to(x.dtype)], dim=-1)
 
+        share = self.row_share if self.training else None
+        if share is not None:
+            # the BEV spatial axis: the rank's rows from here to the heads
+            if x.shape[2] != share.edges[-1]:
+                raise ValueError(f'a plan of {share.edges[-1]} rows for a grid of '
+                                 f'{x.shape[2]}')
+            x = x[:, :, share.edges[share.index]:share.edges[share.index + 1]].contiguous()
+
         # eval trims the stack to the present frame (exact under running statistics);
         # training keeps every frame, whose batch statistics the BatchNorms need,
         # unless TRIM_TRAIN trims it too
-        states = self.temporal_model(x, trim=not self.training or c.temporal_trim_train)
+        with bev_rows(share):
+            states = self.temporal_model(x, trim=not self.training or c.temporal_trim_train)
         output = {}
         if c.n_future > 0:
             present_state = states[:, :1]
             b, _, h, w, _ = present_state.shape
             if c.probabilistic_enabled:
+                # the distributions take the whole grid on every rank of the group
+                whole = present_state if share is None else gather_rows(present_state, 2,
+                                                                        share)
                 sample, distributions = self.distribution_forward(
-                    present_state, future_distribution_inputs, noise, generator)
+                    whole, future_distribution_inputs, noise, generator)
                 output.update(distributions)
                 future_input = sample[:, :, None, None, :].expand(
                     b, c.n_future, h, w, c.latent_dim).to(dt)
             else:
                 future_input = torch.zeros((b, c.n_future, h, w, c.latent_dim), dtype=dt,
                                            device=present_state.device)
-            future_states = self.future_prediction(future_input, present_state[:, 0])
-            bev_output = self.decoder(torch.cat([present_state, future_states], dim=1))
+            with bev_rows(share):
+                future_states = self.future_prediction(future_input, present_state[:, 0])
+                bev_output = self.decoder(torch.cat([present_state, future_states], dim=1))
         else:
-            bev_output = self.decoder(states[:, -1:])
+            with bev_rows(share):
+                bev_output = self.decoder(states[:, -1:])
         output.update({k: v.float() for k, v in bev_output.items()})
         return output
 

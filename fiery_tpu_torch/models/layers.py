@@ -24,19 +24,37 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from fiery_tpu_torch.ops.batch_norm import POSTS, batch_norm
+from fiery_tpu_torch.parallel.mesh import current_rows, exchange_rows
 
 
 class _InputDtype:
     """Convolution mixin: compute in the input's dtype, weights cast on the fly, and
     return channels-last memory, the layout the BatchNorm kernel takes. An output in
     another layout (PyTorch's CPU convolutions return one for a 5-D batch of 1) is
-    copied, and counted by its shape in ``layout_copies``."""
+    copied, and counted by its shape in ``layout_copies``.
+
+    Inside ``parallel.mesh.bev_rows`` (the BEV spatial axis) the input is the rank's
+    share of the rows (dim -2): the rows that the kernel reads across the share's
+    edges come from the neighbouring shares (``exchange_rows``: p above and
+    k - s - p below for a kernel k, stride s and padding p in rows), zeros at the
+    grid's true edges, and the convolution pads only the columns."""
 
     layout_copies = Counter()
 
     def _conv_forward(self, x, weight, bias):
-        return self._out_layout(super()._conv_forward(
-            x, weight.to(x.dtype), None if bias is None else bias.to(x.dtype)))
+        weight, bias = weight.to(x.dtype), None if bias is None else bias.to(x.dtype)
+        k, s, p = self.kernel_size[-2], self.stride[-2], self.padding[-2]
+        if current_rows() is None or (p == 0 and k <= s):
+            # no row read across a share's edge (a 1 x 1 kernel, say)
+            return self._out_layout(super()._conv_forward(x, weight, bias))
+        if self.padding_mode != 'zeros' or self.dilation[-2] != 1:
+            raise NotImplementedError('a row-sharded convolution pads with zeros and is '
+                                      'not dilated')
+        x, _ = exchange_rows(x, p, max(0, k - s - p), edge=(p, p))
+        conv = F.conv2d if x.dim() == 4 else F.conv3d
+        return self._out_layout(conv(x, weight, bias, self.stride,
+                                     (*self.padding[:-2], 0, self.padding[-1]),
+                                     self.dilation, self.groups))
 
     def _out_layout(self, y):
         if not y.is_contiguous(memory_format=self.out_format):
@@ -59,6 +77,9 @@ class ConvTranspose2d(_InputDtype, nn.ConvTranspose2d):
     out_format = torch.channels_last
 
     def forward(self, x):
+        if current_rows() is not None:
+            raise NotImplementedError('a transposed convolution does not run on a share '
+                                      'of the BEV rows')
         return self._out_layout(F.conv_transpose2d(
             x, self.weight.to(x.dtype), None if self.bias is None else self.bias.to(x.dtype),
             self.stride, self.padding, self.output_padding, self.groups, self.dilation))
@@ -111,7 +132,25 @@ class BatchNorm(nn.modules.batchnorm._BatchNorm):
 
 def resize_bilinear(x, out_hw):
     """F.interpolate(mode='bilinear', align_corners=False) of (N, C, H, W)."""
+    if current_rows() is not None:
+        raise NotImplementedError('a bilinear resize to a given size does not run on a '
+                                  'share of the BEV rows')
     return F.interpolate(x, size=tuple(out_hw), mode='bilinear', align_corners=False)
+
+
+def upsample_rows(up, x):
+    """``up(x)``, an ``nn.Upsample`` of scale 2 (bilinear, align_corners False), on
+    the rows of a share inside ``bev_rows``: an output row reads the input rows on
+    either side, so the share borrows one row from each neighbour, and crops the
+    borrowed rows' outputs after; at the grid's true edges nothing is borrowed and
+    the interpolation clamps, as on the whole grid."""
+    if current_rows() is None:
+        return up(x)
+    if up.scale_factor not in (2, 2.0, (2.0, 2.0)) or up.mode != 'bilinear' or up.align_corners:
+        raise NotImplementedError(f'{up} does not run on a share of the BEV rows')
+    rows = x.shape[-2]
+    x, top = exchange_rows(x, 1, 1)
+    return up(x)[..., 2 * top:2 * (top + rows), :]
 
 
 class ConvBlock(nn.Module):
@@ -178,6 +217,9 @@ class Bottleneck(nn.Module):
             self.projection = nn.Sequential(proj)
 
     def forward(self, x):
+        if (self.downsample or self.upsample) and current_rows() is not None:
+            raise NotImplementedError('a resampling Bottleneck does not run on a share of '
+                                      'the BEV rows')
         if self.projection is None:
             return self.layers.abn_up_project[0](self.layers[:-1](x), residual=x)
         residual = self.layers(x)
@@ -226,5 +268,5 @@ class UpsamplingAdd(nn.Module):
 
     def forward(self, x, x_skip):
         up, conv, bn = self.upsample_layer
-        return bn(conv(up(x)), residual=x_skip)
+        return bn(conv(upsample_rows(up, x)), residual=x_skip)
 

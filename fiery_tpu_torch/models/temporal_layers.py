@@ -17,6 +17,7 @@ from fiery_tpu_torch.models.layers import (BatchNorm, Conv2d, Conv3d, ConvBlock,
                                            resize_bilinear)
 from fiery_tpu_torch.ops.spatial_gru import (gru_frames, gru_output, gru_reset_concat,
                                              gru_stack, gru_state_update)
+from fiery_tpu_torch.parallel.mesh import current_rows, exchange_rows, group_row_mean
 
 
 class Conv1x1x1NormActivated(nn.Sequential):
@@ -47,10 +48,15 @@ class CausalConv3d(nn.Module):
 
 
 def causal_max_pool3d(x, kernel_size=(2, 3, 3)):
-    """Max pool, stride 1, zero frames before t = 0, -inf spatial padding."""
+    """Max pool, stride 1, zero frames before t = 0, -inf spatial padding. On a
+    share of the BEV rows (``bev_rows``) the rows across the share's edges come
+    from the neighbouring shares, -inf at the grid's true edges."""
     kt, kh, kw = kernel_size
     x = F.pad(x, (0, 0, 0, 0, kt - 1, 0))
-    return F.max_pool3d(x, kernel_size, stride=1, padding=(0, kh // 2, kw // 2))
+    if current_rows() is None:
+        return F.max_pool3d(x, kernel_size, stride=1, padding=(0, kh // 2, kw // 2))
+    x, _ = exchange_rows(x, kh // 2, kh // 2, edge=(kh // 2, kh // 2), fill=float('-inf'))
+    return F.max_pool3d(x, kernel_size, stride=1, padding=(0, 0, kw // 2))
 
 
 class Bottleneck3D(nn.Module):
@@ -90,11 +96,20 @@ def _causal_avg_pool3d(x, pool_size):
     out[t] = (avg(x[t-1]) + avg(x[t])) / 2."""
     kt, ph, pw = pool_size
     assert kt == 2, 'time kernel must be 2'
-    # the spatial average of each (ph, pw) window as a reshape-mean: one parallel
-    # reduction, where avg_pool3d runs one thread per output window
     b, c, t, H, W = x.shape
-    h = x[..., :H - H % ph, :W - W % pw].reshape(
-        b, c, t, H // ph, ph, W // pw, pw).mean(dim=(4, 6))
+    share = current_rows()
+    if share is not None:
+        # a share of the BEV rows: the pool must cover the whole grid, whose mean
+        # sums the shares (H // ph on the share would pool the wrong windows)
+        if (ph, pw) != (share.level(H)[2], W):
+            raise NotImplementedError(f'a pool of {(ph, pw)} on a share of the '
+                                      f'{share.level(H)[2]} x {W} grid')
+        h = group_row_mean(x)
+    else:
+        # the spatial average of each (ph, pw) window as a reshape-mean: one parallel
+        # reduction, where avg_pool3d runs one thread per output window
+        h = x[..., :H - H % ph, :W - W % pw].reshape(
+            b, c, t, H // ph, ph, W // pw, pw).mean(dim=(4, 6))
     return torch.cat([h[:, :, :1], (h[:, :, :-1] + h[:, :, 1:]) / 2.0], dim=2)
 
 

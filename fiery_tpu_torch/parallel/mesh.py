@@ -38,10 +38,25 @@ camera group exists.
 
 cfg.BATCHSIZE is per data shard, as the JAX package reads it per chip of its data
 axis: the global batch is BATCHSIZE x W / M. As in the JAX package, the camera axis
-is for training only: the eval forward takes every camera on each rank. Not ported
-yet: the BEV spatial axis (``bev_sharding``, ``bev_constraint``).
+is for training only: the eval forward takes every camera on each rank.
+
+The BEV spatial axis (``bev_sharding`` and ``bev_constraint`` of the JAX package,
+``make_parallel_trainer(..., bev_parallel=True)``, ``train.py --bev-parallel``)
+splits the X rows (dim -3 of a channels-last BEV tensor) of every activation after
+the splat over the camera group. After ``gather_cameras`` every rank of the group
+holds every camera, so each runs the splat, the warps and the egopose concat on the
+whole grid and then keeps its share of the rows (``row_plan``, ``RowShare``): the
+temporal model, the rollout and the decoder run on the share, the layers that read
+neighbouring rows take them from the neighbouring ranks (``exchange_rows``, whose
+backward sends the halo's gradients back to their owners), the pyramid pooling's
+spatial mean sums the shares (``group_row_mean``), and the distributions and the
+segmentation loss's top-k take the whole grid (``gather_rows``). The row-sharded
+modules' BatchNorms take their statistics over the world, the masked losses count
+over the world, and the logged losses are the world's average; everything else is
+as under the camera axis. Eval stays unsharded, as in the JAX package.
 """
 
+import contextlib
 import dataclasses
 import os
 
@@ -195,13 +210,249 @@ def gather_cameras(x, group):
     return _GatherCameras.apply(x, group)
 
 
+# the decoder's total stride (three stride-2 stages): the row plan's inner edges are
+# multiples of it, so that a share at every level of the decoder is the full-width
+# share divided by that level's stride
+BEV_STRIDE = 8
+
+
+def row_plan(rows, shares, unit=BEV_STRIDE):
+    """The edges (e_0 = 0, e_1, ..., e_M = rows) of M contiguous shares of ``rows``
+    rows whose edges are multiples of ``unit``: the rows / unit units dealt out as
+    evenly as they go, the first shares taking one more (200 rows in 2 shares:
+    104 + 96). Raises where ``unit`` does not divide the rows (nor then does the
+    decoder's stride) or a share would be empty."""
+    if rows % unit:
+        raise ValueError(f'{rows} BEV rows are not a multiple of the decoder\'s stride {unit}')
+    units = rows // unit
+    if shares < 1 or units < shares:
+        raise ValueError(f'{rows} BEV rows hold {units} blocks of {unit}: share '
+                         f'{units} of {shares} would be empty')
+    edges = [0]
+    for m in range(shares):
+        edges.append(edges[-1] + unit * (units // shares + (m < units % shares)))
+    return tuple(edges)
+
+
+@dataclasses.dataclass(frozen=True)
+class RowShare:
+    """Share ``index`` of a camera group's rows: the rows [edges[index],
+    edges[index + 1]) of the full-resolution grid (``row_plan``), and ``group``, the
+    camera group whose ranks hold the shares in rank order. At a level of stride s
+    (1, 2, 4 or 8 in the decoder) share m is [e_m / s, ceil(e_(m+1) / s))."""
+    group: object
+    index: int
+    edges: tuple
+
+    @property
+    def size(self):
+        return len(self.edges) - 1
+
+    def _at(self, m, s):
+        return self.edges[m] // s, -(-self.edges[m + 1] // s)
+
+    def stride(self, rows):
+        """The stride of the level where this share holds ``rows`` rows (the
+        finest such). Raises when no level has that many."""
+        s = 1
+        while s <= self.edges[-1]:
+            start, stop = self._at(self.index, s)
+            if stop - start == rows:
+                return s
+            s *= 2
+        raise ValueError(f'share {self.index} of the rows {self.edges} has no level of '
+                         f'{rows} rows')
+
+    def level(self, rows):
+        """(start, stop, total) of the share at the level where it holds ``rows``."""
+        s = self.stride(rows)
+        return (*self._at(self.index, s), -(-self.edges[-1] // s))
+
+    def counts(self, rows):
+        """Every share's row count at the level where this one holds ``rows``."""
+        s = self.stride(rows)
+        return [b - a for a, b in (self._at(m, s) for m in range(self.size))]
+
+
+_ROWS = None       # the RowShare of the row-sharded modules being run, or None
+
+
+@contextlib.contextmanager
+def bev_rows(share):
+    """Run the layers inside on ``share``'s rows (None: the whole grid): the
+    convolutions, the bilinear upsample, the causal max pool and the pyramid
+    pooling read ``current_rows()``."""
+    global _ROWS
+    prev, _ROWS = _ROWS, share
+    try:
+        yield
+    finally:
+        _ROWS = prev
+
+
+def current_rows():
+    return _ROWS
+
+
+def _memory_like(t, x):
+    fmt = {4: torch.channels_last, 5: torch.channels_last_3d}.get(x.dim())
+    if fmt is not None and x.is_contiguous(memory_format=fmt):
+        return t.contiguous(memory_format=fmt)
+    return t.contiguous()
+
+
+class _ExchangeHalo(torch.autograd.Function):
+    """The rows that the neighbouring shares lend: (the last ``above`` rows of share
+    m - 1, the first ``below`` rows of share m + 1) along dim -2, each empty where
+    share m lies at the grid's edge. One all-gather of every rank's edge rows (one
+    code path on NCCL and gloo); the backward is its adjoint: the halos' gradients
+    go back to their owners, which add them to their edge rows."""
+
+    @staticmethod
+    def forward(ctx, x, group, index, above, below):
+        ctx.group, ctx.index, ctx.above, ctx.below = group, index, above, below
+        ctx.shape = x.shape
+        size = dist.get_world_size(group)
+        rows = x.shape[-2]
+        top, bottom = x[..., :below, :], x[..., rows - above:, :]
+        mine = torch.cat([top.reshape(-1), bottom.reshape(-1)])
+        parts = [torch.empty_like(mine) for _ in range(size)]
+        dist.all_gather(parts, mine, group=group)
+        n_top = top.numel()
+        recv_above = (parts[index - 1][n_top:].view(bottom.shape) if index > 0
+                      else bottom[..., :0, :])
+        recv_below = (parts[index + 1][:n_top].view(top.shape) if index < size - 1
+                      else top[..., :0, :])
+        return _memory_like(recv_above, x), _memory_like(recv_below, x)
+
+    @staticmethod
+    def backward(ctx, g_above, g_below):
+        group, index, above, below = ctx.group, ctx.index, ctx.above, ctx.below
+        size = dist.get_world_size(group)
+        lead, rows, w = ctx.shape[:-2], ctx.shape[-2], ctx.shape[-1]
+        n_top, n_bottom = below * w * lead.numel(), above * w * lead.numel()
+        dtype, device = g_above.dtype, g_above.device
+        g_above = g_above.reshape(-1) if index > 0 else torch.zeros(n_bottom, dtype=dtype,
+                                                                    device=device)
+        g_below = g_below.reshape(-1) if index < size - 1 else torch.zeros(
+            n_top, dtype=dtype, device=device)
+        mine = torch.cat([g_above, g_below])
+        parts = [torch.empty_like(mine) for _ in range(size)]
+        dist.all_gather(parts, mine, group=group)
+        dx = torch.zeros(ctx.shape, dtype=dtype, device=device)
+        if index > 0 and below:
+            # share m - 1 borrowed this share's first rows as its lower halo
+            dx[..., :below, :] += parts[index - 1][n_bottom:].view(*lead, below, w)
+        if index < size - 1 and above:
+            dx[..., rows - above:, :] += parts[index + 1][:n_bottom].view(*lead, above, w)
+        return dx, None, None, None, None
+
+
+def exchange_rows(x, above, below, edge=(0, 0), fill=0.0, share=None):
+    """x (..., h, w), the rank's rows along dim -2 -> (..., a + h + b, w): the
+    ``above`` rows of the share above and the ``below`` rows of the share below,
+    or, at the grid's true top and bottom edges, ``edge`` = (top, bottom) rows of
+    ``fill`` (a layer's own padding). Also returns a, the rows put above.
+    ``share``: the RowShare (``current_rows()`` when None)."""
+    share = current_rows() if share is None else share
+    start, stop, total = share.level(x.shape[-2])
+    # every rank checks every share, so that all raise or none waits on the others
+    for m, n in enumerate(share.counts(x.shape[-2])):
+        lends = max(above if m < share.size - 1 else 0, below if m > 0 else 0)
+        if n < lends:
+            raise ValueError(f'share {m} of the rows {share.edges} holds {n} rows at this '
+                             f'level, thinner than the halo of {lends} rows it lends')
+    if above or below:
+        recv_above, recv_below = _ExchangeHalo.apply(x, share.group, share.index, above,
+                                                     below)
+    else:
+        recv_above = recv_below = x[..., :0, :]
+    if start == 0:
+        recv_above = torch.full_like(x[..., :1, :], fill).expand(
+            *x.shape[:-2], edge[0], x.shape[-1])
+    if stop == total:
+        recv_below = torch.full_like(x[..., :1, :], fill).expand(
+            *x.shape[:-2], edge[1], x.shape[-1])
+    if not recv_above.shape[-2] and not recv_below.shape[-2]:
+        return x, 0
+    out = torch.cat([recv_above, x, recv_below], dim=-2)
+    return _memory_like(out, x), recv_above.shape[-2]
+
+
+class _GroupRowMean(torch.autograd.Function):
+    """The mean over dims -2 and -1 of the whole grid from the shares of a group:
+    each rank's partial sums (in f32 at least), summed over the group (an
+    all-reduce), over the whole grid's ``count`` values; the backward is the
+    adjoint: the group's gradients summed (an all-reduce), over ``count``, on every
+    value."""
+
+    @staticmethod
+    def forward(ctx, x, group, count):
+        ctx.group, ctx.count, ctx.shape, ctx.dtype = group, count, x.shape, x.dtype
+        acc = torch.promote_types(x.dtype, torch.float32)
+        total = x.to(acc).sum(dim=(-2, -1), keepdim=True)
+        dist.all_reduce(total, group=group)
+        return (total / count).to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.to(torch.promote_types(g.dtype, torch.float32)).clone()
+        dist.all_reduce(g, group=ctx.group)
+        return (g / ctx.count).to(ctx.dtype).expand(ctx.shape), None, None
+
+
+def group_row_mean(x, share=None):
+    """(..., h, w) rows of a share -> (..., 1, 1): the mean over the whole grid's
+    rows and columns (``_GroupRowMean``)."""
+    share = current_rows() if share is None else share
+    _, _, total = share.level(x.shape[-2])
+    return _GroupRowMean.apply(x, share.group, total * x.shape[-1])
+
+
+class _GatherRows(torch.autograd.Function):
+    """All-gather of the shares' rows along ``dim``, in the group's rank order
+    (shares of unequal rows padded to the largest, then cropped); the backward is
+    its adjoint: the group's gradients summed (an all-reduce), of which each rank
+    keeps its own rows."""
+
+    @staticmethod
+    def forward(ctx, x, group, index, counts, dim):
+        ctx.group, ctx.index, ctx.counts, ctx.dim = group, index, counts, dim
+        widest = max(counts)
+        xt = x.movedim(dim, 0)
+        if xt.shape[0] < widest:
+            xt = torch.cat([xt, xt.new_zeros((widest - xt.shape[0],) + xt.shape[1:])])
+        xt = xt.contiguous()
+        parts = [torch.empty_like(xt) for _ in counts]
+        dist.all_gather(parts, xt, group=group)
+        out = torch.cat([p[:n] for p, n in zip(parts, counts)]).movedim(0, dim)
+        return out.contiguous()
+
+    @staticmethod
+    def backward(ctx, grad):
+        g = grad.movedim(ctx.dim, 0).clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(g, group=ctx.group)
+        start = sum(ctx.counts[:ctx.index])
+        return (g[start:start + ctx.counts[ctx.index]].movedim(0, ctx.dim).contiguous(),
+                None, None, None, None)
+
+
+def gather_rows(x, dim, share=None):
+    """The share's rows along ``dim`` on each rank of its group -> the whole grid's
+    rows, every share in the group's order (``_GatherRows``)."""
+    share = current_rows() if share is None else share
+    dim = dim % x.dim()
+    return _GatherRows.apply(x, share.group, share.index, tuple(share.counts(x.shape[dim])),
+                             dim)
+
+
 def _fingerprint(tensors):
     """(len(tensors), 2) f64: each tensor's sum and sum of squares in f64."""
     return torch.stack([torch.stack([t.double().sum(), t.double().square().sum()])
                         for t in tensors])
 
 
-def make_parallel_trainer(trainer, group=None, cameras=1):
+def make_parallel_trainer(trainer, group=None, cameras=1, bev_parallel=False):
     """Make ``trainer`` (training/trainer.py) one rank of a parallel trainer over
     ``group`` (the default group), ``cameras`` ranks a camera group
     (``create_mesh``; every rank calls this with the same arguments): its
@@ -210,21 +461,38 @@ def make_parallel_trainer(trainer, group=None, cameras=1):
     (``broadcast_buffers=False``: under synchronised statistics the running
     statistics are the same on every rank already), the masked losses over the
     data group's mask count, and with ``cameras`` > 1 the encoder's outputs
-    gathered over the camera group. Raises when ``cameras`` does not divide the
-    world size or the number of cameras, and unless every rank then holds rank 0's
-    weights, running statistics and step. Returns the trainer."""
+    gathered over the camera group. With ``bev_parallel`` (``cameras`` > 1) each
+    rank of a camera group also trains its share of the BEV rows (``row_plan``;
+    the module docstring): the temporal model's, the rollout's and the decoder's
+    BatchNorms then synchronise over the world, as do the masked losses' count and
+    the logged losses, and the distributions' over the data group. Raises when
+    ``cameras`` does not divide the world size or the number of cameras, when
+    ``bev_parallel`` has no camera group or the rows no share for each rank, and
+    unless every rank then holds rank 0's weights, running statistics and step.
+    Returns the trainer."""
     from fiery_tpu_torch.models.layers import BatchNorm
     n_cameras = len(trainer.cfg.IMAGE.NAMES)
     if cameras < 1 or n_cameras % cameras:
         raise ValueError(f'{cameras} camera ranks a data shard must divide the '
                          f'{n_cameras} cameras')
+    if bev_parallel and cameras < 2:
+        raise ValueError('the BEV spatial axis splits the rows over a camera group: it '
+                         'needs cameras > 1')
+    model = trainer.model
+    edges = row_plan(model.cfg.bev_size[0], cameras) if bev_parallel else None
     mesh = create_mesh(cameras, group)
-    encoder = {id(m) for m in trainer.model.encoder.modules()}
-    for m in trainer.model.modules():
+    world = {id(m) for m in model.encoder.modules()}
+    if bev_parallel:
+        world |= {id(m) for name in ('temporal_model', 'future_prediction', 'decoder')
+                  if hasattr(model, name) for m in getattr(model, name).modules()}
+    for m in model.modules():
         if isinstance(m, BatchNorm):
-            m.process_group = mesh.world if id(m) in encoder else mesh.data
-    trainer.model.camera_group = mesh.camera
+            m.process_group = mesh.world if id(m) in world else mesh.data
+    model.camera_group = mesh.camera
     trainer.step_losses.group = mesh.data
+    if bev_parallel:
+        model.row_share = RowShare(mesh.camera, mesh.camera_rank, edges)
+        trainer.step_losses.group = mesh.world
     trainer.forward_losses = DistributedDataParallel(trainer.step_losses,
                                                      process_group=mesh.world,
                                                      broadcast_buffers=False)

@@ -55,6 +55,14 @@ encoder's outputs are gathered over the group before the splat. BATCHSIZE is the
 per data shard: the global batch is BATCHSIZE x W / M (W ranks), the M ranks of a
 group read the same shard, and the validation sums each data shard's states once.
 M must divide the ranks and the cameras.
+
+``--bev-parallel`` (the JAX package's flag; it needs ``--camera-parallel`` > 1)
+also splits the BEV rows after the splat over each camera group: each rank trains
+the temporal model, the rollout and the decoder on its share of the rows, with halo
+exchanges at the share's edges (parallel/mesh.py). Validation stays unsharded.
+
+    python -m torch.distributed.run --nproc_per_node 4 -m fiery_tpu_torch.train \
+        --config fiery_tpu_torch/configs/baseline.yml --camera-parallel 2 --bev-parallel
 """
 
 import argparse
@@ -99,6 +107,9 @@ def parse_args(argv=None):
     p.add_argument('--device', default=None, help='cuda (the default) or cpu')
     p.add_argument('--camera-parallel', type=int, default=1,
                    help='ranks a data shard, each encoding its share of the cameras')
+    p.add_argument('--bev-parallel', action='store_true',
+                   help='also split the BEV rows after the splat over each camera group '
+                        '(needs --camera-parallel > 1)')
     p.add_argument('opts', nargs=argparse.REMAINDER, help='KEY VALUE config overrides')
     return p.parse_args(argv)
 
@@ -223,6 +234,9 @@ def main(argv=None):
     device = maybe_initialize_distributed(args.device)
     rank, world = rank_and_world()
     cameras = args.camera_parallel
+    if args.bev_parallel and cameras <= 1:
+        raise SystemExit('--bev-parallel requires --camera-parallel > 1 (the camera group '
+                         'whose ranks split the rows)')
     if cameras > 1 and not dist.is_initialized():
         raise SystemExit('--camera-parallel needs several ranks: run under torchrun')
     if cameras < 1 or world % cameras:
@@ -253,6 +267,8 @@ def main(argv=None):
     logger = MetricLogger(save_dir) if rank == 0 else None
     layout = (f'{shards} rank(s)' if cameras == 1 else
               f'{shards} data shard(s) of {cameras} camera ranks')
+    if args.bev_parallel:
+        layout += ', each training its share of the BEV rows'
     log(f'Logging to {save_dir}; device {device}, batch {cfg.BATCHSIZE} x {layout}, '
         f'{len(trainloader)} steps an epoch', flush=True)
     # the JAX loop takes a first batch here to initialise its state; the look
@@ -278,7 +294,7 @@ def main(argv=None):
         log(f'Warm-starting from {cfg.PRETRAINED.PATH}', flush=True)
         load_pretrained_params(cfg.PRETRAINED.PATH, trainer)
     if dist.is_initialized():
-        make_parallel_trainer(trainer, cameras=cameras)
+        make_parallel_trainer(trainer, cameras=cameras, bev_parallel=args.bev_parallel)
 
     run = types.SimpleNamespace(trainer=trainer, save_dir=save_dir, steps=[], videos=[],
                                 loaders=(trainloader, valloader))

@@ -16,6 +16,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from fiery_tpu_torch.ops import _build
+from fiery_tpu_torch.parallel.mesh import gather_rows
 from fiery_tpu_torch.utils.device import device_constant
 
 
@@ -116,7 +117,8 @@ def spatial_regression_loss(prediction, target, norm, ignore_index=255,
     With a process ``group`` (data-parallel, W ranks) the count is the global
     batch's (all-reduced), and the rank's sum is scaled by W: the ranks' average of
     their values (and of their gradients, as DDP takes it) is then the global
-    batch's loss, which a per-rank ratio averaged would not be."""
+    batch's loss, which a per-rank ratio averaged would not be. Under the BEV
+    spatial axis the group is the world, whose ranks hold every sample's rows once."""
     if prediction.dim() != 5:
         raise ValueError(f'spatial_regression_loss: expected (b, s, h, w, c), got '
                          f'{tuple(prediction.shape)}')
@@ -140,11 +142,13 @@ def spatial_regression_loss(prediction, target, norm, ignore_index=255,
 
 
 def segmentation_loss(prediction, target, class_weights, ignore_index=255,
-                      use_top_k=False, top_k_ratio=1.0, future_discount=1.0):
+                      use_top_k=False, top_k_ratio=1.0, future_discount=1.0, rows=None):
     """Class-weighted cross-entropy of (b, s, h, w, n_classes) logits against
     (b, s, h, w) labels, zero at ignored pixels (which stay in the denominator),
     discounted per frame, then the mean of each frame's int(top_k_ratio * h * w)
-    largest pixels (use_top_k) or of all of them."""
+    largest pixels (use_top_k) or of all of them. ``rows``: the RowShare whose rows
+    the maps hold (the BEV spatial axis); the pixels' losses are then gathered over
+    its group, and the mean and k are the whole grid's, on every rank."""
     b, s, h, w, n = prediction.shape
     class_weights = device_constant(class_weights, prediction.dtype, prediction.device)
     logp = F.log_softmax(prediction, dim=-1)
@@ -153,7 +157,11 @@ def segmentation_loss(prediction, target, class_weights, ignore_index=255,
     loss = torch.where(target != ignore_index, nll * class_weights[tgt],
                        torch.zeros_like(nll))
     discounts = future_discount ** torch.arange(s, dtype=loss.dtype, device=loss.device)
-    loss = (loss * discounts[None, :, None, None]).reshape(b, s, h * w)
+    loss = loss * discounts[None, :, None, None]
+    if rows is not None:
+        loss = gather_rows(loss, 2, rows)
+        h = loss.shape[2]
+    loss = loss.reshape(b, s, h * w)
     if use_top_k:
         return top_k_mean(loss, int(top_k_ratio * h * w))
     return loss.mean()
@@ -179,11 +187,12 @@ def init_uncertainty_weights(instance_flow_enabled=True):
     return nn.ParameterDict({n: nn.Parameter(torch.zeros(())) for n in names})
 
 
-def compute_losses(output, labels, uncertainty_weights, cfg, group=None):
+def compute_losses(output, labels, uncertainty_weights, cfg, group=None, rows=None):
     """The loss dict of a training step: each task loss scaled by its learned
     uncertainty weight, with the weights' own regularisers, and the weighted KL.
     ``group``: the process group of a data-parallel step (the regression losses'
-    global count, ``spatial_regression_loss``), or None.
+    global count, ``spatial_regression_loss``), or None. ``rows``: the RowShare
+    of the BEV spatial axis, whose rows the outputs and labels hold, or None.
 
     labels: 'segmentation' (b, s, h, w) int, 'centerness' (b, s, h, w, 1),
     'offset' (b, s, h, w, 2) and, with instance flow, 'flow' (b, s, h, w, 2).
@@ -195,7 +204,7 @@ def compute_losses(output, labels, uncertainty_weights, cfg, group=None):
         output['segmentation'], labels['segmentation'],
         class_weights=cfg.SEMANTIC_SEG.WEIGHTS, ignore_index=ignore,
         use_top_k=cfg.SEMANTIC_SEG.USE_TOP_K, top_k_ratio=cfg.SEMANTIC_SEG.TOP_K_RATIO,
-        future_discount=discount)
+        future_discount=discount, rows=rows)
     loss['segmentation_uncertainty'] = 0.5 * uw['segmentation_weight']
 
     loss['instance_center'] = 1.0 / (2.0 * torch.exp(uw['centerness_weight'])) * \

@@ -32,7 +32,9 @@ device; ``intrinsics`` and ``extrinsics`` stay whole); ``forward_losses`` is the
 the losses module inside DistributedDataParallel, the BatchNorms take their
 statistics over the ranks, a ``noise`` given is the global batch's (each rank
 keeps its data shard's rows), the generator is ``step_generator(..., rank,
-world, camera, cameras)``'s, and the returned losses are the global ones.
+world, camera, cameras)``'s, and the returned losses are the global ones. Under
+the BEV spatial axis the labels are cut to the rank's share of the rows after
+the label warp (K4, on the whole grid).
 ``Trainer.state()`` and ``Trainer.load_state()`` are what a checkpoint holds
 (``utils/checkpoint.py``): the weights, the uncertainty weights, the Adam state and
 the step.
@@ -91,7 +93,9 @@ class StepLosses(nn.Module):
     """The model and the uncertainty weights as one module whose forward is a
     training step's loss dict: what DistributedDataParallel wraps, so that every
     gradient, the uncertainty weights' too, is averaged over the ranks. ``group``:
-    the process group of the masked losses' global count, or None."""
+    the process group of the masked losses' global count, and of the logged losses'
+    average, or None. Under the BEV spatial axis (the model's ``row_share``) the
+    outputs and labels are the rank's rows."""
 
     def __init__(self, model, uncertainty, cfg):
         super().__init__()
@@ -102,7 +106,8 @@ class StepLosses(nn.Module):
                 generator=None):
         output = self.model(*inputs, future_distribution_inputs, noise=noise,
                             generator=generator)
-        return compute_losses(output, labels, self.uncertainty, self.cfg, group=self.group)
+        return compute_losses(output, labels, self.uncertainty, self.cfg, group=self.group,
+                              rows=self.model.row_share)
 
 
 class Trainer:
@@ -233,13 +238,19 @@ class Trainer:
             noise = rank_rows(noise, batch['image'].shape[0], self.rank)
         self.model.train()
         labels, fdi = self.prepare_future_labels(batch)
+        share = self.model.row_share
+        if share is not None:
+            # the BEV spatial axis: the losses of the rank's rows (the distributions
+            # take the whole grid's future inputs)
+            start, stop = share.edges[share.index], share.edges[share.index + 1]
+            labels = {k: v[:, :, start:stop] for k, v in labels.items()}
         losses = self.forward_losses([batch[k] for k in INPUTS], fdi, labels, noise, generator)
         total = sum(losses.values())
         self.optimizer.zero_grad(set_to_none=True)
         total.backward()
         losses, total = {k: v.detach() for k, v in losses.items()}, total.detach()
-        if self.group is not None:
-            losses, total = global_losses(losses, total, self.group)
+        if self.step_losses.group is not None:
+            losses, total = global_losses(losses, total, self.step_losses.group)
         return losses, total
 
     def apply_gradients(self):

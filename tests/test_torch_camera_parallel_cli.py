@@ -19,13 +19,13 @@ from test_torch_parallel_cli import REPO, TINY_DP_OPTS, _free_port
 TWO_CAMERAS = ['IMAGE.NAMES', "['CAM_A', 'CAM_B']"]
 
 
-def torchrun(n_ranks, cameras, log_dir, names=TWO_CAMERAS):
+def torchrun(n_ranks, cameras, log_dir, names=TWO_CAMERAS, extra=()):
     env = {**os.environ, 'GLOO_SOCKET_IFNAME': 'lo', 'OMP_NUM_THREADS': '2',
            'PYTHONPATH': REPO}
     cmd = [sys.executable, '-m', 'torch.distributed.run', '--nproc_per_node', str(n_ranks),
            '--master_addr', '127.0.0.1', '--master_port', str(_free_port()),
            '-m', 'fiery_tpu_torch.train', '--config', BASELINE, '--device', 'cpu',
-           '--camera-parallel', str(cameras), '--steps', '2', *TINY_DP_OPTS, *names,
+           '--camera-parallel', str(cameras), *extra, '--steps', '2', *TINY_DP_OPTS, *names,
            'LOG_DIR', str(log_dir)]
     return subprocess.run(cmd, cwd=REPO, env=env, capture_output=True, text=True, timeout=600)
 

@@ -11,7 +11,8 @@ noise, against the JAX package's ``make_parallel_train_step`` on
 statistics and parameters of that step, and the Adam moments of the JAX data-axis
 step on the same batch, as that camera-sharded step doubles the encoder's
 depthwise weight gradients (a test of its own documents that fault of the
-reference). Also, at (2, 2) and
+reference). At (2, 2) the ranks also take that data-axis step with the BEV
+spatial axis on. Also, at (2, 2) and
 tests/test_parallel.py's tiny_cfg shapes with 2 cameras, the validation's scores
 from the data group's summed states and DEPTH_CULL's keeps.
 
@@ -20,6 +21,8 @@ Tolerances are tests/test_torch_parallel_step.py's: losses and running statistic
 module and 1e-1 a leaf; parameters within 2 lr (after one Adam step a bound that
 any gradient meets: the backward is held by the gradients and moments); the Adam
 first moments as the gradients. Every rank's parameters, statistics and moments are equal bit for bit.
+The JAX steps run in a reference process whose XLA CPU code is capped at AVX2
+(tests/torch_jax_reference.py), so that the reference does not move with the host.
 """
 
 import jax
@@ -38,6 +41,7 @@ from fiery_tpu_torch.data.dataset import numeric_batch, prepare_dataloaders
 from fiery_tpu_torch.train import depth_plane_keep, validate
 from fiery_tpu_torch.training.trainer import step_generator
 from fiery_tpu_torch.utils.weight_import import checkpoint_state_from_jax
+from torch_jax_reference import jax_reference
 from test_torch_parallel_step import _ExplicitNoise, assert_gradients_close, assert_step_close
 from torch_parallel_worker import (CAMERAS, STEP_SEED, TINY_CAM, TINY_DP_CAM, TINY_JAX,
                                    cam_cull_cfg,
@@ -116,13 +120,13 @@ def norm_ratio(a, b):
     return float(torch.as_tensor(a).double().norm() / torch.as_tensor(b).double().norm())
 
 
-@pytest.fixture(scope='module')
-def jax_steps():
+def jax_camera_steps():
     """Drop-connect off, explicit noise, on the global batch of two samples: the
     JAX package's ``make_parallel_train_step`` on a (data 2, model 2) mesh and on
     the data axis alone (``create_mesh(2)``), from the seeded port's weights. Returns
-    (the TINY_JAX config, the parameter names, the camera-sharded batch, its
-    metrics, and each step's new state in the port's checkpoint layout)."""
+    (the parameter names, the camera-sharded image's partition spec, each step's
+    metrics and new state in the port's checkpoint layout). Run in a reference
+    process (``torch_jax_reference``)."""
     with pytest.MonkeyPatch.context() as mp:
         for module in (jax_efficientnet, efficientnet):
             mp.setitem(module._GLOBAL_PARAMS, 'b0', (1.0, 1.0, 0.0))
@@ -138,7 +142,8 @@ def jax_steps():
         camera_mesh = create_mesh(4, n_model=CAMERAS)
         assert camera_mesh.devices.shape == (2, 2)
         sharded, new, metrics = jax_step(jtrainer, params, variables, batch, camera_mesh)
-        _, data_new, _ = jax_step(jtrainer, params, variables, batch, create_mesh(2))
+        _, data_new, data_metrics = jax_step(jtrainer, params, variables, batch,
+                                             create_mesh(2))
 
         def port_state(new):
             return checkpoint_state_from_jax({'step': 1, 'params': new.params,
@@ -146,7 +151,19 @@ def jax_steps():
                                               'opt_state': new.opt_state}, port)
         names = [n for n, _ in port.model.named_parameters()] + \
             ['uncertainty.' + k for k in port.uncertainty]
-        return cfg, names, sharded, metrics, port_state(new), port_state(data_new)
+        return {'names': names, 'image_spec': str(sharded['image'].sharding.spec),
+                'camera': ({k: np.asarray(v) for k, v in metrics.items()}, port_state(new)),
+                'data': ({k: np.asarray(v) for k, v in data_metrics.items()},
+                         port_state(data_new))}
+
+
+@pytest.fixture(scope='module')
+def jax_steps(tmp_path_factory):
+    """``jax_camera_steps`` in a reference process whose XLA code is capped at AVX2
+    (tests/torch_jax_reference.py: under AVX-512 XLA's f32 reductions move the
+    data-axis step's decoder gradient by about the bound)."""
+    return jax_reference('test_torch_camera_parallel_step:jax_camera_steps',
+                         tmp_path_factory.mktemp('jax_steps'))
 
 
 def exp_avg_by_name(state, names):
@@ -165,8 +182,9 @@ def test_camera_ranks_take_the_jax_camera_sharded_step(ranks, jax_steps):
     the gradients' tolerances. The camera-sharded step's own moments are not the
     global batch's (``test_the_jax_camera_sharded_step_scales_the_depthwise_gradients``)."""
     results = ranks((2, 2))
-    cfg, names, sharded, metrics, want_state, data_state = jax_steps
-    assert 'model' in str(sharded['image'].sharding.spec)
+    cfg, names = tiny_cfg(TINY_JAX), jax_steps['names']
+    (metrics, want_state), (_, data_state) = jax_steps['camera'], jax_steps['data']
+    assert 'model' in jax_steps['image_spec']
     want = {'losses': {k: np.asarray(v) for k, v in metrics.items() if k != 'total_loss'},
             'state': {**want_state['model'], **{'uncertainty.' + k: v for k, v in
                                                 want_state['uncertainty'].items()}}}
@@ -181,6 +199,31 @@ def test_camera_ranks_take_the_jax_camera_sharded_step(ranks, jax_steps):
                            {n: torch.as_tensor(v) for n, v in data.items()})
 
 
+def test_bev_ranks_take_the_jax_data_axis_step(ranks, jax_steps):
+    """(2, 2) with the BEV spatial axis (each rank of a camera group trains 16 of
+    the 32 rows), drop-connect off, explicit noise: the port's four ranks against
+    the JAX data-axis step on the same batch, which the JAX package's own tests hold
+    to one device: its losses, running statistics, parameters within 2 lr and Adam
+    first moments, at the tolerances above. (The JAX package's bev-parallel step
+    runs on the camera axis, whose depthwise gradients it scales, so it is not the
+    reference.)"""
+    results = ranks((2, 2))
+    cfg, names = tiny_cfg(TINY_JAX), jax_steps['names']
+    metrics, state = jax_steps['data']
+    want = {'losses': {k: v for k, v in metrics.items() if k != 'total_loss'},
+            'state': {**state['model'], **{'uncertainty.' + k: v for k, v in
+                                           state['uncertainty'].items()}}}
+    got = [r['bev_noise'] for r in results]
+    assert_ranks_equal(got)
+    assert sorted(got[0]['losses']) == sorted(want['losses'])
+    np.testing.assert_allclose(float(got[0]['total']), float(metrics['total_loss']),
+                               rtol=1e-4, atol=1e-5)
+    assert_step_close(got[0], want, cfg.OPTIMIZER.LR, set(names))
+    assert_gradients_close(dict(zip(names, got[0]['exp_avg'])),
+                           {n: torch.as_tensor(v) for n, v in
+                            exp_avg_by_name(state, names).items()})
+
+
 def test_the_jax_camera_sharded_step_scales_the_depthwise_gradients(jax_steps):
     """Documents a fault of the reference, not of the port: the pinned JAX's
     camera-sharded ``make_parallel_train_step`` multiplies by M the gradient of
@@ -191,7 +234,8 @@ def test_the_jax_camera_sharded_step_scales_the_depthwise_gradients(jax_steps):
     same directions, the depthwise weights' ratio M times the others'. This is why
     the port's backward is held to the data-axis step. A JAX that partitions
     grouped convolutions correctly fails this test and nothing of the port's."""
-    _, names, _, _, camera_state, data_state = jax_steps
+    names = jax_steps['names']
+    camera_state, data_state = jax_steps['camera'][1], jax_steps['data'][1]
     camera, data = exp_avg_by_name(camera_state, names), exp_avg_by_name(data_state, names)
     depthwise = [n for n in names if n.startswith('encoder.') and '_depthwise_conv' in n]
     assert depthwise

@@ -8,6 +8,8 @@ and, without drop-connect and with explicit noise, against the JAX package's
 at tests/test_torch_trainer.py's TINY shapes (its global batch of 2, a sample a
 rank), where that file holds the port's one-process step to JAX's.
 Also the validation's scores from the ranks' summed states, and DEPTH_CULL's keeps.
+The JAX step runs in a reference process whose XLA CPU code is capped at AVX2
+(tests/torch_jax_reference.py), so that the reference does not move with the host.
 
 Tolerances are tests/test_torch_trainer.py's: losses and running statistics
 1e-4 relative (1e-5 absolute); gradients as relative L2 errors, 1e-2 a top-level
@@ -38,6 +40,7 @@ from fiery_tpu_torch.data.dataset import numeric_batch, prepare_dataloaders
 from fiery_tpu_torch.train import depth_plane_keep, validate
 from fiery_tpu_torch.training.trainer import step_generator
 from fiery_tpu_torch.utils.weight_import import checkpoint_state_from_jax
+from torch_jax_reference import jax_reference
 from torch_parallel_worker import (STEP_SEED, TINY_JAX, cull_cfg, global_batch, global_noise,
                                    seeded_trainer, spawn_ranks, take_step, tiny_cfg)
 
@@ -120,33 +123,49 @@ class _ExplicitNoise(JaxTrainer):
             self.model = model
 
 
-def test_two_ranks_take_the_jax_two_device_step(ranks, monkeypatch):
+def jax_two_device_step():
+    """Drop-connect off, explicit noise: ``make_parallel_train_step`` on a 2-device
+    mesh from the seeded port's weights: (its metrics, numpy; its new state in the
+    port's checkpoint layout). Run in a reference process (``torch_jax_reference``)."""
+    with pytest.MonkeyPatch.context() as mp:
+        for module in (jax_efficientnet, efficientnet):
+            mp.setitem(module._GLOBAL_PARAMS, 'b0', (1.0, 1.0, 0.0))
+        cfg, jcfg = tiny_cfg(TINY_JAX), jax_get_cfg(cfg_dict=TINY_JAX)
+        port = seeded_trainer(cfg)
+        jtrainer = _ExplicitNoise(jcfg)
+        variables, _ = import_torch_state_dict(
+            {'model.' + k: v.numpy() for k, v in port.model.state_dict().items()},
+            jtrainer.model_cfg, strict=True)
+        params = {'model': variables['params'],
+                  'uncertainty': {k: np.float32(0.0) for k in port.uncertainty}}
+        state = TrainState(step=jnp.zeros((), jnp.int32), params=params,
+                           batch_stats=variables['batch_stats'],
+                           opt_state=jtrainer.tx.init(params))
+        mesh = create_mesh(WORLD)
+        batch = {**global_batch(cfg, n=WORLD), 'noise': global_noise(cfg, n=WORLD)}
+        new, metrics = make_parallel_train_step(jtrainer, mesh)(
+            state, shard_batch({k: jnp.asarray(v) for k, v in batch.items()}, mesh),
+            jax.random.key(0))
+        new = jax.tree.map(np.asarray, new)
+        want_state = checkpoint_state_from_jax(
+            {'step': 1, 'params': new.params, 'batch_stats': new.batch_stats,
+             'opt_state': new.opt_state}, port)
+        return {k: np.asarray(v) for k, v in metrics.items()}, want_state
+
+
+def test_two_ranks_take_the_jax_two_device_step(ranks, tmp_path):
     """Drop-connect off, explicit noise: the port's world-2 step against
-    ``make_parallel_train_step`` on a 2-device mesh."""
-    for module in (jax_efficientnet, efficientnet):
-        monkeypatch.setitem(module._GLOBAL_PARAMS, 'b0', (1.0, 1.0, 0.0))
-    cfg, jcfg = tiny_cfg(TINY_JAX), jax_get_cfg(cfg_dict=TINY_JAX)
+    ``make_parallel_train_step`` on a 2-device mesh, computed in a reference process
+    whose XLA code is capped at AVX2 (tests/torch_jax_reference.py: under AVX-512
+    XLA's f32 reductions move the reference's decoder gradient by about the
+    bound)."""
+    metrics, want_state = jax_reference('test_torch_parallel_step:jax_two_device_step',
+                                        tmp_path)
+    cfg = tiny_cfg(TINY_JAX)
     port = seeded_trainer(cfg)
-    jtrainer = _ExplicitNoise(jcfg)
-    variables, _ = import_torch_state_dict(
-        {'model.' + k: v.numpy() for k, v in port.model.state_dict().items()},
-        jtrainer.model_cfg, strict=True)
-    params = {'model': variables['params'],
-              'uncertainty': {k: np.float32(0.0) for k in port.uncertainty}}
-    state = TrainState(step=jnp.zeros((), jnp.int32), params=params,
-                       batch_stats=variables['batch_stats'], opt_state=jtrainer.tx.init(params))
-    mesh = create_mesh(WORLD)
-    batch = {**global_batch(cfg, n=WORLD), 'noise': global_noise(cfg, n=WORLD)}
-    new, metrics = make_parallel_train_step(jtrainer, mesh)(
-        state, shard_batch({k: jnp.asarray(v) for k, v in batch.items()}, mesh),
-        jax.random.key(0))
-    new = jax.tree.map(np.asarray, new)
-    want_state = checkpoint_state_from_jax(
-        {'step': 1, 'params': new.params, 'batch_stats': new.batch_stats,
-         'opt_state': new.opt_state}, port)
     names = [n for n, _ in port.model.named_parameters()] + \
         ['uncertainty.' + k for k in port.uncertainty]
-    want = {'losses': {k: np.asarray(v) for k, v in metrics.items() if k != 'total_loss'},
+    want = {'losses': {k: v for k, v in metrics.items() if k != 'total_loss'},
             'state': {**want_state['model'], **{'uncertainty.' + k: v for k, v in
                                                 want_state['uncertainty'].items()}}}
     got = [r['noise'] for r in ranks]

@@ -15,6 +15,12 @@ biases have gradients that are sums of terms of both signs, which f32 rounding
 moves by several per cent of their largest value, and XLA's CPU reductions sum in
 order. A wrong gradient formula (the splat's or the warp's backward, say) gives
 errors of order 1 on every leaf upstream of it.
+
+The JAX step runs in a reference process whose XLA CPU code is capped at AVX2
+(tests/torch_jax_reference.py). Under AVX-512 XLA's f32 reductions take another
+order, which moves the future distribution's first BatchNorm's batch variance by
+about the statistics' bound (1e-4 relative) from its f64 value, while the port's
+stays within 1e-6 of it on any host.
 """
 
 import sys
@@ -35,6 +41,7 @@ from fiery_tpu_torch.serve import init_params
 from fiery_tpu_torch.training.trainer import Trainer
 from fiery_tpu_torch.utils.config import get_cfg
 from fiery_tpu_torch.utils.weight_import import train_state_from_jax
+from torch_jax_reference import jax_reference
 
 # efficientnet-b0, 2 cameras at 64x96, D = 6, C = 16, a 32x32 BEV, rf 3, 2 future
 # frames, latent 4, 1 GRU block of 2 bottlenecks, batch 2, f32
@@ -54,29 +61,43 @@ def _np_tree(tree):
     return jax.tree.map(np.asarray, tree)
 
 
-def run_steps(seed=3):
-    """Both steps on one seeded state and batch; JAX's through one jit."""
+def seeded_step_inputs(seed=3):
+    """The port's trainer with seeded weights, running statistics and uncertainty
+    weights, the synthetic batch and the latent noise of the step."""
+    cfg = get_cfg(cfg_dict=TINY)
+    trainer = Trainer(cfg, device='cpu')
+    init_params(trainer.model, seed=seed)
+    rng = np.random.RandomState(seed + 1)
+    with torch.no_grad():
+        for name, buf in trainer.model.named_buffers():
+            if name.endswith('running_mean'):
+                buf.copy_(torch.from_numpy(rng.randn(*buf.shape).astype(np.float32) * 0.1))
+            elif name.endswith('running_var'):
+                buf.copy_(torch.from_numpy(rng.uniform(0.5, 1.5, buf.shape)
+                                           .astype(np.float32)))
+        for p in trainer.uncertainty.values():
+            p.fill_(float(rng.randn() * 0.2))
+    batch = SyntheticFutureDataset(cfg, n_samples=2, n_instances=2,
+                                   seed=seed + 2).get_batch([0, 1])
+    noise = rng.randn(2, 1, 4).astype(np.float32)
+    return trainer, batch, noise
+
+
+def drop_connect_off():
     mp = pytest.MonkeyPatch()
     for module in (jax_efficientnet, efficientnet):
         mp.setitem(module._GLOBAL_PARAMS, 'b0', (1.0, 1.0, 0.0))
-    try:
-        cfg, jcfg = get_cfg(cfg_dict=TINY), jax_get_cfg(cfg_dict=TINY)
-        trainer = Trainer(cfg, device='cpu')
-        init_params(trainer.model, seed=seed)
-        rng = np.random.RandomState(seed + 1)
-        with torch.no_grad():
-            for name, buf in trainer.model.named_buffers():
-                if name.endswith('running_mean'):
-                    buf.copy_(torch.from_numpy(rng.randn(*buf.shape).astype(np.float32) * 0.1))
-                elif name.endswith('running_var'):
-                    buf.copy_(torch.from_numpy(rng.uniform(0.5, 1.5, buf.shape)
-                                               .astype(np.float32)))
-            for p in trainer.uncertainty.values():
-                p.fill_(float(rng.randn() * 0.2))
-        batch = SyntheticFutureDataset(cfg, n_samples=2, n_instances=2,
-                                       seed=seed + 2).get_batch([0, 1])
-        noise = rng.randn(2, 1, 4).astype(np.float32)
+    return mp
 
+
+def jax_train_step(seed=3):
+    """JAX's step on the seeded state and batch, through one jit: the total, the
+    losses, the new statistics, the gradients, the parameters and the statistics
+    before (numpy trees). Run in a reference process (``torch_jax_reference``)."""
+    mp = drop_connect_off()
+    try:
+        trainer, batch, noise = seeded_step_inputs(seed)
+        jcfg = jax_get_cfg(cfg_dict=TINY)
         jtrainer = JaxTrainer(jcfg)
         variables, _ = import_torch_state_dict(
             {'model.' + k: v.numpy() for k, v in trainer.model.state_dict().items()},
@@ -99,10 +120,22 @@ def run_steps(seed=3):
 
         (total, (losses, new_stats)), grads = jax.jit(
             jax.value_and_grad(loss_fn, has_aux=True))(params, variables['batch_stats'])
-        want = dict(total=float(total), losses=_np_tree(losses),
+        return dict(total=float(total), losses=_np_tree(losses),
                     new_stats=_np_tree(new_stats), grads=_np_tree(grads),
-                    params=_np_tree(params), stats=variables['batch_stats'])
+                    params=_np_tree(params), stats=_np_tree(variables['batch_stats']))
+    finally:
+        mp.undo()
 
+
+def run_steps(tmp_path, seed=3):
+    """Both steps on one seeded state and batch: JAX's in a reference process
+    whose XLA code is capped at AVX2 (tests/torch_jax_reference.py: XLA's
+    AVX-512 reductions move this step's batch statistics by about the bound)."""
+    want = jax_reference('test_torch_trainer:jax_train_step', tmp_path)
+    mp = drop_connect_off()
+    try:
+        trainer, batch, noise = seeded_step_inputs(seed)
+        jtrainer = JaxTrainer(jax_get_cfg(cfg_dict=TINY))
         got_losses, got_total = trainer.compute_gradients(batch, noise=torch.from_numpy(noise))
         return trainer, jtrainer, got_losses, float(got_total), want
     finally:
@@ -110,8 +143,8 @@ def run_steps(seed=3):
 
 
 @pytest.fixture(scope='module')
-def step():
-    return run_steps()
+def step(tmp_path_factory):
+    return run_steps(tmp_path_factory.mktemp('jax_step'))
 
 
 def test_train_step_losses_match_jax(step):

@@ -1,6 +1,7 @@
-"""One rank of the port's data- and camera-parallel CPU tests
-(tests/test_torch_parallel*.py, tests/test_torch_camera_parallel*.py), and the
-inputs they share with the one-process references:
+"""One rank of the port's data-, camera- and BEV-parallel CPU tests
+(tests/test_torch_parallel*.py, tests/test_torch_camera_parallel*.py,
+tests/test_torch_bev_parallel*.py), and the inputs they share with the one-process
+references:
 
     python tests/torch_parallel_worker.py CASE RANK WORLD INIT_FILE OUT
 
@@ -270,6 +271,8 @@ def gather_inputs(world):
     return x, [torch.from_numpy(rng.randn(*GATHER_SHAPE)) for _ in range(world)]
 
 
+# TINY_CAM on a 24 x 32 grid: the BEV axis's shares at M = 2 are 16 and 8 rows
+TINY_BEV = {**TINY_CAM, 'LIFT': {**TINY_CAM['LIFT'], 'X_BOUND': [-6.0, 6.0, 0.5]}}
 # TINY_DP with 2 cameras: the validation's and DEPTH_CULL's camera-parallel cases
 TINY_DP_CAM = {**TINY_DP, 'IMAGE': {**TINY_DP['IMAGE'], 'NAMES': ['CAM_A', 'CAM_B']}}
 
@@ -312,7 +315,8 @@ def case_cameras(rank, world):
     generator ('drop'). At world 4 also, at TINY_DP_CAM, the validation and
     DEPTH_CULL's keep of the shard's first batch, the maximum over the world; and at
     TINY_JAX, without drop-connect and with the global batch's noise, the step on
-    the shard's sample of D ('noise')."""
+    the shard's sample of D ('noise'), and the same step with the BEV spatial axis
+    ('bev_noise': each rank of a camera group trains 16 of the 32 rows)."""
     import fiery_tpu_torch.models.efficientnet as efficientnet
     from fiery_tpu_torch.data.dataset import numeric_batch, prepare_dataloaders
     from fiery_tpu_torch.parallel.mesh import make_parallel_trainer, max_across_ranks
@@ -347,10 +351,177 @@ def case_cameras(rank, world):
         batch = {k: rows_of(v, shard, shards) for k, v in global_batch(cfg, n=shards).items()}
         out['noise'] = take_step(trainer, batch,
                                  noise=torch.from_numpy(global_noise(cfg, n=shards)))
+        efficientnet._GLOBAL_PARAMS['b0'] = (1.0, 1.0, 0.0)
+        try:
+            trainer = make_parallel_trainer(seeded_trainer(cfg), cameras=CAMERAS,
+                                            bev_parallel=True)
+        finally:
+            efficientnet._GLOBAL_PARAMS['b0'] = saved
+        out['bev_noise'] = take_step(trainer, batch,
+                                     noise=torch.from_numpy(global_noise(cfg, n=shards)))
     return out
 
 
-CASES = {'bn': case_bn, 'steps': case_steps, 'gather': case_gather, 'cameras': case_cameras}
+ROWS_X, ROWS_W = 40, 6      # the layer checks' grid: 40 rows (5 blocks of 8), 6 columns
+ROWS_SEED = 44
+
+
+def rows_inputs(kind):
+    """(x, g, module): a whole-grid f64 input of the layer ``kind``, a gradient
+    with respect to its whole output, and the layer (f64, seeded), for
+    ``case_rows``. Rows are dim -2 of every input, at full resolution unless the
+    layer reads a coarser level."""
+    from fiery_tpu_torch.models.layers import Conv2d, Conv3d
+    rng = np.random.RandomState(ROWS_SEED + ROWS_KINDS.index(kind))
+    torch.manual_seed(ROWS_SEED + ROWS_KINDS.index(kind))
+    shape = {'conv3x3': (2, 3, ROWS_X, ROWS_W), 'conv7x7s2': (2, 3, ROWS_X, ROWS_W),
+             'conv1x1s2': (2, 3, ROWS_X, ROWS_W), 'causal_conv3d': (2, 3, 3, ROWS_X, ROWS_W),
+             'max_pool3d': (2, 3, 3, ROWS_X, ROWS_W), 'bilinear': (2, 3, ROWS_X // 2, ROWS_W),
+             'row_mean': (2, 3, 3, ROWS_X, ROWS_W), 'gather': (2, 3, ROWS_X, ROWS_W)}[kind]
+    module = {'conv3x3': lambda: Conv2d(3, 4, 3, padding=1, bias=True),
+              'conv7x7s2': lambda: Conv2d(3, 4, 7, stride=2, padding=3, bias=False),
+              'conv1x1s2': lambda: Conv2d(3, 4, 1, stride=2, bias=False),
+              'causal_conv3d': lambda: Conv3d(3, 4, (2, 3, 3), padding=(0, 1, 1), bias=False),
+              'bilinear': lambda: torch.nn.Upsample(scale_factor=2, mode='bilinear',
+                                                    align_corners=False)}.get(kind)
+    module = module().double() if module is not None else None
+    x = torch.from_numpy(rng.randn(*shape))
+    return x, module
+
+
+ROWS_KINDS = ('conv3x3', 'conv7x7s2', 'conv1x1s2', 'causal_conv3d', 'max_pool3d', 'bilinear',
+              'row_mean', 'gather')
+
+
+def rows_layer(kind, module, x):
+    """The layer ``kind`` on x, inside or outside ``bev_rows`` alike."""
+    import torch.nn.functional as F
+
+    from fiery_tpu_torch.models.layers import upsample_rows
+    from fiery_tpu_torch.models.temporal_layers import causal_max_pool3d
+    from fiery_tpu_torch.parallel.mesh import current_rows, gather_rows, group_row_mean
+    if kind == 'causal_conv3d':
+        return module(F.pad(x, (0, 0, 0, 0, 1, 0)))
+    if kind == 'max_pool3d':
+        return causal_max_pool3d(x)
+    if kind == 'bilinear':
+        return upsample_rows(module, x)
+    if kind == 'row_mean':
+        if current_rows() is None:
+            return x.mean(dim=(-2, -1), keepdim=True)
+        return group_row_mean(x)
+    if kind == 'gather':
+        return x * 1.0 if current_rows() is None else gather_rows(x, -2)
+    return module(x)
+
+
+def case_rows(rank, world):
+    """The BEV axis's row layers in f64 over shares of ``row_plan(ROWS_X, M)``, M = 3
+    (the world) and M = 2 (ranks 0 and 1): for each kind of layer the rank's output
+    rows and input gradient under the whole output gradient's rows (for the row
+    mean and the gather, whose outputs every rank holds whole, under a gradient of
+    its own). Also the whole-grid results of the same inputs, K10's synchronised
+    plain statistics on uneven shares against the whole grid's, and the refusals
+    of an empty share and of a share thinner than a halo."""
+    from fiery_tpu_torch.ops.batch_norm import batch_norm_forward, batch_norm_sync_forward
+    from fiery_tpu_torch.parallel.mesh import RowShare, bev_rows, exchange_rows, row_plan
+    pair = dist.new_group([0, 1])
+    out = {}
+    for shares, group in ((3, dist.group.WORLD), (2, pair)):
+        if rank >= shares:
+            continue
+        edges = row_plan(ROWS_X, shares)
+        share = RowShare(group, rank, edges)
+        for kind in ROWS_KINDS:
+            x, module = rows_inputs(kind)
+            level = ROWS_X // x.shape[-2]
+            lo, hi = edges[rank] // level, edges[rank + 1] // level
+            whole_x = x.clone().requires_grad_(True)
+            whole = rows_layer(kind, module, whole_x)
+            rng = np.random.RandomState(ROWS_SEED + 100 + shares * 10 + rank)
+            if kind in ('row_mean', 'gather'):
+                g = torch.from_numpy(rng.randn(*whole.shape))
+                mine_g = g
+            else:
+                g = torch.from_numpy(np.random.RandomState(ROWS_SEED + 200).randn(*whole.shape))
+                olo, ohi = (lo * whole.shape[-2] // x.shape[-2],
+                            hi * whole.shape[-2] // x.shape[-2])
+                mine_g = g[..., olo:ohi, :]
+            (whole * g).sum().backward()
+            mine_x = x[..., lo:hi, :].clone().requires_grad_(True)
+            with bev_rows(share):
+                mine = rows_layer(kind, module, mine_x)
+            (mine * mine_g).sum().backward()
+            out[shares, kind] = {'rows': (lo, hi), 'whole': whole.detach(),
+                                 'whole_grad': whole_x.grad, 'out': mine.detach(),
+                                 'grad': mine_x.grad, 'g': g}
+        # K10's synchronised statistics over uneven shares of the rows (f32 plain)
+        x = torch.from_numpy(np.random.RandomState(ROWS_SEED + 300).randn(
+            2, 5, ROWS_X, ROWS_W).astype(np.float32) * 3 + 1)
+        C = x.shape[1]
+        w, b = torch.ones(C), torch.zeros(C)
+        _, mean, var, _ = batch_norm_forward(x, w, b, torch.zeros(C), torch.ones(C), True,
+                                             0.1, 1e-5)
+        _, smean, svar, _ = batch_norm_sync_forward(
+            x[..., edges[rank]:edges[rank + 1], :].contiguous(), w, b, torch.zeros(C),
+            torch.ones(C), 0.1, 1e-5, 'none', None, group)
+        out[shares, 'bn'] = {'whole': (mean, var), 'sync': (smean, svar)}
+    refused = {}
+    try:
+        row_plan(16, 3)
+    except ValueError as e:
+        refused['empty'] = str(e)
+    try:
+        # share 0 of (0, 2, 40) holds 2 rows; a 7 x 7 kernel's share below needs 3
+        share = RowShare(dist.group.WORLD, rank, (0, 2, 24, 40))
+        exchange_rows(torch.zeros(1, 1, [2, 22, 16][rank], 3), 3, 2, share=share)
+    except ValueError as e:
+        refused['thin'] = str(e)
+    out['refused'] = refused
+    return out
+
+
+def case_bev(rank, world):
+    """The BEV-parallel tiny step at (D, M) = (world / 2, 2): TINY_BEV (a 24-row
+    grid, shares of 16 and 8 rows) on the data shard's 2 samples of the 2 D-sample
+    batch, with drop-connect and the step's generator ('drop'); at world 2 also the
+    camera step without the axis ('cameras'), with the row layers made to raise."""
+    import fiery_tpu_torch.parallel.mesh as mesh
+    from fiery_tpu_torch.parallel.mesh import make_parallel_trainer
+    from fiery_tpu_torch.training.trainer import step_generator
+    shards = world // CAMERAS
+    shard, camera = divmod(rank, CAMERAS)
+    cfg = tiny_cfg(TINY_BEV)
+    trainer = make_parallel_trainer(seeded_trainer(cfg), cameras=CAMERAS, bev_parallel=True)
+    out = {'mesh': (trainer.rank, trainer.world, trainer.camera, trainer.cameras),
+           'share': (trainer.model.row_share.index, trainer.model.row_share.edges),
+           'groups': {n: dist.get_world_size(m.process_group)
+                      for n, m in trainer.model.named_modules() if hasattr(m, 'process_group')}}
+    batch = {k: rows_of(v, shard, shards) for k, v in global_batch(cfg, n=2 * shards).items()}
+    generator = step_generator(STEP_SEED, 0, 'cpu', shard, shards, camera, CAMERAS)
+    out['drop'] = take_step(trainer, batch, generator)
+    if world != 2:
+        return out
+
+    def refuse(*a, **k):
+        raise AssertionError('a row layer ran without the BEV axis')
+    level = mesh.RowShare.level
+    for cls in (mesh._ExchangeHalo, mesh._GatherRows, mesh._GroupRowMean):
+        cls.apply = refuse
+    mesh.RowShare.level = refuse
+    try:
+        trainer = make_parallel_trainer(seeded_trainer(cfg), cameras=CAMERAS)
+        out['cameras'] = take_step(trainer, batch, step_generator(STEP_SEED, 0, 'cpu', shard,
+                                                                  shards, camera, CAMERAS))
+    finally:
+        for cls in (mesh._ExchangeHalo, mesh._GatherRows, mesh._GroupRowMean):
+            del cls.apply
+        mesh.RowShare.level = level
+    return out
+
+
+CASES = {'bn': case_bn, 'steps': case_steps, 'gather': case_gather, 'cameras': case_cameras,
+         'rows': case_rows, 'bev': case_bev}
 
 
 def spawn_ranks(case, tmp_path, world=2, timeout=600):
