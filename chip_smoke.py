@@ -99,8 +99,17 @@ Builds the package's CUDA kernels from csrc/, then:
      metrics.jsonl, the checkpoints' steps and that the final one equals the
      trainer bit for bit; prints the H2D copy of a batch pinned and pageable, the
      copies of a profiled step, the loop's step walls with the loader's wait, the
-     loader's rate alone, the checkpoint's cost and VPQ from both trackers; then
-     requires every launch of four profiled K10 windows after it.
+     loader's rate alone, the checkpoint's cost and VPQ from both trackers; the
+     first run has --profile-dir (check_profile: one trace of steps 3-5, its
+     profiler step markers those three, its K10 launches equal to the
+     counters'); then requires every launch of four
+     profiled K10 windows after it; then the accuracy-parity runner
+     (phase_parity; ``--only parity`` runs it alone): a reference checkpoint of
+     full-width seeded weights through the twin's strict load, and in a fresh
+     process python -m fiery_tpu_torch.parity --stages --dataroot TREE
+     --max-batches 2 --device-matching on a fake nuScenes tree: every stage below
+     5e-3 relative in f32, K1, K2, K10, K11 and K6-K9 launched, no plain version,
+     every row of the table finite.
  12. the nuScenes and Lyft loader on trees of real JPEGs that the port's writer
      makes in a temporary directory (phase_real_set; ``--only real_set`` runs it
      alone): a nuScenes mini tree at 1600 x 900 (3 scenes of 12 samples) and a
@@ -113,7 +122,7 @@ Builds the package's CUDA kernels from csrc/, then:
      width, PRECISION 16, batch 3, VIS_INTERVAL 1 (3 steps; LOOP_DENSE's
      launches, finite losses, the train and val videos as GIFs of 5 frames),
      one combination epoch with the prewarp in the workers, the evaluation CLI
-     with both trackers (finite IoU and VPQ), one epoch of lyft/baseline.yml (15
+     with the device tracker (finite IoU and VPQ), one epoch of lyft/baseline.yml (15
      frames loaded, 8 kept), and the visualise CLI where matplotlib imports;
      each step's wall and loader wait.
  13. the JAX package's other config families (phase_families, FAMILIES): the
@@ -152,8 +161,9 @@ Builds the package's CUDA kernels from csrc/, then:
      card (this script, started with --dp-out), batch 3 each, against one
      process at batch 6 in f32 (TF32 off, its convolutions and squeeze-excitation
      means on the halves of its batch, which the random full-width step is
-     sensitive to) at the CPU test's tolerances, their weights equal bit for bit; ``python -m torch.distributed.run --nproc_per_node 1 -m
-     fiery_tpu_torch.train`` for 2 steps.
+     sensitive to) at the CPU test's tolerances, their weights equal bit for bit
+     (the training CLI under torchrun runs on NCCL in --only multi_card, on gloo
+     in phase 15).
  15. camera-parallel training (phase_camera_parallel, after the data-parallel
      phase; ``--only camera_parallel`` runs it alone): two gloo ranks on the card
      (this script, started with --cam-out) form one camera group, each encoding 3
@@ -161,8 +171,8 @@ Builds the package's CUDA kernels from csrc/, then:
      encoder's outputs gathered before the splat, against one process whose
      encoder runs each rank's cameras apart, in f32 (TF32 off) at the CPU test's
      tolerances, the ranks' weights equal bit for bit; one step at batch 1 of
-     LIFT.TOPK 8 + LIFT.WARP_FREE held the same way (the bf16 step's distances are
-     phase 16's); each rank's launches and peak memory against the one process's, with
+     LIFT.TOPK 8 + LIFT.WARP_FREE held the same way (the bf16 step runs on the ranks
+     in the CLI run below); each rank's launches and peak memory against the one process's, with
      the bytes the encoder's forward holds; ``python -m torch.distributed.run
      --nproc_per_node 2 -m fiery_tpu_torch.train --camera-parallel 2 --bev-parallel``
      on the card for 2 steps (the camera gather and the BEV rows both).
@@ -170,11 +180,18 @@ Builds the package's CUDA kernels from csrc/, then:
      ``--only bev_parallel`` runs it alone): the row gather's and the row mean's
      NCCL calls in a group of one rank (the identity); two gloo ranks on the card
      (this script, started with --bev-out) form one camera group that also splits
-     the 200 BEV rows (104 + 96) after the splat, the same three steps held against
+     the 200 BEV rows (104 + 96) after the splat, the same two steps held against
      one process whose encoder runs each rank's cameras apart and whose modules
      after the splat run each rank's rows apart with its halos
      (``rows_in_groups``), at the CPU test's tolerances; each rank's launches and
      peak memory.
+``--only multi_card`` (not in the default run; refused on fewer than four cards)
+runs the one-card phases' held checks with NCCL ranks on cards 0 and 1 (the
+data-parallel step against one process at batch 6, the camera group of two with
+and without the BEV rows), then python -m torch.distributed.run --nproc_per_node 4
+of the training CLI with --camera-parallel 2 --bev-parallel for 2 steps (the four
+ranks' states bit for bit) and one card's plain run, and prints their step walls
+(phase_multi_card).
 The request and the step also print K10's census (each BatchNorm call's shape
 and epilogue, from hooks) with its summed bound, and K10's device time in one
 profiled request and step.
@@ -190,6 +207,7 @@ Without a CUDA card, or without the package beside it, it fails.
 import argparse
 import contextlib
 import ctypes
+import hashlib
 import importlib.util
 import json
 import os
@@ -258,6 +276,8 @@ from fiery_tpu_torch.postprocess.instance import (
 from fiery_tpu_torch.serve import (BASELINE, build_fiery, build_served, calibrate_batchnorm,
                                    init_params, make_request, predict, predict_instances,
                                    seeded_state_dict)
+from fiery_tpu_torch.parity_probe import randomise_batchnorm
+from fiery_tpu_torch.trace_probe import k10_pass, trace_lead_in
 from fiery_tpu_torch.training.losses import (_top_k_sum_from_threshold, compute_losses,
                                              kth_largest, kth_largest_plain,
                                              kth_largest_plan)
@@ -474,17 +494,6 @@ def census_bound(census, backward=False):
 K10_PASS_NAMES = ('stats', 'apply', 'backward_reduce', 'backward_apply')
 
 
-def k10_pass(key):
-    """The K10 pass a kernel's name belongs to, or None: its kernels are templates
-    in an anonymous namespace ("(anonymous namespace)::apply_kernel<..."), which
-    keeps out other kernels whose names hold the same words (Adam's
-    multi_tensor_apply_kernel)."""
-    for name in ('backward_reduce', 'backward_apply', 'stats', 'apply'):
-        if f'::{name}_kernel<' in key:
-            return name
-    return None
-
-
 def k10_device_ms(events):
     """K10's device ms by pass over profiler key averages."""
     out = dict.fromkeys(K10_PASS_NAMES, 0.0)
@@ -525,19 +534,6 @@ def bound(nbytes, flops, flops_per_s=F32_FLOPS_PER_S):
     operations over the peak rate of their type."""
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / flops_per_s
     return 1e3 * max(t_bytes, t_ops), 'bytes' if t_bytes >= t_ops else 'operations'
-
-
-def trace_lead_in():
-    """The first launches of a profiler trace can go unrecorded on the H100: none in
-    a fresh process, more as the process runs the model (``python -m
-    fiery_tpu_torch.trace_probe``: 2 after three training steps, 4-5 after the
-    training loop and evaluation; more after this script's phases), whatever the
-    time since the trace began. Spin kernels, of no measured group, go first to
-    absorb them: 64, then a pause."""
-    for _ in range(64):
-        torch.cuda._sleep(10000)
-    torch.cuda.synchronize()
-    time.sleep(0.002)
 
 
 def kernel_ms(fn, symbols, launches, reps=REPS, warmup=3, attempts=5):
@@ -1009,30 +1005,48 @@ def window_kernels(fn, k10_launches, attempts=5):
     memcpys by name, device busy ms, K10's device ms by pass) from one profiled
     window after ``trace_lead_in``, the lead-in's spin kernels left out. A CUDA
     graph's memset and memcpy nodes run as the driver's kernels (``memset32``,
-    ``memcpy128``, ...): they count as memsets and memcpys. A window whose K10
-    launches differ from ``k10_launches`` lost launches: it is taken again, up to
-    ``attempts`` times, and then the call fails."""
+    ``memcpy128``, ...): they count as memsets and memcpys. A window lost launches
+    of fn when it holds none of the lead-in's spin kernels (the loss went past the
+    lead-in) or K10 launches other than ``k10_launches``: it is taken again, with
+    twice the spin kernels, up to ``attempts`` times, and then the call fails."""
     activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    for _ in range(attempts):
+    for attempt in range(attempts):
+        spins = 64 << attempt
         torch.cuda.synchronize()
         with torch.profiler.profile(activities=activities) as prof:
-            trace_lead_in()
+            trace_lead_in(spins)
             fn()
             torch.cuda.synchronize()
         events = [e for e in prof.key_averages()
                   if e.device_type == torch.autograd.DeviceType.CUDA
-                  and not e.is_user_annotation and 'spin_kernel' not in e.key]
+                  and not e.is_user_annotation]
+        kept = sum(e.count for e in events if 'spin_kernel' in e.key)
+        events = [e for e in events if 'spin_kernel' not in e.key]
         is_copy = [e.key.lower().startswith(('memset', 'memcpy')) for e in events]
         copies = Counter({e.key: e.count for e, c in zip(events, is_copy) if c})
         kernels = Counter({e.key: e.count for e, c in zip(events, is_copy) if not c})
         k10 = sum(n for key, n in kernels.items() if k10_pass(key) == 'apply')
-        if k10 == k10_launches:
+        if kept and k10 == k10_launches:
             busy = sum(e.self_device_time_total for e in events) / 1e3
             return kernels, copies, busy, k10_device_ms(events)
-        log(f'  the window held {k10} K10 launches, expected {k10_launches}; '
-            f'profiling again')
-    raise AssertionError(f'no window held the {k10_launches} K10 launches in {attempts} '
-                         f'tries')
+        log(f'  the window kept {kept} of the lead-in\'s {spins} spin kernels and held '
+            f'{k10} K10 launches, expected {k10_launches}; profiling again')
+    raise AssertionError(f'no window held the lead-in and the {k10_launches} K10 launches '
+                         f'in {attempts} tries')
+
+
+def alike_windows(fns, k10_launches, differ, attempts=3):
+    """{key: window_kernels(fn)} for ``fns`` once ``differ(windows)`` finds no
+    difference (returns None). A window can still lose launches to the profiler:
+    while a difference shows, all the windows are taken again, up to ``attempts``
+    times; a difference that stays in every take fails the call."""
+    for _ in range(attempts):
+        windows = {key: window_kernels(fn, k10_launches) for key, fn in fns.items()}
+        difference = differ(windows)
+        if difference is None:
+            return windows
+        log(f'  {difference}; profiling all the windows again')
+    raise AssertionError(difference)
 
 
 def phase_served_graph(opts=(), name='served graph'):
@@ -1153,22 +1167,25 @@ def phase_served_graph(opts=(), name='served graph'):
         of each, and of the unfolded model's request."""
         k10 = per_request['batch_norm']
         served.load(requests[0])
-        windows = {
-            'replay': window_kernels(lambda: served.replay('predict_instances'), k10),
-            'eager folded': window_kernels(lambda: predict_instances(eager, requests[0]), k10),
-            'eager unfolded': window_kernels(lambda: predict_instances(unfolded, requests[0]),
-                                             k10)}
-        (replay, replay_copies), (eager_kernels, eager_copies) = (
-            windows['replay'][:2], windows['eager folded'][:2])
 
         def memsets(copies):
             return sum(n for key, n in copies.items() if key.lower().startswith('memset'))
 
-        if replay != eager_kernels or memsets(replay_copies) != memsets(eager_copies):
-            raise AssertionError(f'{name}: the replay\'s kernels differ from an eager '
-                                 f'request\'s: {dict(replay - eager_kernels)} more, '
-                                 f'{dict(eager_kernels - replay)} fewer; memsets '
-                                 f'{dict(replay_copies)} against {dict(eager_copies)}')
+        def differ(windows):
+            (replay, replay_copies), (eager_kernels, eager_copies) = (
+                windows['replay'][:2], windows['eager folded'][:2])
+            if replay != eager_kernels or memsets(replay_copies) != memsets(eager_copies):
+                return (f'{name}: the replay\'s kernels differ from an eager '
+                        f'request\'s: {dict(replay - eager_kernels)} more, '
+                        f'{dict(eager_kernels - replay)} fewer; memsets '
+                        f'{dict(replay_copies)} against {dict(eager_copies)}')
+            return None
+
+        windows = alike_windows(
+            {'replay': lambda: served.replay('predict_instances'),
+             'eager folded': lambda: predict_instances(eager, requests[0]),
+             'eager unfolded': lambda: predict_instances(unfolded, requests[0])}, k10, differ)
+        replay, replay_copies = windows['replay'][:2]
         for key, (kernels, copies, busy, k10_ms) in windows.items():
             log(f'{name} profiled {key} (predict_instances): {sum(kernels.values())} kernel '
                 f'launches of {len(kernels)} kernels, copies {json.dumps(copies)}; device '
@@ -1316,16 +1333,21 @@ def phase_exported(opts=(), name='exported'):
         K10 and K11 among them; device busy of each."""
         loaded.load(requests[0])
         served.load(requests[0])
-        windows = {
-            'program replay': window_kernels(lambda: loaded.replay('predict'), bn_launches),
-            'ServedFiery replay': window_kernels(lambda: served.replay('predict'), bn_launches),
-            'eager folded': window_kernels(lambda: predict(eager, requests[0]), bn_launches)}
-        program_kernels, eager_kernels = windows['program replay'][0], windows['eager folded'][0]
-        for key in ('program replay', 'ServedFiery replay'):
-            if windows[key][0] != eager_kernels:
-                raise AssertionError(f'{name}: the {key}\'s kernels differ from an eager '
-                                     f'folded forward\'s: {dict(windows[key][0] - eager_kernels)} '
-                                     f'more, {dict(eager_kernels - windows[key][0])} fewer')
+
+        def differ(windows):
+            eager_kernels = windows['eager folded'][0]
+            for key in ('program replay', 'ServedFiery replay'):
+                if windows[key][0] != eager_kernels:
+                    return (f'{name}: the {key}\'s kernels differ from an eager folded '
+                            f'forward\'s: {dict(windows[key][0] - eager_kernels)} more, '
+                            f'{dict(eager_kernels - windows[key][0])} fewer')
+            return None
+
+        windows = alike_windows({'program replay': lambda: loaded.replay('predict'),
+                                 'ServedFiery replay': lambda: served.replay('predict'),
+                                 'eager folded': lambda: predict(eager, requests[0])},
+                                bn_launches, differ)
+        program_kernels = windows['program replay'][0]
         ours = {k: sum(n for kern, n in program_kernels.items() if any(s in kern for s in syms))
                 for k, syms in PROGRAM_KERNELS.items()}
         want = {k: per_forward[k] for k in PROGRAM_KERNELS}
@@ -2162,9 +2184,13 @@ def phase_train_loop():
     opts = ['DATASET.NAME', 'synthetic', 'DATASET.N_SYNTHETIC_SAMPLES', '9',
             'LOGGING_INTERVAL', '1', 'LOG_DIR', log_dir]
     try:
-        # 1. two epochs, each with its validation and checkpoint
+        # 1. two epochs, each with its validation and checkpoint, steps 3-5 traced
+        # (--profile-dir), late in the process, where a trace loses most launches
+        profile_dir = os.path.join(log_dir, 'profile')
         run, _ = path_launches('train loop', lambda: train_cli.main(
-            ['--config', BASELINE, *opts, 'EPOCHS', '2']), LOOP_DENSE)
+            ['--config', BASELINE, '--profile-dir', profile_dir, *opts, 'EPOCHS', '2']),
+            LOOP_DENSE)
+        profile = check_profile('train loop --profile-dir', run, profile_dir)
         trainer = run.trainer
         records = read_metrics(run.save_dir)
         keys = {k for r in records for k in r}
@@ -2257,15 +2283,13 @@ def phase_train_loop():
         log('train loop step stages from a pinned batch (host clock, synchronized between '
             'stages, ms): ' + json.dumps({k: round(v, 3) for k, v in stages.items()}))
 
-        # the loader alone: batches a second at full width, without and with the prewarp
-        for label, extra in (('dense', []), ('prewarp', ['DATASET.PREWARP_LABELS', 'True'])):
-            lcfg = get_cfg(argparse.Namespace(config_file=BASELINE, opts=opts + extra))
-            loader, _ = prepare_dataloaders(lcfg, device='cuda')
-            t0 = time.perf_counter()
-            n = sum(1 for _ in loader)
-            dt = time.perf_counter() - t0
-            log(f'loader alone ({label}): {n} batches of 3 in {dt:.3f} s, '
-                f'{n / dt:.3f} batches/s, {1e3 * dt / n:.1f} ms a batch (one prefetch thread)')
+        # the loader alone: batches a second at full width
+        loader, _ = prepare_dataloaders(cfg, device='cuda')
+        t0 = time.perf_counter()
+        n = sum(1 for _ in loader)
+        dt = time.perf_counter() - t0
+        log(f'loader alone: {n} batches of 3 in {dt:.3f} s, {n / dt:.3f} batches/s, '
+            f'{1e3 * dt / n:.1f} ms a batch (one prefetch thread)')
 
         # the checkpoint's cost: sync, and async with a step while the write runs
         def timed_step(batch):
@@ -2312,9 +2336,34 @@ def phase_train_loop():
             {e.key: [e.count, round(e.self_device_time_total / 1e3, 4)] for e in copies})
             + f'; {smi_line()}')
         return {'dense': dense_walls, 'combo': combo_walls, 'copy_ms': copy_ms,
-                'evaluate': results}
+                'evaluate': results, 'profile': profile}
     finally:
         shutil.rmtree(log_dir, ignore_errors=True)
+
+
+def check_profile(name, run, profile_dir):
+    """The trace of ``python -m fiery_tpu_torch.train --profile-dir`` (a run of at
+    least 5 steps): one file, holding the profiler's markers of the window's three
+    steps (steps 3-5) and no other, and K10 launches equal to K10's counters over
+    the window. Returns what the CLI recorded, with the trace's size and events."""
+    rec = dict(run.profile or {})
+    path = os.path.join(profile_dir, 'rank0.pt.trace.json')
+    if rec.get('profile_trace') != path or rec.get('steps') != [3, 4, 5] \
+            or os.listdir(profile_dir) != ['rank0.pt.trace.json']:
+        raise AssertionError(f'{name}: recorded {rec}, files {os.listdir(profile_dir)}')
+    with open(path) as f:
+        events = json.load(f)['traceEvents']
+    steps = sorted({e['name'] for e in events if e.get('name', '').startswith('ProfilerStep#')})
+    kernels = sum(1 for e in events if e.get('cat') == 'kernel')
+    k10 = rec['k10_launches']
+    if steps != ['ProfilerStep#2', 'ProfilerStep#3', 'ProfilerStep#4'] or not k10['counted'] \
+            or k10['trace'] != k10['counted'] or not kernels:
+        raise AssertionError(f'{name}: markers {steps}, {kernels} kernels, K10 {k10}')
+    rec.update(trace_bytes=os.path.getsize(path), trace_events=len(events), kernels=kernels)
+    log(f'{name}: the trace of steps 3-5 ({rec["trace_bytes"]} bytes, {len(events)} events, '
+        f'{kernels} kernels) holds {k10["trace"]} K10 launches, the counters '
+        f'{k10["counted"]}; {smi_line()}')
+    return rec
 
 
 LYFT_BASELINE = os.path.join(os.path.dirname(BASELINE), 'lyft', 'baseline.yml')
@@ -2325,37 +2374,52 @@ def real_set_opts(tree, log_dir, name='nuscenes'):
             'LOGGING_INTERVAL', '1', 'LOG_DIR', log_dir]
 
 
-def write_trees(root):
-    """A nuScenes mini tree at 1600 x 900 (2 train scenes and 1 val scene of 12
-    samples) and a Lyft tree at lyft/baseline.yml's IMAGE.W x IMAGE.H (1 train and
-    1 val scene of 17 samples, for its 15-frame windows), written at once by two
-    processes of the writer's CLI. Returns (nuScenes dataroot, Lyft dataroot,
-    {tree: s}, the Lyft images' (w, h))."""
-    lyft_cfg = get_cfg(argparse.Namespace(config_file=LYFT_BASELINE, opts=[]))
-    size = (lyft_cfg.IMAGE.W, lyft_cfg.IMAGE.H)
-    nusc, lyft = os.path.join(root, 'nusc'), os.path.join(root, 'lyft')
-    cmd = [sys.executable, '-m', 'fiery_tpu_torch.data.fake_nuscenes']
-    cmds = {'nuscenes': cmd + [nusc],
-            'lyft': cmd + [lyft, '--lyft', '--train-scenes', '1', '--val-scenes', '1',
-                           '--samples', '17', '--width', str(size[0]),
-                           '--height', str(size[1])]}
-    t0 = time.perf_counter()
-    procs = {k: subprocess.Popen(c, cwd=os.path.dirname(os.path.abspath(__file__)),
-                                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-             for k, c in cmds.items()}
-    seconds = {}
-    try:
-        for k, proc in procs.items():
+class Trees:
+    """The real-set trees, written in the background from the moment this is made
+    (two processes of the writer's CLI, in a temporary directory), so that the
+    writing overlaps the phases before the first that needs them: a nuScenes mini
+    tree at 1600 x 900 (2 train scenes and 1 val scene of 12 samples) and a Lyft
+    tree at lyft/baseline.yml's IMAGE.W x IMAGE.H (1 train and 1 val scene of 17
+    samples, for its 15-frame windows). ``wait()`` returns (nuScenes dataroot, Lyft
+    dataroot, {tree: s from the start}, the Lyft images' (w, h)); leaving the
+    ``with`` block stops the writers and removes the trees."""
+
+    def __init__(self):
+        lyft_cfg = get_cfg(argparse.Namespace(config_file=LYFT_BASELINE, opts=[]))
+        self.size = (lyft_cfg.IMAGE.W, lyft_cfg.IMAGE.H)
+        self.root = tempfile.mkdtemp(prefix='fiery_trees_')
+        self.nusc, self.lyft = os.path.join(self.root, 'nusc'), os.path.join(self.root, 'lyft')
+        cmd = [sys.executable, '-m', 'fiery_tpu_torch.data.fake_nuscenes']
+        cmds = {'nuscenes': cmd + [self.nusc],
+                'lyft': cmd + [self.lyft, '--lyft', '--train-scenes', '1', '--val-scenes',
+                               '1', '--samples', '17', '--width', str(self.size[0]),
+                               '--height', str(self.size[1])]}
+        self.t0 = time.perf_counter()
+        self.procs = {k: subprocess.Popen(c, cwd=os.path.dirname(os.path.abspath(__file__)),
+                                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                          text=True)
+                      for k, c in cmds.items()}
+        self.seconds = {}
+
+    def __enter__(self):
+        return self
+
+    def wait(self):
+        for k, proc in self.procs.items():
+            if k in self.seconds:
+                continue
             text, _ = proc.communicate(timeout=600)
-            seconds[k] = time.perf_counter() - t0
+            self.seconds[k] = time.perf_counter() - self.t0
             if proc.returncode != 0:
                 raise RuntimeError(f'writing the {k} tree failed (rc={proc.returncode}):\n{text}')
-    finally:
-        for proc in procs.values():
+        return self.nusc, self.lyft, self.seconds, self.size
+
+    def __exit__(self, *exc):
+        for proc in self.procs.values():
             if proc.poll() is None:
                 proc.kill()
                 proc.wait()
-    return nusc, lyft, seconds, size
+        shutil.rmtree(self.root, ignore_errors=True)
 
 
 def tree_bytes(root):
@@ -2447,15 +2511,16 @@ def finite_losses(name, run):
     return losses
 
 
-def phase_real_set():
+def phase_real_set(trees):
     """The nuScenes and Lyft loader at full width on trees of real JPEGs that the
-    port's writer makes (1600 x 900, and lyft/baseline.yml's 1920 x 1080): the
+    port's writer makes (``Trees``: 1600 x 900, and lyft/baseline.yml's 1920 x
+    1080): the
     loader alone (batches a second, a sample's decode, rasterisation and label
     generation, the decode counts, the prewarp in the workers), the training CLI on
     baseline.yml (PRECISION 16, batch 3, EPOCHS 1, VIS_INTERVAL 1: 3 steps, the
     launches of LOOP_DENSE, finite losses, the train and val videos), one epoch of
-    the combination with the prewarp in the workers, the evaluation CLI with both
-    trackers, and one epoch of lyft/baseline.yml; the visualise CLI where
+    the combination with the prewarp in the workers, the evaluation CLI with the
+    device tracker, and one epoch of lyft/baseline.yml; the visualise CLI where
     matplotlib imports. Returns the numbers it printed."""
     from fiery_tpu_torch import evaluate as evaluate_cli
     from fiery_tpu_torch import train as train_cli
@@ -2468,13 +2533,14 @@ def phase_real_set():
     out = {}
     try:
         # 1. the trees
-        nusc, lyft, seconds, lyft_size = write_trees(root)
+        nusc, lyft, seconds, lyft_size = trees.wait()
         out['trees'] = {'nuscenes_bytes': tree_bytes(nusc), 'lyft_bytes': tree_bytes(lyft),
                         'seconds': seconds}
-        log(f'real set trees, written at once: nuScenes mini 1600x900, 3 scenes of 12 '
-            f'samples, {out["trees"]["nuscenes_bytes"]} bytes, in {seconds["nuscenes"]:.3f} '
-            f's; Lyft {lyft_size[0]}x{lyft_size[1]}, 2 scenes of 17 samples, '
-            f'{out["trees"]["lyft_bytes"]} bytes, in {seconds["lyft"]:.3f} s')
+        log(f'real set trees, written at once in the background: nuScenes mini 1600x900, 3 '
+            f'scenes of 12 samples, {out["trees"]["nuscenes_bytes"]} bytes, done '
+            f'{seconds["nuscenes"]:.3f} s after the start; Lyft {lyft_size[0]}x{lyft_size[1]}, '
+            f'2 scenes of 17 samples, {out["trees"]["lyft_bytes"]} bytes, done '
+            f'{seconds["lyft"]:.3f} s after the start')
 
         # 2. the loader alone, baseline.yml, batch 3, 7-frame windows
         log_dir = os.path.join(root, 'runs')
@@ -2565,19 +2631,16 @@ def phase_real_set():
         out['pace'] = {'batch_ms': batch_ms, 'prewarp_ms': prewarp_ms, 'step_ms': step_ms}
         del combo
 
-        results = {}
-        for matching, extra in ((False, []), (True, ['--device-matching'])):
-            results[matching], _ = path_launches(
-                f'real set evaluate{" --device-matching" if matching else ""}',
-                lambda: evaluate_cli.main(['--checkpoint', final, '--max-batches', '2',
-                                           *extra]),
-                EVAL_KERNELS + (('segment_centroids', 'lap') if matching else ()),
-                absent=() if matching else ('segment_centroids', 'lap'))
-            if not all(np.isfinite(v) for v in results[matching].values()):
-                raise AssertionError(f'real set evaluate: {results[matching]}')
-        log('real set evaluate (2 val windows), device tracker against host tracker: '
-            + json.dumps({k: [float(results[True][k]), float(results[False][k])]
-                          for k in results[True]}))
+        # the evaluation CLI with the device tracker (phase_train_loop runs both)
+        results, _ = path_launches(
+            'real set evaluate --device-matching',
+            lambda: evaluate_cli.main(['--checkpoint', final, '--max-batches', '2',
+                                       '--device-matching']),
+            EVAL_KERNELS + ('segment_centroids', 'lap'))
+        if not all(np.isfinite(v) for v in results.values()):
+            raise AssertionError(f'real set evaluate: {results}')
+        log('real set evaluate --device-matching (2 val windows): ' + json.dumps(
+            {k: float(v) for k, v in results.items()}))
         out['evaluate'] = results
 
         # 4. Lyft: one epoch of lyft/baseline.yml, 15 frames loaded, 8 kept
@@ -2606,6 +2669,91 @@ def phase_real_set():
                                         os.path.join(root, 'vis')])
             log(f'real set visualise CLI: {len(paths)} figures')
         return out
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+# the parity runner's launches on the card: the served forward's (K1, K2, K10, K11)
+# and, under --device-matching, the decode and the tracker's (K6-K9)
+PARITY_KERNELS = ('bev_pool', 'bev_warp', 'batch_norm', 'spatial_gru', 'instance_centers',
+                  'group_pixels', 'segment_centroids', 'lap')
+STAGE_BOUND = 5e-3     # tests/test_parity.py's bound on each stage's relative difference
+
+
+def parity_main(out, argv):
+    """The fresh process of phase_parity (``chip_smoke.py --parity-out PATH ARGS``):
+    ``fiery_tpu_torch.parity``'s main on ARGS with the counters reset before it;
+    writes what it returned, the launches and the plain versions' calls to PATH."""
+    from fiery_tpu_torch import parity
+    reset_counters()
+    t0 = time.perf_counter()
+    result = parity.main(argv)
+    seconds = time.perf_counter() - t0
+    torch.save({'result': result, 'launches': {k: fn.launches for k, fn in COUNTERS.items()},
+                'plain_calls': [fn.plain_calls for fn in PLAIN_COUNTED], 'seconds': seconds},
+               out)
+
+
+def phase_parity(trees):
+    """The accuracy-parity runner on the card at the full width of baseline.yml, on
+    the nuScenes mini tree of ``trees`` (the real-set phase's). The port's model,
+    built after
+    ``torch.manual_seed(0)`` (PyTorch's default initialisation), its BatchNorm
+    statistics drawn as the reference-format test checkpoints draw them
+    (``parity_probe.randomise_batchnorm``), is written as a reference Lightning
+    checkpoint (``parity.write_reference_checkpoint``: through the twin's strict
+    load) with baseline.yml's config on nuScenes mini (N_WORKERS 0: the few JPEGs
+    decode in the process). Not ``calibrate_batchnorm``: on a few alike clips it
+    gives the pyramid pooling's BatchNorms (one value a clip) variances of 1e-6 to
+    1e-3, which multiply the reference's own f32 error in its avg_pool3d (a serial
+    sum of 80,000 values on the card) past the bound (``python -m
+    fiery_tpu_torch.parity_probe``; PERF.md). In a fresh process (this
+    script with --parity-out), ``python -m fiery_tpu_torch.parity --stages
+    --dataroot TREE --max-batches 2 --device-matching``: the twin loads the file
+    strictly, every stage of the first val window (f32, TF32 off) lies below
+    STAGE_BOUND relative, the counters show K1, K2, K10, K11 and K6-K9 launched and
+    no plain version, and every row of the table is finite. Returns the record."""
+    from fiery_tpu_torch import parity
+    root = tempfile.mkdtemp(prefix='fiery_parity_')
+    try:
+        t0 = time.perf_counter()
+        cfg = get_cfg(argparse.Namespace(config_file=BASELINE, opts=[
+            'DATASET.NAME', 'nuscenes', 'DATASET.VERSION', 'mini', 'N_WORKERS', '0']))
+        torch.manual_seed(0)
+        trainer = Trainer(cfg)
+        randomise_batchnorm(trainer.model, seed=5)
+        ckpt = parity.write_reference_checkpoint(os.path.join(root, 'fiery.ckpt'),
+                                                 trainer.state(), cfg)
+        del trainer
+        torch.cuda.empty_cache()
+        tree = trees.wait()[0]
+        setup_s = time.perf_counter() - t0
+        out = os.path.join(root, 'parity.pt')
+        argv = ['--torch-checkpoint', ckpt, '--stages', '--dataroot', tree, '--max-batches',
+                '2', '--device-matching']
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, os.path.abspath(__file__), '--parity-out', out,
+                               *argv], capture_output=True, text=True, timeout=600)
+        wall = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise AssertionError(f'parity: exit {proc.returncode}:\n{proc.stdout[-3000:]}\n'
+                                 f'{proc.stderr[-3000:]}')
+        got = torch.load(out, weights_only=False)
+        report, rows = got['result']['stages'], got['result']['metrics']
+        over = {k: v for k, v in report.items() if not (np.isfinite(v[1]) and v[1] < STAGE_BOUND)}
+        missing = [k for k in PARITY_KERNELS if not got['launches'][k]]
+        if over or len(report) != 9 or missing or any(got['plain_calls']) \
+                or len(rows) != 6 or not all(np.isfinite(list(rows.values()))):
+            raise AssertionError(f'parity: stages over {STAGE_BOUND} {over} of {report}; '
+                                 f'kernels not launched {missing}; plain versions '
+                                 f'{got["plain_calls"]}; rows {rows}\n{proc.stdout[-3000:]}')
+        log(proc.stdout.strip())
+        log(f'parity (main path, fresh process, {got["seconds"]:.1f} s in main, {wall:.1f} s '
+            f'with the start): stages (max |d|, rel) ' + json.dumps(report)
+            + ' launches ' + json.dumps({k: v for k, v in got['launches'].items() if v})
+            + f' rows {json.dumps(rows)}; set-up {setup_s:.1f} s; {smi_line()}')
+        return {'stages': report, 'rows': rows, 'launches': got['launches'],
+                'seconds': got['seconds'], 'wall_s': wall, 'setup_s': setup_s}
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
@@ -3929,12 +4077,23 @@ def f32_only():
     torch.backends.cuda.matmul.allow_tf32 = False
 
 
-def dp_rank_main(out):
-    """One gloo rank of phase_data_parallel's two-rank step on the one card
-    (``chip_smoke.py --dp-out PATH`` with torchrun's variables set): the full-width
-    step on its 3 clips of the 6 (f32, TF32 off), written to ``out`` (on the host)."""
+def join_ranks(nccl):
+    """A rank process of the phases' groups joins them: a gloo rank on card 0 (the
+    one-card phases' ranks share it), or with ``nccl`` (phase_multi_card, the
+    script's --nccl) an NCCL rank on cuda:LOCAL_RANK."""
+    if nccl:
+        maybe_initialize_distributed()
+    else:
+        maybe_initialize_distributed(device='cuda:0', backend='gloo')
+
+
+def dp_rank_main(out, nccl=False):
+    """One rank of phase_data_parallel's two-rank step (``chip_smoke.py --dp-out
+    PATH`` with torchrun's variables set; a gloo rank on the one card, an NCCL rank
+    under --nccl): the full-width step on its 3 clips of the 6 (f32, TF32 off),
+    written to ``out`` (on the host)."""
     f32_only()
-    maybe_initialize_distributed(device='cuda:0', backend='gloo')
+    join_ranks(nccl)
     rank, world = dist.get_rank(), dist.get_world_size()
     try:
         cfg = dp_cfg(3, DP_F32)
@@ -4181,9 +4340,9 @@ def phase_data_parallel(device):
     at batch 3, against one process at batch 6 from the same weights and
     generator, in f32 with TF32 off (DP_F32), its convolutions and
     squeeze-excitation means run on the two halves of its batch
-    (``computed_in_groups(halves)``), at the CPU test's tolerances, their parameters equal bit for bit; and
-    ``torch.distributed.run --nproc_per_node 1 -m fiery_tpu_torch.train`` for 2
-    steps. Returns (the sync kernels' records, the launches of the main path)."""
+    (``computed_in_groups(halves)``), at the CPU test's tolerances, their parameters
+    equal bit for bit. Returns (the sync kernels' records, the launches of the main
+    path)."""
     torch.cuda.empty_cache()      # the batch-6 f32 step below peaks at ~61 GB
     tmp = tempfile.mkdtemp(prefix='fiery_dp_')
     env = {**os.environ, 'NCCL_SOCKET_IFNAME': os.environ.get('NCCL_SOCKET_IFNAME', 'lo'),
@@ -4196,8 +4355,7 @@ def phase_data_parallel(device):
         finally:
             dist.destroy_process_group()
         torch.cuda.empty_cache()
-        dp_two_gloo_ranks(tmp, env)
-        dp_torchrun(tmp, env)
+        dp_two_ranks(tmp, env)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     return records, launches
@@ -4280,21 +4438,22 @@ def dp_one_rank(device, group):
     return records, launches
 
 
-def dp_two_gloo_ranks(tmp, env):
-    """Two gloo ranks on the one card, batch 3 each, against one process at batch 6
-    (the same weights, clips and generator seed), in f32 with TF32 off (DP_F32)."""
-    name = 'data parallel (two gloo ranks)'
+def dp_two_ranks(tmp, env, nccl=False):
+    """Two gloo ranks on the one card (with ``nccl``, two NCCL ranks on cards 0 and
+    1), batch 3 each, against one process at batch 6 (the same weights, clips and
+    generator seed), in f32 with TF32 off (DP_F32). Returns the worst distances
+    against their bounds."""
+    name = f'data parallel (two {"NCCL" if nccl else "gloo"} ranks)'
     cfg = dp_cfg(6, DP_F32)
     saved = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32,
              torch.backends.cudnn.benchmark)
     f32_only()
     torch.cuda.reset_peak_memory_stats()
     try:
-        whole = to_host(dp_step(dp_trainer(cfg), dp_batch(cfg, 6)))
-        peak = torch.cuda.max_memory_allocated()
         trainer = dp_trainer(cfg)        # calibrated as the ranks' are, whole
         with computed_in_groups(halves):
             want = to_host(dp_step(trainer, dp_batch(cfg, 6)))
+        peak = torch.cuda.max_memory_allocated()
         del trainer
     finally:
         (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32,
@@ -4302,7 +4461,8 @@ def dp_two_gloo_ranks(tmp, env):
     torch.cuda.empty_cache()
     outs = [os.path.join(tmp, f'rank{r}.pt') for r in range(2)]
     rendezvous = {'WORLD_SIZE': '2', 'MASTER_ADDR': '127.0.0.1', 'MASTER_PORT': str(free_port())}
-    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), '--dp-out', outs[r]],
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), '--dp-out', outs[r],
+                               *(['--nccl'] if nccl else [])],
                               env={**env, **rendezvous, 'RANK': str(r), 'LOCAL_RANK': str(r)},
                               stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
              for r in range(2)]
@@ -4324,16 +4484,12 @@ def dp_two_gloo_ranks(tmp, env):
     differ = step_differences(got[1], got[0])
     if differ['state'] or differ['exp_avg']:
         raise AssertionError(f'{name}: the ranks\' weights or moments differ: {differ}')
-    for kind in ('grads', 'exp_avg'):
-        log(f'{name}: {kind} relative L2 by module against the batch-6 step run whole: '
-            f'{json.dumps(l2_by_module_and_leaf(got[0][kind], whole[kind])[0])}; the '
-            f'batch-6 step in halves against it: '
-            f'{json.dumps(l2_by_module_and_leaf(want[kind], whole[kind])[0])}')
     worst = dp_within_cpu_tolerances(f'{name} against one process at batch 6 (in halves)',
                                      got[0], want, cfg.OPTIMIZER.LR)
     log(f'{name}: both ranks hold the same weights, statistics and moments bit for bit; '
         f'within the CPU test\'s tolerances of the batch-6 step ({json.dumps(worst)}); the '
-        f'batch-6 step\'s peak {peak} bytes')
+        f'batch-6 step\'s peak {peak} bytes; {smi_line()}')
+    return worst
 
 
 def free_port():
@@ -4342,43 +4498,14 @@ def free_port():
         return s.getsockname()[1]
 
 
-def dp_torchrun(tmp, env):
-    """``python -m torch.distributed.run --nproc_per_node 1 -m fiery_tpu_torch.train``
-    for 2 steps at full width on the synthetic clips: exit 0 and a final
-    checkpoint at step 2."""
-    name = 'data parallel (torchrun, one rank)'
-    log_dir = os.path.join(tmp, 'runs')
-    cmd = [sys.executable, '-m', 'torch.distributed.run', '--nproc_per_node', '1',
-           '--master_addr', '127.0.0.1', '--master_port', str(free_port()), '-m',
-           'fiery_tpu_torch.train', '--config', BASELINE, '--steps', '2', 'DATASET.NAME',
-           'synthetic', 'EPOCHS', '1', 'LOG_DIR', log_dir]
-    t0 = time.perf_counter()
-    out = subprocess.run(cmd, env=env, capture_output=True, text=True, timeout=600)
-    wall = time.perf_counter() - t0
-    if out.returncode != 0:
-        raise AssertionError(f'{name}: exit {out.returncode}:\n{out.stdout[-3000:]}\n'
-                             f'{out.stderr[-3000:]}')
-    runs = os.listdir(log_dir)
-    final = os.path.join(log_dir, runs[0], 'checkpoint_final')
-    state, _ = load_checkpoint(final)
-    if len(runs) != 1 or state['step'] != 2 or 'x 1 rank(s)' not in out.stdout:
-        raise AssertionError(f'{name}: runs {runs}, step {state["step"]}:\n{out.stdout[-2000:]}')
-    log(f'{name}: exit 0 in {wall:.1f} s, checkpoint_final at step 2; '
-        + ' | '.join(line for line in out.stdout.splitlines() if '"step"' in line))
-
-
-
 # ---- camera-parallel training (parallel/mesh.py): the encoder split over the cameras ----
 
 CAMERAS = 2
-# the camera- and BEV-parallel checks: (batch, options, held at the CPU tolerances).
-# The bf16 step (PRECISION 16, the training default) is only compared, as on random
-# weights its roundings move the gradients by per cents under any change of cuDNN
-# algorithm; the BEV phase runs it (its ranks run the camera gather too), the camera
-# phase, whose path that one contains, runs the held steps alone
-BEV_CASES = {'dense': (3, DP_F32, True), 'dense bf16': (3, (), False),
-             'combo': (1, DP_F32 + COMBO_OPTS, True)}
-CAM_CASES = {k: v for k, v in BEV_CASES.items() if v[2]}
+# the camera- and BEV-parallel checks, held at the CPU tolerances: (batch, options).
+# Both in f32: on random weights a bf16 step's roundings move the gradients by per
+# cents under any change of cuDNN algorithm (PERF.md); the bf16 step runs on
+# the ranks in cam_torchrun (the training CLI at PRECISION 16)
+CAM_CASES = {'dense': (3, DP_F32), 'combo': (1, DP_F32 + COMBO_OPTS)}
 # the kernels each rank's step must launch, besides K10's synchronised path: the dense
 # step's (K10's backward counts under SYNC_COUNTERS), and the combination's (K5, no K2)
 CAM_DENSE_KERNELS = ('bev_pool', 'bev_pool_backward', 'bev_warp', 'bev_warp_backward',
@@ -4441,23 +4568,23 @@ def footprint(trainer, fn):
 
 
 def cam_cfg(key):
-    batch, opts, _ = BEV_CASES[key]
+    batch, opts = CAM_CASES[key]
     return dp_cfg(batch, opts)
 
 
-def cam_rank_main(out, bev=False):
-    """One gloo rank of phase_camera_parallel's camera group of two on the one card
-    (``chip_smoke.py --cam-out PATH`` with torchrun's variables set): each case of
-    CAM_CASES on the whole batch (one data shard), encoding its half of the 6
-    cameras, written to ``out`` (on the host) with its launches and memory. With
-    ``bev`` (``--bev-out PATH``, phase_bev_parallel) each of BEV_CASES, also
-    training its share of the BEV rows."""
+def cam_rank_main(out, bev=False, nccl=False):
+    """One rank of phase_camera_parallel's camera group of two (``chip_smoke.py
+    --cam-out PATH`` with torchrun's variables set; a gloo rank on the one card, an
+    NCCL rank under --nccl): each case of CAM_CASES on the whole batch (one data
+    shard), encoding its half of the 6 cameras, written to ``out`` (on the host)
+    with its launches and memory. With ``bev`` (``--bev-out PATH``,
+    phase_bev_parallel) also training its share of the BEV rows."""
     f32_only()
-    maybe_initialize_distributed(device='cuda:0', backend='gloo')
+    join_ranks(nccl)
     rank = dist.get_rank()
     try:
         recs = {}
-        for key in BEV_CASES if bev else CAM_CASES:
+        for key in CAM_CASES:
             t0 = time.perf_counter()
             cfg = cam_cfg(key)
             trainer = make_parallel_trainer(dp_trainer(cfg), cameras=CAMERAS, bev_parallel=bev)
@@ -4540,18 +4667,18 @@ def phase_camera_parallel(device):
     return records
 
 
-def group_ranks_against_one_process(name, tmp, env, bev):
-    """CAM_CASES' steps (BEV_CASES' with ``bev``) of one process (in camera groups,
-    and with ``bev`` in row shares too), then of two gloo ranks of one camera group
-    on the card (this script with --cam-out, or --bev-out with ``bev``), held
-    against each other; the records of the phase."""
+def group_ranks_against_one_process(name, tmp, env, bev, nccl=False):
+    """CAM_CASES' steps of one process (in camera groups, and with ``bev`` in row
+    shares too), then of two gloo ranks of one camera group
+    on the card (this script with --cam-out, or --bev-out with ``bev``; with
+    ``nccl``, two NCCL ranks on cards 0 and 1), held against each other; the
+    records of the phase."""
     saved = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
     f32_only()
     want = {}
-    cases = BEV_CASES if bev else CAM_CASES
     groups = 'camera groups and row shares' if bev else 'camera groups'
     try:
-        for key in cases:
+        for key in CAM_CASES:
             t0 = time.perf_counter()
             cfg = cam_cfg(key)
             batch = dp_batch(cfg, cfg.BATCHSIZE)
@@ -4575,7 +4702,8 @@ def group_ranks_against_one_process(name, tmp, env, bev):
                   'MASTER_PORT': str(free_port())}
     t0 = time.perf_counter()
     procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__),
-                               '--bev-out' if bev else '--cam-out', outs[r]],
+                               '--bev-out' if bev else '--cam-out', outs[r],
+                               *(['--nccl'] if nccl else [])],
                               env={**env, **rendezvous, 'RANK': str(r),
                                    'LOCAL_RANK': str(r)},
                               stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
@@ -4594,12 +4722,12 @@ def group_ranks_against_one_process(name, tmp, env, bev):
     log(f'{name}: the two ranks ran in {time.perf_counter() - t0:.1f} s')
     got = [torch.load(o, weights_only=False) for o in outs]
     records = {}
-    for key, (_, _, held) in cases.items():
+    for key in CAM_CASES:
         ranks = [g[key] for g in got]
         edges = row_plan(FieryConfig.from_cfg(cam_cfg(key)).bev_size[0], CAMERAS)
-        label = (f'{name} ({key}, two gloo ranks of 3 cameras'
+        label = (f'{name} ({key}, two {"NCCL" if nccl else "gloo"} ranks of 3 cameras'
                  + (f' and {edges[1]} or {edges[2] - edges[1]} BEV rows)' if bev else ')'))
-        expect = CAM_DENSE_KERNELS if key.startswith('dense') else CAM_COMBO_KERNELS
+        expect = CAM_DENSE_KERNELS if key == 'dense' else CAM_COMBO_KERNELS
         for r, g in enumerate(ranks):
             missing = [k for k in expect + tuple(SYNC_COUNTERS) if not g['launches'][k]]
             if missing or any(g['plain_calls']):
@@ -4614,15 +4742,10 @@ def group_ranks_against_one_process(name, tmp, env, bev):
         rec = {'launches': {k: v for k, v in ranks[0]['launches'].items() if v},
                'rank_seconds': [g['seconds'] for g in ranks],
                'memory': {'ranks': [g['memory'] for g in ranks],
-                          'one_process': want[key]['memory']}}
-        if held:
-            rec['worst'] = dp_within_cpu_tolerances(
-                f'{label} against one process in {groups}', ranks[0], want[key],
-                cam_cfg(key).OPTIMIZER.LR)
-        else:
-            rec['grads_l2'] = l2_by_module_and_leaf(ranks[0]['grads'], want[key]['grads'])[0]
-            log(f'{label}: bf16 gradients relative L2 by module against one process in '
-                f'{groups} (printed, not held): {json.dumps(rec["grads_l2"])}')
+                          'one_process': want[key]['memory']},
+               'worst': dp_within_cpu_tolerances(
+                   f'{label} against one process in {groups}', ranks[0], want[key],
+                   cam_cfg(key).OPTIMIZER.LR)}
         log(f'{label}: the ranks\' weights, statistics and moments equal bit for bit; '
             f'launches of rank 0 {json.dumps(rec["launches"])}; memory '
             f'{json.dumps(rec["memory"])}; {smi_line()}')
@@ -4700,7 +4823,7 @@ def rows_in_groups(edges, modules):
 def phase_bev_parallel(device):
     """BEV-parallel training on the one card (parallel/mesh.py, --bev-parallel): the
     row gather's and the row mean's NCCL calls in a group of one rank (the identity,
-    and the mean, both ways); then BEV_CASES' steps on two gloo ranks of one camera
+    and the mean, both ways); then CAM_CASES' steps on two gloo ranks of one camera
     group that also split the 200 BEV rows (104 + 96) after the splat (this script
     with --bev-out), against one process whose encoder runs each rank's cameras
     apart and whose modules after the splat run each rank's rows apart
@@ -4777,16 +4900,162 @@ def cam_torchrun(tmp, env):
         + ' | '.join(line for line in out.stdout.splitlines() if '"step"' in line))
 
 
+# ---- the multi-card path on NCCL: phase_multi_card, one call on four cards ----
+
+MULTI_CARDS = 4
+# the four-card CLI run: 2 steps of batch 3 a data shard on the synthetic clips
+MULTI_OPTS = ('DATASET.NAME', 'synthetic', 'BATCHSIZE', '3', 'DATASET.N_SYNTHETIC_SAMPLES',
+              '12', 'EPOCHS', '1', 'LOGGING_INTERVAL', '1')
+
+
+def tensor_digest(t):
+    return hashlib.sha256(t.detach().cpu().reshape(-1).view(torch.uint8).numpy().tobytes()
+                          ).hexdigest()
+
+
+def rank_train_main(argv):
+    """One process of phase_multi_card's training runs (``chip_smoke.py --rank-train
+    OUT ARGS``, under torchrun or alone): ``fiery_tpu_torch.train``'s main on ARGS,
+    which joins the group that torchrun describes (NCCL, rank r on cuda:r) or runs
+    alone on the card; writes OUT/rank<r>.pt: its step records, a digest of every
+    tensor of its state (model, uncertainty weights, Adam moments) and its peak
+    memory."""
+    from fiery_tpu_torch.train import main as train_main
+    out, argv = argv[0], argv[1:]
+    try:
+        run = train_main(argv)
+        rank = dist.get_rank() if dist.is_initialized() else 0
+        state = run.trainer.state()
+        digests = {f'model.{k}': tensor_digest(v) for k, v in state['model'].items()}
+        digests.update({f'uncertainty.{k}': tensor_digest(v)
+                        for k, v in state['uncertainty'].items()})
+        digests.update({f'adam.{i}.{k}': tensor_digest(v)
+                        for i, st in state['optimizer']['state'].items()
+                        for k, v in st.items() if isinstance(v, torch.Tensor)})
+        torch.save({'rank': rank, 'steps': run.steps, 'digests': digests,
+                    'peak_bytes': torch.cuda.max_memory_allocated(run.trainer.device)},
+                   os.path.join(out, f'rank{rank}.pt'))
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def step_walls(steps):
+    """{'step_ms': [...], 'wall_ms': [...] (with the loader's wait), medians}."""
+    ms = [r['step_ms'] for r in steps]
+    walls = [r['step_ms'] + r['loader_wait_ms'] for r in steps]
+    return {'step_ms': ms, 'wall_ms': walls, 'median_step_ms': statistics.median(ms),
+            'median_wall_ms': statistics.median(walls)}
+
+
+def multi_card_cli(tmp, env):
+    """``python -m torch.distributed.run --nproc_per_node 4`` of the training CLI
+    (``rank_train_main``, which calls its main) with ``--camera-parallel 2
+    --bev-parallel`` on NCCL, a mesh of 2 data shards by 2 camera ranks, 2 steps at
+    full width, batch 3 a data shard: exit 0, finite losses logged for both steps,
+    the four ranks' weights, statistics and Adam moments equal bit for bit, one
+    checkpoint_final at step 2. Then one process of the same CLI without the axes
+    on one card, 2 steps of the same batch. Prints both runs' step walls (no
+    gate) and each rank's peak memory; returns them."""
+    name = 'multi card (torchrun, 2 data shards x 2 camera ranks, NCCL)'
+    runs = {}
+    for key, launcher, axes in (
+            ('four_ranks', [sys.executable, '-m', 'torch.distributed.run', '--nproc_per_node',
+                            str(MULTI_CARDS), '--master_addr', '127.0.0.1', '--master_port',
+                            str(free_port())],
+             ['--camera-parallel', '2', '--bev-parallel']),
+            ('one_card', [sys.executable], [])):
+        out, log_dir = os.path.join(tmp, key), os.path.join(tmp, key, 'runs')
+        os.makedirs(out)
+        cmd = [*launcher, os.path.abspath(__file__), '--rank-train', out, '--config', BASELINE,
+               *axes, '--steps', '2', *MULTI_OPTS, 'LOG_DIR', log_dir]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, env=env, capture_output=True, text=True, timeout=900)
+        wall = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise AssertionError(f'{name}: {key} exit {proc.returncode}:\n'
+                                 f'{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}')
+        losses = [json.loads(line) for line in proc.stdout.splitlines()
+                  if line.startswith('{"epoch"')]
+        ranks = [torch.load(os.path.join(out, f), weights_only=False)
+                 for f in sorted(os.listdir(out)) if f.endswith('.pt')]
+        dirs = os.listdir(log_dir)
+        state, _ = load_checkpoint(os.path.join(log_dir, dirs[0], 'checkpoint_final'))
+        want_ranks = MULTI_CARDS if axes else 1
+        differ = sorted({k for r in ranks[1:] for k, v in r['digests'].items()
+                         if v != ranks[0]['digests'][k]})
+        if (len(ranks) != want_ranks or differ or len(dirs) != 1 or state['step'] != 2
+                or [r['step'] for r in losses] != [1, 2]
+                or not all(np.isfinite(r['total_loss']) for r in losses)
+                or (axes and 'x 2 data shard(s) of 2 camera ranks, each training its share '
+                             'of the BEV rows' not in proc.stdout)):
+            raise AssertionError(f'{name}: {key}: {len(ranks)} ranks, tensors that differ '
+                                 f'between them {differ[:10]}, runs {dirs}, step '
+                                 f'{state["step"]}, losses {losses}\n{proc.stdout[-3000:]}')
+        runs[key] = {'walls': [step_walls(r['steps']) for r in ranks],
+                     'peak_bytes': [r['peak_bytes'] for r in ranks], 'losses': losses,
+                     'run_s': wall}
+        log(f'{name}: {key}: exit 0 in {wall:.1f} s, {len(ranks)} rank(s) with the same '
+            f'{len(ranks[0]["digests"])} tensors bit for bit, checkpoint_final at step 2; '
+            f'losses {json.dumps(losses)}; step walls {json.dumps(runs[key]["walls"])}; '
+            f'peaks {runs[key]["peak_bytes"]}')
+    log(f'{name}: median step ms, rank 0 of four '
+        f'{runs["four_ranks"]["walls"][0]["median_step_ms"]:.3f} against one card\'s plain '
+        f'step {runs["one_card"]["walls"][0]["median_step_ms"]:.3f} (host clock, each step '
+        f'ended by the logged losses\' read; the first step included); {smi_line()}')
+    return runs
+
+
+def phase_multi_card():
+    """The multi-card path on NCCL, on four cards (``--only multi_card``; refused on
+    fewer). At world 2, on cards 0 and 1, the one-card phases' held checks with NCCL
+    ranks in place of gloo ranks sharing a card: phase_data_parallel's two ranks
+    against one process at batch 6 (``dp_two_ranks``), and the camera group of two
+    ranks without and with the BEV rows (``group_ranks_against_one_process``),
+    each against its one-process reference computed in the ranks' groups and shares,
+    at those phases' tolerances, the ranks' weights equal bit for bit. Then the
+    training CLI on the four cards (``multi_card_cli``). Returns the records."""
+    n = torch.cuda.device_count()
+    if n < MULTI_CARDS:
+        raise SystemExit(f'chip_smoke: --only multi_card needs {MULTI_CARDS} cards, this '
+                         f'machine has {n}')
+    tmp = tempfile.mkdtemp(prefix='fiery_multi_')
+    env = gloo_env()
+    records = {}
+    try:
+        t0 = time.perf_counter()
+        records['data_parallel'] = dp_two_ranks(tmp, env, nccl=True)
+        log(f'multi card: data parallel at world 2: ok ({time.perf_counter() - t0:.1f} s)')
+        for key, bev in (('camera_parallel', False), ('bev_parallel', True)):
+            t0 = time.perf_counter()
+            records[key] = group_ranks_against_one_process(
+                f'{key.replace("_", " ")} (NCCL)', tmp, env, bev=bev, nccl=True)
+            log(f'multi card: {key} at world 2: ok ({time.perf_counter() - t0:.1f} s)')
+        t0 = time.perf_counter()
+        records['cli'] = multi_card_cli(tmp, env)
+        log(f'multi card: the CLI on four cards: ok ({time.perf_counter() - t0:.1f} s)')
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return records
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument('--only', choices=['families', 'exported', 'real_set', 'data_parallel',
-                                           'camera_parallel', 'bev_parallel'],
+                                           'camera_parallel', 'bev_parallel', 'parity',
+                                           'multi_card'],
                         help='run only this phase (after the build); prints no result line')
     # one rank of phase_data_parallel's and phase_camera_parallel's gloo ranks (the
     # script starts them itself)
     parser.add_argument('--dp-out', help=argparse.SUPPRESS)
     parser.add_argument('--cam-out', help=argparse.SUPPRESS)
     parser.add_argument('--bev-out', help=argparse.SUPPRESS)
+    # those ranks on NCCL, rank r on cuda:r (phase_multi_card)
+    parser.add_argument('--nccl', action='store_true', help=argparse.SUPPRESS)
+    # phase_parity's fresh process (OUT, then the runner's arguments), and a process
+    # of phase_multi_card's training runs (OUT, then the CLI's arguments)
+    parser.add_argument('--parity-out', nargs=argparse.REMAINDER, help=argparse.SUPPRESS)
+    parser.add_argument('--rank-train', nargs=argparse.REMAINDER, help=argparse.SUPPRESS)
     # one rank of phase_camera_parallel's torchrun of the training CLI: the rest of
     # the command line is the CLI's
     parser.add_argument('--cam-train', nargs=argparse.REMAINDER, help=argparse.SUPPRESS)
@@ -4795,13 +5064,19 @@ def main(argv=None):
         print('chip_smoke: no CUDA device', file=sys.stderr)
         sys.exit(1)
     if args.dp_out is not None:
-        dp_rank_main(args.dp_out)
+        dp_rank_main(args.dp_out, args.nccl)
         return
     if args.cam_out is not None:
-        cam_rank_main(args.cam_out)
+        cam_rank_main(args.cam_out, nccl=args.nccl)
         return
     if args.bev_out is not None:
-        cam_rank_main(args.bev_out, bev=True)
+        cam_rank_main(args.bev_out, bev=True, nccl=args.nccl)
+        return
+    if args.parity_out is not None:
+        parity_main(args.parity_out[0], args.parity_out[1:])
+        return
+    if args.rank_train is not None:
+        rank_train_main(args.rank_train)
         return
     if args.cam_train is not None:
         cam_train_main(args.cam_train)
@@ -4818,9 +5093,22 @@ def main(argv=None):
         phase_families(device)
         log(f'config families: ok ({time.perf_counter() - t0:.1f} s); {smi_line()}')
         return
+    if args.only == 'parity':
+        t0 = time.perf_counter()
+        with Trees() as trees:
+            phase_parity(trees)
+        log(f'parity: ok ({time.perf_counter() - t0:.1f} s); {smi_line()}')
+        return
+    if args.only == 'multi_card':
+        t0 = time.perf_counter()
+        records = phase_multi_card()
+        log('multi card: ' + json.dumps(records))
+        log(f'multi card: ok ({time.perf_counter() - t0:.1f} s); {smi_line()}')
+        return
     if args.only == 'real_set':
         t0 = time.perf_counter()
-        phase_real_set()
+        with Trees() as trees:
+            phase_real_set(trees)
         log(f'real set: ok ({time.perf_counter() - t0:.1f} s); {smi_line()}')
         return
     if args.only == 'data_parallel':
@@ -4930,29 +5218,35 @@ def main(argv=None):
                                  name='tiny combo train',
                                  leaves_only=('future_prediction', 'decoder'))
     log(f'tiny combination card vs cpu: ok ({time.perf_counter() - t0:.1f} s)')
-    t0 = time.perf_counter()
-    phase_train_loop()
-    check_trace_whole('trace after the loop')
-    log(f'train loop, resume, combination loop and evaluate: ok '
-        f'({time.perf_counter() - t0:.1f} s)')
-    t0 = time.perf_counter()
-    dp_records, dp_launches = phase_data_parallel(device)
-    log(f'data parallel: one NCCL rank, two gloo ranks, torchrun: ok '
-        f'({time.perf_counter() - t0:.1f} s)')
-    t0 = time.perf_counter()
-    cam_records = phase_camera_parallel(device)
-    log('camera parallel: ' + json.dumps(cam_records))
-    log(f'camera parallel: two gloo ranks of a camera group, dense and combined, torchrun: '
-        f'ok ({time.perf_counter() - t0:.1f} s)')
-    t0 = time.perf_counter()
-    bev_records = phase_bev_parallel(device)
-    log('bev parallel: ' + json.dumps(bev_records))
-    log(f'bev parallel: two gloo ranks of a camera group splitting the BEV rows, dense and '
-        f'combined: ok ({time.perf_counter() - t0:.1f} s)')
-    t0 = time.perf_counter()
-    phase_real_set()
-    log(f'real set: nuScenes and Lyft trees trained, evaluated and drawn: ok '
-        f'({time.perf_counter() - t0:.1f} s)')
+    # the real-set trees are written in the background from here, behind the
+    # training loop; the parity and real-set phases read them
+    with Trees() as trees:
+        t0 = time.perf_counter()
+        phase_train_loop()
+        check_trace_whole('trace after the loop')
+        log(f'train loop, resume, combination loop, evaluate and --profile-dir: ok '
+            f'({time.perf_counter() - t0:.1f} s)')
+        t0 = time.perf_counter()
+        phase_parity(trees)
+        log(f'parity runner, stages and table: ok ({time.perf_counter() - t0:.1f} s)')
+        t0 = time.perf_counter()
+        dp_records, dp_launches = phase_data_parallel(device)
+        log(f'data parallel: one NCCL rank, two gloo ranks: ok '
+            f'({time.perf_counter() - t0:.1f} s)')
+        t0 = time.perf_counter()
+        cam_records = phase_camera_parallel(device)
+        log('camera parallel: ' + json.dumps(cam_records))
+        log(f'camera parallel: two gloo ranks of a camera group, dense and combined, torchrun: '
+            f'ok ({time.perf_counter() - t0:.1f} s)')
+        t0 = time.perf_counter()
+        bev_records = phase_bev_parallel(device)
+        log('bev parallel: ' + json.dumps(bev_records))
+        log(f'bev parallel: two gloo ranks of a camera group splitting the BEV rows, dense and '
+            f'combined: ok ({time.perf_counter() - t0:.1f} s)')
+        t0 = time.perf_counter()
+        phase_real_set(trees)
+        log(f'real set: nuScenes and Lyft trees trained, evaluated and drawn: ok '
+            f'({time.perf_counter() - t0:.1f} s)')
     t0 = time.perf_counter()
     families, family_records = phase_families(device)
     log(f'config families served, captured and trained, their kernels vs plain, the export: '

@@ -1,13 +1,22 @@
-"""Whether torch.profiler keeps every launch of a window, after each thing the
-training loop does and after work of other kinds: python -m fiery_tpu_torch.trace_probe
+"""Lost launches in torch.profiler's traces, and the training CLI's profiled window.
 
-After each stage it takes profiled windows of 25 calls of the BatchNorm kernel
-(K10, eval forward, 64 channels), one launch a call, each window opened by one of
-these lead-ins: none ('bare'), ``chip_smoke.py``'s (8 spin kernels and a 2 ms
-pause, 'spins8'), a 20 ms pause alone ('pause20ms'), and 64 spin kernels and a
-2 ms pause ('spins64'). It prints one JSON line a stage: the launches each window
-held (25 when whole), the threads alive, the device memory allocated. The stages,
-in order: a fresh process; 200,000 launches of one elementwise kernel; threads
+On the H100 the first launches of a trace can go unrecorded, more of them the more
+work the process has done. ``trace_lead_in`` absorbs them with spin kernels, and
+``TrainProfile`` (``python -m fiery_tpu_torch.train --profile-dir DIR``) opens its
+window with it and counts K10's launches in the trace against the port's own
+counters.
+
+    python -m fiery_tpu_torch.trace_probe
+
+measures whether torch.profiler keeps every launch of a window, after each thing
+the training loop does and after work of other kinds. After each stage it takes
+profiled windows of 25 calls of the BatchNorm kernel (K10, eval forward, 64
+channels), one launch a call, each window opened by one of these lead-ins: none
+('bare'), 8 spin kernels and a 2 ms pause ('spins8'), a 20 ms pause alone
+('pause20ms'), and 64 spin kernels and a 2 ms pause ('spins64', the lead-in of
+``trace_lead_in``). It prints one JSON line a stage: the launches each window held
+(25 when whole), the threads alive, the device memory allocated. The stages, in
+order: a fresh process; 200,000 launches of one elementwise kernel; threads
 that each pin a small tensor and exit; pinned batches of 64 MB allocated, copied
 with ``non_blocking=True`` and freed; ~200 distinct PyTorch kernels launched once
 each (unary and binary ops over five dtypes); a cuDNN convolution and a cuBLAS
@@ -21,6 +30,7 @@ batches); ``train.main`` for two epochs of 3 steps (as ``chip_smoke.py``
 import argparse
 import gc
 import json
+import os
 import shutil
 import tempfile
 import threading
@@ -29,13 +39,119 @@ import time
 import torch
 
 from fiery_tpu_torch.ops import _build
-from fiery_tpu_torch.ops.batch_norm import batch_norm_forward
+from fiery_tpu_torch.ops.batch_norm import (
+    batch_norm_backward, batch_norm_backward_apply_card, batch_norm_backward_finalize_card,
+    batch_norm_backward_partials_card, batch_norm_finalize_card, batch_norm_forward,
+    batch_norm_partials_card)
 
 WINDOWS = 4
 CALLS = 25
+# the wrappers that count K10's launches
+K10_COUNTERS = (batch_norm_forward, batch_norm_backward, batch_norm_partials_card,
+                batch_norm_finalize_card, batch_norm_backward_partials_card,
+                batch_norm_backward_finalize_card, batch_norm_backward_apply_card)
+# the training CLI's profiled window: the run's first step skipped, one step of
+# warm-up, three recorded (a whole run's CUDA trace is too large to write or open)
+TRAIN_SCHEDULE = dict(skip_first=1, wait=0, warmup=1, active=3, repeat=1)
 # (spin kernels, pause in s) before a window's calls
 LEAD_INS = {'bare': (0, 0.0), 'spins8': (8, 0.002), 'pause20ms': (0, 0.02),
             'spins64': (64, 0.002)}
+
+
+def trace_lead_in(spins=64):
+    """The first launches of a profiler trace can go unrecorded on the H100: none in
+    a fresh process, more as the process runs the model (2 after three training
+    steps, 4-5 after the training loop and evaluation, more after the phases of
+    ``chip_smoke.py``), whatever the time since the trace began. Spin kernels, of
+    no measured group, go first to absorb them: ``spins`` of them, then a pause. A
+    trace that still holds one of them lost none of the launches after them."""
+    for _ in range(spins):
+        torch.cuda._sleep(10000)
+    torch.cuda.synchronize()
+    time.sleep(0.002)
+
+
+def k10_launches():
+    """K10's kernel launches that its wrappers have counted in this process, the
+    synchronised path's included."""
+    return sum(fn.launches for fn in K10_COUNTERS)
+
+
+def k10_pass(key):
+    """The K10 pass a kernel's name belongs to, or None: its kernels are templates
+    in an anonymous namespace ("(anonymous namespace)::apply_kernel<..."), which
+    keeps out other kernels whose names hold the same words (Adam's
+    multi_tensor_apply_kernel). The synchronised path's finalize kernels
+    ("::finalize_stats_kernel(", "::finalize_grads_kernel(") are no pass."""
+    for name in ('backward_reduce', 'backward_apply', 'stats', 'apply'):
+        if f'::{name}_kernel<' in key:
+            return name
+    return None
+
+
+def k10_kernels_in(events):
+    """K10's kernel launches in profiler key averages, its finalize kernels included."""
+    return sum(e.count for e in events if e.device_type == torch.autograd.DeviceType.CUDA
+               and (k10_pass(e.key) or '::finalize_stats_kernel(' in e.key
+                    or '::finalize_grads_kernel(' in e.key))
+
+
+class TrainProfile:
+    """torch.profiler over ``TRAIN_SCHEDULE``'s window of a training run, written
+    as one Chrome trace a rank, ``<directory>/rank<r>.pt.trace.json`` (Perfetto or
+    chrome://tracing open it). Call ``step(s)`` after the run's training step s.
+    On a CUDA device the window opens with ``trace_lead_in`` and ends with a
+    synchronisation, and the trace's K10 launches are counted against K10's
+    counters over the window. When the trace is written it prints one JSON line,
+    on every rank: the path, the run's steps in the window, and both counts (a
+    short trace is reported, not an error). ``record`` holds the same."""
+
+    def __init__(self, directory, rank, device):
+        self.path = os.path.join(directory, f'rank{rank}.pt.trace.json')
+        self.rank, self.cuda = rank, torch.device(device).type == 'cuda'
+        activities = [torch.profiler.ProfilerActivity.CPU]
+        if self.cuda:
+            activities.append(torch.profiler.ProfilerActivity.CUDA)
+        self.prof = torch.profiler.profile(
+            activities=activities, schedule=torch.profiler.schedule(**TRAIN_SCHEDULE),
+            on_trace_ready=self._ready)
+        self.steps, self.counted_from, self.record = [], None, None
+
+    def __enter__(self):
+        os.makedirs(os.path.dirname(self.path) or '.', exist_ok=True)
+        self.prof.__enter__()
+        return self
+
+    def _recording(self):
+        return self.prof.current_action in (torch.profiler.ProfilerAction.RECORD,
+                                            torch.profiler.ProfilerAction.RECORD_AND_SAVE)
+
+    def step(self, step):
+        recording = self._recording()
+        if recording:
+            self.steps.append(step)
+            if self.cuda:
+                torch.cuda.synchronize()
+        self.prof.step()
+        if not recording and self._recording():
+            # the window opens
+            if self.cuda:
+                trace_lead_in()
+            self.counted_from = k10_launches()
+
+    def _ready(self, prof):
+        prof.export_chrome_trace(self.path)
+        counted = k10_launches() - self.counted_from
+        traced = k10_kernels_in(prof.key_averages()) if self.cuda else 0
+        self.record = {'profile_trace': self.path, 'rank': self.rank, 'steps': self.steps,
+                       'k10_launches': {'trace': traced, 'counted': counted,
+                                        'whole': traced == counted}}
+        print(json.dumps(self.record), flush=True)
+
+    def __exit__(self, *exc):
+        if self.cuda and self._recording():
+            torch.cuda.synchronize()
+        return self.prof.__exit__(*exc)
 
 
 def launches_in_window(fn, spins, pause):

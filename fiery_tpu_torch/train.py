@@ -63,9 +63,18 @@ exchanges at the share's edges (parallel/mesh.py). Validation stays unsharded.
 
     python -m torch.distributed.run --nproc_per_node 4 -m fiery_tpu_torch.train \
         --config fiery_tpu_torch/configs/baseline.yml --camera-parallel 2 --bev-parallel
+
+``--profile-dir DIR`` (the JAX package's flag: trace into this directory) traces a
+fixed window of the run with torch.profiler (``trace_probe.TRAIN_SCHEDULE``: the
+run's first step skipped, one step of warm-up, the next three recorded) into one
+Chrome trace a rank, ``DIR/rank<r>.pt.trace.json``, and each rank prints a line
+with its trace's path and, on the card, K10's launches in the trace beside the
+port's own count (``trace_probe.TrainProfile``). The run takes the same steps, bit
+for bit.
 """
 
 import argparse
+import contextlib
 import io
 import json
 import os
@@ -84,6 +93,7 @@ from fiery_tpu_torch.parallel.mesh import (make_parallel_trainer, max_across_ran
                                            maybe_initialize_distributed, rank_and_world,
                                            sum_states)
 from fiery_tpu_torch.serve import init_params
+from fiery_tpu_torch.trace_probe import TrainProfile
 from fiery_tpu_torch.training.metrics import IntersectionOverUnion, PanopticMetric
 from fiery_tpu_torch.training.trainer import Trainer, step_generator
 from fiery_tpu_torch.utils.checkpoint import (find_latest_checkpoint, load_checkpoint,
@@ -110,6 +120,8 @@ def parse_args(argv=None):
     p.add_argument('--bev-parallel', action='store_true',
                    help='also split the BEV rows after the splat over each camera group '
                         '(needs --camera-parallel > 1)')
+    p.add_argument('--profile-dir', default=None,
+                   help='trace a window of the run with torch.profiler into this directory')
     p.add_argument('opts', nargs=argparse.REMAINDER, help='KEY VALUE config overrides')
     return p.parse_args(argv)
 
@@ -227,8 +239,9 @@ def main(argv=None):
     """Train; returns the run: ``trainer``, ``save_dir``, ``steps``, a record per
     step of this run (step, ms waiting on the loader, ms from the batch to the end
     of the step's logging, ms of its video or None, host clock), ``videos``, what
-    ``MetricLogger.video`` returned for each video written, and ``loaders``, the train and val loaders (their
-    decode counts and transform times)."""
+    ``MetricLogger.video`` returned for each video written, ``loaders``, the train
+    and val loaders (their decode counts and transform times), and ``profile``,
+    what ``TrainProfile`` recorded under --profile-dir (else None)."""
     args = parse_args(argv)
     cfg = get_cfg(args)
     device = maybe_initialize_distributed(args.device)
@@ -297,65 +310,71 @@ def main(argv=None):
         make_parallel_trainer(trainer, cameras=cameras, bev_parallel=args.bev_parallel)
 
     run = types.SimpleNamespace(trainer=trainer, save_dir=save_dir, steps=[], videos=[],
-                                loaders=(trainloader, valloader))
-    capped = False
-    for epoch in range(start_epoch, cfg.EPOCHS):
-        epoch_start = time.perf_counter()
-        batches = iter(trainloader)
-        while not capped:
-            if args.steps is not None and trainer.step >= args.steps:
-                capped = True
+                                loaders=(trainloader, valloader), profile=None)
+    profile = TrainProfile(args.profile_dir, rank, device) if args.profile_dir else None
+    with profile or contextlib.nullcontext():
+        capped = False
+        for epoch in range(start_epoch, cfg.EPOCHS):
+            epoch_start = time.perf_counter()
+            batches = iter(trainloader)
+            while not capped:
+                if args.steps is not None and trainer.step >= args.steps:
+                    capped = True
+                    break
+                t0 = time.perf_counter()
+                batch = next(batches, None)
+                if batch is None:
+                    break
+                t1 = time.perf_counter()
+                batch = numeric_batch(batch)
+                losses, total = trainer.train_step(
+                    batch, step_generator(args.seed, trainer.step, device, shard, shards, camera,
+                                          cameras))
+                step = trainer.step
+                if rank == 0 and (step % cfg.LOGGING_INTERVAL == 0 or step == 1):
+                    scalars = {'total_loss': float(total),
+                               **{k: float(v) for k, v in losses.items()}}
+                    print(json.dumps({'epoch': epoch, 'step': step, **scalars}), flush=True)
+                    for k, v in scalars.items():
+                        logger.scalar(k, v, step)
+                t2 = time.perf_counter()
+                video_ms = None
+                if rank == 0 and step % cfg.VIS_INTERVAL == 0:
+                    # the ground truth against the prediction of the updated weights
+                    output, labels, _ = trainer.eval_step(batch)
+                    run.videos.append(logger.video(
+                        'train_outputs', visualise_output(labels, output, cfg), step))
+                    video_ms = 1e3 * (time.perf_counter() - t2)
+                run.steps.append({'step': step, 'loader_wait_ms': 1e3 * (t1 - t0),
+                                  'step_ms': 1e3 * (t2 - t1), 'video_ms': video_ms})
+                if profile is not None:
+                    profile.step(step)
+            if capped:
+                batches.close()
                 break
-            t0 = time.perf_counter()
-            batch = next(batches, None)
-            if batch is None:
-                break
-            t1 = time.perf_counter()
-            batch = numeric_batch(batch)
-            losses, total = trainer.train_step(
-                batch, step_generator(args.seed, trainer.step, device, shard, shards, camera,
-                                      cameras))
-            step = trainer.step
-            if rank == 0 and (step % cfg.LOGGING_INTERVAL == 0 or step == 1):
-                scalars = {'total_loss': float(total),
-                           **{k: float(v) for k, v in losses.items()}}
-                print(json.dumps({'epoch': epoch, 'step': step, **scalars}), flush=True)
-                for k, v in scalars.items():
-                    logger.scalar(k, v, step)
-            t2 = time.perf_counter()
-            video_ms = None
-            if rank == 0 and step % cfg.VIS_INTERVAL == 0:
-                # the ground truth against the prediction of the updated weights
-                output, labels, _ = trainer.eval_step(batch)
-                run.videos.append(logger.video(
-                    'train_outputs', visualise_output(labels, output, cfg), step))
-                video_ms = 1e3 * (time.perf_counter() - t2)
-            run.steps.append({'step': step, 'loader_wait_ms': 1e3 * (t1 - t0),
-                              'step_ms': 1e3 * (t2 - t1), 'video_ms': video_ms})
-        if capped:
-            batches.close()
-            break
 
-        step = trainer.step
-        iou, vpq = validate(trainer, valloader, on_first=None if rank else (
-            lambda output, labels: run.videos.append(logger.video(
-                'val_outputs', visualise_output(labels, output, cfg), step))))
-        if rank:
-            continue
-        uw = {k: float(v.detach()) for k, v in trainer.uncertainty.items()}
-        logger.scalar('segmentation_weight', 1.0 / np.exp(uw['segmentation_weight']), step)
-        for k in ('centerness_weight', 'offset_weight', 'flow_weight'):
-            if k in uw:
-                logger.scalar(k, 1.0 / (2 * np.exp(uw[k])), step)
-        for name, score in zip(['background', 'dynamic'], iou):
-            logger.scalar(f'val_iou_{name}', score, step)
-        logger.scalar('val_vpq_vehicles', vpq, step)
-        print(json.dumps({'epoch': epoch, 'step': step,
-                          'seconds': round(time.perf_counter() - epoch_start, 3),
-                          'val_iou_background': float(iou[0]),
-                          'val_iou_dynamic': float(iou[1]),
-                          'val_vpq_vehicles': float(vpq)}), flush=True)
-        save_checkpoint_async(os.path.join(save_dir, f'checkpoint_epoch{epoch}'), trainer, cfg)
+            step = trainer.step
+            iou, vpq = validate(trainer, valloader, on_first=None if rank else (
+                lambda output, labels: run.videos.append(logger.video(
+                    'val_outputs', visualise_output(labels, output, cfg), step))))
+            if rank:
+                continue
+            uw = {k: float(v.detach()) for k, v in trainer.uncertainty.items()}
+            logger.scalar('segmentation_weight', 1.0 / np.exp(uw['segmentation_weight']), step)
+            for k in ('centerness_weight', 'offset_weight', 'flow_weight'):
+                if k in uw:
+                    logger.scalar(k, 1.0 / (2 * np.exp(uw[k])), step)
+            for name, score in zip(['background', 'dynamic'], iou):
+                logger.scalar(f'val_iou_{name}', score, step)
+            logger.scalar('val_vpq_vehicles', vpq, step)
+            print(json.dumps({'epoch': epoch, 'step': step,
+                              'seconds': round(time.perf_counter() - epoch_start, 3),
+                              'val_iou_background': float(iou[0]),
+                              'val_iou_dynamic': float(iou[1]),
+                              'val_vpq_vehicles': float(vpq)}), flush=True)
+            save_checkpoint_async(os.path.join(save_dir, f'checkpoint_epoch{epoch}'), trainer, cfg)
+    if profile is not None:
+        run.profile = profile.record
 
     if rank == 0:
         wait_for_async_save()

@@ -167,7 +167,9 @@ def test_port_imports_nothing_of_jax():
             'fiery_tpu_torch.data.fake_nuscenes', 'fiery_tpu_torch.data.lyft_splits',
             'fiery_tpu_torch.utils.quaternion', 'fiery_tpu_torch.utils.visualisation',
             'fiery_tpu_torch.visualise', 'fiery_tpu_torch.parallel',
-            'fiery_tpu_torch.parallel.mesh', 'fiery_tpu_torch.utils.rounding'} <= modules
+            'fiery_tpu_torch.parallel.mesh', 'fiery_tpu_torch.utils.rounding',
+            'fiery_tpu_torch.golden', 'fiery_tpu_torch.parity',
+            'fiery_tpu_torch.parity_probe', 'fiery_tpu_torch.trace_probe'} <= modules
 
 
 def test_entry_points_refuse_the_cpu_unless_asked(monkeypatch):
