@@ -185,6 +185,14 @@ Builds the package's CUDA kernels from csrc/, then:
      after the splat run each rank's rows apart with its halos
      (``rows_in_groups``), at the CPU test's tolerances; each rank's launches and
      peak memory.
+  Then the lever accuracy study (phase_accuracy; ``--only accuracy`` runs it
+  alone): fiery_tpu_torch.accuracy_ab at its BASE, dense and topk8_warpfree trained
+  150 steps each and evaluated (matched, dense-parity, cross-served), and the
+  activation study: falling finite losses, the JAX harness's JSON keys, dense
+  against dense exact, every kernel of the path launched (K1-K7, K10, K11 and the
+  backwards), no plain version, each mode's launches a step those predicted; then
+  a request and a training step at BASE for dense, topk8 and topk8_warpfree, card
+  against the CPU's plain path; the steps/s and each kernel's launches a step.
 ``--only multi_card`` (not in the default run; refused on fewer than four cards)
 runs the one-card phases' held checks with NCCL ranks on cards 0 and 1 (the
 data-parallel step against one process at batch 6, the camera group of two with
@@ -870,11 +878,13 @@ def voxel_ids_of(fn):
         lift_splat_module.voxel_ids = original
 
 
-def phase_tiny_card_vs_cpu(overrides=TINY, name='tiny', yaw=None):
+def phase_tiny_card_vs_cpu(overrides=TINY, name='tiny', yaw=None, rel_l2=None):
     """Same seeded weights and request (its ego-motion turned by ``yaw`` radians a
     frame, if given) through the kernels (cuda) and the plain versions (cpu), f32
-    with TF32 off: every output within rtol/atol 1e-3; and how many voxel ids the
-    two devices' lift geometry puts in different bins."""
+    with TF32 off: every output within rtol/atol 1e-3, or, given ``rel_l2``, each
+    output's relative L2 error within it (for random weights whose outputs reach
+    hundreds, where f32 rounding alone exceeds 1e-3 on values near 0); and how many
+    voxel ids the two devices' lift geometry puts in different bins."""
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     cfg = get_cfg(cfg_dict=overrides)
@@ -893,9 +903,13 @@ def phase_tiny_card_vs_cpu(overrides=TINY, name='tiny', yaw=None):
         f'{sum(a.numel() for a in ids_cpu)}')
     for k, v in want.items():
         d = (got[k].cpu() - v).abs()
+        rel = float(d.double().norm() / v.double().norm().clamp_min(1e-30))
         log(f'  {name} {k}: max_abs_err={float(d.max()):.3e} '
-            f'max_abs={float(v.abs().max()):.3e}')
-        torch.testing.assert_close(got[k].cpu(), v, rtol=1e-3, atol=1e-3, msg=k)
+            f'max_abs={float(v.abs().max()):.3e} rel_l2={rel:.3e}')
+        if rel_l2 is None:
+            torch.testing.assert_close(got[k].cpu(), v, rtol=1e-3, atol=1e-3, msg=k)
+        elif not rel <= rel_l2:
+            raise AssertionError(f'{name} {k}: relative L2 error {rel} above {rel_l2}')
     torch.backends.cudnn.allow_tf32 = True
 
 
@@ -3461,7 +3475,38 @@ def relative_l2_gradients(got, want, leaves_only=()):
     return worst_module, worst_leaf
 
 
-def phase_tiny_train_card_vs_cpu(overrides=TINY, name='tiny train', leaves_only=()):
+def module_errors(got, want):
+    """{top-level module: relative L2 error of its gradients}."""
+    out = {}
+    for m in sorted({n.split('.')[0] for n in want}):
+        names = [n for n in want if n.split('.')[0] == m]
+        a = torch.cat([got[n].flatten() for n in names])
+        b = torch.cat([want[n].flatten() for n in names])
+        out[m] = float((a - b).norm() / b.norm())
+    return out
+
+
+def rounding_sensitivity(trainer, batch, noise, scale=2.0 ** -20):
+    """How far rounding-sized changes move a step's gradients: {module: relative L2
+    change of the trainer's gradients when every weight is scaled by (1 + scale
+    N(0, 1)), seeded}. The weights are restored after."""
+    def gradients():
+        trainer.compute_gradients(batch, noise=noise.to(trainer.device))
+        return {n: p.grad.double().cpu() for n, p in trainer.model.named_parameters()}
+
+    state = {k: v.clone() for k, v in trainer.model.state_dict().items()}
+    want = gradients()
+    gen = torch.Generator().manual_seed(1)
+    with torch.no_grad():
+        for p in trainer.model.parameters():
+            p.mul_(1 + scale * torch.randn(p.shape, generator=gen).to(p.device))
+    got = gradients()
+    trainer.model.load_state_dict(state)
+    return module_errors(got, want)
+
+
+def phase_tiny_train_card_vs_cpu(overrides=TINY, name='tiny train', leaves_only=(),
+                                 sensitivity=False):
     """One tiny training step (f32, TF32 off) on the card and on the CPU from the same
     weights, batch and noise, drop-connect off: the losses within rtol/atol 1e-3; the
     gradients within a relative L2 error of 1e-2 per module and 1e-1 per leaf, the
@@ -3469,7 +3514,10 @@ def phase_tiny_train_card_vs_cpu(overrides=TINY, name='tiny train', leaves_only=
     alone moves some leaves' gradients by per cents). The modules in ``leaves_only``
     are held per leaf only, as tests/test_torch_levers.py holds the combination's
     future prediction and decoder (their f32 gradients move by per cents with the
-    order of the sums alone)."""
+    order of the sums alone). Under ``sensitivity`` each module is held to the larger
+    of 1e-2 and twice the change that weights moved by 2^-20 make on the CPU alone
+    (``rounding_sensitivity``): a step whose gradients a rounding-sized change moves
+    by per cents (a branch of the step taken the other way) is held to that."""
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     cfg = get_cfg(cfg_dict={**overrides, 'BATCHSIZE': 2})
@@ -3496,11 +3544,158 @@ def phase_tiny_train_card_vs_cpu(overrides=TINY, name='tiny train', leaves_only=
         grads['cuda'], grads['cpu'], leaves_only)
     log(f'  {name} gradients: worst module relative L2 error {module_err:.3e} ({module}), '
         f'worst leaf {leaf_err:.3e} ({leaf}), over {len(grads["cpu"])} leaves')
-    if module_err > 1e-2 or leaf_err > 1e-1:
-        raise AssertionError(f'{name}: card and CPU gradients differ')
+    over = {module: module_err} if module_err > 1e-2 else {}
+    if sensitivity:
+        errs = module_errors(grads['cuda'], grads['cpu'])
+        floor = rounding_sensitivity(trainers['cpu'], batch, noise)
+        log(f'  {name} gradients by module, card vs cpu and cpu vs cpu with the weights '
+            f'moved 2^-20: ' + json.dumps({m: [errs[m], floor[m]] for m in errs}))
+        over = {m: e for m, e in errs.items() if e > max(1e-2, 2 * floor[m])}
+    if over or leaf_err > 1e-1:
+        raise AssertionError(f'{name}: card and CPU gradients differ: modules {over}, '
+                             f'worst leaf {leaf_err}')
     torch.backends.cudnn.allow_tf32 = True
     torch.backends.cuda.matmul.allow_tf32 = True
 
+
+ACC_STEPS = 150
+ACC_MODES = ('dense', 'topk8_warpfree')
+# the modes whose BASE request and training step are held card against the CPU: the
+# phase's two, and topk8 (its IoU gap to JAX's r5 run is open, PERF.md §7)
+ACC_CARD_VS_CPU = ('dense', 'topk8', 'topk8_warpfree')
+# the steps of the study's train_mode whose launches are held to expected_launches
+ACC_LAUNCH_STEPS = 2
+# the heads' relative L2 error card against CPU at BASE (tests/test_torch_accuracy_ab.py
+# holds the port's heads to JAX's by the same bound)
+ACC_HEADS_REL_L2 = 1e-4
+# the kernels of the study's path: training (K1-K5 and the backwards, K10, K11) and
+# the evaluation's decode before the host tracker (K6, K7)
+ACC_KERNELS = ('bev_pool', 'bev_pool_backward', 'bev_warp', 'bev_warp_backward', 'kth_largest',
+               'bev_warp_nearest', 'topk_select', 'topk_select_backward', 'instance_centers',
+               'group_pixels', 'batch_norm', 'batch_norm_backward', 'spatial_gru',
+               'spatial_gru_backward')
+JAX_TRAIN_REPORT = os.path.join(os.path.dirname(os.path.abspath(__file__)), 'reports',
+                                'accuracy_ab_train_r5.json')
+
+
+def key_tree(x):
+    """The keys of a JSON value and their nesting, without the values."""
+    if isinstance(x, dict):
+        return {k: key_tree(v) for k, v in x.items()}
+    if isinstance(x, list):
+        return [key_tree(x[0])] if x and isinstance(x[0], (dict, list)) else []
+    return None
+
+
+def phase_accuracy(device):
+    """The lever accuracy study (fiery_tpu_torch/accuracy_ab.py) at its full width
+    (BASE) on the card, cut to one seed of ACC_STEPS steps of dense and
+    topk8_warpfree: trained, evaluated matched, dense-parity and cross-served,
+    then the activation study on the random and the trained states. Gates: finite
+    losses whose last 25 steps' mean is below the first 25's; the JSONs' keys are
+    the JAX harness's (reports/accuracy_ab_train_r5.json, the activation keys) plus
+    ``device``, base_cfg holding BASE; every kernel of the path launched and no
+    plain version ran; each mode's launches a step of train_mode those of
+    expected_launches (K10's apart, which count BatchNorm calls); dense against
+    dense differs nowhere (the study's path is deterministic); and, for each of
+    ACC_CARD_VS_CPU at BASE, a request and a training step through the kernels
+    equal to the CPU's plain path (phase_tiny_card_vs_cpu,
+    phase_tiny_train_card_vs_cpu). Returns {kernel: launches} of the study."""
+    from fiery_tpu_torch import accuracy_ab as ab
+    with open(JAX_TRAIN_REPORT) as f:
+        jax_train = key_tree(json.load(f))
+    with tempfile.TemporaryDirectory() as tmp:
+        train_json, act_json = os.path.join(tmp, 'train.json'), os.path.join(tmp, 'act.json')
+        reset_counters()
+        t0 = time.perf_counter()
+        _, runs = ab.run_train_study(ACC_STEPS, train_json, seeds=(0,), device=device,
+                                     modes=ACC_MODES)
+        train_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        ab.run_activation_study(ACC_STEPS, act_json, device=device)
+        act_s = time.perf_counter() - t0
+        launches = {k: COUNTERS[k].launches for k in COUNTERS}
+        layout_report()
+        with open(train_json) as f:
+            train = json.load(f)
+        with open(act_json) as f:
+            act = json.load(f)
+    missing = [k for k in ACC_KERNELS if not launches[k]]
+    if missing:
+        raise AssertionError(f'accuracy: kernels not launched {missing}: {launches}')
+    log(f'accuracy study (main path) launches: '
+        f'{json.dumps({k: v for k, v in launches.items() if v})}')
+    for mode in ACC_MODES:
+        losses, wall = runs[mode][0]['losses'], runs[mode][0]['wall_s']
+        first, last = float(np.mean(losses[:25])), float(np.mean(losses[-25:]))
+        if not np.isfinite(losses).all() or not last < first:
+            raise AssertionError(f'accuracy: {mode}: losses finite {np.isfinite(losses).all()}, '
+                                 f'mean of the last 25 steps {last} not below the first '
+                                 f'25\'s {first}')
+        log(f'accuracy: {mode}: {ACC_STEPS} steps in {wall:.3f} s '
+            f'({ACC_STEPS / wall:.3f} steps/s); loss mean of the first 25 steps {first:.4f}, '
+            f'of the last 25 {last:.4f}')
+    for mode in ACC_MODES:
+        cfg = ab._cfg(ab.MODES[mode])
+        reset_counters()
+        ab.train_mode(mode, ACC_LAUNCH_STEPS, log_every=ACC_LAUNCH_STEPS + 1, device=device)
+        torch.cuda.synchronize()
+        got = {k: fn.launches for k, fn in COUNTERS.items()}
+        layout_report()
+        want = expected_launches(FieryConfig.from_cfg(cfg), cfg,
+                                 got['batch_norm'] / ACC_LAUNCH_STEPS,
+                                 got['batch_norm_backward'] / (2 * ACC_LAUNCH_STEPS))
+        check_launches(f'accuracy {mode} train_mode', got, want, ACC_LAUNCH_STEPS)
+        log(f'accuracy: {mode}: launches a step '
+            f'{json.dumps({k: v / ACC_LAUNCH_STEPS for k, v in got.items() if v})}')
+    # base_cfg is the study's BASE (JAX's r5 file records its BASE after its _merge
+    # had set TRIM_TRAIN in the nested dict that BASE shares; the port's copies)
+    want = dict(jax_train, device=None, base_cfg=key_tree(json.loads(json.dumps(ab.BASE))))
+    want['results'] = {k: jax_train['results'][k] for k in
+                       ACC_MODES + ('dense_trained_cross_serving',)}
+    if key_tree(train) != want:
+        raise AssertionError(f'accuracy: the train JSON\'s keys {key_tree(train)} are not the '
+                             f'JAX harness\'s plus device {want}')
+    act_rows = {'depth_entropy_nats', 'top8_captured_mass'} | {
+        f'bev_feature_rel_err_{lever}' for lever in ('topk8', 'warpfree', 'topk8_warpfree')} | {
+        f'seg_logit_rel_err_{lever}' for lever in ('topk8', 'warpfree')}
+    if (sorted(act) != ['device', 'random_init', 'trained']
+            or any(set(act[tag]) != act_rows for tag in ('random_init', 'trained'))):
+        raise AssertionError(f'accuracy: the activation JSON\'s keys {key_tree(act)}')
+    # dense against dense: the same features and logits, bit for bit
+    val = ab._to_device(SyntheticFutureDataset(ab._cfg({}), n_samples=2, n_instances=3,
+                                               seed=1000).get_batch([0, 1]), device)
+    trained = torch.load(ab._dense_cache_path(ACC_STEPS), map_location=device)
+    same = {'bev': ab._err_percentiles(ab._bev_features(trained, ab.MODES['dense'], val),
+                                       ab._bev_features(trained, ab.MODES['dense'], val)),
+            'seg': ab._err_percentiles(
+                ab._head_outputs(trained, ab.MODES['dense'], val)['segmentation'],
+                ab._head_outputs(trained, ab.MODES['dense'], val)['segmentation'])}
+    if any(v for errs in same.values() for v in errs.values()):
+        raise AssertionError(f'accuracy: dense against dense differs: {same}')
+    results = train['results']
+    log('accuracy: ' + json.dumps({
+        'device': train['device'], 'train_s': round(train_s, 3), 'activation_s': round(act_s, 3),
+        'eval': {m: results[m]['per_seed'][0] for m in ACC_MODES},
+        'cross_serving': results['dense_trained_cross_serving'],
+        'trained_top8_mass_p50': act['trained']['top8_captured_mass']['p50'],
+        'random_top8_mass_p50': act['random_init']['top8_captured_mass']['p50']}))
+    # the study's kernels at its own shapes (D = 24, a 64 x 64 grid, 4 cameras of
+    # 32 x 48) against the CPU's plain path: the heads at the relative L2 error that
+    # tests/test_torch_accuracy_ab.py holds them to against JAX at BASE; the gradients
+    # against the step's own sensitivity to rounding (at these weights topk8's
+    # encoder, temporal model and present distribution move by 2 per cent on the CPU
+    # alone when the weights move by 2^-20: tests/torch_init_evidence.py step)
+    t0 = time.perf_counter()
+    for mode in ACC_CARD_VS_CPU:
+        overrides = ab._merge(ab.BASE, ab.MODES[mode])
+        phase_tiny_card_vs_cpu(overrides, name=f'accuracy {mode}', yaw=0.2,
+                               rel_l2=ACC_HEADS_REL_L2)
+        phase_tiny_train_card_vs_cpu(overrides, name=f'accuracy {mode} train',
+                                     sensitivity=True)
+    log(f'accuracy: BASE card vs cpu, {", ".join(ACC_CARD_VS_CPU)}: ok '
+        f'({time.perf_counter() - t0:.1f} s)')
+    return launches
 
 
 # the JAX package's model families beside baseline.yml (YAMLs that differ only in
@@ -5043,7 +5238,7 @@ def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument('--only', choices=['families', 'exported', 'real_set', 'data_parallel',
                                            'camera_parallel', 'bev_parallel', 'parity',
-                                           'multi_card'],
+                                           'multi_card', 'accuracy'],
                         help='run only this phase (after the build); prints no result line')
     # one rank of phase_data_parallel's and phase_camera_parallel's gloo ranks (the
     # script starts them itself)
@@ -5092,6 +5287,11 @@ def main(argv=None):
         t0 = time.perf_counter()
         phase_families(device)
         log(f'config families: ok ({time.perf_counter() - t0:.1f} s); {smi_line()}')
+        return
+    if args.only == 'accuracy':
+        t0 = time.perf_counter()
+        phase_accuracy(device)
+        log(f'accuracy study: ok ({time.perf_counter() - t0:.1f} s); {smi_line()}')
         return
     if args.only == 'parity':
         t0 = time.perf_counter()
@@ -5248,6 +5448,10 @@ def main(argv=None):
         log(f'real set: nuScenes and Lyft trees trained, evaluated and drawn: ok '
             f'({time.perf_counter() - t0:.1f} s)')
     t0 = time.perf_counter()
+    accuracy_launches = phase_accuracy(device)
+    log(f'accuracy study at BASE, dense and topk8_warpfree trained, evaluated and the '
+        f'activation study: ok ({time.perf_counter() - t0:.1f} s)')
+    t0 = time.perf_counter()
     families, family_records = phase_families(device)
     log(f'config families served, captured and trained, their kernels vs plain, the export: '
         f'ok ({time.perf_counter() - t0:.1f} s)')
@@ -5306,6 +5510,8 @@ def main(argv=None):
                  'bound_ms': r['bound_ms'], 'bound_by': r['bound_by'],
                  'library_ms': r['library_ms']}
         entry['call_ms'] = r['call_ms']
+        # the launches of the accuracy study's phase (training and evaluation)
+        entry['accuracy_launches'] = accuracy_launches[name]
         if name in ('bev_pool', 'bev_warp', 'topk_select', 'batch_norm', 'spatial_gru'):
             entry['train_launches'] = trained[name]
             # the launches of the exported program's forward (its operators), dense

@@ -19,6 +19,7 @@ import torch
 from fiery_tpu.models.layers import BatchNorm as JaxBatchNorm
 from fiery_tpu_torch.models.layers import BatchNorm
 from fiery_tpu_torch.ops import batch_norm as bn_op
+from torch_threads import few_threads  # noqa: F401  (an autouse fixture)
 
 POSTS = ('none', 'relu', 'swish', 'add', 'add_relu', 'relu_add')
 JNP = {torch.float32: jnp.float32, torch.bfloat16: jnp.bfloat16}

@@ -19,6 +19,7 @@ import torch
 
 from fiery_tpu_torch.parallel.mesh import RowShare, row_plan
 from torch_parallel_worker import ROWS_KINDS, ROWS_X, spawn_ranks, seeded_trainer, tiny_cfg
+from torch_threads import few_threads  # noqa: F401  (an autouse fixture)
 
 
 @pytest.fixture(scope='module')

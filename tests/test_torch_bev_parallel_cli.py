@@ -19,6 +19,7 @@ from fiery_tpu_torch.serve import BASELINE
 from fiery_tpu_torch.utils.checkpoint import load_checkpoint
 from test_torch_camera_parallel_cli import torchrun
 from test_torch_parallel_cli import TINY_DP_OPTS
+from torch_threads import few_threads  # noqa: F401  (an autouse fixture)
 
 
 def test_torchrun_four_ranks_split_the_bev_rows_and_rank_0_saves(tmp_path):

@@ -18,21 +18,13 @@ gradients. Every rank's parameters, statistics and moments are equal bit for bit
 
 import numpy as np
 import pytest
-import torch
 
 from fiery_tpu_torch.training.trainer import step_generator
 from test_torch_camera_parallel_step import MESHES, assert_ranks_equal
 from test_torch_parallel_step import assert_gradients_close, assert_step_close
 from torch_parallel_worker import (STEP_SEED, TINY_BEV, global_batch, seeded_trainer,
                                    spawn_ranks, take_step, tiny_cfg)
-
-
-@pytest.fixture(autouse=True, scope='module')
-def few_threads():
-    n = torch.get_num_threads()
-    torch.set_num_threads(min(n, 2))
-    yield
-    torch.set_num_threads(n)
+from torch_threads import few_threads  # noqa: F401  (an autouse fixture)
 
 
 @pytest.fixture(scope='module')

@@ -28,6 +28,7 @@ from fiery_tpu_torch.utils.weight_import import state_dict_from_jax
 
 from test_torch_fiery import TINY, jax_tiny_model, ported_tiny_model, tiny_request
 from test_torch_trainer import TINY as TINY_CFG
+from torch_threads import few_threads  # noqa: F401  (an autouse fixture)
 
 
 def _randomize_affine(tree, rng):

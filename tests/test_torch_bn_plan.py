@@ -8,6 +8,7 @@ import pytest
 import torch
 
 from fiery_tpu_torch.ops import batch_norm as BN
+from torch_threads import few_threads  # noqa: F401  (an autouse fixture)
 
 # the channel counts of the served path's BatchNorm calls (full-width baseline.yml)
 SERVED_CHANNELS = (16, 21, 23, 24, 32, 35, 48, 56, 64, 112, 128, 144, 160, 192, 256, 336,

@@ -16,16 +16,9 @@ import torch
 from fiery_tpu_torch.parallel.mesh import rank_rows
 from fiery_tpu_torch.training.trainer import Trainer
 from torch_parallel_worker import TINY_CAM, gather_inputs, global_batch, spawn_ranks, tiny_cfg
+from torch_threads import few_threads  # noqa: F401  (an autouse fixture)
 
 WORLD = 2
-
-
-@pytest.fixture(autouse=True, scope='module')
-def few_threads():
-    n = torch.get_num_threads()
-    torch.set_num_threads(min(n, 2))
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope='module')

@@ -15,6 +15,7 @@ import sys
 from fiery_tpu_torch.serve import BASELINE
 from fiery_tpu_torch.utils.checkpoint import load_checkpoint
 from test_torch_parallel_cli import REPO, TINY_DP_OPTS, _free_port
+from torch_threads import few_threads  # noqa: F401  (an autouse fixture)
 
 TWO_CAMERAS = ['IMAGE.NAMES', "['CAM_A', 'CAM_B']"]
 

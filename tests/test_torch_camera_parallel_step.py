@@ -41,22 +41,15 @@ from fiery_tpu_torch.data.dataset import numeric_batch, prepare_dataloaders
 from fiery_tpu_torch.train import depth_plane_keep, validate
 from fiery_tpu_torch.training.trainer import step_generator
 from fiery_tpu_torch.utils.weight_import import checkpoint_state_from_jax
-from torch_jax_reference import jax_reference
+from torch_jax_reference import start_jax_reference
 from test_torch_parallel_step import _ExplicitNoise, assert_gradients_close, assert_step_close
 from torch_parallel_worker import (CAMERAS, STEP_SEED, TINY_CAM, TINY_DP_CAM, TINY_JAX,
                                    cam_cull_cfg,
                                    global_batch, global_noise, seeded_trainer, spawn_ranks,
                                    take_step, tiny_cfg)
+from torch_threads import few_threads  # noqa: F401  (an autouse fixture)
 
 MESHES = {(1, 2): 2, (2, 2): 4}     # (data shards, camera ranks): world size
-
-
-@pytest.fixture(autouse=True, scope='module')
-def few_threads():
-    n = torch.get_num_threads()
-    torch.set_num_threads(min(n, 2))
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope='module')
@@ -157,13 +150,21 @@ def jax_camera_steps():
                          port_state(data_new))}
 
 
-@pytest.fixture(scope='module')
-def jax_steps(tmp_path_factory):
+@pytest.fixture(autouse=True, scope='module')
+def jax_steps_started(tmp_path_factory):
     """``jax_camera_steps`` in a reference process whose XLA code is capped at AVX2
     (tests/torch_jax_reference.py: under AVX-512 XLA's f32 reductions move the
-    data-axis step's decoder gradient by about the bound)."""
-    return jax_reference('test_torch_camera_parallel_step:jax_camera_steps',
-                         tmp_path_factory.mktemp('jax_steps'))
+    data-axis step's decoder gradient by about the bound), started with the module
+    so that its compile runs beside the ranks of the first tests."""
+    reference = start_jax_reference('test_torch_camera_parallel_step:jax_camera_steps',
+                                    tmp_path_factory.mktemp('jax_steps'))
+    yield reference
+    reference.stop()
+
+
+@pytest.fixture(scope='module')
+def jax_steps(jax_steps_started):
+    return jax_steps_started.result()
 
 
 def exp_avg_by_name(state, names):

@@ -18,6 +18,7 @@ import numpy as np
 import pytest
 
 from fiery_tpu.postprocess import instance as JI
+from torch_threads import few_threads  # noqa: F401  (an autouse fixture)
 
 NB = 8           # the kernel's blocks a frame (one cluster), a strip each
 

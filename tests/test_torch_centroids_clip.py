@@ -13,6 +13,7 @@ import torch
 
 from fiery_tpu.postprocess import instance as JI
 from fiery_tpu_torch.postprocess import instance as I
+from torch_threads import few_threads  # noqa: F401  (an autouse fixture)
 
 
 def t(a):

@@ -44,6 +44,7 @@ from fiery_tpu_torch.utils.checkpoint import (find_latest_checkpoint, load_check
                                               save_checkpoint_async, wait_for_async_save)
 from fiery_tpu_torch.utils.config import get_cfg
 from fiery_tpu_torch.utils.weight_import import checkpoint_state_from_jax, train_state_from_jax
+from torch_threads import few_threads  # noqa: F401  (an autouse fixture)
 
 TINY = {
     'PRECISION': 32, 'TIME_RECEPTIVE_FIELD': 3, 'N_FUTURE_FRAMES': 2, 'BATCHSIZE': 2,
@@ -56,17 +57,6 @@ TINY = {
               'FUTURE_PRED': {'N_GRU_BLOCKS': 1, 'N_RES_LAYERS': 1}},
     'DATASET': {'NAME': 'synthetic'},
 }
-
-
-@pytest.fixture(autouse=True, scope='module')
-def few_threads():
-    """Two intra-op threads: the suite runs files in parallel processes, and a
-    training step on every core of each of them oversubscribes the machine (a
-    step here then takes 20x as long)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(min(n, 2))
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture

@@ -15,6 +15,7 @@ import pytest
 import torch
 
 from fiery_tpu_torch.training.trainer import clip_by_global_norm_
+from torch_threads import few_threads  # noqa: F401  (an autouse fixture)
 
 SHAPES = ((64, 3, 3, 3), (64,), (128, 64), (7,), (32, 16, 3, 3), (1,))
 

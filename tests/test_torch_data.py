@@ -9,6 +9,7 @@ from fiery_tpu.utils.config import get_cfg as jax_get_cfg
 from fiery_tpu_torch.data import labels
 from fiery_tpu_torch.data.synthetic import SyntheticFutureDataset
 from fiery_tpu_torch.utils.config import get_cfg
+from torch_threads import few_threads  # noqa: F401  (an autouse fixture)
 
 SMALL = {'TIME_RECEPTIVE_FIELD': 3, 'N_FUTURE_FRAMES': 2,
          'IMAGE': {'FINAL_DIM': (64, 96), 'NAMES': ['CAM_A', 'CAM_B', 'CAM_C']},

@@ -31,6 +31,7 @@ from fiery_tpu_torch.utils.checkpoint import save_checkpoint
 from fiery_tpu_torch.utils.config import get_cfg
 
 from test_torch_trainer import TINY
+from torch_threads import THREAD_ENV, few_threads  # noqa: F401  (an autouse fixture)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -122,7 +123,7 @@ def _overrides(tree, prefix=''):
 
 def test_export_cli_validates_on_the_cpu(tmp_path):
     out = tmp_path / 'tiny.fiery'
-    env = {k: v for k, v in os.environ.items() if k != 'PYTHONPATH'}
+    env = {**{k: v for k, v in os.environ.items() if k != 'PYTHONPATH'}, **THREAD_ENV}
     run = subprocess.run(
         [sys.executable, '-m', 'fiery_tpu_torch.export', '--output', str(out),
          '--device', 'cpu', '--validate'] + _overrides(TINY),

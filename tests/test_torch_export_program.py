@@ -51,6 +51,7 @@ from fiery_tpu_torch.utils.weight_import import state_dict_from_jax
 
 from test_torch_fiery import jax_tiny_model, tiny_request
 from test_torch_trainer import TINY
+from torch_threads import THREAD_ENV, few_threads  # noqa: F401  (an autouse fixture)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 OPS = torch.ops.fiery_torch
@@ -231,7 +232,7 @@ def test_a_fresh_process_serves_an_artifact_without_the_model_code(tmp_path):
     cfg, blob, state_dict, _ = _exported('dense', 1)
     path = tmp_path / 'model.fiery'
     path.write_bytes(blob)
-    env = {k: v for k, v in os.environ.items() if k != 'PYTHONPATH'}
+    env = {**{k: v for k, v in os.environ.items() if k != 'PYTHONPATH'}, **THREAD_ENV}
     run = subprocess.run([sys.executable, '-c', FRESH, str(path), str(tmp_path / 'out.pt')],
                          cwd=REPO, env=env, capture_output=True, text=True, timeout=300)
     assert run.returncode == 0, run.stderr

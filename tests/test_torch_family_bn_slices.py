@@ -14,6 +14,7 @@ from fiery_tpu_torch.models.layers import BatchNorm
 from fiery_tpu_torch.ops import batch_norm as BN
 
 from test_torch_bn_plan import SMS, _meta_rows, caught  # noqa: F401  (a fixture)
+from torch_threads import few_threads  # noqa: F401  (an autouse fixture)
 
 
 def test_downsample_16_calls_are_sliced():

@@ -25,6 +25,7 @@ from fiery_tpu_torch.serve_graph import check_request, request_spec
 from fiery_tpu_torch.utils.weight_import import build_mapping, state_dict_from_jax
 
 import torch_family as tf
+from torch_threads import few_threads  # noqa: F401  (an autouse fixture)
 
 
 def test_every_jax_yaml_has_its_copy():

@@ -9,6 +9,7 @@ dense and under LIFT.TOPK 5 (k < D).
 import pytest
 
 import torch_family as tf
+from torch_threads import few_threads  # noqa: F401  (an autouse fixture)
 
 FISHING = ('LIFT.X_BOUND', '[-8.0, 8.0, 0.25]', 'LIFT.Y_BOUND', '[-5.75, 6.25, 0.25]',
            'LIFT.D_BOUND', '[2.0, 9.0, 0.5]', 'N_FUTURE_FRAMES', '2')

@@ -23,7 +23,7 @@ from fiery_tpu_torch.postprocess.instance import (
     predict_instance_segmentation_and_trajectories)
 
 import torch_family as tf
-from torch_family import few_threads  # noqa: F401  (an autouse fixture)
+from torch_threads import few_threads  # noqa: F401  (an autouse fixture)
 
 
 @pytest.fixture(scope='module')

@@ -26,7 +26,7 @@ from fiery_tpu_torch.utils.bn_fold import fold_batchnorm
 from fiery_tpu_torch.utils.weight_import import state_dict_from_jax
 
 import torch_family as tf
-from torch_family import few_threads  # noqa: F401  (an autouse fixture)
+from torch_threads import few_threads  # noqa: F401  (an autouse fixture)
 from test_torch_bn_fold import _bits, _randomize_affine
 
 INBETWEEN = ('MODEL.TEMPORAL_MODEL.INBETWEEN_LAYERS', '1', 'N_FUTURE_FRAMES', '2')

@@ -12,7 +12,7 @@ tests/test_torch_trainer.py holds them.
 import pytest
 
 import torch_family as tf
-from torch_family import few_threads  # noqa: F401  (an autouse fixture)
+from torch_threads import few_threads  # noqa: F401  (an autouse fixture)
 
 
 @pytest.fixture(scope='module')

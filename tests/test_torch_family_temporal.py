@@ -11,7 +11,7 @@ in one jit, as tests/test_torch_trainer.py holds them.
 import pytest
 
 import torch_family as tf
-from torch_family import few_threads  # noqa: F401  (an autouse fixture)
+from torch_threads import few_threads  # noqa: F401  (an autouse fixture)
 
 RECTANGLE = ('LIFT.X_BOUND', '[-8.0, 8.0, 0.25]', 'LIFT.Y_BOUND', '[-4.0, 4.0, 0.25]')
 

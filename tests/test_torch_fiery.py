@@ -23,6 +23,7 @@ from fiery_tpu.models.fiery import FieryConfig as JaxFieryConfig
 from fiery_tpu.utils.weight_import import import_torch_state_dict
 from fiery_tpu_torch.models.fiery import Fiery, FieryConfig
 from fiery_tpu_torch.utils.weight_import import state_dict_from_jax
+from torch_threads import few_threads  # noqa: F401  (an autouse fixture)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -169,7 +170,8 @@ def test_port_imports_nothing_of_jax():
             'fiery_tpu_torch.visualise', 'fiery_tpu_torch.parallel',
             'fiery_tpu_torch.parallel.mesh', 'fiery_tpu_torch.utils.rounding',
             'fiery_tpu_torch.golden', 'fiery_tpu_torch.parity',
-            'fiery_tpu_torch.parity_probe', 'fiery_tpu_torch.trace_probe'} <= modules
+            'fiery_tpu_torch.parity_probe', 'fiery_tpu_torch.trace_probe',
+            'fiery_tpu_torch.accuracy_ab', 'fiery_tpu_torch.accuracy_report'} <= modules
 
 
 def test_entry_points_refuse_the_cpu_unless_asked(monkeypatch):

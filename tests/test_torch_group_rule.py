@@ -28,6 +28,7 @@ import torch
 
 from fiery_tpu.postprocess import instance as JI
 from fiery_tpu_torch.postprocess import instance as I
+from torch_threads import few_threads  # noqa: F401  (an autouse fixture)
 
 NB = 16            # the kernel's blocks a frame (one cluster): rows r, r + 16, ... each
 MAX_K = 1024

@@ -21,6 +21,7 @@ from fiery_tpu_torch.ops import spatial_gru as gru_op
 from fiery_tpu_torch.utils.weight_import import state_dict_from_jax
 
 from test_torch_fiery import jax_tiny_model, ported_tiny_model
+from torch_threads import few_threads  # noqa: F401  (an autouse fixture)
 
 
 def rel_l2(got, want):

@@ -9,6 +9,7 @@ import pytest
 import torch
 
 from fiery_tpu_torch.ops import spatial_gru as GRU
+from torch_threads import few_threads  # noqa: F401  (an autouse fixture)
 
 B, T, H, W = 3, 4, 20, 24
 

@@ -31,6 +31,7 @@ from fiery_tpu_torch.data.dataset import prepare_dataloaders
 from fiery_tpu_torch.data.fake_nuscenes import make_fake_nuscenes
 from fiery_tpu_torch.data.nuscenes_dataset import build_real_datasets
 from fiery_tpu_torch.utils.config import get_cfg
+from torch_threads import few_threads  # noqa: F401  (an autouse fixture)
 
 MEAN = np.array([0.485, 0.456, 0.406], np.float32)
 STD = np.array([0.229, 0.224, 0.225], np.float32)

@@ -11,6 +11,7 @@ import torch
 
 from fiery_tpu.ops.lap import linear_sum_assignment as jax_lsa
 from fiery_tpu_torch.ops import lap as L
+from torch_threads import few_threads  # noqa: F401  (an autouse fixture)
 
 
 def tracker_cost(rng, K, n_prev, n_cur):

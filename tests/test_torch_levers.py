@@ -39,6 +39,7 @@ from fiery_tpu_torch.utils.geometry import calculate_birds_eye_view_parameters
 from fiery_tpu_torch.utils.weight_import import train_state_from_jax
 from test_lift_splat import _nuscenes_like_rig
 from test_torch_trainer import TINY
+from torch_threads import few_threads  # noqa: F401  (an autouse fixture)
 
 BOUNDS = ((-8.0, 8.0, 0.5), (-8.0, 8.0, 0.5), (-10.0, 10.0, 20.0))
 COMBO = {**TINY, 'LIFT': {**TINY['LIFT'], 'TOPK': 3, 'WARP_FREE': True},

@@ -12,6 +12,7 @@ import jax.numpy as jnp
 from fiery_tpu.ops import lift_splat as JLS
 from fiery_tpu_torch.ops import lift_splat as LS
 from fiery_tpu_torch.utils.geometry import calculate_birds_eye_view_parameters
+from torch_threads import few_threads  # noqa: F401  (an autouse fixture)
 
 FINAL_DIM, DOWNSAMPLE, D_BOUND = (64, 96), 8, (2.0, 8.0, 1.0)
 BOUNDS = ((-8.0, 8.0, 0.5), (-8.0, 8.0, 0.5), (-10.0, 10.0, 20.0))

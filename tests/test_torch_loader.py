@@ -23,6 +23,7 @@ from fiery_tpu_torch.data.dataset import (DataLoader, _worker_backend_probe,
 from fiery_tpu_torch.data.label_warp import make_prewarp_transform
 from fiery_tpu_torch.data.synthetic import SyntheticFutureDataset
 from fiery_tpu_torch.utils.config import get_cfg
+from torch_threads import few_threads  # noqa: F401  (an autouse fixture)
 
 TINY = {
     'TIME_RECEPTIVE_FIELD': 2, 'N_FUTURE_FRAMES': 2, 'BATCHSIZE': 2,
@@ -31,17 +32,6 @@ TINY = {
              'D_BOUND': [2.0, 6.0, 1.0]},
     'DATASET': {'NAME': 'synthetic', 'N_SYNTHETIC_SAMPLES': 6},
 }
-
-
-@pytest.fixture(autouse=True, scope='module')
-def few_threads():
-    """Two intra-op threads: the suite runs files in parallel processes, and a
-    training step on every core of each of them oversubscribes the machine (a
-    step here then takes 20x as long)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(min(n, 2))
-    yield
-    torch.set_num_threads(n)
 
 
 class Indices:

@@ -12,6 +12,7 @@ from fiery_tpu.training import losses as JL
 from fiery_tpu.utils.config import get_cfg as jax_get_cfg
 from fiery_tpu_torch.training import losses as L
 from fiery_tpu_torch.utils.config import get_cfg
+from torch_threads import few_threads  # noqa: F401  (an autouse fixture)
 
 
 def _rows_with_ties(rng, rows=4, n=400, k=100):

@@ -12,6 +12,7 @@ from fiery_tpu.postprocess.instance import predict_instance_segmentation_and_tra
 from fiery_tpu.training import metrics as JM
 from fiery_tpu_torch import evaluate as E
 from fiery_tpu_torch.training import metrics as M
+from torch_threads import few_threads  # noqa: F401  (an autouse fixture)
 
 
 def instance_clip(rng, b=1, s=3, h=40, w=40, n=6, jitter=True):

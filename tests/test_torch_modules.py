@@ -16,6 +16,7 @@ from fiery_tpu.models.future_prediction import FuturePrediction
 from fiery_tpu.models.temporal_model import TemporalModel
 
 from test_torch_fiery import TINY, _randomize_stats, jax_tiny_model, ported_tiny_model
+from torch_threads import few_threads  # noqa: F401  (an autouse fixture)
 
 
 @pytest.fixture(scope='module')

@@ -20,7 +20,6 @@ import pickle
 
 import numpy as np
 import pytest
-import torch
 
 from fiery_tpu.data.dataset import prepare_dataloaders as jax_prepare_dataloaders
 from fiery_tpu.data.nuscenes_dataset import build_real_datasets as jax_build
@@ -30,19 +29,12 @@ from fiery_tpu_torch.data.fake_nuscenes import make_fake_nuscenes
 from fiery_tpu_torch.data.nuscenes_dataset import build_real_datasets
 from fiery_tpu_torch.utils.config import get_cfg
 from tools.make_fake_nuscenes import make_fake_nuscenes as jax_make_fake_nuscenes
+from torch_threads import few_threads  # noqa: F401  (an autouse fixture)
 
 # 320 x 180 JPEGs resized by 0.4 to 128 x 72, a 64 x 96 crop from row 8
 SMALL = {'IMAGE': {'ORIGINAL_WIDTH': 320, 'ORIGINAL_HEIGHT': 180, 'RESIZE_SCALE': 0.4,
                    'FINAL_DIM': (64, 96), 'TOP_CROP': 8},
          'LIFT': {'X_BOUND': [-25.0, 25.0, 1.0], 'Y_BOUND': [-25.0, 25.0, 1.0]}}
-
-
-@pytest.fixture(autouse=True, scope='module')
-def few_threads():
-    n = torch.get_num_threads()
-    torch.set_num_threads(min(n, 2))
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope='module')

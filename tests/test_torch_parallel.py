@@ -22,6 +22,7 @@ from fiery_tpu_torch.training.losses import spatial_regression_loss
 from fiery_tpu_torch.training.metrics import IntersectionOverUnion, PanopticMetric
 from torch_parallel_worker import (bn_inputs, bn_run, loss_inputs, metric_inputs, rows_of,
                                    spawn_ranks)
+from torch_threads import few_threads  # noqa: F401  (an autouse fixture)
 
 WORLD = 2
 

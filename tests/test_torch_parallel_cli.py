@@ -13,6 +13,7 @@ import sys
 
 from fiery_tpu_torch.serve import BASELINE
 from fiery_tpu_torch.utils.checkpoint import load_checkpoint
+from torch_threads import few_threads  # noqa: F401  (an autouse fixture)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # tests/torch_parallel_worker.py's TINY_DP, a sample a rank, 4 samples: 2 steps an epoch

@@ -40,19 +40,24 @@ from fiery_tpu_torch.data.dataset import numeric_batch, prepare_dataloaders
 from fiery_tpu_torch.train import depth_plane_keep, validate
 from fiery_tpu_torch.training.trainer import step_generator
 from fiery_tpu_torch.utils.weight_import import checkpoint_state_from_jax
-from torch_jax_reference import jax_reference
+from torch_jax_reference import start_jax_reference
 from torch_parallel_worker import (STEP_SEED, TINY_JAX, cull_cfg, global_batch, global_noise,
                                    seeded_trainer, spawn_ranks, take_step, tiny_cfg)
+from torch_threads import few_threads  # noqa: F401  (an autouse fixture)
 
 WORLD = 2
 
 
 @pytest.fixture(autouse=True, scope='module')
-def few_threads():
-    n = torch.get_num_threads()
-    torch.set_num_threads(min(n, 2))
-    yield
-    torch.set_num_threads(n)
+def jax_two_device_started(tmp_path_factory):
+    """``jax_two_device_step`` in a reference process whose XLA code is capped at
+    AVX2 (tests/torch_jax_reference.py: under AVX-512 XLA's f32 reductions move the
+    reference's decoder gradient by about the bound), started with the module so
+    that its compile runs beside the ranks."""
+    reference = start_jax_reference('test_torch_parallel_step:jax_two_device_step',
+                                    tmp_path_factory.mktemp('jax_step'))
+    yield reference
+    reference.stop()
 
 
 @pytest.fixture(scope='module')
@@ -153,14 +158,11 @@ def jax_two_device_step():
         return {k: np.asarray(v) for k, v in metrics.items()}, want_state
 
 
-def test_two_ranks_take_the_jax_two_device_step(ranks, tmp_path):
+def test_two_ranks_take_the_jax_two_device_step(ranks, jax_two_device_started):
     """Drop-connect off, explicit noise: the port's world-2 step against
-    ``make_parallel_train_step`` on a 2-device mesh, computed in a reference process
-    whose XLA code is capped at AVX2 (tests/torch_jax_reference.py: under AVX-512
-    XLA's f32 reductions move the reference's decoder gradient by about the
-    bound)."""
-    metrics, want_state = jax_reference('test_torch_parallel_step:jax_two_device_step',
-                                        tmp_path)
+    ``make_parallel_train_step`` on a 2-device mesh, computed in the reference
+    process of ``jax_two_device_started``."""
+    metrics, want_state = jax_two_device_started.result()
     cfg = tiny_cfg(TINY_JAX)
     port = seeded_trainer(cfg)
     names = [n for n, _ in port.model.named_parameters()] + \

@@ -40,6 +40,7 @@ sys.path.insert(0, REPO)
 sys.path.insert(0, os.path.join(REPO, 'tests'))
 
 import torch_golden  # noqa: E402
+from torch_threads import few_threads  # noqa: F401  (an autouse fixture)
 
 # tests/test_parity.py's TINY widths, on the tree's two cameras and 320 x 180 JPEGs
 TINY = {
@@ -60,14 +61,6 @@ TWIN = dict(C=16, D=6, final_dim=(64, 96), d_bound=(2.0, 8.0, 1.0), x_bound=(-8.
             y_bound=(-8.0, 8.0, 0.5), receptive_field=3, n_future=2, latent_dim=4,
             start_out_channels=16, n_gru_blocks=2, n_res_layers=2,
             future_in_channels=16 + 2 * 6, version='b0')
-
-
-@pytest.fixture(autouse=True, scope='module')
-def few_threads():
-    n = torch.get_num_threads()
-    torch.set_num_threads(min(n, 2))
-    yield
-    torch.set_num_threads(n)
 
 
 def _twin(module, seed=11):

@@ -15,6 +15,7 @@ from fiery_tpu.postprocess import instance as JI
 from fiery_tpu_torch.postprocess import instance as I
 from fiery_tpu_torch.serve import predict_instances
 from test_torch_fiery import jax_tiny_model, ported_tiny_model, tiny_request
+from torch_threads import few_threads  # noqa: F401  (an autouse fixture)
 
 
 def t(a):

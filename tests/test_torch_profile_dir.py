@@ -12,11 +12,11 @@ import os
 import sys
 
 import numpy as np
-import pytest
 import torch
 
 from fiery_tpu_torch import train
 from fiery_tpu_torch.serve import BASELINE
+from torch_threads import few_threads  # noqa: F401  (an autouse fixture)
 
 # a tiny model on the synthetic set: 6 samples of 1 make 6 steps in one epoch; the
 # run stops after step 5, so that the window (steps 3-5) closes with the schedule
@@ -29,14 +29,6 @@ TINY_OPTS = ['DATASET.NAME', 'synthetic', 'PRECISION', '32', 'N_FUTURE_FRAMES', 
              'MODEL.DISTRIBUTION.LATENT_DIM', '4', 'MODEL.FUTURE_PRED.N_GRU_BLOCKS', '1',
              'MODEL.FUTURE_PRED.N_RES_LAYERS', '1', 'DATASET.N_SYNTHETIC_SAMPLES', '6',
              'LOGGING_INTERVAL', '1', 'EPOCHS', '1']
-
-
-@pytest.fixture(autouse=True, scope='module')
-def few_threads():
-    n = torch.get_num_threads()
-    torch.set_num_threads(min(n, 2))
-    yield
-    torch.set_num_threads(n)
 
 
 def _losses(capsys):

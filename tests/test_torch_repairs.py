@@ -23,6 +23,7 @@ from fiery_tpu_torch.models.temporal_layers import (PyramidSpatioTemporalPooling
 from fiery_tpu_torch.utils.weight_import import _conv1x1x1_norm_act, _to_torch_layout
 
 from test_torch_fiery import _randomize_stats
+from torch_threads import few_threads  # noqa: F401  (an autouse fixture)
 
 
 def rel_l2(got, want):

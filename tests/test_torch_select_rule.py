@@ -25,6 +25,7 @@ from fiery_tpu.ops import lift_splat as JLS
 from fiery_tpu.training import losses as JL
 from fiery_tpu_torch.ops import lift_splat as LS
 from fiery_tpu_torch.training import losses as L
+from torch_threads import few_threads  # noqa: F401  (an autouse fixture)
 
 
 # ---------------------------------------------------------------- K5: the depth select

@@ -17,6 +17,7 @@ import torch
 from fiery_tpu.ops import lift_splat as JLS
 from fiery_tpu_torch.ops import lift_splat as LS
 from fiery_tpu_torch.utils.geometry import calculate_birds_eye_view_parameters
+from torch_threads import few_threads  # noqa: F401  (an autouse fixture)
 
 D = 48
 FINAL_DIM, DOWNSAMPLE, D_BOUND = (64, 96), 8, (2.0, 8.0, 1.0)

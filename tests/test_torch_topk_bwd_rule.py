@@ -24,6 +24,7 @@ import torch
 
 from fiery_tpu.ops import lift_splat as JL
 from fiery_tpu_torch.ops import lift_splat as LS
+from torch_threads import few_threads  # noqa: F401  (an autouse fixture)
 
 # the kernel's pixels a block, read from its source
 with open(os.path.join(os.path.dirname(__file__), '..', 'fiery_tpu_torch', 'csrc',

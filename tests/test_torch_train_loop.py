@@ -41,6 +41,7 @@ from fiery_tpu_torch.training.trainer import Trainer
 from fiery_tpu_torch.utils.checkpoint import load_checkpoint
 from fiery_tpu_torch.utils.config import get_cfg
 from fiery_tpu_torch.utils.weight_import import checkpoint_state_from_jax
+from torch_threads import few_threads  # noqa: F401  (an autouse fixture)
 
 TINY_OPTS = ['DATASET.NAME', 'synthetic', 'PRECISION', '32', 'N_FUTURE_FRAMES', '2',
              'BATCHSIZE', '2', 'IMAGE.FINAL_DIM', '(64, 96)',
@@ -54,17 +55,6 @@ TINY_OPTS = ['DATASET.NAME', 'synthetic', 'PRECISION', '32', 'N_FUTURE_FRAMES', 
 # the scalars of the JAX loop besides the losses (train.py at the repository root)
 JAX_LOOP_KEYS = {'total_loss', 'segmentation_weight', 'centerness_weight', 'offset_weight',
                  'flow_weight', 'val_iou_background', 'val_iou_dynamic', 'val_vpq_vehicles'}
-
-
-@pytest.fixture(autouse=True, scope='module')
-def few_threads():
-    """Two intra-op threads: the suite runs files in parallel processes, and a
-    training step on every core of each of them oversubscribes the machine (a
-    step here then takes 20x as long)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(min(n, 2))
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture

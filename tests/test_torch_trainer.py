@@ -41,7 +41,8 @@ from fiery_tpu_torch.serve import init_params
 from fiery_tpu_torch.training.trainer import Trainer
 from fiery_tpu_torch.utils.config import get_cfg
 from fiery_tpu_torch.utils.weight_import import train_state_from_jax
-from torch_jax_reference import jax_reference
+from torch_jax_reference import start_jax_reference
+from torch_threads import few_threads  # noqa: F401  (an autouse fixture)
 
 # efficientnet-b0, 2 cameras at 64x96, D = 6, C = 16, a 32x32 BEV, rf 3, 2 future
 # frames, latent 4, 1 GRU block of 2 bottlenecks, batch 2, f32
@@ -127,24 +128,90 @@ def jax_train_step(seed=3):
         mp.undo()
 
 
-def run_steps(tmp_path, seed=3):
-    """Both steps on one seeded state and batch: JAX's in a reference process
-    whose XLA code is capped at AVX2 (tests/torch_jax_reference.py: XLA's
-    AVX-512 reductions move this step's batch statistics by about the bound)."""
-    want = jax_reference('test_torch_trainer:jax_train_step', tmp_path)
+@pytest.fixture(autouse=True, scope='module')
+def jax_step_started(tmp_path_factory):
+    """``jax_train_step`` in a reference process whose XLA code is capped at AVX2
+    (tests/torch_jax_reference.py: XLA's AVX-512 reductions move this step's batch
+    statistics by about the bound), started with the module so that its compile
+    runs beside the module's first tests."""
+    reference = start_jax_reference('test_torch_trainer:jax_train_step',
+                                    tmp_path_factory.mktemp('jax_step'))
+    yield reference
+    reference.stop()
+
+
+def run_steps(reference, seed=3):
+    """Both steps on one seeded state and batch: JAX's from the reference process,
+    the port's here."""
     mp = drop_connect_off()
     try:
         trainer, batch, noise = seeded_step_inputs(seed)
         jtrainer = JaxTrainer(jax_get_cfg(cfg_dict=TINY))
         got_losses, got_total = trainer.compute_gradients(batch, noise=torch.from_numpy(noise))
-        return trainer, jtrainer, got_losses, float(got_total), want
+        return trainer, jtrainer, got_losses, float(got_total), reference.result()
     finally:
         mp.undo()
 
 
 @pytest.fixture(scope='module')
-def step(tmp_path_factory):
-    return run_steps(tmp_path_factory.mktemp('jax_step'))
+def step(jax_step_started):
+    return run_steps(jax_step_started)
+
+
+def test_trainer_and_train_cli_refuse_the_cpu_unless_asked(monkeypatch, capsys, tmp_path):
+    from fiery_tpu_torch import train
+    from fiery_tpu_torch.serve import BASELINE
+    monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
+    with pytest.raises(RuntimeError, match='CUDA'):
+        Trainer(get_cfg(cfg_dict=TINY))
+    tiny_opts = ['DATASET.NAME', 'synthetic', 'PRECISION', '32', 'N_FUTURE_FRAMES', '2',
+                 'BATCHSIZE', '1', 'IMAGE.FINAL_DIM', '(64, 96)',
+                 'IMAGE.NAMES', "['CAM_A', 'CAM_B']", 'LIFT.X_BOUND', '[-8.0, 8.0, 0.5]',
+                 'LIFT.Y_BOUND', '[-8.0, 8.0, 0.5]', 'LIFT.D_BOUND', '[2.0, 8.0, 1.0]',
+                 'MODEL.ENCODER.NAME', 'efficientnet-b0', 'MODEL.ENCODER.OUT_CHANNELS', '16',
+                 'MODEL.TEMPORAL_MODEL.START_OUT_CHANNELS', '16',
+                 'MODEL.DISTRIBUTION.LATENT_DIM', '4', 'MODEL.FUTURE_PRED.N_GRU_BLOCKS', '1',
+                 'MODEL.FUTURE_PRED.N_RES_LAYERS', '1', 'DATASET.N_SYNTHETIC_SAMPLES', '2',
+                 'LOGGING_INTERVAL', '1', 'LOG_DIR', str(tmp_path)]
+    # TensorBoard stays out of the run (its import pulls in TensorFlow where installed)
+    monkeypatch.setitem(sys.modules, 'torch.utils.tensorboard', None)
+    with pytest.raises(RuntimeError, match='CUDA'):
+        train.main(['--config', BASELINE, '--steps', '1', *tiny_opts])
+    # baseline.yml's own set is nuScenes trainval under ./nuscenes/, absent here
+    with pytest.raises(FileNotFoundError, match='v1.0-trainval'):
+        train.main(['--config', BASELINE, '--device', 'cpu', '--steps', '1'])
+    trainer = train.main(['--config', BASELINE, '--device', 'cpu', '--steps', '2',
+                          *tiny_opts]).trainer
+    lines = [line for line in capsys.readouterr().out.strip().splitlines()
+             if line.startswith('{')]
+    assert len(lines) == 2 and '"total_loss"' in lines[0] and '"step": 2' in lines[1]
+    assert next(trainer.model.parameters()).device.type == 'cpu'
+
+
+def test_eval_step_and_prewarped_labels():
+    """eval_step: the eval forward (present distribution, zero noise) with the future
+    distribution's parameters and the losses, the model left in training mode; a
+    batch that carries its warped label stack gives the same labels."""
+    from fiery_tpu_torch.ops.warp import cumulative_warp_features_reverse
+    cfg = get_cfg(cfg_dict=TINY)
+    trainer = Trainer(cfg, device='cpu')
+    init_params(trainer.model, seed=1)
+    batch = SyntheticFutureDataset(cfg, n_samples=2, n_instances=2, seed=2).get_batch([0, 1])
+    output, labels, losses = trainer.eval_step(batch)
+    assert trainer.model.training
+    assert {'future_mu', 'future_log_sigma', 'present_mu'} <= set(output)
+    assert output['segmentation'].shape == (2, 3, 32, 32, 2)
+    assert all(torch.isfinite(v) for v in losses.values())
+    t = trainer.to_device(batch)
+    stack = torch.cat([t['segmentation'][:, 2:].float(), t['instance'][:, 2:, ..., None].float(),
+                       t['centerness'][:, 2:], t['offset'][:, 2:], t['flow'][:, 2:]], dim=-1)
+    prewarped = dict(batch, warped_label_stack=cumulative_warp_features_reverse(
+        stack, t['future_egomotion'][:, 2:], spatial_extent=(8.0, 8.0)))
+    got, got_fdi = trainer.prepare_future_labels(trainer.to_device(prewarped))
+    want, want_fdi = trainer.prepare_future_labels(t)
+    assert sorted(got) == sorted(want) and torch.equal(got_fdi, want_fdi)
+    for k in want:
+        assert torch.equal(got[k], want[k]), k
 
 
 def test_train_step_losses_match_jax(step):
@@ -219,59 +286,3 @@ def test_optimizer_update_matches_optax(step):
     for k, p in trainer.uncertainty.items():
         np.testing.assert_allclose(float(p.detach()) - float(want['params']['uncertainty'][k]),
                                    float(upd_uw[k]), rtol=0, atol=1e-6, err_msg=k)
-
-
-def test_trainer_and_train_cli_refuse_the_cpu_unless_asked(monkeypatch, capsys, tmp_path):
-    from fiery_tpu_torch import train
-    from fiery_tpu_torch.serve import BASELINE
-    monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
-    with pytest.raises(RuntimeError, match='CUDA'):
-        Trainer(get_cfg(cfg_dict=TINY))
-    tiny_opts = ['DATASET.NAME', 'synthetic', 'PRECISION', '32', 'N_FUTURE_FRAMES', '2',
-                 'BATCHSIZE', '1', 'IMAGE.FINAL_DIM', '(64, 96)',
-                 'IMAGE.NAMES', "['CAM_A', 'CAM_B']", 'LIFT.X_BOUND', '[-8.0, 8.0, 0.5]',
-                 'LIFT.Y_BOUND', '[-8.0, 8.0, 0.5]', 'LIFT.D_BOUND', '[2.0, 8.0, 1.0]',
-                 'MODEL.ENCODER.NAME', 'efficientnet-b0', 'MODEL.ENCODER.OUT_CHANNELS', '16',
-                 'MODEL.TEMPORAL_MODEL.START_OUT_CHANNELS', '16',
-                 'MODEL.DISTRIBUTION.LATENT_DIM', '4', 'MODEL.FUTURE_PRED.N_GRU_BLOCKS', '1',
-                 'MODEL.FUTURE_PRED.N_RES_LAYERS', '1', 'DATASET.N_SYNTHETIC_SAMPLES', '2',
-                 'LOGGING_INTERVAL', '1', 'LOG_DIR', str(tmp_path)]
-    # TensorBoard stays out of the run (its import pulls in TensorFlow where installed)
-    monkeypatch.setitem(sys.modules, 'torch.utils.tensorboard', None)
-    with pytest.raises(RuntimeError, match='CUDA'):
-        train.main(['--config', BASELINE, '--steps', '1', *tiny_opts])
-    # baseline.yml's own set is nuScenes trainval under ./nuscenes/, absent here
-    with pytest.raises(FileNotFoundError, match='v1.0-trainval'):
-        train.main(['--config', BASELINE, '--device', 'cpu', '--steps', '1'])
-    trainer = train.main(['--config', BASELINE, '--device', 'cpu', '--steps', '2',
-                          *tiny_opts]).trainer
-    lines = [line for line in capsys.readouterr().out.strip().splitlines()
-             if line.startswith('{')]
-    assert len(lines) == 2 and '"total_loss"' in lines[0] and '"step": 2' in lines[1]
-    assert next(trainer.model.parameters()).device.type == 'cpu'
-
-
-def test_eval_step_and_prewarped_labels():
-    """eval_step: the eval forward (present distribution, zero noise) with the future
-    distribution's parameters and the losses, the model left in training mode; a
-    batch that carries its warped label stack gives the same labels."""
-    from fiery_tpu_torch.ops.warp import cumulative_warp_features_reverse
-    cfg = get_cfg(cfg_dict=TINY)
-    trainer = Trainer(cfg, device='cpu')
-    init_params(trainer.model, seed=1)
-    batch = SyntheticFutureDataset(cfg, n_samples=2, n_instances=2, seed=2).get_batch([0, 1])
-    output, labels, losses = trainer.eval_step(batch)
-    assert trainer.model.training
-    assert {'future_mu', 'future_log_sigma', 'present_mu'} <= set(output)
-    assert output['segmentation'].shape == (2, 3, 32, 32, 2)
-    assert all(torch.isfinite(v) for v in losses.values())
-    t = trainer.to_device(batch)
-    stack = torch.cat([t['segmentation'][:, 2:].float(), t['instance'][:, 2:, ..., None].float(),
-                       t['centerness'][:, 2:], t['offset'][:, 2:], t['flow'][:, 2:]], dim=-1)
-    prewarped = dict(batch, warped_label_stack=cumulative_warp_features_reverse(
-        stack, t['future_egomotion'][:, 2:], spatial_extent=(8.0, 8.0)))
-    got, got_fdi = trainer.prepare_future_labels(trainer.to_device(prewarped))
-    want, want_fdi = trainer.prepare_future_labels(t)
-    assert sorted(got) == sorted(want) and torch.equal(got_fdi, want_fdi)
-    for k in want:
-        assert torch.equal(got[k], want[k]), k

@@ -33,16 +33,9 @@ from fiery_tpu_torch.data.fake_nuscenes import make_fake_nuscenes
 from fiery_tpu_torch.serve import BASELINE
 from fiery_tpu_torch.utils import visualisation as vis
 from fiery_tpu_torch.utils.config import get_cfg
+from torch_threads import few_threads  # noqa: F401  (an autouse fixture)
 
 matplotlib.use('Agg')
-
-
-@pytest.fixture(autouse=True, scope='module')
-def few_threads():
-    n = torch.get_num_threads()
-    torch.set_num_threads(min(n, 2))
-    yield
-    torch.set_num_threads(n)
 
 
 def test_jet_equals_matplotlib():

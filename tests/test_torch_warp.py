@@ -10,6 +10,7 @@ import jax.numpy as jnp
 
 from fiery_tpu.ops import warp as JW
 from fiery_tpu_torch.ops import warp as W
+from torch_threads import few_threads  # noqa: F401  (an autouse fixture)
 
 
 def _poses(rng, shape):

@@ -22,6 +22,7 @@ import pytest
 import torch
 
 from fiery_tpu_torch.ops import warp as W
+from torch_threads import few_threads  # noqa: F401  (an autouse fixture)
 
 EXTENT = (50.0, 50.0)
 # the kernel's tile side and the most output pixels a block stages

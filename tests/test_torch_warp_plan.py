@@ -9,6 +9,7 @@ import pytest
 import torch
 
 from fiery_tpu_torch.ops import warp as W
+from torch_threads import few_threads  # noqa: F401  (an autouse fixture)
 
 BF16, F32 = 2, 4
 

@@ -88,16 +88,6 @@ def tiny_configs(yaml, opts=()):
     return configs(yaml, TINY_OPTS + tuple(opts))
 
 
-@pytest.fixture(autouse=True, scope='module')
-def few_threads():
-    """Two intra-op threads: the suite runs files in parallel processes, and a
-    training step on every core of each of them oversubscribes the machine."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(min(n, 2))
-    yield
-    torch.set_num_threads(n)
-
-
 def no_drop_connect():
     """A MonkeyPatch that sets b0's drop-connect rate to 0 in both packages."""
     mp = pytest.MonkeyPatch()

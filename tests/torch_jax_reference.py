@@ -2,6 +2,9 @@
 XLA CPU code is capped at one instruction set:
 
     want = jax_reference('test_torch_trainer:jax_train_step', tmp_path)
+    reference = start_jax_reference(...)    # the same, in the background
+    ...
+    want = reference.result()
 
 calls the named function (module:function, importable from tests/) with no
 arguments in a process started with conftest's flags plus
@@ -42,18 +45,50 @@ def reference_env(isa=REFERENCE_ISA):
             'PYTHONPATH': os.pathsep.join([TESTS, REPO])}
 
 
+class Reference:
+    """A reference process started in the background (``start_jax_reference``), so
+    that a test module's own work runs beside its compile; ``result()`` waits."""
+
+    def __init__(self, target, tmp_path, isa=REFERENCE_ISA, timeout=900):
+        self.target, self.isa, self.timeout = target, isa, timeout
+        self.out = os.path.join(str(tmp_path), target.replace(':', '.') + f'.{isa}.pt')
+        self.proc = subprocess.Popen([sys.executable, os.path.abspath(__file__), target,
+                                      self.out], cwd=REPO, env=reference_env(isa),
+                                     stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                     text=True)
+        self.value = None
+
+    def result(self):
+        """The target's result. Raises with the process's output when it fails."""
+        if self.value is None:
+            import torch
+            try:
+                log, _ = self.proc.communicate(timeout=self.timeout)
+            except subprocess.TimeoutExpired:
+                self.stop()
+                raise
+            if self.proc.returncode != 0:
+                raise AssertionError(f'{self.target} under --xla_cpu_max_isa={self.isa} '
+                                     f'exited {self.proc.returncode}:\n{log[-4000:]}')
+            self.value = torch.load(self.out, weights_only=False)
+        return self.value
+
+    def stop(self):
+        """End the process if no test waited for it."""
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.communicate()
+
+
+def start_jax_reference(target, tmp_path, isa=REFERENCE_ISA, timeout=900):
+    """``target`` ('module:function') started in a reference process; a Reference."""
+    return Reference(target, tmp_path, isa, timeout)
+
+
 def jax_reference(target, tmp_path, isa=REFERENCE_ISA, timeout=900):
     """``target`` ('module:function') called in a reference process; its result.
     Raises with the process's output when it fails."""
-    import torch
-    out = os.path.join(str(tmp_path), target.replace(':', '.') + f'.{isa}.pt')
-    proc = subprocess.run([sys.executable, os.path.abspath(__file__), target, out], cwd=REPO,
-                          env=reference_env(isa), stdout=subprocess.PIPE,
-                          stderr=subprocess.STDOUT, text=True, timeout=timeout)
-    if proc.returncode != 0:
-        raise AssertionError(f'{target} under --xla_cpu_max_isa={isa} exited '
-                             f'{proc.returncode}:\n{proc.stdout[-4000:]}')
-    return torch.load(out, weights_only=False)
+    return start_jax_reference(target, tmp_path, isa, timeout).result()
 
 
 def main(argv):
